@@ -7,19 +7,44 @@ Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
 
   device    the card's name and, as nvidia-smi reports them, name and power limit
-  build     every CUDA kernel of the serving path, built from csrc/ with nvcc
+  build     every CUDA kernel of the ported paths, built from csrc/ with nvcc
+            (one nvcc per source, all started together)
   anova_fwd the ANOVA forward kernel against its plain PyTorch version on the
-            card (rtol 1e-5, atol 1e-6) at the serving shapes and inputs,
+            card (rtol 1e-5, atol 1e-6) at the serving and training shapes,
             with each one's median time per call by CUDA events (ms), its
             device time from a torch.profiler trace (device_ms) and the
             least time the card could take (bound_ms)
-  serve     configs/baseline5_fm_order3_kdd.cfg at full width (2^20 x 9
-            table from a seed) serving 4096 libsvm lines through serve_lines
-            on cuda; every score finite and within atol 1e-6 of the port's
-            own CPU path, and the kernel launched on that path
-            (then a second pass under torch.profiler: the card's busy and
-            idle share of the serving wall time, and its top kernels)
-  kernels   one record per kernel: route, source, launches, error and times
+  anova_bwd the ANOVA backward kernel against anova_inter_bwd_plain, the same
+            way (rtol 1e-5, atol 1e-6), at B in {1, 512, 16384} x order in
+            {3, 4}, a ragged shape and the criteo width N = 39
+  data      tools/gen_synthetic.py writes 24 x 16384 baseline5-shaped train
+            rows (--seed 7) and 2 x 16384 validation rows (--seed 8)
+  rows_tail the rows Adagrad kernel against optim.sparse_adagrad_update on
+            clones of one full-width [2^20, 9] state with the first training
+            batch's ids: element and row accumulators, decay 1 and 0.9, one
+            id, and 1001 unique ids (off any power-of-two block); element at
+            decay 1 bitwise equal, the rest within rtol 1e-6; kernel, dedup,
+            plain and bound times
+  train     configs/baseline5_fm_order3_kdd.cfg at full width trained for
+            24 steps on cuda through training.train (resume from a seeded
+            npz; the run traced by torch.profiler), then the same on the CPU:
+            finite losses, every kernel of the path launched (the tail once
+            per step), the final tables and accumulators within atol 1e-7,
+            the updates within 1e-2 by relative norm and moving the same
+            elements (to 1e-3), and the validation AUCs within 0.002 of
+            each other; the order-3 gradient on the card
+            against the CPU's; ex/s, the step time p50, and the card's idle
+            share over the run and within one traced step
+  predict   prediction.predict of the trained model on the validation file
+            on cuda, its printed scores within 1e-6 of the CPU predict's
+  serve     the same config serving 4096 libsvm lines through serve_lines
+            on cuda from a seeded 2^20 x 9 table; every score finite and
+            within atol 1e-6 of the port's own CPU path, and the forward
+            kernel launched on that path (then a second pass under
+            torch.profiler: the card's busy and idle share of the serving
+            wall time, and its top kernels)
+  kernels   one record per kernel: route, source, launches on the training
+            path, error and times at the training shapes
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -46,9 +71,23 @@ SEED = 20261016
 RTOL, ATOL = 1e-5, 1e-6
 SERVE_LINES = 4096
 NNZ = 11
+KERNELS = ["anova_fwd", "anova_bwd", "rows_tail_adagrad"]
 ANOVA_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 8, 64, 512, 16384)]
 ANOVA_SHAPES.append((130, 7, 5, 3))  # ragged: B off the block edge, k not dividing 32
-MAIN_SHAPE = (512, NNZ, 8, 3)  # the full serving bucket of baseline5
+BWD_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 512, 16384)]
+BWD_SHAPES += [(130, 7, 5, 3), (2048, 39, 8, 3)]  # ragged; criteo's 39 features
+TRAIN_SHAPE = (16384, NNZ, 8, 3)  # baseline5's training batch
+BATCH = 16384  # baseline5's batch_size
+TRAIN_BATCHES, VALID_BATCHES = 24, 2
+# The card's trained table and accumulators against the CPU run's.  24 steps
+# move a factor element by ~1e-7 or less, so 1e-5 would pass a run that
+# dropped them: the atol sits near the float32 spacing of the table's values
+# (~1e-9 at 0.01, ~7e-9 at the accumulators' 0.1), and the updates
+# themselves (final minus initial table) are held per column group, by
+# relative norm and by the count of elements they moved.
+TABLE_ATOL, AUC_TOL = 1e-7, 0.002
+UPDATE_RTOL, MOVED_RTOL = 1e-2, 1e-3
+CONFIG = os.path.join("configs", "baseline5_fm_order3_kdd.cfg")
 
 
 def emit(obj) -> None:
@@ -58,6 +97,10 @@ def emit(obj) -> None:
 def fail(msg: str, code: int = 1):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(code)
+
+
+def log_stderr(*a):
+    print(*a, file=sys.stderr, flush=True)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -99,6 +142,35 @@ def trace_device(fn):
     ]
 
 
+def traced_window(fn) -> dict:
+    """``fn`` under the profiler, its wall time taken inside the traced
+    region (so the profiler's own start and export are not counted): the
+    card's busy time, idle share of that wall time and top kernels.  A
+    trace without device events gives None for busy and idle (not
+    measured)."""
+    import torch
+
+    wall = []
+
+    def timed():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    events = trace_device(timed)
+    by_name: dict[str, float] = {}
+    for _, name, dur in events:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + dur / 1e3
+    busy_ms = sum(dur for _, _, dur in events) / 1e3 if events else None
+    return {
+        "wall_ms": 1e3 * wall[0],
+        "device_busy_ms": busy_ms,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / (1e3 * wall[0]),
+        "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]),
+    }
+
+
 def device_ms(fn, reps: int, name: str | None):
     """Device time per call from a profiler trace of ``reps`` calls: the
     median duration of the kernels whose name contains ``name``, or with
@@ -126,13 +198,45 @@ def device_ms(fn, reps: int, name: str | None):
     return durs[len(durs) // 2] / 1e3
 
 
-def anova_bound(b: int, n: int, k: int, order: int) -> tuple[float, str]:
-    """Least time for the work: z read once, out written once; 2 flops per
-    fma of the DP plus the degree sums."""
-    nbytes = 4 * (b * n * k + b)
-    flops = b * k * (2 * order * n + (order - 1))
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time in ms: bytes over the memory rate or float32
+    operations over the peak rate, whichever is larger, and which it is."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def anova_bound(b: int, n: int, k: int, order: int) -> tuple[float, str]:
+    """Forward: z read once, out written once; 2 flops per fma of the DP
+    plus the degree sums."""
+    return _bound(4 * (b * n * k + b), b * k * (2 * order * n + (order - 1)))
+
+
+def bwd_bound(b: int, n: int, k: int, order: int) -> tuple[float, str]:
+    """Backward: z and g read once, zbar written once; per (example,
+    factor) the forward recompute (N·order fma) and the reverse DP
+    (2·N·(order−1) fma), 2 flops each."""
+    return _bound(4 * (2 * b * n * k + b), 2 * b * k * n * (3 * order - 2))
+
+
+def tail_bound(k: int, d: int, a: int) -> tuple[float, str]:
+    """The update of K unique rows: table and accumulator rows read and
+    written once, gradient rows and ids read once; ~6 flops a table element
+    (g², add, lr·g, sqrt, divide, subtract)."""
+    return _bound(k * (4 * (2 * d + 2 * a + d) + 4), 6 * k * d)
+
+
+def _check_close(name: str, got, want, rtol: float, atol: float, where: str) -> tuple[float, float]:
+    """Max abs and rel error of ``got`` against ``want``; fails outside the
+    tolerance."""
+    import torch
+
+    diff = (got - want).abs()
+    abs_err = float(diff.max()) if diff.numel() else 0.0
+    rel_err = float((diff / want.abs().clamp_min(1e-30)).max()) if diff.numel() else 0.0
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        fail(f"{name} disagrees with its plain version at {where}: max abs err "
+             f"{abs_err}, max rel err {rel_err} (rtol {rtol}, atol {atol})")
+    return abs_err, rel_err
 
 
 def phase_device():
@@ -160,9 +264,9 @@ def phase_build():
     from fast_tffm_tpu_torch.ops import kernel_build
 
     t0 = time.perf_counter()
-    report = kernel_build.build(["anova_fwd"])
+    report = kernel_build.build(KERNELS)
     for name, r in report.items():
-        print(f"--- nvcc {name} ---\n{r['log'].strip()}", file=sys.stderr, flush=True)
+        log_stderr(f"--- nvcc {name} ---\n{r['log'].strip()}")
     emit({
         "phase": "build",
         "seconds": round(time.perf_counter() - t0, 3),
@@ -170,64 +274,411 @@ def phase_build():
     })
 
 
-def phase_anova(rng):
+def _z(rng, b: int, n: int, k: int):
+    """z = v·x as the serving and training paths form it: factors
+    v ~ U(±0.25), values x ~ U(0, 1]."""
     import numpy as np
+    import torch
+
+    v = rng.uniform(-0.25, 0.25, size=(b, n, k))
+    x = 1.0 - rng.random((b, n, 1))
+    return torch.from_numpy((v * x).astype(np.float32)).cuda()
+
+
+def phase_anova(rng):
     import torch
 
     from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_plain
 
     worst, main = 0.0, None
     for b, n, k, order in ANOVA_SHAPES:
-        # z = v·x as the serving path forms it from the serve phase's table:
-        # factors v ~ U(±0.25), values x ~ U(0, 1].
-        v = rng.uniform(-0.25, 0.25, size=(b, n, k))
-        x = 1.0 - rng.random((b, n, 1))
-        z = torch.from_numpy((v * x).astype(np.float32)).cuda()
+        z = _z(rng, b, n, k)
         got = anova_inter(z, order)
         want = anova_inter_plain(z, order)
         torch.cuda.synchronize()
-        diff = (got - want).abs()
-        abs_err = float(diff.max())
-        rel_err = float((diff / want.abs().clamp_min(1e-30)).max())
-        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
-            fail(f"anova_fwd disagrees with its plain version at B={b} N={n} k={k} "
-                 f"order={order}: max abs err {abs_err}, max rel err {rel_err}")
-        ms = time_ms(lambda: anova_inter(z, order), 200)
-        plain_ms = time_ms(lambda: anova_inter_plain(z, order), 50)
-        kernel_device_ms = device_ms(lambda: anova_inter(z, order), 50, "anova_fwd_kernel")
-        plain_device_ms = device_ms(lambda: anova_inter_plain(z, order), 20, None)
+        abs_err, rel_err = _check_close(
+            "anova_fwd", got, want, RTOL, ATOL, f"B={b} N={n} k={k} order={order}"
+        )
         bound_ms, bound_by = anova_bound(b, n, k, order)
         rec = {
             "phase": "anova_fwd", "B": b, "N": n, "k": k, "order": order,
             "max_abs_err": abs_err, "max_rel_err": rel_err,
-            "ms": ms, "plain_ms": plain_ms,
-            "device_ms": kernel_device_ms, "plain_device_ms": plain_device_ms,
+            "ms": time_ms(lambda: anova_inter(z, order), 200),
+            "plain_ms": time_ms(lambda: anova_inter_plain(z, order), 50),
+            "device_ms": device_ms(lambda: anova_inter(z, order), 50, "anova_fwd_kernel"),
+            "plain_device_ms": device_ms(lambda: anova_inter_plain(z, order), 20, None),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         emit(rec)
         worst = max(worst, abs_err)
-        if (b, n, k, order) == MAIN_SHAPE:
+        if (b, n, k, order) == TRAIN_SHAPE:
             main = rec
     return worst, main
 
 
-def _write_checkpoint(path: str, rng, vocab: int, row_dim: int) -> None:
-    """An npz with fast_tffm_tpu/checkpoint.py::_save_npz's members: random
-    factors and non-zero biases drawn from the seed."""
+def phase_anova_bwd(rng):
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.ops.anova import anova_inter_bwd, anova_inter_bwd_plain
+
+    worst, main = 0.0, None
+    for b, n, k, order in BWD_SHAPES:
+        z = _z(rng, b, n, k)
+        g = torch.from_numpy(rng.uniform(-1.0, 1.0, size=b).astype(np.float32)).cuda()
+        got = anova_inter_bwd(z, g, order)
+        want = anova_inter_bwd_plain(z, g, order)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _check_close(
+            "anova_bwd", got, want, RTOL, ATOL, f"B={b} N={n} k={k} order={order}"
+        )
+        bound_ms, bound_by = bwd_bound(b, n, k, order)
+        rec = {
+            "phase": "anova_bwd", "B": b, "N": n, "k": k, "order": order,
+            "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "ms": time_ms(lambda: anova_inter_bwd(z, g, order), 100),
+            "plain_ms": time_ms(lambda: anova_inter_bwd_plain(z, g, order), 20),
+            "device_ms": device_ms(lambda: anova_inter_bwd(z, g, order), 30, "anova_bwd_kernel"),
+            "plain_device_ms": device_ms(lambda: anova_inter_bwd_plain(z, g, order), 5, None),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        emit(rec)
+        worst = max(worst, abs_err)
+        if (b, n, k, order) == TRAIN_SHAPE:
+            main = rec
+    return worst, main
+
+
+def phase_data(tmp: str) -> tuple[str, str]:
+    """baseline5-shaped libsvm files from tools/gen_synthetic.py (numpy
+    only), both generators at once."""
+    t0 = time.perf_counter()
+    gen = os.path.join(HERE, "tools", "gen_synthetic.py")
+    out, procs = {}, []
+    for name, batches, seed in (("train", TRAIN_BATCHES, 7), ("valid", VALID_BATCHES, 8)):
+        out[name] = os.path.join(tmp, f"baseline5.{name}.libsvm")
+        cmd = [sys.executable, gen, "--rows", str(batches * BATCH), "--fields", str(NNZ),
+               "--vocab", str(1 << 20), "--seed", str(seed), "--out", out[name]]
+        procs.append((name, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                             stderr=subprocess.PIPE, text=True)))
+    for name, proc in procs:
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for _, p in procs:
+                p.kill()
+                p.wait()
+            fail(f"gen_synthetic ({name}) did not finish in 300 s")
+        if proc.returncode != 0:
+            fail(f"gen_synthetic ({name}) failed with exit {proc.returncode}: {err}")
+    emit({"phase": "data", "seconds": time.perf_counter() - t0,
+          "train_rows": TRAIN_BATCHES * BATCH, "valid_rows": VALID_BATCHES * BATCH})
+    return out["train"], out["valid"]
+
+
+def _first_batch_ids(path: str, vocab: int):
+    import itertools
+
     import numpy as np
 
-    table = np.empty((vocab, row_dim), np.float32)
-    table[:, 0] = rng.uniform(-0.1, 0.1, vocab)
-    table[:, 1:] = rng.uniform(-0.25, 0.25, (vocab, row_dim - 1))
+    from fast_tffm_tpu_torch.data.libsvm import parse_lines
+
+    with open(path) as f:
+        lines = list(itertools.islice(f, BATCH))
+    return parse_lines(lines, vocabulary_size=vocab, max_nnz=NNZ).ids.astype(np.int32)
+
+
+def phase_rows_tail(rng, train_path: str):
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.ops.tail import rows_tail_adagrad_update, rows_tail_apply
+    from fast_tffm_tpu_torch.optim import adagrad_rows_plain, dedup_rows, sparse_adagrad_update
+
+    vocab, d, lr = 1 << 20, 1 + 8, 0.05
+    ids = torch.from_numpy(_first_batch_ids(train_path, vocab)).cuda()
+    grads = torch.from_numpy(
+        (rng.normal(size=(BATCH, NNZ, d)) * 1e-3).astype(np.float32)).cuda()
+    table = torch.from_numpy(rng.uniform(-0.01, 0.01, size=(vocab, d)).astype(np.float32)).cuda()
+    accums = {
+        "element": torch.from_numpy(rng.uniform(0.1, 0.5, size=(vocab, d)).astype(np.float32)).cuda(),
+        "row": torch.from_numpy(rng.uniform(0.1, 0.5, size=(vocab, 1)).astype(np.float32)).cuda(),
+    }
+    odd_ids = torch.unique(ids)[:1001].to(torch.int32)  # K = 1001 = 7·11·13
+    odd_grads = grads.reshape(-1, d)[:1001]
+    cases = [
+        ("element", 1.0, "batch"), ("element", 0.9, "batch"),
+        ("row", 1.0, "batch"), ("row", 0.9, "batch"),
+        ("element", 1.0, "one id"), ("row", 1.0, "one id"),
+        ("element", 1.0, "1001 ids"), ("row", 0.9, "1001 ids"),
+    ]
+    worst, main = 0.0, None
+    for acc, decay, which in cases:
+        if which == "batch":
+            c_ids, c_grads = ids, grads
+        elif which == "one id":
+            c_ids, c_grads = ids[:1, :1], grads[:1, :1]
+        else:
+            c_ids, c_grads = odd_ids, odd_grads
+        t_k, a_k = table.clone(), accums[acc].clone()
+        t_p, a_p = table.clone(), accums[acc].clone()
+        rows_tail_adagrad_update(t_k, a_k, c_ids, c_grads, lr, decay=decay)
+        sparse_adagrad_update(t_p, a_p, c_ids, c_grads, lr, decay=decay)
+        torch.cuda.synchronize()
+        k = int(torch.unique(c_ids).numel())
+        where = f"{acc} accumulator, decay {decay}, {which} (K={k})"
+        bitwise = bool(torch.equal(t_k, t_p) and torch.equal(a_k, a_p))
+        if acc == "element" and decay == 1.0:
+            if not bitwise:
+                fail(f"rows_tail is not bitwise equal to its plain version: {where}")
+            abs_err = 0.0
+        else:
+            abs_err, _ = _check_close("rows_tail (table)", t_k, t_p, 1e-6, 0.0, where)
+            _check_close("rows_tail (accum)", a_k, a_p, 1e-6, 0.0, where)
+        worst = max(worst, abs_err)
+        rec = {"phase": "rows_tail", "accumulator": acc, "decay": decay, "ids": which,
+               "K": k, "bitwise": bitwise, "max_abs_err": abs_err}
+        if which == "batch" and decay == 1.0:
+            flat_ids, flat_g = c_ids.reshape(-1), c_grads.reshape(-1, d)
+            uids, gsum = dedup_rows(flat_ids, flat_g)
+            bound_ms, bound_by = tail_bound(k, d, a_k.shape[1])
+            kern = f"rows_{acc}_kernel"
+            rec.update({
+                "ms": time_ms(lambda: rows_tail_apply(t_k, a_k, uids, gsum, lr), 100),
+                "device_ms": device_ms(lambda: rows_tail_apply(t_k, a_k, uids, gsum, lr), 30, kern),
+                "dedup_ms": time_ms(lambda: dedup_rows(flat_ids, flat_g), 30),
+                "dedup_device_ms": device_ms(lambda: dedup_rows(flat_ids, flat_g), 10, None),
+                "update_ms": time_ms(
+                    lambda: rows_tail_adagrad_update(t_k, a_k, c_ids, c_grads, lr), 30),
+                "plain_ms": time_ms(lambda: adagrad_rows_plain(t_p, a_p, uids, gsum, lr), 30),
+                "plain_device_ms": device_ms(
+                    lambda: adagrad_rows_plain(t_p, a_p, uids, gsum, lr), 10, None),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+            if acc == "element":
+                main = rec
+        emit(rec)
+    return worst, main
+
+
+def _write_checkpoint(path: str, table, accum_width: int) -> None:
+    """An npz with fast_tffm_tpu/checkpoint.py::_save_npz's members at step
+    0: ``table`` and Adagrad accumulators of ``accum_width`` at 0.1."""
+    import numpy as np
+
     with open(path, "wb") as f:
         np.savez(
             f,
             table=table,
-            table_accum=np.full((vocab, 1), 0.1, np.float32),
-            step=np.int64(1),
-            save_id=np.frombuffer(b"chip-smoke", np.uint8),
+            table_accum=np.full((table.shape[0], accum_width), 0.1, np.float32),
+            step=np.int32(0),
+            save_id=np.frombuffer(os.path.basename(path).encode(), np.uint8),
             published_at=np.float64(time.time()),
         )
+
+
+def _train_once(cfg, device: str, log_to: list):
+    from fast_tffm_tpu_torch.training import train
+
+    def log(*a):
+        msg = " ".join(str(x) for x in a)
+        log_to.append(msg)
+        log_stderr(f"[train {device}] {msg}")
+
+    t0 = time.perf_counter()
+    state = train(cfg, resume=True, log=log, device=device)
+    return state, time.perf_counter() - t0
+
+
+def _logged(lines: list, what: str) -> list[float]:
+    """The number after ``what`` in every log line that carries it."""
+    out = []
+    for line in lines:
+        toks = line.split()
+        for i, t in enumerate(toks[:-1]):
+            if t == what:
+                out.append(float(toks[i + 1].replace(",", "")))
+    return out
+
+
+def _update_check(init, card, cpu) -> dict:
+    """The run's updates (final table minus ``init``) on the card against
+    the CPU's, for the bias column and the factor columns apart: the
+    relative norm of their difference within UPDATE_RTOL, and the count of
+    elements they moved within MOVED_RTOL of the CPU's (a path that drops
+    the small updates of ordinary rows moves far fewer)."""
+    import numpy as np
+
+    out = {}
+    for name, cols in (("bias", slice(0, 1)), ("factors", slice(1, None))):
+        d_card = card[:, cols].astype(np.float64) - init[:, cols]
+        d_cpu = cpu[:, cols].astype(np.float64) - init[:, cols]
+        moved = {"cuda": int(np.count_nonzero(d_card)), "cpu": int(np.count_nonzero(d_cpu))}
+        norm = float(np.linalg.norm(d_cpu))
+        rel = float(np.linalg.norm(d_card - d_cpu)) / norm if norm else float("inf")
+        out[name] = {"rel_norm_diff": rel, "moved": moved, "max_abs_update": float(np.abs(d_cpu).max())}
+        if not (moved["cpu"] and rel <= UPDATE_RTOL
+                and abs(moved["cuda"] - moved["cpu"]) <= MOVED_RTOL * moved["cpu"]):
+            fail(f"the card's {name} updates differ from the CPU run's: {out[name]}")
+    return out
+
+
+def _gradient_check(model, table, batch) -> dict:
+    """The order-3 gradient of the training loss with respect to the
+    gathered rows, on the card (forward and backward kernels) and on the
+    CPU (their plain versions), from one table: within 1e-5 of the largest
+    gradient, and non-zero in the factor columns."""
+    import torch
+
+    from fast_tffm_tpu_torch.trainer import batch_loss
+
+    grads = []
+    for dev in ("cuda", "cpu"):
+        b = batch.to(dev)
+        rows = table.to(dev)[b.ids].detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(batch_loss(model, rows, [], b)[0], rows)
+        grads.append(g.cpu())
+    scale = float(grads[1].abs().max())
+    err = float((grads[0] - grads[1]).abs().max())
+    factor_max = float(grads[0][..., 1:].abs().max())
+    if not err <= RTOL * scale or factor_max == 0.0:
+        fail(f"order-3 gradient on the card differs from the CPU's: max abs err {err} "
+             f"against a largest gradient of {scale}; factor columns max {factor_max}")
+    return {"max_abs_err": err, "max_abs_grad": scale, "factor_max_abs_grad": factor_max}
+
+
+def phase_train(rng, tmp: str, train_path: str, valid_path: str):
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.config import build_model, load_config
+    from fast_tffm_tpu_torch.data.pipeline import batch_stream
+    from fast_tffm_tpu_torch.models.base import Batch
+    from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_bwd
+    from fast_tffm_tpu_torch.ops.tail import rows_tail_adagrad_update
+    from fast_tffm_tpu_torch.trainer import make_train_step
+
+    base = load_config(os.path.join(HERE, CONFIG))
+    model = build_model(base)
+    # The initial state: factors U(±0.01) from the seed, zero bias, element
+    # accumulators.
+    table = np.zeros((base.vocabulary_size, model.row_dim), np.float32)
+    table[:, 1:] = rng.uniform(-0.01, 0.01, (base.vocabulary_size, model.row_dim - 1))
+    init = os.path.join(tmp, "baseline5.init.ckpt")
+    _write_checkpoint(init, table, model.row_dim)
+
+    def cfg_for(device):
+        model_file = os.path.join(tmp, f"baseline5.{device}.ckpt")
+        shutil.copy(init, model_file)
+        return dataclasses.replace(
+            base, train_files=(train_path,), validation_files=(valid_path,),
+            predict_files=(valid_path,), model_file=model_file,
+            score_path=os.path.join(tmp, f"baseline5.{device}.scores"), log_every=4,
+        )
+
+    # The main path: train on the card, under the profiler for its idle share.
+    cuda_cfg, cuda_log, result = cfg_for("cuda"), [], {}
+    anova_inter.launches = anova_inter_bwd.launches = rows_tail_adagrad_update.launches = 0
+    run = traced_window(lambda: result.update(state=_train_once(cuda_cfg, "cuda", cuda_log)[0]))
+    launches = {
+        "anova_fwd": anova_inter.launches,
+        "anova_bwd": anova_inter_bwd.launches,
+        "rows_tail": rows_tail_adagrad_update.launches,
+    }
+    cuda_state, cuda_s = result["state"], run["wall_ms"] / 1e3
+    if launches["anova_fwd"] == 0 or launches["anova_bwd"] == 0:
+        fail(f"the training path did not launch both ANOVA kernels: {launches}")
+    if launches["rows_tail"] != TRAIN_BATCHES:
+        fail(f"the rows Adagrad kernel ran {launches['rows_tail']} times for "
+             f"{TRAIN_BATCHES} steps")
+    losses = _logged(cuda_log, "loss")
+    if not losses or not all(np.isfinite(losses)):
+        fail(f"non-finite or missing training losses on the card: {losses}")
+
+    cpu_cfg, cpu_log = cfg_for("cpu"), []
+    cpu_state, cpu_s = _train_once(cpu_cfg, "cpu", cpu_log)
+    table_err = float((cuda_state.table.cpu() - cpu_state.table).abs().max())
+    accum_err = float((cuda_state.table_accum.cpu() - cpu_state.table_accum).abs().max())
+    if not (table_err <= TABLE_ATOL and accum_err <= TABLE_ATOL):
+        fail(f"the card's trained table and accumulators differ from the CPU run's by "
+             f"{table_err} and {accum_err}")
+    updates = _update_check(table, cuda_state.table.cpu().numpy(), cpu_state.table.numpy())
+    auc_cuda, auc_cpu = _logged(cuda_log, "auc"), _logged(cpu_log, "auc")
+    if not (auc_cuda and auc_cpu and abs(auc_cuda[-1] - auc_cpu[-1]) <= AUC_TOL
+            and auc_cuda[-1] > 0.5):
+        fail(f"validation AUC on the card {auc_cuda} against the CPU's {auc_cpu}")
+
+    # The repaired gradient, on a validation batch, from the CPU run's table.
+    parsed, w = next(batch_stream([valid_path], batch_size=BATCH,
+                                  vocabulary_size=base.vocabulary_size, max_nnz=NNZ))
+    host_batch = Batch.from_parsed(parsed, w)
+    grad = _gradient_check(model, cpu_state.table, host_batch)
+
+    # Step time on the card with the input already there; then one traced step.
+    step = make_train_step(model, base.learning_rate)
+    batch = host_batch.to("cuda")
+    times = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        cuda_state, _ = step(cuda_state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = sorted(times[2:])
+    emit({
+        "phase": "train",
+        "config": CONFIG,
+        "steps": TRAIN_BATCHES,
+        "batch_size": BATCH,
+        "launches": launches,
+        "losses": losses,
+        "examples_per_s_logged": _logged(cuda_log, "examples/sec"),
+        "examples_per_s_run": TRAIN_BATCHES * BATCH / cuda_s,
+        "seconds": {"cuda": cuda_s, "cpu": cpu_s},
+        "step_ms_p50": times[len(times) // 2],
+        "step_ms_min": times[0],
+        "step_examples_per_s": BATCH / (times[len(times) // 2] / 1e3),
+        "validation_auc": {"cuda": auc_cuda[-1], "cpu": auc_cpu[-1]},
+        "max_abs_table_diff": table_err,
+        "max_abs_accum_diff": accum_err,
+        "updates": updates,
+        "gradient": grad,
+        "traced_run": run,
+        "traced_step": traced_window(lambda: step(cuda_state, batch)),
+    })
+    return cuda_cfg, launches
+
+
+def phase_predict(cuda_cfg):
+    import dataclasses
+
+    import numpy as np
+
+    from fast_tffm_tpu_torch.ops.anova import anova_inter
+    from fast_tffm_tpu_torch.prediction import predict
+
+    paths, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        cfg = dataclasses.replace(cuda_cfg, score_path=f"{cuda_cfg.score_path}.{device}")
+        anova_inter.launches = 0
+        t0 = time.perf_counter()
+        predict(cfg, log=log_stderr, device=device)
+        seconds[device] = time.perf_counter() - t0
+        if device == "cuda" and anova_inter.launches == 0:
+            fail("predict on cuda never launched the anova_fwd kernel")
+        paths[device] = cfg.score_path
+    got, want = np.loadtxt(paths["cuda"]), np.loadtxt(paths["cpu"])
+    if got.shape != (VALID_BATCHES * BATCH,) or not np.isfinite(got).all():
+        fail(f"predict wrote {got.shape} scores, expected {VALID_BATCHES * BATCH} finite")
+    err = float(np.abs(got - want).max())
+    # %.6f scores: the card's and the CPU's printed values may differ by one
+    # decimal step where the unrounded scores straddle a rounding boundary.
+    if err > ATOL + 1e-9:
+        fail(f"predict scores on the card differ from the CPU's by {err}")
+    emit({"phase": "predict", "scores": int(got.shape[0]), "max_abs_err_printed": err,
+          "seconds": seconds})
 
 
 def _lines(rng, n: int, vocab: int) -> list[str]:
@@ -253,19 +704,20 @@ def phase_serve(rng, tmp: str):
     from fast_tffm_tpu_torch.prediction import load_scoring_state, make_score_fn
     from fast_tffm_tpu_torch.serving import serve_lines
 
-    cfg = load_config(os.path.join(HERE, "configs", "baseline5_fm_order3_kdd.cfg"))
-    model_file = os.path.join(tmp, "baseline5.ckpt")
-    _write_checkpoint(model_file, rng, cfg.vocabulary_size, 1 + cfg.factor_num)
+    cfg = load_config(os.path.join(HERE, CONFIG))
+    # Random factors and non-zero biases from the seed.
+    table = np.empty((cfg.vocabulary_size, 1 + cfg.factor_num), np.float32)
+    table[:, 0] = rng.uniform(-0.1, 0.1, cfg.vocabulary_size)
+    table[:, 1:] = rng.uniform(-0.25, 0.25, (cfg.vocabulary_size, cfg.factor_num))
+    model_file = os.path.join(tmp, "baseline5.serve.ckpt")
+    _write_checkpoint(model_file, table, 1)
     cfg = dataclasses.replace(cfg, model_file=model_file)
     lines = _lines(rng, SERVE_LINES, cfg.vocabulary_size)
-
-    def log(*a):
-        print(*a, file=sys.stderr, flush=True)
 
     out = io.StringIO()
     anova_inter.launches = 0
     t0 = time.perf_counter()
-    snap = serve_lines(cfg, lines, out=out, log=log, device="cuda")
+    snap = serve_lines(cfg, lines, out=out, log=log_stderr, device="cuda")
     serve_s = time.perf_counter() - t0
     launches = anova_inter.launches
     if launches == 0:
@@ -278,13 +730,7 @@ def phase_serve(rng, tmp: str):
 
     # The port's own CPU path (plain versions) on the same table and lines.
     parsed = parse_lines(lines, vocabulary_size=cfg.vocabulary_size, max_nnz=NNZ)
-    batch = Batch(
-        labels=torch.from_numpy(parsed.labels),
-        ids=torch.from_numpy(parsed.ids.astype(np.int32)),
-        vals=torch.from_numpy(parsed.vals),
-        fields=torch.zeros((SERVE_LINES, 0), dtype=torch.int32),
-        weights=torch.ones(SERVE_LINES),
-    )
+    batch = Batch.from_parsed(parsed)
     quiet = lambda *_: None  # noqa: E731
     model, cpu_state = load_scoring_state(cfg, quiet, device="cpu")
     want = make_score_fn(cfg, cpu_state, NNZ, model=model)(cpu_state, batch).numpy()
@@ -300,23 +746,12 @@ def phase_serve(rng, tmp: str):
     raw_err = float(np.abs(got - want).max())
     if raw_err > ATOL:
         fail(f"card scores differ from the CPU path by {raw_err} (> {ATOL})")
-
-    # A second, traced pass: how much of the wall time the card was busy.
-    t0 = time.perf_counter()
-    events = trace_device(
-        lambda: serve_lines(cfg, lines, out=io.StringIO(), log=quiet, device="cuda")
-    )
-    traced_s = time.perf_counter() - t0
-    busy_ms = sum(d for _, _, d in events) / 1e3
-    by_name: dict[str, float] = {}
-    for _, name, d in events:
-        by_name[name[:60]] = by_name.get(name[:60], 0.0) + d / 1e3
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    torch.cuda.synchronize()
 
     total = snap["total_ms"]
     emit({
         "phase": "serve",
-        "config": "configs/baseline5_fm_order3_kdd.cfg",
+        "config": CONFIG,
         "vocabulary_size": cfg.vocabulary_size,
         "row_dim": 1 + cfg.factor_num,
         "lines": SERVE_LINES,
@@ -331,14 +766,29 @@ def phase_serve(rng, tmp: str):
         "anova_launches": launches,
         "max_abs_err_printed": printed_err,
         "max_abs_err_raw": raw_err,
-        "traced_pass": {
-            "seconds": traced_s,
-            "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / (1e3 * traced_s),
-            "device_ms_by_kernel": top,
-        },
+        # A second pass under the profiler: how much of the wall time the
+        # card was busy.
+        "traced_pass": traced_window(
+            lambda: serve_lines(cfg, lines, out=io.StringIO(), log=quiet, device="cuda")
+        ),
     })
-    return launches
+
+
+def _kernel_record(name, source, replaces, launches, worst, main) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": main["ms"],
+        "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the same function
+    }
 
 
 def main() -> int:
@@ -354,22 +804,23 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     rng = np.random.default_rng(SEED)
-    worst, main = phase_anova(rng)
+    fwd = phase_anova(rng)
+    bwd = phase_anova_bwd(rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = phase_serve(rng, tmp)
-    emit({"kernels": [{
-        "name": "anova_fwd",
-        "route": "cuda",
-        "source": "fast_tffm_tpu_torch/csrc/anova_fwd.cu",
-        "replaces": "fast_tffm_tpu/ops/pallas_anova.py:66",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes the ANOVA sum
-    }]})
+        train_path, valid_path = phase_data(tmp)
+        tail = phase_rows_tail(rng, train_path)
+        cuda_cfg, launches = phase_train(rng, tmp, train_path, valid_path)
+        phase_predict(cuda_cfg)
+        phase_serve(rng, tmp)
+    src = "fast_tffm_tpu_torch/csrc/"
+    emit({"kernels": [
+        _kernel_record("anova_fwd", src + "anova_fwd.cu",
+                       "fast_tffm_tpu/ops/pallas_anova.py:66", launches["anova_fwd"], *fwd),
+        _kernel_record("anova_bwd", src + "anova_bwd.cu",
+                       "fast_tffm_tpu/ops/pallas_anova.py:91", launches["anova_bwd"], *bwd),
+        _kernel_record("rows_tail_adagrad", src + "rows_tail_adagrad.cu",
+                       "fast_tffm_tpu/ops/pallas_tail.py:267", launches["rows_tail"], *tail),
+    ]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"], "count": dev["count"]}})
     return 0

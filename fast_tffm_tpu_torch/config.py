@@ -1,11 +1,14 @@
-"""INI config for the port: the JAX package's key vocabulary, cut to serving.
+"""INI config for the port: the JAX package's key vocabulary, cut to the
+ported paths (training, offline prediction, serving).
 
-A copy of ``fast_tffm_tpu/config.py`` reduced to what the serving path
-reads.  It parses the same files (``sample.cfg``, ``configs/*.cfg``) with
-the same sections, keys and defaults; keys it does not model are ignored,
-as they are by ``ConfigParser`` reads of absent options.  Configurations
-this port cannot serve yet are refused with a ``ValueError`` that names
-the missing piece, never served differently.
+A copy of ``fast_tffm_tpu/config.py`` reduced to what those paths read.
+It parses the same files (``sample.cfg``, ``configs/*.cfg``) with the same
+sections, keys and defaults; keys it does not model are ignored, as they
+are by ``ConfigParser`` reads of absent options.  Configurations this port
+cannot run yet are refused with a ``ValueError`` that names the later
+slice, never run differently: by ``Config.validate`` where no verb could
+run them, else by the entry point that would read the setting
+(``refuse_later_slices``).
 """
 
 from __future__ import annotations
@@ -14,7 +17,14 @@ import configparser
 import dataclasses
 import glob
 
-__all__ = ["Config", "load_config", "validate_buckets", "validate_classes", "build_model"]
+__all__ = [
+    "Config",
+    "load_config",
+    "validate_buckets",
+    "validate_classes",
+    "refuse_later_slices",
+    "build_model",
+]
 
 
 @dataclasses.dataclass
@@ -28,17 +38,46 @@ class Config:
     table_layout: str = "rows"  # rows (packed is a later slice)
     model_file: str = "model.ckpt"
     checkpoint_format: str = "npz"  # npz (orbax is a later slice)
-    # [Train] — the keys the serving path reads (the L2 lambdas and the rest
-    #   of the section arrive with the training slice)
+    # [Checkpoint] — read so they can be refused (async/delta saves are a
+    #   later slice)
+    async_save: bool = False
+    delta_every_steps: int = 0
+    # [Train]
     train_files: tuple[str, ...] = ()
+    weight_files: tuple[float, ...] = ()  # per-file example weights
     validation_files: tuple[str, ...] = ()
+    epoch_num: int = 1
+    batch_size: int = 1024
     max_nnz: int = 0  # 0 = infer from a scan of the data files
+    learning_rate: float = 0.01
     init_value_range: float = 0.01
+    factor_lambda: float = 0.0
+    bias_lambda: float = 0.0
+    init_accumulator_value: float = 0.1
+    adagrad_accumulator: str = "element"  # element | row (fused: a later slice)
+    tail: str = "auto"  # sparse Adagrad tail: auto | xla | pallas.  On the
+    #   card every value runs the rows Adagrad kernel (csrc/
+    #   rows_tail_adagrad.cu; xla names a JAX compiler path the port does not
+    #   have, and says so in the log); on the CPU its plain twin
+    thread_num: int = 0  # read for parity; the port parses in one thread
+    binary_cache: bool = False  # read to be refused (a later slice)
+    shuffle: bool = False  # read to be refused (FMB input, a later slice)
+    device_cache: bool = False  # read to be refused (a later slice)
+    steps_per_call: int = 1  # read to be refused when > 1 (a later slice)
+    dedup_gather_rows: int = 0  # read to be refused when > 0 (a later slice)
     wire_format: str = "packed"  # read for parity; the port always stages
     #   one pinned host->device buffer per flush (serving/buckets.py), and
     #   the packed wire (data/wire.py) changes no value
+    queue_size: int = 8  # prefetch depth
+    log_every: int = 100
+    save_every_epochs: int = 1
+    trace_dir: str = ""  # read to be refused when set (a later slice)
+    metrics_path: str = ""  # read to be refused when set (a later slice)
+    # [Telemetry]
+    telemetry_profile_steps: str = ""  # read to be refused when set
     # [Predict]
     predict_files: tuple[str, ...] = ()
+    score_path: str = "scores.txt"
     # [Serving]
     serve_buckets: tuple[int, ...] = (1, 8, 64, 512)  # batch-size ladder;
     #   every flush pads to the nearest rung
@@ -52,6 +91,14 @@ class Config:
     serve_port: int = 0  # socket front end (a later slice); 0 = pipe mode
     serve_deadline_ms: float = 0.0  # default per-request deadline; 0 = none
     serve_classes: tuple[tuple[str, int], ...] = ()  # class -> admission tier
+    # [Online]
+    online_follow: bool = False  # read to be refused (a later slice)
+    online_adagrad_decay: float = 1.0  # γ: lazy touched-row accumulator decay
+    online_accum_restart_steps: int = 0  # read to be refused (a later slice)
+    # [ParamStore]
+    paramstore: bool = False  # read to be refused (a later slice)
+    # [Resilience]
+    on_nan: str = "abort"  # abort (rollback: a later slice)
 
     def validate(self) -> "Config":
         if self.model not in ("fm", "ffm", "deepfm"):
@@ -90,6 +137,7 @@ class Config:
             raise ValueError(f"max_nnz must be >= 0, got {self.max_nnz}")
         if self.wire_format not in ("packed", "arrays"):
             raise ValueError(f"unknown wire_format {self.wire_format!r} (packed | arrays)")
+        self._validate_train()
         self.serve_buckets = validate_buckets(self.serve_buckets)
         if self.serve_max_batch < 0:
             raise ValueError(
@@ -118,6 +166,69 @@ class Config:
             )
         self.serve_classes = validate_classes(self.serve_classes)
         return self
+
+    def _validate_train(self) -> None:
+        """The JAX checks of the [Train]/[Online]/[Resilience] keys, for
+        every verb as in the JAX package.  The settings whose paths are
+        later slices are refused by the entry points that would read them
+        (``training.train``, ``prediction.predict``), so serving still
+        takes a config written for training."""
+        if self.batch_size <= 0:
+            raise ValueError("vocabulary_size and batch_size must be positive")
+        if self.steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {self.steps_per_call}")
+        if self.thread_num < 0:
+            raise ValueError(f"thread_num must be >= 0 (0 = all cores), got {self.thread_num}")
+        if self.adagrad_accumulator not in ("element", "row", "fused"):
+            raise ValueError(
+                f"unknown adagrad_accumulator {self.adagrad_accumulator!r} "
+                "(element | row | fused)"
+            )
+        if self.init_accumulator_value <= 0:
+            # A zero accumulator makes the first update of an element with
+            # zero summed gradient compute 0/sqrt(0) = NaN.
+            raise ValueError(
+                f"init_accumulator_value must be > 0, got {self.init_accumulator_value}"
+            )
+        if self.tail not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown tail {self.tail!r} (auto | xla | pallas)")
+        if not (0.0 < self.online_adagrad_decay <= 1.0):
+            raise ValueError(
+                f"[Online] adagrad_decay must be in (0, 1], got {self.online_adagrad_decay}"
+            )
+        if self.online_accum_restart_steps < 0:
+            raise ValueError(
+                f"[Online] accum_restart_steps must be >= 0, got "
+                f"{self.online_accum_restart_steps}"
+            )
+        if self.dedup_gather_rows < 0:
+            raise ValueError(
+                f"dedup_gather_rows must be >= 0 (0 = off), got {self.dedup_gather_rows}"
+            )
+        if self.delta_every_steps < 0:
+            raise ValueError(
+                f"delta_every_steps must be >= 0 (0 = off), got {self.delta_every_steps}"
+            )
+        if self.on_nan not in ("abort", "rollback"):
+            raise ValueError(f"unknown on_nan {self.on_nan!r} (abort | rollback)")
+        if self.adagrad_accumulator == "fused":
+            raise ValueError(
+                "adagrad_accumulator = fused is not ported yet (the packed and "
+                "fused layouts are a later slice of fast_tffm_tpu_torch); use "
+                "element or row"
+            )
+
+
+def refuse_later_slices(verb: str, refusals) -> None:
+    """Raise for the first ``(refused, what)`` pair that holds: a setting
+    whose path the port's ``verb`` does not run yet.  Each entry point
+    lists the settings it would read; the others never reach it."""
+    for refused, what in refusals:
+        if refused:
+            raise ValueError(
+                f"{what} is not ported yet for {verb} (a later slice of "
+                "fast_tffm_tpu_torch); use fast_tffm_tpu"
+            )
 
 
 def validate_buckets(buckets) -> tuple[int, ...]:
@@ -203,13 +314,45 @@ def load_config(path: str) -> Config:
 
     t = "Train"
     cfg.train_files = get(t, "train_files", _split_files, cfg.train_files)
+    cfg.weight_files = get(
+        t, "weight_files", lambda s: tuple(float(x) for x in _split(s)), cfg.weight_files
+    )
     cfg.validation_files = get(t, "validation_files", _split_files, cfg.validation_files)
+    cfg.epoch_num = get(t, "epoch_num", int, cfg.epoch_num)
+    cfg.batch_size = get(t, "batch_size", int, cfg.batch_size)
     cfg.max_nnz = get(t, "max_nnz", int, cfg.max_nnz)
+    cfg.learning_rate = get(t, "learning_rate", float, cfg.learning_rate)
     cfg.init_value_range = get(t, "init_value_range", float, cfg.init_value_range)
+    cfg.factor_lambda = get(t, "factor_lambda", float, cfg.factor_lambda)
+    cfg.bias_lambda = get(t, "bias_lambda", float, cfg.bias_lambda)
+    cfg.init_accumulator_value = get(
+        t, "init_accumulator_value", float, cfg.init_accumulator_value
+    )
+    cfg.adagrad_accumulator = get(t, "adagrad_accumulator", str, cfg.adagrad_accumulator).lower()
+    cfg.tail = get(t, "tail", str, cfg.tail).lower()
+    cfg.thread_num = get(t, "thread_num", int, cfg.thread_num)
+    cfg.binary_cache = get(t, "binary_cache", boolean, cfg.binary_cache)
+    cfg.shuffle = get(t, "shuffle", boolean, cfg.shuffle)
+    cfg.device_cache = get(t, "device_cache", boolean, cfg.device_cache)
+    cfg.dedup_gather_rows = get(t, "dedup_gather_rows", int, cfg.dedup_gather_rows)
+    cfg.steps_per_call = get(t, "steps_per_call", int, cfg.steps_per_call)
     cfg.wire_format = get(t, "wire_format", str, cfg.wire_format).lower()
+    cfg.queue_size = get(t, "queue_size", int, cfg.queue_size)
+    cfg.log_every = get(t, "log_every", int, cfg.log_every)
+    cfg.save_every_epochs = get(t, "save_every_epochs", int, cfg.save_every_epochs)
+    cfg.trace_dir = get(t, "trace_dir", str, cfg.trace_dir)
+    cfg.metrics_path = get(t, "metrics_path", str, cfg.metrics_path)
+
+    cfg.telemetry_profile_steps = get(
+        "Telemetry", "profile_steps", str, cfg.telemetry_profile_steps
+    )
+    c = "Checkpoint"
+    cfg.async_save = get(c, "async_save", boolean, cfg.async_save)
+    cfg.delta_every_steps = get(c, "delta_every_steps", int, cfg.delta_every_steps)
 
     p = "Predict"
     cfg.predict_files = get(p, "predict_files", _split_files, cfg.predict_files)
+    cfg.score_path = get(p, "score_path", str, cfg.score_path)
 
     s = "Serving"
     cfg.serve_buckets = get(
@@ -227,6 +370,15 @@ def load_config(path: str) -> Config:
     cfg.serve_port = get(s, "port", int, cfg.serve_port)
     cfg.serve_deadline_ms = get(s, "deadline_ms", float, cfg.serve_deadline_ms)
     cfg.serve_classes = get(s, "classes", str, cfg.serve_classes)
+
+    o = "Online"
+    cfg.online_follow = get(o, "follow", boolean, cfg.online_follow)
+    cfg.online_adagrad_decay = get(o, "adagrad_decay", float, cfg.online_adagrad_decay)
+    cfg.online_accum_restart_steps = get(
+        o, "accum_restart_steps", int, cfg.online_accum_restart_steps
+    )
+    cfg.paramstore = get("ParamStore", "enabled", boolean, cfg.paramstore)
+    cfg.on_nan = get("Resilience", "on_nan", str, cfg.on_nan).lower()
     return cfg.validate()
 
 
@@ -239,4 +391,6 @@ def build_model(cfg: Config):
         factor_num=cfg.factor_num,
         order=cfg.order,
         init_value_range=cfg.init_value_range,
+        factor_lambda=cfg.factor_lambda,
+        bias_lambda=cfg.bias_lambda,
     )

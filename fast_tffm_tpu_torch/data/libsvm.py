@@ -15,7 +15,7 @@ import numpy as np
 
 from fast_tffm_tpu_torch.data.hashing import hash_feature_id
 
-__all__ = ["ParsedBatch", "parse_lines", "scan_max_nnz"]
+__all__ = ["ParsedBatch", "parse_lines", "pad_batch", "scan_max_nnz"]
 
 
 @dataclasses.dataclass
@@ -109,6 +109,24 @@ def parse_lines(
         fields[li, :m] = flds_
         nnz[li] = m
     return ParsedBatch(labels=labels, ids=ids, vals=vals, fields=fields, nnz=nnz)
+
+
+def pad_batch(batch: ParsedBatch, batch_size: int) -> ParsedBatch:
+    """Pad a short tail batch up to ``batch_size`` rows with empty examples
+    (nnz 0, label 0, all-zero vals: score 0); callers weight them out."""
+    n = batch.batch_size
+    if n == batch_size:
+        return batch
+    if n > batch_size:
+        raise ValueError(f"batch of {n} rows exceeds target {batch_size}")
+    pad = batch_size - n
+    return ParsedBatch(
+        labels=np.concatenate([batch.labels, np.zeros((pad,), np.float32)]),
+        ids=np.concatenate([batch.ids, np.zeros((pad, batch.max_nnz), batch.ids.dtype)]),
+        vals=np.concatenate([batch.vals, np.zeros((pad, batch.max_nnz), np.float32)]),
+        fields=np.concatenate([batch.fields, np.zeros((pad, batch.max_nnz), np.int32)]),
+        nnz=np.concatenate([batch.nnz, np.zeros((pad,), np.int32)]),
+    )
 
 
 def scan_max_nnz(cfg) -> int:

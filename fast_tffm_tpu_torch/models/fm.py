@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from fast_tffm_tpu_torch.models.base import Batch
+from fast_tffm_tpu_torch.models.base import Batch, masked_l2
 from fast_tffm_tpu_torch.ops.fm import fm_score
 
 __all__ = ["FMModel"]
@@ -24,6 +24,8 @@ class FMModel:
     factor_num: int = 8
     order: int = 2
     init_value_range: float = 0.01
+    factor_lambda: float = 0.0
+    bias_lambda: float = 0.0
 
     uses_fields = False  # score() never reads batch.fields
 
@@ -46,6 +48,15 @@ class FMModel:
         bias = torch.zeros((self.vocabulary_size, 1), device=generator.device)
         return torch.cat([bias, factors], dim=-1)
 
+    def init_dense(self, generator: torch.Generator) -> list[torch.Tensor]:
+        """FM has no dense parameters."""
+        del generator
+        return []
+
     def score(self, rows: torch.Tensor, dense, batch: Batch) -> torch.Tensor:
         del dense
         return fm_score(rows, batch.vals, order=self.order)
+
+    def regularization(self, rows: torch.Tensor, dense, batch: Batch) -> torch.Tensor:
+        del dense
+        return masked_l2(rows, batch.vals, self.bias_lambda, self.factor_lambda)

@@ -1,4 +1,4 @@
-"""FM scoring — the counterpart of ``fast_tffm_tpu/ops/fm.py`` (forward only).
+"""FM scoring with its backward passes — the counterpart of ``fast_tffm_tpu/ops/fm.py``.
 
 Batches are padded dense ``[B, N]``; every score term scales with the
 feature value xᵢ, so zero-valued padding slots are neutral without masks.
@@ -9,9 +9,12 @@ and columns 1: the factors vᵢ.
   order t≥3: score = Σᵢ wᵢxᵢ + Σ_{m=2}^{t} Σ_f ANOVA_m(z·f),  z = v·x,
              via the DP  a[j][m] = a[j-1][m] + z_j·a[j-1][m-1]
 
-Order 2 is plain torch, because the JAX package has no kernel there either.
-Order ≥ 3 sends the DP to ``ops/anova.py::anova_inter``, the CUDA kernel on
-the card.  The backward passes come with the training slice.
+Order 2 is a ``torch.autograd.Function`` with the hand-derived VJP of
+``_fm_score_order2_bwd``, in plain torch, because the JAX package has no
+kernel there either.  Order ≥ 3 computes ``linear + anova_inter(z, order)``
+as the JAX package's Pallas path does (``ops/fm.py:225-227``): the linear
+term and z = v·x are left to autograd, and only the DP carries a
+hand-written backward — ``ops/anova.py``, the CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -32,25 +35,35 @@ def _order2_fwd_math(rows: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return linear + 0.5 * torch.sum(s1 * s1 - s2, dim=-1)
 
 
-def _anova_scan_fwd(z: torch.Tensor, order: int):
-    """The DP of ``fast_tffm_tpu/ops/fm.py::_anova_scan_fwd`` as a loop over
-    features.  z: [B, N, k] → (a_final [B, order+1, k], a_prevs [N, B,
-    order+1, k]); a_prevs holds the carry before each feature (the backward
-    pass's residuals).  a[0] ≡ 1."""
-    B, N, k = z.shape
-    a = z.new_zeros((B, order + 1, k))
-    a[:, 0, :] = 1.0
-    prevs = []
-    for j in range(N):
-        prevs.append(a)
-        shifted = torch.cat([torch.zeros_like(a[:, :1]), a[:, :-1]], dim=1)
-        a = a + z[:, j, None, :] * shifted
-    a_prevs = torch.stack(prevs) if prevs else z.new_zeros((0, B, order + 1, k))
-    return a, a_prevs
+class _FmScoreOrder2(torch.autograd.Function):
+    """Order-2 score with the hand-derived backward (the reference's FmGrad):
+
+    ∂score/∂wᵢ = xᵢ,  ∂score/∂vᵢ = xᵢ·(s1 − vᵢxᵢ),  ∂score/∂xᵢ = wᵢ + vᵢ·(s1 − vᵢxᵢ)
+    """
+
+    @staticmethod
+    def forward(ctx, rows, vals):
+        ctx.save_for_backward(rows, vals)
+        return _order2_fwd_math(rows, vals)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, vals = ctx.saved_tensors
+        bias, v = rows[..., 0], rows[..., 1:]
+        vx = v * vals[..., None]
+        s1 = torch.sum(vx, dim=1)
+        g_ = g[:, None]  # [B, 1]
+        d_bias = g_ * vals  # [B, N]
+        resid = s1[:, None, :] - vx  # [B, N, k]
+        d_v = g_[..., None] * vals[..., None] * resid
+        d_rows = torch.cat([d_bias[..., None], d_v], dim=-1)
+        d_vals = g_ * (bias + torch.sum(v * resid, dim=-1))
+        return d_rows, d_vals
 
 
 def fm_score(rows: torch.Tensor, vals: torch.Tensor, order: int = 2) -> torch.Tensor:
-    """[B] raw (pre-sigmoid) FM scores of a padded batch.
+    """[B] raw (pre-sigmoid) FM scores of a padded batch, differentiable in
+    ``rows`` and ``vals``.
 
     rows: [B, N, 1 + factor_num] gathered parameter rows; vals: [B, N]
     feature values (0.0 marks padding); order ≥ 2.
@@ -58,7 +71,7 @@ def fm_score(rows: torch.Tensor, vals: torch.Tensor, order: int = 2) -> torch.Te
     if order < 2:
         raise ValueError(f"FM order must be >= 2, got {order}")
     if order == 2:
-        return _order2_fwd_math(rows, vals)
+        return _FmScoreOrder2.apply(rows, vals)
     linear = torch.sum(rows[..., 0] * vals, dim=-1)
     z = rows[..., 1:] * vals[..., None]  # a fresh contiguous [B, N, k]
     return linear + anova_inter(z, order)

@@ -1,20 +1,25 @@
-"""Load a model for inference and build its scoring function — the
-counterpart of ``fast_tffm_tpu/prediction.py::load_scoring_state`` /
-``make_score_fn`` (rows layout; the offline ``predict`` entry point is a later
-slice).
+"""Load a model for inference, build its scoring function and run the
+offline predict driver — the counterpart of ``fast_tffm_tpu/prediction.py``
+``load_scoring_state`` / ``make_score_fn`` / ``predict`` (rows layout,
+single process; ``dist_predict`` is a later slice).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
+
 from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
-from fast_tffm_tpu_torch.config import Config, build_model
+from fast_tffm_tpu_torch.config import Config, build_model, refuse_later_slices
+from fast_tffm_tpu_torch.data.libsvm import scan_max_nnz
+from fast_tffm_tpu_torch.data.pipeline import batch_stream
 from fast_tffm_tpu_torch.device import resolve_device
 from fast_tffm_tpu_torch.models.base import Batch
 from fast_tffm_tpu_torch.trainer import make_predict_step
+from fast_tffm_tpu_torch.utils.prefetch import prefetch
 
-__all__ = ["ScoreFn", "load_scoring_state", "make_score_fn"]
+__all__ = ["ScoreFn", "load_scoring_state", "make_score_fn", "predict"]
 
 
 class ScoreFn(NamedTuple):
@@ -58,3 +63,44 @@ def make_score_fn(cfg: Config, state, max_nnz: int, model=None) -> ScoreFn:
     if model is None:
         model = build_model(cfg)
     return ScoreFn(fn=make_predict_step(model), model=model, max_nnz=int(max_nnz))
+
+
+def predict(cfg: Config, log=print, device=None) -> str:
+    """Single-device prediction — the reference's ``predict`` mode: restore
+    ``cfg.model_file``, stream ``cfg.predict_files`` through the scoring
+    step on ``device`` (None = cuda) and write one ``%.6f`` sigmoid score
+    per input line to ``cfg.score_path``.  Returns the score path."""
+    refuse_later_slices("predict", [
+        (cfg.binary_cache, "binary_cache = true (FMB input)"),
+        (bool(cfg.metrics_path), "metrics_path (telemetry)"),
+    ])
+    if not cfg.predict_files:
+        raise ValueError("no predict_files configured")
+    model, state = load_scoring_state(cfg, log, device)
+    device = state.table.device
+    score = make_score_fn(cfg, state, scan_max_nnz(cfg), model=model)
+    stream = prefetch(
+        batch_stream(
+            cfg.predict_files,
+            batch_size=cfg.batch_size,
+            vocabulary_size=cfg.vocabulary_size,
+            hash_feature_id=cfg.hash_feature_id,
+            max_nnz=score.max_nnz,
+        ),
+        depth=cfg.queue_size,
+    )
+    n = 0
+    with open(cfg.score_path, "w") as out:
+        for parsed, w in stream:
+            scores = score(state, Batch.from_parsed(parsed, w, device)).cpu().numpy()
+            if not np.isfinite(scores).all():
+                raise RuntimeError(
+                    "non-finite scores — a diverged model (non-finite weights); "
+                    f"refusing to write a poisoned score file to {cfg.score_path}"
+                )
+            real = w > 0  # drop batch-size padding rows
+            for s in scores[real]:
+                out.write(f"{s:.6f}\n")
+            n += int(real.sum())
+    log(f"wrote {n} scores -> {cfg.score_path}")
+    return cfg.score_path

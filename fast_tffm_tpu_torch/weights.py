@@ -2,8 +2,10 @@
 
 Both packages persist the same logical arrays (``checkpoint.py``'s npz
 members).  ``from_jax_arrays`` takes them as numpy arrays — from an npz
-restore, or from a JAX state converted with ``np.asarray`` in a test — and
-places them on the port's device as a ``TrainState``.
+restore, or from a JAX ``TrainState`` converted with ``np.asarray`` in a
+test — and places them on the port's device as a ``TrainState``: the
+table, the dense leaves and the step, plus the Adagrad accumulators when
+given, so a JAX training state carries across whole.
 """
 
 from __future__ import annotations
@@ -23,14 +25,39 @@ def _tensor(arr, device: torch.device) -> torch.Tensor:
     return host.to(device)
 
 
-def from_jax_arrays(table, dense_leaves, step, device) -> TrainState:
+def from_jax_arrays(
+    table, dense_leaves, step, device, *, table_accum=None, dense_accum=None
+) -> TrainState:
     """``table`` [V, D], ``dense_leaves`` in ``jax.tree.flatten`` order and
-    ``step`` → a TrainState on ``device`` (a ``torch.device``)."""
+    ``step`` → a TrainState on ``device`` (a ``torch.device``).
+    ``table_accum`` ([V, D] or [V, 1]) and ``dense_accum`` (one per dense
+    leaf) are the JAX state's ``table_opt.accum`` and flattened
+    ``dense_opt.accum``; without them the state is for scoring only."""
     table = np.asarray(table)
     if table.ndim != 2 or table.dtype != np.float32:
         raise ValueError(f"table must be a [V, D] float32 array, got {table.shape} {table.dtype}")
+    accum = None
+    if table_accum is not None:
+        table_accum = np.asarray(table_accum)
+        if (
+            table_accum.dtype != np.float32
+            or table_accum.shape[0] != table.shape[0]
+            or table_accum.shape[1:] not in ((1,), (table.shape[1],))
+        ):
+            raise ValueError(
+                f"table_accum must be a [V, 1] or [V, D] float32 array for a "
+                f"{table.shape} table, got {table_accum.shape} {table_accum.dtype}"
+            )
+        accum = _tensor(table_accum, device)
+    dense_accum = [] if dense_accum is None else list(dense_accum)
+    if dense_accum and len(dense_accum) != len(dense_leaves):
+        raise ValueError(
+            f"{len(dense_accum)} dense accumulators for {len(dense_leaves)} dense leaves"
+        )
     return TrainState(
         table=_tensor(table, device),
         dense=[_tensor(np.asarray(x), device) for x in dense_leaves],
         step=int(np.asarray(step)),
+        table_accum=accum,
+        dense_accum=[_tensor(np.asarray(x), device) for x in dense_accum],
     )

@@ -16,8 +16,13 @@ import torch
 from fast_tffm_tpu.ops.fm import _anova_scan_fwd as jax_anova_scan_fwd
 from fast_tffm_tpu.ops.pallas_anova import anova_inter as jax_anova_inter
 from fast_tffm_tpu.ops.pallas_anova import anova_inter_reference
-from fast_tffm_tpu_torch.ops.anova import MAX_ORDER, MIN_ORDER, anova_inter, anova_inter_plain
-from fast_tffm_tpu_torch.ops.fm import _anova_scan_fwd
+from fast_tffm_tpu_torch.ops.anova import (
+    MAX_ORDER,
+    MIN_ORDER,
+    _carries,
+    anova_inter,
+    anova_inter_plain,
+)
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -62,12 +67,13 @@ def test_padding_slots_are_neutral(order):
 
 @pytest.mark.parametrize("order", [3, 6])
 def test_scan_twin_matches_jax_scan(order):
-    """ops/fm.py's DP with its per-feature carries (the backward pass's
+    """ops/anova.py's DP with its per-feature carries (the backward pass's
     residuals) against fast_tffm_tpu/ops/fm.py::_anova_scan_fwd; order 6
     is above N, where the high degrees vanish."""
     rng = np.random.default_rng(20 + order)
     z = _z(rng, 13, 5, 4)
-    a_final, a_prevs = _anova_scan_fwd(torch.from_numpy(z), order)
+    *prevs, a_final = _carries(torch.from_numpy(z), order)
+    a_prevs = torch.stack(prevs)
     j_final, j_prevs = jax_anova_scan_fwd(jnp.asarray(z), order)
     np.testing.assert_allclose(a_final.numpy(), np.asarray(j_final), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(a_prevs.numpy(), np.asarray(j_prevs), rtol=RTOL, atol=ATOL)
