@@ -25,6 +25,13 @@ last line:
             id, and 1001 unique ids (off any power-of-two block); element at
             decay 1 bitwise equal, the rest within rtol 1e-6; kernel, dedup,
             plain and bound times
+  fused_tail the fused Adagrad kernel (B3) on a full-width fused state packed
+            from a seeded [2^20, 9] table and [2^20, 1] accumulator, against
+            its plain version on the card, bitwise, at decay 1 and 0.9 for
+            the first batch's ids, one id, 1001 ids and the ids of the last,
+            partial tile row (V-4 .. V-1); untouched slots and pad lanes
+            unchanged; unpacked, bitwise equal to the rows kernel in row
+            mode on the logical clones; kernel, dedup, plain and bound times
   train     configs/baseline5_fm_order3_kdd.cfg at full width trained for
             24 steps on cuda through training.train (resume from a seeded
             npz; the run traced by torch.profiler), then the same on the CPU:
@@ -35,16 +42,25 @@ last line:
             each other; the order-3 gradient on the card
             against the CPU's; ex/s, the step time p50, and the card's idle
             share over the run and within one traced step
+  train_fused the same run with table_layout = packed and adagrad_accumulator
+            = fused (a [V, 1] accumulator in the npz): the fused kernel once
+            per step, the card's unpacked table and accumulator within atol
+            1e-7 of the CPU run's, the same update and AUC checks and timings
   predict   prediction.predict of the trained model on the validation file
             on cuda, its printed scores within 1e-6 of the CPU predict's
+  predict_packed the same for the fused run's checkpoint under its packed
+            config (scored through the packed gather)
   serve     the same config serving 4096 libsvm lines through serve_lines
             on cuda from a seeded 2^20 x 9 table; every score finite and
             within atol 1e-6 of the port's own CPU path, and the forward
             kernel launched on that path (then a second pass under
             torch.profiler: the card's busy and idle share of the serving
-            wall time, and its top kernels)
+            wall time, and its top kernels); then the same lines served on
+            cuda under table_layout = packed, within atol 1e-6 of the rows
+            config's scores
   kernels   one record per kernel: route, source, launches on the training
-            path, error and times at the training shapes
+            path (the fused kernel's on the fused one), error and times at
+            the training shapes
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -71,7 +87,7 @@ SEED = 20261016
 RTOL, ATOL = 1e-5, 1e-6
 SERVE_LINES = 4096
 NNZ = 11
-KERNELS = ["anova_fwd", "anova_bwd", "rows_tail_adagrad"]
+KERNELS = ["anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad"]
 ANOVA_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 8, 64, 512, 16384)]
 ANOVA_SHAPES.append((130, 7, 5, 3))  # ragged: B off the block edge, k not dividing 32
 BWD_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 512, 16384)]
@@ -88,6 +104,8 @@ TRAIN_BATCHES, VALID_BATCHES = 24, 2
 TABLE_ATOL, AUC_TOL = 1e-7, 0.002
 UPDATE_RTOL, MOVED_RTOL = 1e-2, 1e-3
 CONFIG = os.path.join("configs", "baseline5_fm_order3_kdd.cfg")
+# baseline5 on the fused lane-packed layout: no shipped config sets these.
+FUSED = {"table_layout": "packed", "adagrad_accumulator": "fused"}
 
 
 def emit(obj) -> None:
@@ -461,6 +479,91 @@ def phase_rows_tail(rng, train_path: str):
     return worst, main
 
 
+def _blank_touched(fused, ids, d: int):
+    """``fused`` with the slots of ``ids`` zeroed: what an update of ``ids``
+    must leave bitwise unchanged (other slots, pad slots, tail lanes)."""
+    from fast_tffm_tpu_torch.ops.packed_table import fused_rows_per_tile, fused_slots
+
+    out = fused.clone()
+    p = fused_rows_per_tile(d)
+    i = ids.reshape(-1).long().unique()
+    fused_slots(out, d)[i // p, i % p] = 0.0
+    return out
+
+
+def phase_fused_tail(rng, train_path: str):
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.ops.packed_table import pack_fused, unpack_fused
+    from fast_tffm_tpu_torch.ops.tail import (
+        fused_adagrad_plain,
+        fused_tail_adagrad_update,
+        fused_tail_apply,
+        rows_tail_adagrad_update,
+    )
+    from fast_tffm_tpu_torch.optim import dedup_rows
+
+    vocab, d, lr = 1 << 20, 1 + 8, 0.05
+    ids = torch.from_numpy(_first_batch_ids(train_path, vocab)).cuda()
+    grads = torch.from_numpy(
+        (rng.normal(size=(BATCH, NNZ, d)) * 1e-3).astype(np.float32)).cuda()
+    table = torch.from_numpy(rng.uniform(-0.01, 0.01, size=(vocab, d)).astype(np.float32)).cuda()
+    accum = torch.from_numpy(rng.uniform(0.1, 0.5, size=(vocab, 1)).astype(np.float32)).cuda()
+    fused = pack_fused(table, accum, 0.1)  # 2^20 mod 12 = 4: a partial last tile row
+    flat_g = grads.reshape(-1, d)
+    sets = {
+        "batch": (ids, grads),
+        "one id": (ids[:1, :1], grads[:1, :1]),
+        "1001 ids": (torch.unique(ids)[:1001].to(torch.int32), flat_g[:1001]),
+        "last tile row": (torch.arange(vocab - 4, vocab, dtype=torch.int32, device="cuda"),
+                          flat_g[:4]),
+    }
+    main = None
+    for decay in (1.0, 0.9):
+        for which, (c_ids, c_grads) in sets.items():
+            got = fused_tail_adagrad_update(fused.clone(), c_ids, c_grads, lr, decay=decay)
+            uids, gsum = dedup_rows(c_ids.reshape(-1), c_grads.reshape(-1, d))
+            twin = fused_adagrad_plain(fused.clone(), uids, gsum, lr, decay)
+            t_r, a_r = table.clone(), accum.clone()
+            rows_tail_adagrad_update(t_r, a_r, c_ids, c_grads, lr, decay=decay)
+            torch.cuda.synchronize()
+            k = int(uids.numel())
+            where = f"decay {decay}, {which} (K={k})"
+            if not torch.equal(got, twin):
+                err = float((got - twin).abs().max())
+                fail(f"fused_tail is not bitwise equal to its plain version: {where}, "
+                     f"max abs err {err}")
+            t_f, a_f = unpack_fused(got, vocab, d)
+            if not (torch.equal(t_f, t_r) and torch.equal(a_f, a_r)):
+                fail(f"fused_tail unpacked differs from the rows kernel in row mode: {where}")
+            if not torch.equal(_blank_touched(got, c_ids, d), _blank_touched(fused, c_ids, d)):
+                fail(f"fused_tail changed lanes outside the touched slots: {where}")
+            if torch.equal(got, fused):
+                fail(f"fused_tail changed nothing: {where}")
+            rec = {"phase": "fused_tail", "decay": decay, "ids": which, "K": k,
+                   "bitwise": True, "bitwise_rows_row": True, "max_abs_err": 0.0}
+            if which == "batch" and decay == 1.0:
+                flat_ids = c_ids.reshape(-1)
+                bound_ms, bound_by = tail_bound(k, d, 1)
+                rec.update({
+                    "ms": time_ms(lambda: fused_tail_apply(got, uids, gsum, lr), 100),
+                    "device_ms": device_ms(
+                        lambda: fused_tail_apply(got, uids, gsum, lr), 30, "fused_slot_kernel"),
+                    "dedup_ms": time_ms(lambda: dedup_rows(flat_ids, flat_g), 30),
+                    "dedup_device_ms": device_ms(lambda: dedup_rows(flat_ids, flat_g), 10, None),
+                    "update_ms": time_ms(
+                        lambda: fused_tail_adagrad_update(got, c_ids, c_grads, lr), 30),
+                    "plain_ms": time_ms(lambda: fused_adagrad_plain(twin, uids, gsum, lr), 30),
+                    "plain_device_ms": device_ms(
+                        lambda: fused_adagrad_plain(twin, uids, gsum, lr), 10, None),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                })
+                main = rec
+            emit(rec)
+    return 0.0, main
+
+
 def _write_checkpoint(path: str, table, accum_width: int) -> None:
     """An npz with fast_tffm_tpu/checkpoint.py::_save_npz's members at step
     0: ``table`` and Adagrad accumulators of ``accum_width`` at 0.1."""
@@ -547,7 +650,9 @@ def _gradient_check(model, table, batch) -> dict:
     return {"max_abs_err": err, "max_abs_grad": scale, "factor_max_abs_grad": factor_max}
 
 
-def phase_train(rng, tmp: str, train_path: str, valid_path: str):
+def phase_train(rng, tmp: str, train_path: str, valid_path: str, fused: bool = False):
+    """The rows run (``fused`` False) or the fused lane-packed run of
+    baseline5, on the card and then on the CPU from one seeded npz."""
     import dataclasses
     import shutil
 
@@ -558,48 +663,57 @@ def phase_train(rng, tmp: str, train_path: str, valid_path: str):
     from fast_tffm_tpu_torch.data.pipeline import batch_stream
     from fast_tffm_tpu_torch.models.base import Batch
     from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_bwd
-    from fast_tffm_tpu_torch.ops.tail import rows_tail_adagrad_update
-    from fast_tffm_tpu_torch.trainer import make_train_step
+    from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
+    from fast_tffm_tpu_torch.trainer import make_packed_train_step, make_train_step, unpack_state
 
+    name = "train_fused" if fused else "train"
     base = load_config(os.path.join(HERE, CONFIG))
+    if fused:
+        base = dataclasses.replace(base, **FUSED).validate()
     model = build_model(base)
     # The initial state: factors U(±0.01) from the seed, zero bias, element
-    # accumulators.
+    # accumulators (rows) or a [V, 1] row accumulator (fused).
     table = np.zeros((base.vocabulary_size, model.row_dim), np.float32)
     table[:, 1:] = rng.uniform(-0.01, 0.01, (base.vocabulary_size, model.row_dim - 1))
-    init = os.path.join(tmp, "baseline5.init.ckpt")
-    _write_checkpoint(init, table, model.row_dim)
+    init = os.path.join(tmp, f"{name}.init.ckpt")
+    _write_checkpoint(init, table, 1 if fused else model.row_dim)
 
     def cfg_for(device):
-        model_file = os.path.join(tmp, f"baseline5.{device}.ckpt")
+        model_file = os.path.join(tmp, f"{name}.{device}.ckpt")
         shutil.copy(init, model_file)
         return dataclasses.replace(
             base, train_files=(train_path,), validation_files=(valid_path,),
             predict_files=(valid_path,), model_file=model_file,
-            score_path=os.path.join(tmp, f"baseline5.{device}.scores"), log_every=4,
+            score_path=os.path.join(tmp, f"{name}.{device}.scores"), log_every=4,
         )
 
     # The main path: train on the card, under the profiler for its idle share.
     cuda_cfg, cuda_log, result = cfg_for("cuda"), [], {}
-    anova_inter.launches = anova_inter_bwd.launches = rows_tail_adagrad_update.launches = 0
+    tail_kernel, tail_name = (
+        (fused_tail_adagrad_update, "fused_tail") if fused else (rows_tail_adagrad_update, "rows_tail")
+    )
+    anova_inter.launches = anova_inter_bwd.launches = 0
+    rows_tail_adagrad_update.launches = fused_tail_adagrad_update.launches = 0
     run = traced_window(lambda: result.update(state=_train_once(cuda_cfg, "cuda", cuda_log)[0]))
     launches = {
         "anova_fwd": anova_inter.launches,
         "anova_bwd": anova_inter_bwd.launches,
-        "rows_tail": rows_tail_adagrad_update.launches,
+        tail_name: tail_kernel.launches,
     }
-    cuda_state, cuda_s = result["state"], run["wall_ms"] / 1e3
+    other_tail = rows_tail_adagrad_update.launches if fused else fused_tail_adagrad_update.launches
+    cuda_state, cuda_s = unpack_state(result["state"], model), run["wall_ms"] / 1e3
     if launches["anova_fwd"] == 0 or launches["anova_bwd"] == 0:
-        fail(f"the training path did not launch both ANOVA kernels: {launches}")
-    if launches["rows_tail"] != TRAIN_BATCHES:
-        fail(f"the rows Adagrad kernel ran {launches['rows_tail']} times for "
-             f"{TRAIN_BATCHES} steps")
+        fail(f"the {name} path did not launch both ANOVA kernels: {launches}")
+    if launches[tail_name] != TRAIN_BATCHES or other_tail:
+        fail(f"the {tail_name} kernel ran {launches[tail_name]} times for "
+             f"{TRAIN_BATCHES} steps (the other tail {other_tail} times)")
     losses = _logged(cuda_log, "loss")
     if not losses or not all(np.isfinite(losses)):
         fail(f"non-finite or missing training losses on the card: {losses}")
 
     cpu_cfg, cpu_log = cfg_for("cpu"), []
     cpu_state, cpu_s = _train_once(cpu_cfg, "cpu", cpu_log)
+    cpu_state = unpack_state(cpu_state, model)
     table_err = float((cuda_state.table.cpu() - cpu_state.table).abs().max())
     accum_err = float((cuda_state.table_accum.cpu() - cpu_state.table_accum).abs().max())
     if not (table_err <= TABLE_ATOL and accum_err <= TABLE_ATOL):
@@ -611,14 +725,17 @@ def phase_train(rng, tmp: str, train_path: str, valid_path: str):
             and auc_cuda[-1] > 0.5):
         fail(f"validation AUC on the card {auc_cuda} against the CPU's {auc_cpu}")
 
-    # The repaired gradient, on a validation batch, from the CPU run's table.
     parsed, w = next(batch_stream([valid_path], batch_size=BATCH,
                                   vocabulary_size=base.vocabulary_size, max_nnz=NNZ))
     host_batch = Batch.from_parsed(parsed, w)
-    grad = _gradient_check(model, cpu_state.table, host_batch)
+    # The repaired gradient, on a validation batch, from the CPU run's table.
+    grad = None if fused else _gradient_check(model, cpu_state.table, host_batch)
 
     # Step time on the card with the input already there; then one traced step.
-    step = make_train_step(model, base.learning_rate)
+    if fused:
+        step, cuda_state = make_packed_train_step(model, base.learning_rate), result["state"]
+    else:
+        step = make_train_step(model, base.learning_rate)
     batch = host_batch.to("cuda")
     times = []
     for _ in range(12):
@@ -628,8 +745,8 @@ def phase_train(rng, tmp: str, train_path: str, valid_path: str):
         times.append((time.perf_counter() - t0) * 1e3)
     times = sorted(times[2:])
     emit({
-        "phase": "train",
-        "config": CONFIG,
+        "phase": name,
+        "config": CONFIG + (" + " + json.dumps(FUSED) if fused else ""),
         "steps": TRAIN_BATCHES,
         "batch_size": BATCH,
         "launches": launches,
@@ -651,7 +768,7 @@ def phase_train(rng, tmp: str, train_path: str, valid_path: str):
     return cuda_cfg, launches
 
 
-def phase_predict(cuda_cfg):
+def phase_predict(cuda_cfg, name: str = "predict"):
     import dataclasses
 
     import numpy as np
@@ -667,7 +784,7 @@ def phase_predict(cuda_cfg):
         predict(cfg, log=log_stderr, device=device)
         seconds[device] = time.perf_counter() - t0
         if device == "cuda" and anova_inter.launches == 0:
-            fail("predict on cuda never launched the anova_fwd kernel")
+            fail(f"{name} on cuda never launched the anova_fwd kernel")
         paths[device] = cfg.score_path
     got, want = np.loadtxt(paths["cuda"]), np.loadtxt(paths["cpu"])
     if got.shape != (VALID_BATCHES * BATCH,) or not np.isfinite(got).all():
@@ -677,8 +794,8 @@ def phase_predict(cuda_cfg):
     # decimal step where the unrounded scores straddle a rounding boundary.
     if err > ATOL + 1e-9:
         fail(f"predict scores on the card differ from the CPU's by {err}")
-    emit({"phase": "predict", "scores": int(got.shape[0]), "max_abs_err_printed": err,
-          "seconds": seconds})
+    emit({"phase": name, "table_layout": cuda_cfg.table_layout, "scores": int(got.shape[0]),
+          "max_abs_err_printed": err, "seconds": seconds})
 
 
 def _lines(rng, n: int, vocab: int) -> list[str]:
@@ -748,6 +865,28 @@ def phase_serve(rng, tmp: str):
         fail(f"card scores differ from the CPU path by {raw_err} (> {ATOL})")
     torch.cuda.synchronize()
 
+    # The same table and lines served under table_layout = packed.
+    packed_cfg = dataclasses.replace(cfg, **FUSED).validate()
+    packed_out = io.StringIO()
+    anova_inter.launches = 0
+    t0 = time.perf_counter()
+    serve_lines(packed_cfg, lines, out=packed_out, log=log_stderr, device="cuda")
+    packed_s = time.perf_counter() - t0
+    packed_printed = np.array([float(s) for s in packed_out.getvalue().split()], np.float64)
+    if packed_printed.shape != (SERVE_LINES,) or anova_inter.launches == 0:
+        fail(f"packed serving returned {packed_printed.shape[0]} scores with "
+             f"{anova_inter.launches} anova_fwd launches")
+    packed_err = float(np.abs(packed_printed - printed).max())
+    if packed_err > ATOL + 1e-9:
+        fail(f"packed serving differs from the rows config's scores by {packed_err}")
+    _, packed_state = load_scoring_state(packed_cfg, quiet, device="cuda")
+    got = make_score_fn(packed_cfg, packed_state, NNZ, model=model)(
+        packed_state, batch.to("cuda")).cpu().numpy()
+    packed_raw_err = float(np.abs(got - want).max())
+    if packed_state.layout != "packed" or packed_raw_err > ATOL:
+        fail(f"packed card scores differ from the CPU path by {packed_raw_err} "
+             f"(layout {packed_state.layout})")
+
     total = snap["total_ms"]
     emit({
         "phase": "serve",
@@ -766,6 +905,9 @@ def phase_serve(rng, tmp: str):
         "anova_launches": launches,
         "max_abs_err_printed": printed_err,
         "max_abs_err_raw": raw_err,
+        "packed": {"table_layout": "packed", "seconds": packed_s,
+                   "max_abs_err_printed_vs_rows": packed_err,
+                   "max_abs_err_raw": packed_raw_err},
         # A second pass under the profiler: how much of the wall time the
         # card was busy.
         "traced_pass": traced_window(
@@ -809,8 +951,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train_path, valid_path = phase_data(tmp)
         tail = phase_rows_tail(rng, train_path)
+        fused_tail = phase_fused_tail(rng, train_path)
         cuda_cfg, launches = phase_train(rng, tmp, train_path, valid_path)
         phase_predict(cuda_cfg)
+        fused_cfg, fused_launches = phase_train(rng, tmp, train_path, valid_path, fused=True)
+        phase_predict(fused_cfg, "predict_packed")
         phase_serve(rng, tmp)
     src = "fast_tffm_tpu_torch/csrc/"
     emit({"kernels": [
@@ -820,6 +965,9 @@ def main() -> int:
                        "fast_tffm_tpu/ops/pallas_anova.py:91", launches["anova_bwd"], *bwd),
         _kernel_record("rows_tail_adagrad", src + "rows_tail_adagrad.cu",
                        "fast_tffm_tpu/ops/pallas_tail.py:267", launches["rows_tail"], *tail),
+        _kernel_record("fused_tail_adagrad", src + "fused_tail_adagrad.cu",
+                       "fast_tffm_tpu/ops/pallas_tail.py:119", fused_launches["fused_tail"],
+                       *fused_tail),
     ]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"], "count": dev["count"]}})

@@ -6,12 +6,13 @@ but it imports nothing from ``fast_tffm_tpu`` and never imports ``jax``: the
 host-only modules it needs (config parsing, libsvm parsing, hashing) are its
 own copies.
 
-What this package covers so far: serving a rows-layout FM of any order
-through the micro-batched ``ServingEngine`` (``serving/engine.py``), with the
-order ≥ 3 interaction DP in a hand-written CUDA kernel
-(``csrc/anova_fwd.cu``).  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``; without a CUDA device they raise instead of
-falling back to the CPU.
+What this package covers so far: training an FM of any order on the rows
+layout or the fused lane-packed layout (``training.py``), offline
+prediction, and serving through the micro-batched ``ServingEngine``
+(``serving/engine.py``), with the order ≥ 3 interaction DP, its backward
+and both sparse Adagrad tails in hand-written CUDA kernels (``csrc/``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a CUDA device they raise instead of falling back to the CPU.
 
 Submodules are imported explicitly (``from fast_tffm_tpu_torch.serving
 import ServingEngine``); importing the package itself loads nothing else.

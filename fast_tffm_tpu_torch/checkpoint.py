@@ -11,6 +11,11 @@ Restore: ``restore_checkpoint`` reads the parameters (``table``, ``step``,
 ``dense_{i}``) for scoring and, given the accumulator width a training
 config expects, the Adagrad accumulators too.
 
+Both hold the logical arrays whatever layout the run trains in: a fused
+run saves ``trainer.unpack_state`` of its state (a [V, D] table and a
+[V, 1] accumulator) and packs what it restores, so rows, packed and fused
+runs restore each other's checkpoints, as in the JAX package.
+
 Refused rather than misread: a tiered parameter-store checkpoint (its
 ``table`` is only the hot tier), an orbax directory, a checkpoint
 extended by a delta chain (replaying deltas is a later slice; the base
@@ -149,6 +154,11 @@ def save_checkpoint(
     this slice (exact-position resume is a later one): the JAX package's
     ``--resume`` reads a checkpoint without one as a legacy resume and
     restarts the input at the first file, as the port's does."""
+    if state.layout != "rows":
+        raise ValueError(
+            f"save_checkpoint writes the logical arrays; unpack the {state.layout} "
+            "state first (trainer.unpack_state)"
+        )
     if state.table_accum is None:
         raise ValueError("save_checkpoint needs a training state (table_accum is missing)")
     entries = {

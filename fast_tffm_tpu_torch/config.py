@@ -35,7 +35,9 @@ class Config:
     order: int = 2
     vocabulary_size: int = 1 << 20
     hash_feature_id: bool = False
-    table_layout: str = "rows"  # rows (packed is a later slice)
+    table_layout: str = "rows"  # rows ([V, D]) | packed (lane-packed tile
+    #   rows, ops/packed_table.py; train runs it with adagrad_accumulator =
+    #   fused, predict and serve with any accumulator)
     model_file: str = "model.ckpt"
     checkpoint_format: str = "npz"  # npz (orbax is a later slice)
     # [Checkpoint] — read so they can be refused (async/delta saves are a
@@ -54,11 +56,18 @@ class Config:
     factor_lambda: float = 0.0
     bias_lambda: float = 0.0
     init_accumulator_value: float = 0.1
-    adagrad_accumulator: str = "element"  # element | row (fused: a later slice)
+    adagrad_accumulator: str = "element"  # element | row | fused (row
+    #   semantics, the accumulator stored in the packed table's own tile
+    #   rows; requires table_layout = packed)
+    packed_compact_cap: int = 0  # the fused tail's deduped-row cap (read and
+    #   passed through: the port's dedup always returns exactly K rows)
+    packed_update: str = "auto"  # packed sparse tail: auto | dense | compact |
+    #   sorted (JAX compiler paths; the port's fused tail is always kernel B3)
     tail: str = "auto"  # sparse Adagrad tail: auto | xla | pallas.  On the
-    #   card every value runs the rows Adagrad kernel (csrc/
-    #   rows_tail_adagrad.cu; xla names a JAX compiler path the port does not
-    #   have, and says so in the log); on the CPU its plain twin
+    #   card every value runs the layout's Adagrad kernel (csrc/
+    #   rows_tail_adagrad.cu or csrc/fused_tail_adagrad.cu; xla names a JAX
+    #   compiler path the port does not have, and says so in the log); on
+    #   the CPU its plain twin
     thread_num: int = 0  # read for parity; the port parses in one thread
     binary_cache: bool = False  # read to be refused (a later slice)
     shuffle: bool = False  # read to be refused (FMB input, a later slice)
@@ -121,11 +130,6 @@ class Config:
             )
         if self.table_layout not in ("rows", "packed"):
             raise ValueError(f"unknown table_layout {self.table_layout!r} (rows | packed)")
-        if self.table_layout == "packed":
-            raise ValueError(
-                "table_layout = packed is not ported yet (the packed and fused "
-                "layouts are a later slice of fast_tffm_tpu_torch); use rows"
-            )
         if self.checkpoint_format not in ("npz", "orbax"):
             raise ValueError(f"unknown checkpoint_format {self.checkpoint_format!r}")
         if self.checkpoint_format == "orbax":
@@ -184,6 +188,17 @@ class Config:
                 f"unknown adagrad_accumulator {self.adagrad_accumulator!r} "
                 "(element | row | fused)"
             )
+        if self.packed_compact_cap < 0:
+            raise ValueError(f"packed_compact_cap must be >= 0, got {self.packed_compact_cap}")
+        if self.packed_compact_cap > 0 and self.adagrad_accumulator != "fused":
+            raise ValueError(
+                "packed_compact_cap > 0 requires adagrad_accumulator = fused "
+                "(it sizes the fused compact tail's row buffer)"
+            )
+        if self.adagrad_accumulator == "fused" and self.table_layout != "packed":
+            # Fused is a physical layout: the row accumulator stored in the
+            # table's own tile rows, which only the packed layout has.
+            raise ValueError("adagrad_accumulator = fused requires table_layout = packed")
         if self.init_accumulator_value <= 0:
             # A zero accumulator makes the first update of an element with
             # zero summed gradient compute 0/sqrt(0) = NaN.
@@ -196,10 +211,20 @@ class Config:
             raise ValueError(
                 f"[Online] adagrad_decay must be in (0, 1], got {self.online_adagrad_decay}"
             )
+        if self.online_adagrad_decay != 1.0 and self.table_layout != "rows":
+            # The packed tile-row updates rely on the zero-grad accumulator
+            # identity; a lane-blind decay would break it.
+            raise ValueError("[Online] adagrad_decay < 1 requires table_layout = rows")
         if self.online_accum_restart_steps < 0:
             raise ValueError(
                 f"[Online] accum_restart_steps must be >= 0, got "
                 f"{self.online_accum_restart_steps}"
+            )
+        if self.online_accum_restart_steps > 0 and self.adagrad_accumulator == "fused":
+            raise ValueError(
+                "[Online] accum_restart_steps requires adagrad_accumulator "
+                "= element or row (the fused layout has no separate "
+                "accumulator array to reset)"
             )
         if self.dedup_gather_rows < 0:
             raise ValueError(
@@ -211,11 +236,34 @@ class Config:
             )
         if self.on_nan not in ("abort", "rollback"):
             raise ValueError(f"unknown on_nan {self.on_nan!r} (abort | rollback)")
-        if self.adagrad_accumulator == "fused":
+        if self.packed_update not in ("auto", "dense", "compact", "sorted"):
             raise ValueError(
-                "adagrad_accumulator = fused is not ported yet (the packed and "
-                "fused layouts are a later slice of fast_tffm_tpu_torch); use "
-                "element or row"
+                f"unknown packed_update {self.packed_update!r} (auto | dense | compact | sorted)"
+            )
+        if self.packed_update != "auto" and self.table_layout != "packed":
+            raise ValueError(
+                f"packed_update = {self.packed_update} requires table_layout = "
+                "packed (it selects the packed layout's sparse-tail strategy)"
+            )
+        if (
+            self.table_layout == "packed"
+            and self.adagrad_accumulator in ("row", "fused")
+            and self.packed_update == "sorted"
+        ):
+            raise ValueError(
+                "table_layout = packed with adagrad_accumulator = row requires "
+                "packed_update = auto, dense or compact (the sorted "
+                "whole-tile-row RMW needs the element accumulator)"
+            )
+        if (
+            self.tail == "pallas"
+            and self.table_layout == "packed"
+            and self.adagrad_accumulator != "fused"
+        ):
+            raise ValueError(
+                "tail = pallas with table_layout = packed requires "
+                "adagrad_accumulator = fused (the kernel updates the merged "
+                "fused layout's D+1-lane slots in one pass)"
             )
 
 
@@ -329,6 +377,8 @@ def load_config(path: str) -> Config:
         t, "init_accumulator_value", float, cfg.init_accumulator_value
     )
     cfg.adagrad_accumulator = get(t, "adagrad_accumulator", str, cfg.adagrad_accumulator).lower()
+    cfg.packed_update = get(t, "packed_update", str, cfg.packed_update).lower()
+    cfg.packed_compact_cap = get(t, "packed_compact_cap", int, cfg.packed_compact_cap)
     cfg.tail = get(t, "tail", str, cfg.tail).lower()
     cfg.thread_num = get(t, "thread_num", int, cfg.thread_num)
     cfg.binary_cache = get(t, "binary_cache", boolean, cfg.binary_cache)

@@ -1,7 +1,7 @@
 """Load a model for inference, build its scoring function and run the
 offline predict driver — the counterpart of ``fast_tffm_tpu/prediction.py``
-``load_scoring_state`` / ``make_score_fn`` / ``predict`` (rows layout,
-single process; ``dist_predict`` is a later slice).
+``load_scoring_state`` / ``make_score_fn`` / ``predict`` (rows and packed
+layouts, single process; ``dist_predict`` is a later slice).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from fast_tffm_tpu_torch.data.libsvm import scan_max_nnz
 from fast_tffm_tpu_torch.data.pipeline import batch_stream
 from fast_tffm_tpu_torch.device import resolve_device
 from fast_tffm_tpu_torch.models.base import Batch
-from fast_tffm_tpu_torch.trainer import make_predict_step
+from fast_tffm_tpu_torch.trainer import make_packed_predict_step, make_predict_step, pack_state
 from fast_tffm_tpu_torch.utils.prefetch import prefetch
 
 __all__ = ["ScoreFn", "load_scoring_state", "make_score_fn", "predict"]
@@ -40,7 +40,12 @@ class ScoreFn(NamedTuple):
 
 def load_scoring_state(cfg: Config, log=print, device=None):
     """Build the model and restore ``cfg.model_file`` onto ``device``
-    (None = cuda; no CUDA device raises).  Returns (model, state)."""
+    (None = cuda; no CUDA device raises).  Returns (model, state).
+
+    Checkpoints hold the logical arrays, so ``table_layout = packed`` packs
+    the table after the restore: plain packed, never the fused layout, as
+    in the JAX package (scoring only gathers, and the plain gather serves a
+    checkpoint of any accumulator)."""
     device = resolve_device(device)
     model = build_model(cfg)
     state = restore_checkpoint(cfg.model_file, device)
@@ -54,15 +59,21 @@ def load_scoring_state(cfg: Config, log=print, device=None):
         # Row padding of a sharded save: ids never reach past the vocabulary.
         state.table = state.table[: model.vocabulary_size]
     log(f"restored {cfg.model_file} at step {state.step} on {device}")
+    if cfg.table_layout == "packed":
+        state = pack_state(state, cfg.init_accumulator_value)
     return model, state
 
 
 def make_score_fn(cfg: Config, state, max_nnz: int, model=None) -> ScoreFn:
-    """The scoring step for ``state`` (rows layout)."""
-    del state  # one layout in this slice; the packed layouts will read it
+    """The scoring step for ``state``'s layout (``state.layout``: rows,
+    packed, or a live fused training state)."""
     if model is None:
         model = build_model(cfg)
-    return ScoreFn(fn=make_predict_step(model), model=model, max_nnz=int(max_nnz))
+    if state.layout == "rows":
+        fn = make_predict_step(model)
+    else:
+        fn = make_packed_predict_step(model, fused=state.layout == "fused")
+    return ScoreFn(fn=fn, model=model, max_nnz=int(max_nnz))
 
 
 def predict(cfg: Config, log=print, device=None) -> str:

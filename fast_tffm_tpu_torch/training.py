@@ -10,13 +10,20 @@ wording), a non-finite loss check before any save, the validation AUC over
 ``validation_files`` and a save every ``save_every_epochs`` epochs; the
 final state is saved and returned.  ``device`` None means the card.
 
-The sparse tail is always the rows Adagrad kernel's wrapper
-(``trainer.train_step_body``): the kernel on the card, whatever ``[Train]
-tail`` says, and its plain twin on the CPU; ``tail = xla`` (a JAX compiler
-path the port has no counterpart of) says so in the log on the card.  The
-telemetry monitor, the async/delta checkpointer, rollback, signals, step
-fusion and the other input paths are later slices; ``train`` refuses
-their config keys before it touches a device.
+Two table layouts train.  ``rows``: the sparse tail is the rows Adagrad
+kernel's wrapper (``trainer.train_step_body``).  ``packed`` with
+``adagrad_accumulator = fused``: the state is lane-packed
+(``trainer.pack_state(fused=True)``) after the logical restore or init,
+steps gather through ``fused_gather`` and end in the fused Adagrad kernel
+(``trainer.packed_train_step_body``), validation scores through the fused
+gather, and every save writes the logical arrays (``trainer.unpack_state``).
+Either tail is its kernel on the card, whatever ``[Train] tail`` and
+``packed_update`` say, and its plain twin on the CPU; a setting that names
+a JAX compiler path the port has no counterpart of says so in the log on
+the card.  The packed element/row tails, the telemetry monitor, the
+async/delta checkpointer, rollback, signals, step fusion and the other
+input paths are later slices; ``train`` refuses their config keys before
+it touches a device.
 """
 
 from __future__ import annotations
@@ -31,7 +38,16 @@ from fast_tffm_tpu_torch.data.pipeline import batch_stream
 from fast_tffm_tpu_torch.device import resolve_device
 from fast_tffm_tpu_torch.metrics import StreamingAUC, Throughput
 from fast_tffm_tpu_torch.models.base import Batch
-from fast_tffm_tpu_torch.trainer import init_state, make_predict_step, make_train_step
+from fast_tffm_tpu_torch.trainer import (
+    init_packed_state,
+    init_state,
+    make_packed_predict_step,
+    make_packed_train_step,
+    make_predict_step,
+    make_train_step,
+    pack_state,
+    unpack_state,
+)
 from fast_tffm_tpu_torch.utils.prefetch import prefetch
 
 __all__ = ["train", "NonFiniteLossError"]
@@ -89,6 +105,9 @@ def _mean(losses) -> float:
 def _refuse_later_slices(cfg: Config) -> None:
     """The training settings whose paths are later slices of the port."""
     refuse_later_slices("train", [
+        (cfg.table_layout == "packed" and cfg.adagrad_accumulator != "fused",
+         f"table_layout = packed with adagrad_accumulator = {cfg.adagrad_accumulator} "
+         "(the XLA packed tails)"),
         (cfg.shuffle, "shuffle = true (FMB memmap input)"),
         (cfg.binary_cache, "binary_cache = true (FMB input)"),
         (cfg.device_cache, "device_cache = true"),
@@ -111,7 +130,9 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
 
     ``resume`` restores ``cfg.model_file`` (table, accumulators, step);
     otherwise the state is a fresh init from a seeded generator.  Returns
-    the final state, which is also saved to ``cfg.model_file``."""
+    the final state in the layout it trained in (a fused state for
+    ``table_layout = packed``); its logical arrays are saved to
+    ``cfg.model_file``."""
     _refuse_later_slices(cfg)
     if not cfg.train_files:
         raise ValueError("no train_files configured")
@@ -123,7 +144,10 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
     device = resolve_device(device)
     model = build_model(cfg)
     max_nnz = scan_max_nnz(cfg)
+    fused = cfg.table_layout == "packed"  # and so adagrad_accumulator = fused
     if resume:
+        # The logical arrays first, packed after (never a fresh packed state
+        # beside them).
         accum_width = model.row_dim if cfg.adagrad_accumulator == "element" else 1
         state = restore_checkpoint(cfg.model_file, device, accum_width=accum_width)
         if state.table.shape != (model.vocabulary_size, model.row_dim):
@@ -131,7 +155,9 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
                 f"checkpoint {cfg.model_file!r} holds a {tuple(state.table.shape)} table; "
                 f"this config trains [{model.vocabulary_size}, {model.row_dim}]"
             )
-        log(f"resumed from {cfg.model_file} at step {state.step}")
+        if fused:
+            state = pack_state(state, cfg.init_accumulator_value, fused=True)
+        log(f"resumed from {cfg.model_file} at step {state.step}" + (" (packed)" if fused else ""))
         # No input cursor in this slice's checkpoints: the input restarts at
         # the first file, as the JAX package does for a cursorless one.
         log(
@@ -139,19 +165,27 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
             "format) — input restarts at the first file (legacy resume)"
         )
     else:
-        state = init_state(
-            model,
-            torch.Generator(device=device).manual_seed(0),
-            cfg.init_accumulator_value,
-            cfg.adagrad_accumulator,
-        )
-    if device.type == "cuda" and cfg.tail == "xla":
+        generator = torch.Generator(device=device).manual_seed(0)
+        if fused:
+            state = init_packed_state(model, generator, cfg.init_accumulator_value)
+        else:
+            state = init_state(
+                model, generator, cfg.init_accumulator_value, cfg.adagrad_accumulator
+            )
+    kernel = "fused Adagrad kernel" if fused else "rows Adagrad kernel"
+    if device.type == "cuda" and (cfg.tail == "xla" or cfg.packed_update != "auto"):
         log(
-            "note: tail = xla names the JAX compiler's gather/scatter chain, "
-            "which the port does not have; running the rows Adagrad kernel"
+            f"note: tail = {cfg.tail}, packed_update = {cfg.packed_update} name JAX "
+            "compiler paths for the same update, which the port does not have; "
+            f"running the {kernel}"
         )
-    step_fn = make_train_step(model, cfg.learning_rate, decay=cfg.online_adagrad_decay)
-    predict_step = make_predict_step(model)
+    if fused:
+        log("sparse tail: fused_tail_adagrad (fused one-pass gather→Adagrad→scatter)")
+        step_fn = make_packed_train_step(model, cfg.learning_rate, cfg.packed_compact_cap)
+        predict_step = make_packed_predict_step(model, fused=True)
+    else:
+        step_fn = make_train_step(model, cfg.learning_rate, decay=cfg.online_adagrad_decay)
+        predict_step = make_predict_step(model)
     weights = cfg.weight_files or None
 
     meter = Throughput()
@@ -188,9 +222,9 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
             val_auc = _evaluate(cfg, predict_step, state, cfg.validation_files, max_nnz, device)
             log(f"epoch {epoch} validation auc {val_auc:.5f}")
         if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
-            save_checkpoint(cfg.model_file, state)
+            save_checkpoint(cfg.model_file, unpack_state(state, model))
             log(f"epoch {epoch} checkpoint -> {cfg.model_file}")
-    save_checkpoint(cfg.model_file, state)
+    save_checkpoint(cfg.model_file, unpack_state(state, model))
     log(f"training done: steps {start_step}->{state.step}, model -> {cfg.model_file}")
     return state
 

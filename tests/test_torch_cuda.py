@@ -21,13 +21,27 @@ from fast_tffm_tpu_torch.ops.anova import (
 from fast_tffm_tpu_torch.models.base import Batch
 from fast_tffm_tpu_torch.models.fm import FMModel
 from fast_tffm_tpu_torch.ops.fm import fm_score
-from fast_tffm_tpu_torch.ops.tail import rows_tail_adagrad_update
+from fast_tffm_tpu_torch.ops.packed_table import (
+    fused_rows_per_tile,
+    fused_slots,
+    pack_fused,
+    unpack_fused,
+)
+from fast_tffm_tpu_torch.ops.tail import (
+    fused_adagrad_plain,
+    fused_tail_adagrad_update,
+    fused_tail_apply,
+    rows_tail_adagrad_update,
+)
 from fast_tffm_tpu_torch.optim import dedup_rows, sparse_adagrad_update
 from fast_tffm_tpu_torch.trainer import (
     init_state,
     make_decayed_body,
+    make_packed_train_step,
     make_pallas_tail_body,
     make_train_step,
+    pack_state,
+    unpack_state,
 )
 
 pytestmark = pytest.mark.cuda
@@ -193,3 +207,107 @@ def test_every_step_body_runs_the_tail_kernel_on_the_card(cuda, body):
     cpu, card = states["cpu"], states[str(cuda)]
     torch.testing.assert_close(card.table.cpu(), cpu.table, rtol=1e-5, atol=1e-7)
     torch.testing.assert_close(card.table_accum.cpu(), cpu.table_accum, rtol=1e-5, atol=1e-7)
+
+
+def _fused_case(rng, v, d, m, ids_from, cuda):
+    table = torch.from_numpy(rng.uniform(-0.1, 0.1, size=(v, d)).astype(np.float32)).to(cuda)
+    accum = torch.from_numpy(rng.uniform(0.1, 0.5, size=(v, 1)).astype(np.float32)).to(cuda)
+    ids = {
+        "zipf": lambda: rng.zipf(1.3, size=m) % v,
+        "uniform": lambda: rng.integers(0, v, size=m),
+        "unique": lambda: rng.choice(v, size=m, replace=False),
+    }[ids_from]()
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    grads = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(cuda)
+    return table, accum, ids, grads
+
+
+@pytest.mark.parametrize(
+    "v,d,m,ids_from,decay",
+    [
+        ((1 << 20), 9, 180224, "uniform", 1.0),  # baseline5's batch: K ~ 165k of 2^20
+        ((1 << 20), 9, 180224, "zipf", 0.9),
+        (100, 9, 1, "unique", 1.0),  # K = 1
+        (4099, 9, 1001, "unique", 1.0),  # K = 1001; V off the tile row (4099 % 12 = 7)
+        (640, 7, 3000, "zipf", 1.0),  # D + 1 = 8 divides 128
+        (300, 64, 500, "zipf", 1.0),  # P = 1
+    ],
+)
+def test_fused_tail_kernel_is_bitwise_its_twin_and_the_rows_kernel(cuda, v, d, m, ids_from, decay):
+    """B3 against its plain twin on the card (same dedup), and after
+    unpacking against B4 in row mode on the logical clones: bitwise."""
+    rng = np.random.default_rng(v + d + m)
+    table, accum, ids, grads = _fused_case(rng, v, d, m, ids_from, cuda)
+    fused = pack_fused(table, accum, 0.1)
+    before = fused_tail_adagrad_update.launches
+    got = fused_tail_adagrad_update(fused.clone(), ids, grads, 0.05, decay=decay)
+    torch.cuda.synchronize()
+    assert fused_tail_adagrad_update.launches == before + 1
+    uids, gsum = dedup_rows(ids, grads)
+    twin = fused_adagrad_plain(fused.clone(), uids, gsum, 0.05, decay)  # on the card
+    assert torch.equal(got, twin)
+    t_r, a_r = table.clone(), accum.clone()
+    rows_tail_adagrad_update(t_r, a_r, ids, grads, 0.05, decay=decay)
+    t_f, a_f = unpack_fused(got, v, d)
+    assert torch.equal(t_f, t_r) and torch.equal(a_f, a_r)
+    # Untouched slots, pad slots and tail lanes: bitwise unchanged.
+    assert torch.equal(_blank_touched(got, ids, d), _blank_touched(fused, ids, d))
+
+
+def _blank_touched(fused, ids, d):
+    """``fused`` with the slots of ``ids`` zeroed: what the update must leave."""
+    out = fused.clone()
+    p = fused_rows_per_tile(d)
+    i = ids.long().unique()
+    fused_slots(out, d)[i // p, i % p] = 0.0
+    return out
+
+
+def test_fused_tail_launches_nothing_at_k0_and_refuses_what_it_does_not_take(cuda):
+    fused = pack_fused(torch.zeros((24, 9), device=cuda), torch.full((24, 1), 0.1, device=cuda), 0.1)
+    before = fused_tail_adagrad_update.launches
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    fused_tail_apply(fused, empty, torch.zeros((0, 9), device=cuda), 0.05)
+    assert fused_tail_adagrad_update.launches == before
+    uids = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
+    gsum = torch.ones((2, 9), device=cuda)
+    with pytest.raises(ValueError):
+        fused_tail_apply(fused, uids.long(), gsum, 0.05)  # int64 ids
+    with pytest.raises(ValueError):
+        fused_tail_apply(fused, uids, gsum.double(), 0.05)
+    with pytest.raises(ValueError):
+        fused_tail_apply(fused, uids, torch.ones((9, 2), device=cuda).t(), 0.05)  # not contiguous
+    with pytest.raises(ValueError):
+        fused_tail_apply(fused[:, :64], uids, gsum, 0.05)  # not [VPf, 128]
+    with pytest.raises(ValueError):
+        fused_tail_apply(fused, uids, torch.ones((3, 9), device=cuda), 0.05)
+    assert fused_tail_adagrad_update.launches == before
+
+
+def test_packed_fused_train_step_on_the_card_matches_the_cpu(cuda):
+    """Three fused train steps (order 3): one B3 launch each, and the card's
+    logical table and accumulator within 1e-7 of the CPU's."""
+    model = FMModel(vocabulary_size=4099, factor_num=8, order=3)
+    rng = np.random.default_rng(13)
+    batch = Batch(
+        labels=torch.from_numpy(rng.integers(0, 2, size=64).astype(np.float32)),
+        ids=torch.from_numpy(rng.integers(0, 4099, size=(64, 11)).astype(np.int32)),
+        vals=torch.from_numpy(rng.uniform(0.1, 1.0, size=(64, 11)).astype(np.float32)),
+        fields=torch.zeros((64, 0), dtype=torch.int32),
+        weights=torch.ones(64),
+    )
+    states = {}
+    for dev in ("cpu", cuda):
+        st = init_state(model, torch.Generator(device="cpu").manual_seed(3), 0.1, "row")
+        st.table, st.table_accum = st.table.to(dev), st.table_accum.to(dev)
+        st = pack_state(st, 0.1, fused=True)
+        step = make_packed_train_step(model, 0.05)
+        before = fused_tail_adagrad_update.launches
+        for _ in range(3):
+            st, _ = step(st, batch.to(dev))
+        torch.cuda.synchronize()
+        assert fused_tail_adagrad_update.launches - before == (3 if dev == cuda else 0)
+        states[str(dev)] = unpack_state(st, model)
+    cpu, card = states["cpu"], states[str(cuda)]
+    torch.testing.assert_close(card.table.cpu(), cpu.table, rtol=0, atol=1e-7)
+    torch.testing.assert_close(card.table_accum.cpu(), cpu.table_accum, rtol=0, atol=1e-7)

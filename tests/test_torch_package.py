@@ -188,7 +188,7 @@ def test_kernel_build_reports_a_failed_compile(monkeypatch, tmp_path):
 
 
 def test_every_kernel_source_exists():
-    for name in ("anova_fwd", "anova_bwd", "rows_tail_adagrad"):
+    for name in ("anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad"):
         assert os.path.isfile(os.path.join(kernel_build.CSRC_DIR, f"{name}.cu")), name
     assert "arch=compute_90a,code=sm_90a" in kernel_build.NVCC_FLAGS
 
@@ -196,9 +196,7 @@ def test_every_kernel_source_exists():
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_reads_every_repo_config_like_jax_or_refuses_it(path):
     want = jax_load_config(path)
-    servable = (
-        want.model == "fm" and want.table_layout == "rows" and want.checkpoint_format == "npz"
-    )
+    servable = want.model == "fm" and want.checkpoint_format == "npz"
     if not servable:
         with pytest.raises(ValueError, match="later slice"):
             load_config(path)
@@ -214,7 +212,8 @@ def test_reads_every_repo_config_like_jax_or_refuses_it(path):
         (dict(model="ffm"), "later slice"),
         (dict(model="deepfm"), "later slice"),
         (dict(model="xyz"), "unknown model"),
-        (dict(table_layout="packed"), "later slice"),
+        (dict(table_layout="packed", adagrad_accumulator="fused", online_adagrad_decay=0.9),
+         "requires table_layout = rows"),
         (dict(checkpoint_format="orbax"), "later slice"),
         (dict(order=1), "order"),
         (dict(serve_buckets=()), "serve_buckets"),
@@ -222,13 +221,21 @@ def test_reads_every_repo_config_like_jax_or_refuses_it(path):
         (dict(serve_overload="drop"), "serve_overload"),
         (dict(serve_classes="gold:x"), "serve_classes"),
         (dict(wire_format="x"), "wire_format"),
-        (dict(adagrad_accumulator="fused"), "later slice"),
+        (dict(adagrad_accumulator="fused"), "requires table_layout = packed"),
         (dict(adagrad_accumulator="xyz"), "adagrad_accumulator"),
         (dict(tail="xyz"), "tail"),
         (dict(online_adagrad_decay=0.0), "adagrad_decay"),
         (dict(init_accumulator_value=0.0), "init_accumulator_value"),
         (dict(on_nan="retry"), "on_nan"),
         (dict(batch_size=0), "batch_size"),
+        # The JAX package's layout checks.
+        (dict(packed_compact_cap=8), "requires adagrad_accumulator = fused"),
+        (dict(packed_update="dense"), "requires table_layout = packed"),
+        (dict(table_layout="packed", adagrad_accumulator="fused", packed_update="sorted"),
+         "packed_update = auto, dense or compact"),
+        (dict(table_layout="packed", tail="pallas"), "requires adagrad_accumulator = fused"),
+        (dict(table_layout="packed", adagrad_accumulator="fused",
+              online_accum_restart_steps=10), "no separate accumulator"),
     ],
 )
 def test_config_refusals(kw, needle):
@@ -251,6 +258,8 @@ TRAIN_ONLY = [
     dict(metrics_path="m.jsonl"),
     dict(trace_dir="trace"),
     dict(telemetry_profile_steps="2:4"),
+    dict(table_layout="packed"),  # the element accumulator: an XLA packed tail
+    dict(table_layout="packed", adagrad_accumulator="row"),
 ]
 
 
@@ -274,7 +283,8 @@ def test_predict_refuses_later_slice_settings(kw, tmp_path):
 
 def test_serve_takes_a_config_with_training_only_settings(tmp_path):
     """Serving reads none of the training settings a later slice owns, so
-    a config written for training (shuffle, telemetry, step fusion) serves."""
+    a config written for training (shuffle, telemetry, step fusion, the
+    packed layout with an element accumulator) serves."""
     rng = np.random.default_rng(1)
     model = tmp_path / "m.ckpt"
     with open(model, "wb") as f:
@@ -283,11 +293,12 @@ def test_serve_takes_a_config_with_training_only_settings(tmp_path):
     cfg = tmp_path / "c.cfg"
     cfg.write_text(
         f"[General]\norder = 3\nfactor_num = 4\nvocabulary_size = 32\nmodel_file = {model}\n"
+        "table_layout = packed\n"
         "[Train]\nmax_nnz = 4\nshuffle = true\nbinary_cache = true\nsteps_per_call = 4\n"
         "metrics_path = m.jsonl\n[Checkpoint]\nasync_save = true\n"
     )
     loaded = load_config(str(cfg))
-    assert loaded.shuffle and loaded.steps_per_call == 4
+    assert loaded.shuffle and loaded.steps_per_call == 4 and loaded.table_layout == "packed"
     out = io.StringIO()
     serve_lines(loaded, ["1 1:0.5 2:1.0\n", "0 7:1\n"], out, log=lambda *_: None, device="cpu")
     scores = [float(x) for x in out.getvalue().split()]
