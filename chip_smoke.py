@@ -8,7 +8,8 @@ last line:
 
   device    the card's name and, as nvidia-smi reports them, name and power limit
   build     every CUDA kernel of the ported paths, built from csrc/ with nvcc
-            (one nvcc per source, all started together)
+            (one nvcc per source, all started together); each kernel
+            function's registers, spills and shared memory from -Xptxas=-v
   anova_fwd the ANOVA forward kernel against its plain PyTorch version on the
             card (rtol 1e-5, atol 1e-6) at the serving and training shapes,
             with each one's median time per call by CUDA events (ms), its
@@ -19,19 +20,25 @@ last line:
             {3, 4}, a ragged shape and the criteo width N = 39
   data      tools/gen_synthetic.py writes 24 x 16384 baseline5-shaped train
             rows (--seed 7) and 2 x 16384 validation rows (--seed 8)
-  rows_tail the rows Adagrad kernel against optim.sparse_adagrad_update on
-            clones of one full-width [2^20, 9] state with the first training
-            batch's ids: element and row accumulators, decay 1 and 0.9, one
-            id, and 1001 unique ids (off any power-of-two block); element at
-            decay 1 bitwise equal, the rest within rtol 1e-6; kernel, dedup,
-            plain and bound times
+  rows_tail the rows Adagrad kernel (B4: torch.sort, then one launch on the
+            sorted ids) against optim.sparse_adagrad_update on clones of one
+            full-width [2^20, 9] state with the first training batch's ids:
+            element and row accumulators, decay 1 and 0.9, one id, 1001
+            unique ids, and the hot id 0 of a 1000-row batch padded to
+            16384; every case bitwise equal.  Times (tail_timings): the
+            kernel alone on the sort's output (events; device time L2-warm
+            and after a 64 MiB write), the update (sort + kernel), the
+            kernel on deduped input, dedup_rows alone, dedup_rows + kernel,
+            the hot-id update, the plain twin; bounds for M occurrences and
+            for deduped input, and the M-occurrence bound in whole sectors
   fused_tail the fused Adagrad kernel (B3) on a full-width fused state packed
             from a seeded [2^20, 9] table and [2^20, 1] accumulator, against
             its plain version on the card, bitwise, at decay 1 and 0.9 for
-            the first batch's ids, one id, 1001 ids and the ids of the last,
-            partial tile row (V-4 .. V-1); untouched slots and pad lanes
-            unchanged; unpacked, bitwise equal to the rows kernel in row
-            mode on the logical clones; kernel, dedup, plain and bound times
+            the first batch's ids, one id, 1001 ids, the ids of the last,
+            partial tile row (V-4 .. V-1) and the padded batch's hot id 0;
+            untouched slots and pad lanes unchanged; unpacked, bitwise
+            equal to the rows kernel in row mode on the logical clones; the
+            same times as rows_tail
   train     configs/baseline5_fm_order3_kdd.cfg at full width trained for
             24 steps on cuda through training.train (resume from a seeded
             npz; the run traced by torch.profiler), then the same on the CPU:
@@ -72,6 +79,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -236,11 +244,75 @@ def bwd_bound(b: int, n: int, k: int, order: int) -> tuple[float, str]:
     return _bound(4 * (2 * b * n * k + b), 2 * b * k * n * (3 * order - 2))
 
 
-def tail_bound(k: int, d: int, a: int) -> tuple[float, str]:
-    """The update of K unique rows: table and accumulator rows read and
-    written once, gradient rows and ids read once; ~6 flops a table element
-    (g², add, lr·g, sqrt, divide, subtract)."""
-    return _bound(k * (4 * (2 * d + 2 * a + d) + 4), 6 * k * d)
+def tail_bound(m: int, k: int, d: int, a: int) -> tuple[float, str]:
+    """The tail kernels' work: M sorted occurrences onto K unique rows.
+    Per occurrence the sorted id (4 B), the sort's int64 index and the
+    gradient row read once, one add per gradient element; per unique row
+    the table row and its A accumulator floats (a fused slot: A = 1) read
+    and written once, ~6 flops a table element (g², add, lr·g, sqrt,
+    divide, subtract).  On deduped input M = K."""
+    return _bound(m * (4 + 8 + 4 * d) + k * 8 * (d + a), m * d + 6 * k * d)
+
+
+def tail_sector_bound(m: int, k: int, d: int, a: int, fused: bool) -> float:
+    """``tail_bound``'s bytes counted in the 32-byte sectors the card moves:
+    a random row of b bytes at an a-byte aligned offset spans (b - a)/32 + 1
+    sectors on average (a 36-byte table row 2, a 4-byte row accumulator 1,
+    a 40-byte fused slot 2).  The sorted ids and indices stream whole.
+    Returns ms at the memory rate."""
+    spans = lambda b, align: (b - align) / 32 + 1  # noqa: E731
+    row = 2 * 32 * (spans(4 * (d + 1), 8) if fused else spans(4 * d, 4) + spans(4 * a, 4))
+    return 1e3 * (m * (12 + 32 * spans(4 * d, 4)) + k * row) / HBM_BYTES_PER_S
+
+
+def flushed(fn):
+    """``fn`` after writing a 64 MiB buffer, more than the H100's 50 MB L2,
+    so ``fn`` finds none of its operands in the cache."""
+    import torch
+
+    buf = torch.empty(16 << 20, device="cuda")
+
+    def run():
+        buf.fill_(1.0)
+        fn()
+
+    return run
+
+
+def _padded_batch(ids, grads, real: int = 1000):
+    """The first ``real`` rows of a batch, padded back to its size as
+    data/libsvm.pad_batch pads a short last batch: every pad slot id 0,
+    with the zero gradient a weight-0 row gets."""
+    hot_ids, hot_grads = ids.clone(), grads.clone()
+    hot_ids[real:] = 0
+    hot_grads[real:] = 0.0
+    return hot_ids, hot_grads
+
+
+def _tail_timings(kern: str, kernel, update, apply, dedup, dedup_apply, hot, plain) -> dict:
+    """The tail timings of one call: the kernel alone on the sort's output
+    (events; device time by name, L2-warm and after a 64 MiB write), the
+    update (sort + kernel), the kernel on deduped input, the dedup alone,
+    the dedup + kernel on its output (a separate dedup pass), the hot-id update
+    and the plain twin on the sort's output."""
+    return {
+        "ms": time_ms(kernel, 100),
+        "device_ms": device_ms(kernel, 30, kern),
+        "device_ms_flushed": device_ms(flushed(kernel), 30, kern),
+        "update_ms": time_ms(update, 100),
+        "update_device_ms": device_ms(update, 30, None),
+        "apply_ms": time_ms(apply, 100),
+        "apply_device_ms": device_ms(apply, 30, kern),
+        "dedup_ms": time_ms(dedup, 30),
+        "dedup_device_ms": device_ms(dedup, 10, None),
+        "dedup_apply_ms": time_ms(dedup_apply, 30),
+        "dedup_apply_device_ms": device_ms(dedup_apply, 10, None),
+        "hot_update_ms": time_ms(hot, 10),
+        "hot_update_device_ms": device_ms(hot, 5, None),
+        "hot_device_ms": device_ms(hot, 5, kern),
+        "plain_ms": time_ms(plain, 30),
+        "plain_device_ms": device_ms(plain, 10, None),
+    }
 
 
 def _check_close(name: str, got, want, rtol: float, atol: float, where: str) -> tuple[float, float]:
@@ -278,6 +350,25 @@ def phase_device():
     return info
 
 
+def _ptxas_report(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel
+    function in nvcc's ``-Xptxas=-v`` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            out[name].update(registers=int(m.group(1)), smem_bytes=int(m.group(2)))
+    return out
+
+
 def phase_build():
     from fast_tffm_tpu_torch.ops import kernel_build
 
@@ -289,6 +380,7 @@ def phase_build():
         "phase": "build",
         "seconds": round(time.perf_counter() - t0, 3),
         "kernels": {k: round(v["seconds"], 3) for k, v in report.items()},
+        "ptxas": {k: _ptxas_report(v["log"]) for k, v in report.items()},
     })
 
 
@@ -410,8 +502,13 @@ def phase_rows_tail(rng, train_path: str):
     import numpy as np
     import torch
 
-    from fast_tffm_tpu_torch.ops.tail import rows_tail_adagrad_update, rows_tail_apply
-    from fast_tffm_tpu_torch.optim import adagrad_rows_plain, dedup_rows, sparse_adagrad_update
+    from fast_tffm_tpu_torch.ops.tail import (
+        rows_tail_adagrad_update,
+        rows_tail_apply,
+        rows_tail_sorted,
+        rows_tail_sorted_plain,
+    )
+    from fast_tffm_tpu_torch.optim import dedup_rows, sparse_adagrad_update
 
     vocab, d, lr = 1 << 20, 1 + 8, 0.05
     ids = torch.from_numpy(_first_batch_ids(train_path, vocab)).cuda()
@@ -422,22 +519,23 @@ def phase_rows_tail(rng, train_path: str):
         "element": torch.from_numpy(rng.uniform(0.1, 0.5, size=(vocab, d)).astype(np.float32)).cuda(),
         "row": torch.from_numpy(rng.uniform(0.1, 0.5, size=(vocab, 1)).astype(np.float32)).cuda(),
     }
-    odd_ids = torch.unique(ids)[:1001].to(torch.int32)  # K = 1001 = 7·11·13
-    odd_grads = grads.reshape(-1, d)[:1001]
+    sets = {
+        "batch": (ids, grads),
+        "one id": (ids[:1, :1], grads[:1, :1]),
+        "1001 ids": (torch.unique(ids)[:1001].to(torch.int32),  # K = 1001 = 7·11·13
+                     grads.reshape(-1, d)[:1001]),
+        "hot id 0": _padded_batch(ids, grads),
+    }
     cases = [
         ("element", 1.0, "batch"), ("element", 0.9, "batch"),
         ("row", 1.0, "batch"), ("row", 0.9, "batch"),
         ("element", 1.0, "one id"), ("row", 1.0, "one id"),
         ("element", 1.0, "1001 ids"), ("row", 0.9, "1001 ids"),
+        ("element", 1.0, "hot id 0"), ("row", 0.9, "hot id 0"),
     ]
-    worst, main = 0.0, None
+    main = None
     for acc, decay, which in cases:
-        if which == "batch":
-            c_ids, c_grads = ids, grads
-        elif which == "one id":
-            c_ids, c_grads = ids[:1, :1], grads[:1, :1]
-        else:
-            c_ids, c_grads = odd_ids, odd_grads
+        c_ids, c_grads = sets[which]
         t_k, a_k = table.clone(), accums[acc].clone()
         t_p, a_p = table.clone(), accums[acc].clone()
         rows_tail_adagrad_update(t_k, a_k, c_ids, c_grads, lr, decay=decay)
@@ -445,38 +543,35 @@ def phase_rows_tail(rng, train_path: str):
         torch.cuda.synchronize()
         k = int(torch.unique(c_ids).numel())
         where = f"{acc} accumulator, decay {decay}, {which} (K={k})"
-        bitwise = bool(torch.equal(t_k, t_p) and torch.equal(a_k, a_p))
-        if acc == "element" and decay == 1.0:
-            if not bitwise:
-                fail(f"rows_tail is not bitwise equal to its plain version: {where}")
-            abs_err = 0.0
-        else:
-            abs_err, _ = _check_close("rows_tail (table)", t_k, t_p, 1e-6, 0.0, where)
-            _check_close("rows_tail (accum)", a_k, a_p, 1e-6, 0.0, where)
-        worst = max(worst, abs_err)
+        if not (torch.equal(t_k, t_p) and torch.equal(a_k, a_p)):
+            err = float(max((t_k - t_p).abs().max(), (a_k - a_p).abs().max()))
+            fail(f"rows_tail is not bitwise equal to its plain version: {where}, max abs err {err}")
         rec = {"phase": "rows_tail", "accumulator": acc, "decay": decay, "ids": which,
-               "K": k, "bitwise": bitwise, "max_abs_err": abs_err}
+               "M": int(c_ids.numel()), "K": k, "bitwise": True, "max_abs_err": 0.0}
         if which == "batch" and decay == 1.0:
             flat_ids, flat_g = c_ids.reshape(-1), c_grads.reshape(-1, d)
             uids, gsum = dedup_rows(flat_ids, flat_g)
-            bound_ms, bound_by = tail_bound(k, d, a_k.shape[1])
-            kern = f"rows_{acc}_kernel"
-            rec.update({
-                "ms": time_ms(lambda: rows_tail_apply(t_k, a_k, uids, gsum, lr), 100),
-                "device_ms": device_ms(lambda: rows_tail_apply(t_k, a_k, uids, gsum, lr), 30, kern),
-                "dedup_ms": time_ms(lambda: dedup_rows(flat_ids, flat_g), 30),
-                "dedup_device_ms": device_ms(lambda: dedup_rows(flat_ids, flat_g), 10, None),
-                "update_ms": time_ms(
-                    lambda: rows_tail_adagrad_update(t_k, a_k, c_ids, c_grads, lr), 30),
-                "plain_ms": time_ms(lambda: adagrad_rows_plain(t_p, a_p, uids, gsum, lr), 30),
-                "plain_device_ms": device_ms(
-                    lambda: adagrad_rows_plain(t_p, a_p, uids, gsum, lr), 10, None),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-            })
+            sid, order = torch.sort(flat_ids, stable=True)
+            hot_ids, hot_grads = sets["hot id 0"]
+            m, a = flat_ids.numel(), a_k.shape[1]
+            rec.update(_tail_timings(
+                f"rows_{acc}_kernel",
+                kernel=lambda: rows_tail_sorted(t_k, a_k, sid, order, flat_g, lr),
+                update=lambda: rows_tail_adagrad_update(t_k, a_k, c_ids, c_grads, lr),
+                apply=lambda: rows_tail_apply(t_k, a_k, uids, gsum, lr),
+                dedup=lambda: dedup_rows(flat_ids, flat_g),
+                dedup_apply=lambda: rows_tail_apply(t_k, a_k, *dedup_rows(flat_ids, flat_g), lr),
+                hot=lambda: rows_tail_adagrad_update(t_k, a_k, hot_ids, hot_grads, lr),
+                plain=lambda: rows_tail_sorted_plain(t_p, a_p, sid, order, flat_g, lr),
+            ))
+            rec["bound_ms"], rec["bound_by"] = tail_bound(m, k, d, a)
+            rec["sector_bound_ms"] = tail_sector_bound(m, k, d, a, fused=False)
+            rec["apply_bound_ms"] = tail_bound(k, k, d, a)[0]
+            rec["hot_K"] = int(torch.unique(hot_ids).numel())
             if acc == "element":
                 main = rec
         emit(rec)
-    return worst, main
+    return 0.0, main
 
 
 def _blank_touched(fused, ids, d: int):
@@ -500,6 +595,8 @@ def phase_fused_tail(rng, train_path: str):
         fused_adagrad_plain,
         fused_tail_adagrad_update,
         fused_tail_apply,
+        fused_tail_sorted,
+        fused_tail_sorted_plain,
         rows_tail_adagrad_update,
     )
     from fast_tffm_tpu_torch.optim import dedup_rows
@@ -518,6 +615,7 @@ def phase_fused_tail(rng, train_path: str):
         "1001 ids": (torch.unique(ids)[:1001].to(torch.int32), flat_g[:1001]),
         "last tile row": (torch.arange(vocab - 4, vocab, dtype=torch.int32, device="cuda"),
                           flat_g[:4]),
+        "hot id 0": _padded_batch(ids, grads),
     }
     main = None
     for decay in (1.0, 0.9):
@@ -541,24 +639,27 @@ def phase_fused_tail(rng, train_path: str):
                 fail(f"fused_tail changed lanes outside the touched slots: {where}")
             if torch.equal(got, fused):
                 fail(f"fused_tail changed nothing: {where}")
-            rec = {"phase": "fused_tail", "decay": decay, "ids": which, "K": k,
+            rec = {"phase": "fused_tail", "decay": decay, "ids": which,
+                   "M": int(c_ids.numel()), "K": k,
                    "bitwise": True, "bitwise_rows_row": True, "max_abs_err": 0.0}
             if which == "batch" and decay == 1.0:
                 flat_ids = c_ids.reshape(-1)
-                bound_ms, bound_by = tail_bound(k, d, 1)
-                rec.update({
-                    "ms": time_ms(lambda: fused_tail_apply(got, uids, gsum, lr), 100),
-                    "device_ms": device_ms(
-                        lambda: fused_tail_apply(got, uids, gsum, lr), 30, "fused_slot_kernel"),
-                    "dedup_ms": time_ms(lambda: dedup_rows(flat_ids, flat_g), 30),
-                    "dedup_device_ms": device_ms(lambda: dedup_rows(flat_ids, flat_g), 10, None),
-                    "update_ms": time_ms(
-                        lambda: fused_tail_adagrad_update(got, c_ids, c_grads, lr), 30),
-                    "plain_ms": time_ms(lambda: fused_adagrad_plain(twin, uids, gsum, lr), 30),
-                    "plain_device_ms": device_ms(
-                        lambda: fused_adagrad_plain(twin, uids, gsum, lr), 10, None),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                })
+                sid, order = torch.sort(flat_ids, stable=True)
+                hot_ids, hot_grads = sets["hot id 0"]
+                rec.update(_tail_timings(
+                    "fused_slot_kernel",
+                    kernel=lambda: fused_tail_sorted(got, sid, order, flat_g, lr),
+                    update=lambda: fused_tail_adagrad_update(got, c_ids, c_grads, lr),
+                    apply=lambda: fused_tail_apply(got, uids, gsum, lr),
+                    dedup=lambda: dedup_rows(flat_ids, flat_g),
+                    dedup_apply=lambda: fused_tail_apply(got, *dedup_rows(flat_ids, flat_g), lr),
+                    hot=lambda: fused_tail_adagrad_update(got, hot_ids, hot_grads, lr),
+                    plain=lambda: fused_tail_sorted_plain(twin, sid, order, flat_g, lr),
+                ))
+                rec["bound_ms"], rec["bound_by"] = tail_bound(flat_ids.numel(), k, d, 1)
+                rec["sector_bound_ms"] = tail_sector_bound(flat_ids.numel(), k, d, 1, fused=True)
+                rec["apply_bound_ms"] = tail_bound(k, k, d, 1)[0]
+                rec["hot_K"] = int(torch.unique(hot_ids).numel())
                 main = rec
             emit(rec)
     return 0.0, main

@@ -60,7 +60,7 @@ class Config:
     #   semantics, the accumulator stored in the packed table's own tile
     #   rows; requires table_layout = packed)
     packed_compact_cap: int = 0  # the fused tail's deduped-row cap (read and
-    #   passed through: the port's dedup always returns exactly K rows)
+    #   passed through: the port's tail always visits exactly the K rows)
     packed_update: str = "auto"  # packed sparse tail: auto | dense | compact |
     #   sorted (JAX compiler paths; the port's fused tail is always kernel B3)
     tail: str = "auto"  # sparse Adagrad tail: auto | xla | pallas.  On the

@@ -1,106 +1,145 @@
-// Sparse Adagrad over deduped rows, in place:
+// Sparse Adagrad on a [V, D] table with a [V, A] accumulator, A in
+// {1 (row), D (element)}, in place, straight from the step's sorted ids:
+//   g   = sum of row_grads[order[j]] over the id's occurrences (in order)
 //   acc <- decay*acc + g*g   (row accumulator: + sum_d g_d^2)
 //   w   <- w - (lr*g) / sqrt(acc)
-// for the K unique rows uids[0..K) of a [V, D] table with a [V, A]
-// accumulator, A in {1 (row), D (element)}.
+// for every unique id in [0, V) of sid (the stable sort of the M flat ids,
+// with its int64 permutation order).  tail_segment.cuh holds the pass over
+// the sorted occurrences: heads, segment sums, the warp and block paths.
 //
 // Replaces the TPU kernel fast_tffm_tpu/ops/pallas_tail.py::_rows_kernel
-// (reached through rows_tail_adagrad_update).  The plain PyTorch version is
-// fast_tffm_tpu_torch/optim.py::adagrad_rows_plain, the update half of
-// optim.sparse_adagrad_update; the dedup before it (optim.dedup_rows) stays
-// torch ops, as it stays XLA outside the pallas_call in the JAX package.
+// (reached through rows_tail_adagrad_update) AND the dedup before it
+// (optim.dedup_rows' permuted copy, unique_consecutive, segment_reduce):
+// the wrapper runs only torch.sort, as the JAX package leaves its sort to
+// XLA outside the pallas_call.  The plain PyTorch version is
+// fast_tffm_tpu_torch/ops/tail.py::rows_tail_sorted_plain (the same sorted
+// input through optim.sorted_segment_sum and optim.adagrad_rows_plain).
 //
-// What bounds it on an H100: memory, and on random rows at that.  Per
-// unique row it reads and writes D table floats and A accumulator floats
-// and reads D gradient floats and one id, with ~5 flops per element.  At the
-// first baseline5 batch (K = 143,865 unique rows, D = 9) that is ~184 B/row
-// (26.5 MB, ~7.9 us at 3.35 TB/s) in element mode and ~120 B/row (17.3 MB,
-// ~5.2 us) in row mode.  The rows are scattered over a 2^20-row table, so
-// each touches its own 36-byte run of sectors.
+// What bounds it on an H100: memory, on random rows.  Per occurrence it
+// reads the sorted id (4 B), the sort's index (8 B) and the gradient row
+// (4D B); per unique row it reads and writes the D table floats and the A
+// accumulator floats.  At the first baseline5 batch (M = 180,224
+// occurrences, K = 143,865 unique rows, D = 9): 8.65 MB + 144 B/row in
+// element mode = 29.37 MB, 8.77 us at 3.35 TB/s; 8.65 MB + 80 B/row in row
+// mode = 20.16 MB, 6.02 us.  The card moves whole 32-byte sectors, and a
+// random 36-byte row spans two of them: counted in sectors the same work
+// is 15.1 us (element) and 12.3 us (row), the floor random rows set.
 //
-// Design.  The TPU kernel moved rows through a double-buffered DMA schedule
-// (two VMEM slots of DEFAULT_BLOCK_ROWS rows, per-row semaphores) with a
-// sentinel-padded id list and an nrows guard.  All of that is TPU plumbing:
-// on Hopper, enough warps in flight hide the latency of the random row
-// reads, and the wrapper passes exactly K ids.
-//   * element mode: one thread per (row, d).  Neighbouring threads take
-//     neighbouring d of one row, so the row's table and accumulator
-//     elements are read and written as one contiguous run;
-//   * row mode: one thread per row, summing g_d^2 over d in order, then
-//     updating the row's D elements with its one accumulator;
-//   * the arithmetic is the twin's expressions in the twin's order,
-//     written with __fmul_rn/__fadd_rn/__fdiv_rn/__fsqrt_rn so nvcc
-//     contracts nothing into an fma: element mode at decay == 1 is bitwise
-//     equal to the twin on the same (uids, gsum);
-//   * ids are unique (the dedup guarantees it), so no two threads write one
-//     element; an id outside [0, V) is skipped, never written.
+// Design:
+//   * the dedup is folded in: each occurrence is read once, straight from
+//     the sort's output, and no host sync waits on the count of unique ids;
+//   * a group of D lanes per row (element mode: lane d owns element d, no
+//     cross-lane exchange; row mode: sum_d g_d^2 by __shfl_sync in d order,
+//     and lane 0, the only lane that reads or writes accum[id], broadcasts
+//     it), no 64-bit division per thread;
+//   * the table/accumulator loads depend only on the id, and are issued
+//     with the gradient loads, so the two random streams overlap;
+//   * the arithmetic is the twin's expressions in the twin's order, written
+//     with __fadd_rn/__fmul_rn/__fdiv_rn/__fsqrt_rn so nvcc contracts
+//     nothing into an fma: the kernel is bitwise equal to the twin on the
+//     same (sid, order, row_grads), in both modes and at any decay.
 
-#include <cuda_runtime.h>
+#include "tail_segment.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using tail::decayed;
+using tail::step;
 
-__device__ __forceinline__ float decayed(float acc, float decay) {
-  return decay == 1.f ? acc : __fmul_rn(decay, acc);
-}
+// A = D: each lane its own table and accumulator element.
+struct Element {
+  static constexpr int kVpl = 1;
+  float* table;
+  float* accum;
+  int D, W;
+  long long bound;
+  float lr, decay;
 
-__device__ __forceinline__ float step(float w, float g, float acc2, float lr) {
-  return __fsub_rn(w, __fdiv_rn(__fmul_rn(lr, g), __fsqrt_rn(acc2)));
-}
+  struct Row {
+    float w, a;
+  };
 
-__global__ void __launch_bounds__(kThreads)
-rows_element_kernel(float* __restrict__ table, float* __restrict__ accum,
-                    const int* __restrict__ uids, const float* __restrict__ gsum,
-                    int K, int D, long long V, float lr, float decay) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)K * D) return;
-  const long long k = t / D;
-  const int d = (int)(t - k * D);
-  const long long row = __ldg(uids + k);
-  if (row < 0 || row >= V) return;
-  const float g = __ldg(gsum + t);
-  const long long e = row * D + d;
-  const float acc2 = __fadd_rn(decayed(accum[e], decay), __fmul_rn(g, g));
-  table[e] = step(table[e], g, acc2, lr);
-  accum[e] = acc2;
-}
-
-__global__ void __launch_bounds__(kThreads)
-rows_row_kernel(float* __restrict__ table, float* __restrict__ accum,
-                const int* __restrict__ uids, const float* __restrict__ gsum,
-                int K, int D, long long V, float lr, float decay) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const long long row = __ldg(uids + k);
-  if (row < 0 || row >= V) return;
-  const float* gk = gsum + k * D;
-  float sq = 0.f;
-  for (int d = 0; d < D; ++d) {
-    const float g = __ldg(gk + d);
-    sq = __fadd_rn(sq, __fmul_rn(g, g));
+  __device__ __forceinline__ Row load(int s, int e0) const {
+    Row r{0.f, 0.f};
+    if (e0 < D) {
+      const long long o = (long long)s * D + e0;
+      r.w = table[o];
+      r.a = accum[o];
+    }
+    return r;
   }
-  const float acc2 = __fadd_rn(decayed(accum[row], decay), sq);
-  float* w = table + row * D;
-  for (int d = 0; d < D; ++d) w[d] = step(w[d], __ldg(gk + d), acc2, lr);
-  accum[row] = acc2;
+
+  template <class Comm>
+  __device__ __forceinline__ void update(const Row& r, int s, int e0, const float (&gs)[1],
+                                         const Comm&, bool write) const {
+    if (!write || e0 >= D) return;
+    const long long o = (long long)s * D + e0;
+    const float acc2 = __fadd_rn(decayed(r.a, decay), __fmul_rn(gs[0], gs[0]));
+    table[o] = step(r.w, gs[0], acc2, lr);
+    accum[o] = acc2;
+  }
+};
+
+// A = 1: the row's one accumulator, read and written by lane 0 alone.
+struct RowAcc {
+  static constexpr int kVpl = 1;
+  float* table;
+  float* accum;
+  int D, W;
+  long long bound;
+  float lr, decay;
+
+  struct Row {
+    float w, a;
+  };
+
+  __device__ __forceinline__ Row load(int s, int e0) const {
+    Row r{0.f, 0.f};
+    if (e0 < D) r.w = table[(long long)s * D + e0];
+    if (e0 == 0) r.a = accum[s];
+    return r;
+  }
+
+  template <class Comm>
+  __device__ __forceinline__ void update(const Row& r, int s, int e0, const float (&gs)[1],
+                                         const Comm& comm, bool write) const {
+    const float sq = comm.norm(gs, D);
+    const float acc2 = __fadd_rn(decayed(comm.bcast(r.a, 0), decay), sq);
+    if (!write || e0 >= D) return;
+    table[(long long)s * D + e0] = step(r.w, gs[0], acc2, lr);
+    if (e0 == 0) accum[s] = acc2;
+  }
+};
+
+// Named for the profiler: chip_smoke.py finds the kernels by these names.
+__global__ void __launch_bounds__(tail::kThreads, tail::kMinBlocks)
+rows_element_kernel(const Element mode, const int* __restrict__ sid,
+                    const long long* __restrict__ order, const float* __restrict__ g, int M) {
+  tail::run(mode, sid, order, g, M);
+}
+
+__global__ void __launch_bounds__(tail::kThreads, tail::kMinBlocks)
+rows_row_kernel(const RowAcc mode, const int* __restrict__ sid,
+                const long long* __restrict__ order, const float* __restrict__ g, int M) {
+  tail::run(mode, sid, order, g, M);
 }
 
 }  // namespace
 
-extern "C" int rows_tail_adagrad(float* table, float* accum, const int* uids,
-                                 const float* gsum, int K, int D, int A, long long V,
-                                 float lr, float decay, cudaStream_t s) {
+extern "C" int rows_tail_adagrad(float* table, float* accum, const int* sid,
+                                 const long long* order, const float* row_grads, int M, int D,
+                                 int A, long long V, float lr, float decay, cudaStream_t s) {
   cudaGetLastError();  // clear a stale error of this runtime before launching
-  if (K < 1 || D < 1 || V < 1 || (A != 1 && A != D)) return (int)cudaErrorInvalidValue;
+  if (M < 1 || D < 1 || D > tail::kThreads || V < 1 || (A != 1 && A != D) ||
+      (long long)M * D > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = tail::blocks(M, D);
   if (A == D) {
-    const long long total = (long long)K * D;
-    const int blocks = (int)((total + kThreads - 1) / kThreads);
-    rows_element_kernel<<<blocks, kThreads, 0, s>>>(table, accum, uids, gsum, K, D, V, lr,
-                                                   decay);
+    const Element mode{table, accum, D, D, V, lr, decay};
+    rows_element_kernel<<<blocks, tail::kThreads, 0, s>>>(mode, sid, order, row_grads, M);
   } else {
-    const int blocks = (int)(((long long)K + kThreads - 1) / kThreads);
-    rows_row_kernel<<<blocks, kThreads, 0, s>>>(table, accum, uids, gsum, K, D, V, lr, decay);
+    const RowAcc mode{table, accum, D, D, V, lr, decay};
+    rows_row_kernel<<<blocks, tail::kThreads, 0, s>>>(mode, sid, order, row_grads, M);
   }
   return cudaGetLastError();
 }

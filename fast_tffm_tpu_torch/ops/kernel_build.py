@@ -8,7 +8,8 @@ plain C interface and is compiled on its own into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>.so csrc/<name>.cu
 
-A library is built at its first use in a process, or again when its source
+A source may include the shared headers ``csrc/*.cuh``.  A library is
+built at its first use in a process, or again when its source or a header
 is newer.  Without ``nvcc``, or when a build fails, this raises; it never
 hands back a plain version in place of a kernel.  ``build`` starts one
 ``nvcc`` per source, all at once, for callers that want every kernel ready
@@ -18,6 +19,7 @@ before traffic (chip_smoke.py).
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -91,8 +93,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             src, path = _paths(name)
-            stale = not os.path.isfile(path) or (
-                os.path.isfile(src) and os.path.getmtime(src) > os.path.getmtime(path)
+            inputs = [src] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+            stale = not os.path.isfile(path) or any(
+                os.path.isfile(f) and os.path.getmtime(f) > os.path.getmtime(path) for f in inputs
             )
             if stale:
                 build([name])

@@ -18,8 +18,9 @@ XLA updates in place; here ``sparse_adagrad_update`` and
 ``dense_adagrad_update`` update their tensors **in place** — the port's
 counterpart of donation — and return them.  ``sparse_adagrad_update`` is
 the plain twin of the rows Adagrad kernel (``ops/tail.py``,
-``csrc/rows_tail_adagrad.cu``): its update half, ``adagrad_rows_plain``,
-uses the kernel's expressions in the kernel's order.
+``csrc/rows_tail_adagrad.cu``): the kernel sums each id's occurrences in
+``sorted_segment_sum``'s order and updates with ``adagrad_rows_plain``'s
+expressions in their order.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ __all__ = [
     "init_table_adagrad",
     "accum_sq",
     "dedup_rows",
+    "sorted_segment_sum",
+    "rows_in_range",
     "adagrad_rows_plain",
     "sparse_adagrad_update",
     "dense_adagrad_update",
@@ -73,16 +76,32 @@ def dedup_rows(ids: torch.Tensor, row_grads: torch.Tensor):
 
     Unlike the JAX version, which pads to M with the sentinel id V for a
     scatter with ``mode="drop"``, this returns exactly the K unique rows:
-    torch has no dropping scatter.  The sum runs in a fixed order — the
-    stable sort keeps each id's occurrences in input order and
-    ``segment_reduce`` adds each segment's rows one after another — so
-    two runs on the same inputs give bit-identical sums (an unordered
-    atomic ``index_add_`` would not).
+    torch has no dropping scatter.  The sum runs in a fixed order (see
+    ``sorted_segment_sum``), so two runs on the same inputs give
+    bit-identical sums (an unordered atomic ``index_add_`` would not).
     """
     sid, order = torch.sort(ids, stable=True)
+    return sorted_segment_sum(sid, order, row_grads)
+
+
+def sorted_segment_sum(sid: torch.Tensor, order: torch.Tensor, row_grads: torch.Tensor):
+    """``dedup_rows`` after its sort: ``sid, order = torch.sort(ids,
+    stable=True)``, ``row_grads`` [M, D] in occurrence order.  Each id's
+    occurrences, in input order, are summed left to right starting from 0
+    (``segment_reduce`` over the permuted rows) — the order the tail
+    kernels (``ops/tail.py``) sum in, straight from the sort's output."""
     uids, counts = torch.unique_consecutive(sid, return_counts=True)
     gsum = torch.segment_reduce(row_grads[order], "sum", lengths=counts, axis=0, unsafe=True)
     return uids.to(torch.int32), gsum
+
+
+def rows_in_range(uids: torch.Tensor, gsum: torch.Tensor, bound: int):
+    """The deduped rows whose id lies in [0, ``bound``): the tail kernels
+    skip the others and never write them."""
+    keep = (uids >= 0) & (uids < bound)
+    if bool(keep.all()):
+        return uids, gsum
+    return uids[keep], gsum[keep]
 
 
 def adagrad_rows_plain(
@@ -94,8 +113,10 @@ def adagrad_rows_plain(
     decay: float = 1.0,
 ):
     """The update half of ``sparse_adagrad_update`` on deduped rows, in
-    place: acc ← decay·acc + g² (row: ‖g‖²), w ← w − lr·g/√acc.  The plain
-    twin of ``csrc/rows_tail_adagrad.cu``, in its expressions and order."""
+    place: acc ← decay·acc + g² (row: ‖g‖²), w ← w − lr·g/√acc.  The update
+    of ``csrc/rows_tail_adagrad.cu``, in its expressions and order; ids
+    outside [0, V) are skipped, as the kernel skips them."""
+    uids, gsum = rows_in_range(uids, gsum, table.shape[0])
     idx = uids.long()
     acc_prev = accum[idx]
     if decay != 1.0:

@@ -3,7 +3,9 @@
 lane-packed layout).
 
 One step is gather → scorer (its backward a CUDA kernel at order ≥ 3) →
-loss → dedup → sparse Adagrad (a CUDA kernel per layout).  The JAX step is
+loss → sparse Adagrad (on a CUDA state: ``torch.sort`` of the ids, then one
+CUDA kernel per layout that dedups and updates; on a CPU state: dedup, then
+the plain update).  The JAX step is
 one jitted program that donates the state; here the step runs eagerly and
 updates the state's tensors in place, which is the port's counterpart of
 donation: a step never copies the table.
@@ -126,8 +128,8 @@ def _finish(learning_rate: float, state: TrainState, g_dense, decay: float = 1.0
 
 def train_step_body(model, learning_rate: float, state: TrainState, batch: Batch, decay: float = 1.0):
     """The single-device step on a rows-layout state: gather → scorer → loss
-    → dedup → the rows Adagrad tail (``ops/tail.py::rows_tail_adagrad_update``),
-    in place.  On a CUDA state the tail is the kernel
+    → the rows Adagrad tail (``ops/tail.py::rows_tail_adagrad_update``: sort
+    and kernel, dedup included), in place.  On a CUDA state the tail is the kernel
     ``csrc/rows_tail_adagrad.cu``; on a CPU state its plain twin.  ``decay``
     is ``[Online] adagrad_decay`` γ (lazy touched-row decay)."""
     if state.layout != "rows":
@@ -241,7 +243,7 @@ def packed_train_step_body(
     model, learning_rate: float, state: TrainState, batch: Batch, compact_cap: int = 0
 ):
     """The single-device step on a fused state: ``fused_gather`` → scorer →
-    loss → dedup → kernel B3 (``ops/tail.py::fused_tail_adagrad_update``,
+    loss → sort → kernel B3 (``ops/tail.py::fused_tail_adagrad_update``,
     ``csrc/fused_tail_adagrad.cu`` on a CUDA state, its plain twin on a CPU
     one), in place.  ``compact_cap`` (``packed_compact_cap``) is the tail's
     ``k_cap``.

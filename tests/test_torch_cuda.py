@@ -127,28 +127,64 @@ def test_order3_gradient_on_the_card_matches_the_cpu(cuda):
     assert float(grads[1][..., 1:].abs().max()) > 1e-3
 
 
-def _tail_case(rng, v, d, a, m):
+def _case_ids(rng, v, m, ids_from):
+    """[M] occurrence ids, and the occurrences whose gradient is zero.
+    "padded": a 1000-of-16384-row batch padded the way data/libsvm.pad_batch
+    pads it, every pad slot id 0 with a zero gradient; "hot": the same ids
+    with non-zero gradients; "out of range": ids below 0 and past V."""
+    zero = np.zeros(m, bool)
+    if ids_from in ("padded", "hot"):
+        real = max(1, m * 1000 // 16384)
+        ids = np.zeros(m, np.int64)
+        ids[:real] = rng.integers(0, v, size=real)
+        if ids_from == "padded":
+            zero[real:] = True
+    else:
+        ids = {
+            "zipf": lambda: rng.zipf(1.3, size=m) % v,
+            "uniform": lambda: rng.integers(0, v, size=m),
+            "unique": lambda: rng.choice(v, size=m, replace=False),
+            "out of range": lambda: rng.zipf(1.3, size=m) % (v + 64) - 32,
+        }[ids_from]()
+    return ids.astype(np.int32), zero
+
+
+def _tail_case(rng, v, d, a, m, ids_from):
     table = rng.uniform(-0.1, 0.1, size=(v, d)).astype(np.float32)
     accum = rng.uniform(0.1, 0.5, size=(v, a)).astype(np.float32)
-    ids = (rng.zipf(1.3, size=m) % v).astype(np.int32)
+    ids, zero = _case_ids(rng, v, m, ids_from)
     grads = rng.normal(size=(m, d)).astype(np.float32)
+    grads[zero] = 0.0
     return table, accum, ids, grads
 
 
 @pytest.mark.parametrize(
-    "v,d,a,m,decay",
+    "v,d,a,m,decay,ids_from",
     [
-        (4096, 9, 9, 2000, 1.0),
-        (4096, 9, 1, 2000, 1.0),
-        (4096, 9, 9, 2000, 0.9),
-        (4096, 9, 1, 2000, 0.9),
-        (64, 9, 9, 1, 1.0),  # K = 1
-        (1 << 20, 9, 9, 180224, 1.0),  # baseline5 width
+        (4096, 9, 9, 2000, 1.0, "zipf"),
+        (4096, 9, 1, 2000, 1.0, "zipf"),
+        (4096, 9, 9, 2000, 0.9, "zipf"),
+        (4096, 9, 1, 2000, 0.9, "zipf"),
+        (64, 9, 9, 1, 1.0, "zipf"),  # K = 1
+        (1 << 20, 9, 9, 180224, 1.0, "zipf"),  # baseline5 width
+        (1 << 20, 9, 9, 180224, 1.0, "padded"),  # id 0 ~169K times: the block path
+        (1 << 20, 9, 1, 180224, 0.9, "hot"),
+        (4096, 9, 9, 2000, 1.0, "out of range"),
+        (4096, 9, 1, 2000, 0.9, "out of range"),
+        (4096, 17, 17, 3000, 1.0, "hot"),  # factor_num 16
+        (4096, 17, 1, 3000, 0.9, "zipf"),
+        (300, 64, 64, 3000, 1.0, "hot"),  # wider than a warp: the block path only
+        (300, 64, 1, 3000, 0.9, "zipf"),
     ],
 )
-def test_rows_tail_kernel_matches_twin(cuda, v, d, a, m, decay):
-    rng = np.random.default_rng(v + a + m)
-    table, accum, ids, grads = _tail_case(rng, v, d, a, m)
+def test_rows_tail_kernel_matches_twin(cuda, v, d, a, m, decay, ids_from):
+    """B4 on the sort's output against its twin (the dedup, then the plain
+    update) on the card, bitwise in both accumulator modes and at γ < 1:
+    the twin pins every order (the card's ``segment_reduce`` adds left to
+    right, ``accum_sq`` sums ‖g‖² in d order, γ·acc is its own multiply);
+    ids outside [0, V) left alone."""
+    rng = np.random.default_rng(v + d + a + m)
+    table, accum, ids, grads = _tail_case(rng, v, d, a, m, ids_from)
     t_k, a_k = torch.from_numpy(table).to(cuda), torch.from_numpy(accum).to(cuda)
     t_p, a_p = t_k.clone(), a_k.clone()
     ids_t, g_t = torch.from_numpy(ids).to(cuda), torch.from_numpy(grads).to(cuda)
@@ -157,11 +193,8 @@ def test_rows_tail_kernel_matches_twin(cuda, v, d, a, m, decay):
     sparse_adagrad_update(t_p, a_p, ids_t, g_t, 0.05, decay=decay)
     torch.cuda.synchronize()
     assert rows_tail_adagrad_update.launches == before + 1
-    if a == d and decay == 1.0:
-        assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
-    else:
-        torch.testing.assert_close(t_k, t_p, rtol=1e-6, atol=0)
-        torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=0)
+    assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
+    assert not torch.equal(a_k, torch.from_numpy(accum).to(cuda))
 
 
 def test_dedup_is_deterministic_on_the_card(cuda):
@@ -173,7 +206,7 @@ def test_dedup_is_deterministic_on_the_card(cuda):
     assert torch.equal(u1, u2) and torch.equal(g1, g2)
     uc, gc = dedup_rows(ids.cpu(), grads.cpu())
     assert torch.equal(u1.cpu(), uc)
-    torch.testing.assert_close(g1.cpu(), gc, rtol=1e-5, atol=1e-6)
+    assert torch.equal(g1.cpu(), gc)  # both add each segment left to right from 0
 
 
 @pytest.mark.parametrize("body", ["default", "decayed", "pallas"])
@@ -212,14 +245,10 @@ def test_every_step_body_runs_the_tail_kernel_on_the_card(cuda, body):
 def _fused_case(rng, v, d, m, ids_from, cuda):
     table = torch.from_numpy(rng.uniform(-0.1, 0.1, size=(v, d)).astype(np.float32)).to(cuda)
     accum = torch.from_numpy(rng.uniform(0.1, 0.5, size=(v, 1)).astype(np.float32)).to(cuda)
-    ids = {
-        "zipf": lambda: rng.zipf(1.3, size=m) % v,
-        "uniform": lambda: rng.integers(0, v, size=m),
-        "unique": lambda: rng.choice(v, size=m, replace=False),
-    }[ids_from]()
-    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda)
-    grads = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(cuda)
-    return table, accum, ids, grads
+    ids, zero = _case_ids(rng, v, m, ids_from)
+    grads = rng.normal(size=(m, d)).astype(np.float32)
+    grads[zero] = 0.0
+    return table, accum, torch.from_numpy(ids).to(cuda), torch.from_numpy(grads).to(cuda)
 
 
 @pytest.mark.parametrize(
@@ -227,10 +256,15 @@ def _fused_case(rng, v, d, m, ids_from, cuda):
     [
         ((1 << 20), 9, 180224, "uniform", 1.0),  # baseline5's batch: K ~ 165k of 2^20
         ((1 << 20), 9, 180224, "zipf", 0.9),
+        ((1 << 20), 9, 180224, "padded", 1.0),  # id 0 ~169K times: the block path
         (100, 9, 1, "unique", 1.0),  # K = 1
         (4099, 9, 1001, "unique", 1.0),  # K = 1001; V off the tile row (4099 % 12 = 7)
+        (4099, 9, 3000, "hot", 0.9),
+        (4099, 9, 3000, "out of range", 1.0),  # ids < 0 and >= VPf·P skipped
         (640, 7, 3000, "zipf", 1.0),  # D + 1 = 8 divides 128
-        (300, 64, 500, "zipf", 1.0),  # P = 1
+        (4099, 17, 3000, "hot", 1.0),  # factor_num 16: 2-lane float2 slots
+        (300, 64, 500, "zipf", 1.0),  # P = 1, wider than a warp: the block path
+        (300, 64, 3000, "hot", 0.9),
     ],
 )
 def test_fused_tail_kernel_is_bitwise_its_twin_and_the_rows_kernel(cuda, v, d, m, ids_from, decay):
@@ -252,6 +286,7 @@ def test_fused_tail_kernel_is_bitwise_its_twin_and_the_rows_kernel(cuda, v, d, m
     assert torch.equal(t_f, t_r) and torch.equal(a_f, a_r)
     # Untouched slots, pad slots and tail lanes: bitwise unchanged.
     assert torch.equal(_blank_touched(got, ids, d), _blank_touched(fused, ids, d))
+    assert not torch.equal(got, fused)
 
 
 def _blank_touched(fused, ids, d):
@@ -259,8 +294,33 @@ def _blank_touched(fused, ids, d):
     out = fused.clone()
     p = fused_rows_per_tile(d)
     i = ids.long().unique()
+    i = i[(i >= 0) & (i < fused.shape[0] * p)]
     fused_slots(out, d)[i // p, i % p] = 0.0
     return out
+
+
+def test_tail_updates_make_no_host_sync(cuda):
+    """``*_update`` on a CUDA state is torch.sort plus one kernel launch and
+    reads no tensor value on the host: it passes under sync debug mode
+    "error" (which raises at any synchronising call)."""
+    rng = np.random.default_rng(17)
+    table, accum, ids, grads = _tail_case(rng, 4096, 9, 9, 2000, "zipf")
+    t, a = torch.from_numpy(table).to(cuda), torch.from_numpy(accum).to(cuda)
+    ids_t, g_t = torch.from_numpy(ids).to(cuda), torch.from_numpy(grads).to(cuda)
+    fused = pack_fused(t, a[:, :1].contiguous(), 0.1)
+    rows_tail_adagrad_update(t, a, ids_t, g_t, 0.05)  # builds and loads the kernels
+    fused_tail_adagrad_update(fused, ids_t, g_t, 0.05)
+    torch.cuda.synchronize()
+    before = (rows_tail_adagrad_update.launches, fused_tail_adagrad_update.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rows_tail_adagrad_update(t, a, ids_t, g_t, 0.05, decay=0.9)
+        fused_tail_adagrad_update(fused, ids_t, g_t, 0.05)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (rows_tail_adagrad_update.launches, fused_tail_adagrad_update.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 def test_fused_tail_launches_nothing_at_k0_and_refuses_what_it_does_not_take(cuda):

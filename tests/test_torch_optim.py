@@ -13,6 +13,14 @@ input order; they differ only where float32 rounding of the row-mode
 ‖g‖² sum does.  The remainder-block case (``block_rows = 8``, K not a
 multiple of 8) is pinned against ``optim`` only: the JAX suite's own
 test of the Pallas kernel there fails (ROADMAP §C caveat 1).
+
+The tail kernels take the stable sort's output (sorted ids, the sort's
+permutation, gradients in occurrence order); their twin on that input
+(``ops.tail.rows_tail_sorted_plain``) is held bitwise to
+``sparse_adagrad_update`` and to the JAX tail at the same tolerance, over
+unsorted duplicates, a hot id 0 with 10,000+ occurrences, ids out of range
+and K = 1, and ``sorted_segment_sum``'s order is pinned against a plain
+left-to-right float32 sum.
 """
 
 import jax.numpy as jnp
@@ -24,12 +32,13 @@ from fast_tffm_tpu.ops.pallas_tail import rows_tail_adagrad_update as jax_rows_t
 from fast_tffm_tpu.optim import AdagradState
 from fast_tffm_tpu.optim import dedup_rows as jax_dedup_rows
 from fast_tffm_tpu.optim import sparse_adagrad_update as jax_sparse_adagrad_update
-from fast_tffm_tpu_torch.ops.tail import rows_tail_adagrad_update
+from fast_tffm_tpu_torch.ops.tail import rows_tail_adagrad_update, rows_tail_sorted_plain
 from fast_tffm_tpu_torch.optim import (
     accum_sq,
     dedup_rows,
     dense_adagrad_update,
     init_table_adagrad,
+    sorted_segment_sum,
     sparse_adagrad_update,
 )
 
@@ -143,3 +152,87 @@ def test_dense_adagrad_matches_jax(decay):
     dense_adagrad_update([tp], [ta], [torch.from_numpy(g)], LR, decay)
     np.testing.assert_allclose(tp.numpy(), np.asarray(want_p["w"]), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(ta.numpy(), np.asarray(want_opt.accum["w"]), rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the tail kernels' contract: sorted occurrences in, updated rows out
+# ---------------------------------------------------------------------------
+
+
+def _occurrences(seed, pattern, accum_width):
+    """Flat ids, gradients and a state for the sorted-occurrence contract.
+    "hot": id 0 10,000+ times (a padded batch), among unsorted duplicates;
+    "out of range": ids at V and beyond, which every tail skips."""
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-0.1, 0.1, size=(V, D)).astype(np.float32)
+    accum = rng.uniform(0.1, 0.4, size=(V, accum_width)).astype(np.float32)
+    if pattern == "dups":  # unsorted, duplicate-heavy
+        ids = (rng.zipf(1.3, size=400) % V).astype(np.int32)
+    elif pattern == "hot":
+        ids = np.zeros(10_400, np.int32)
+        ids[rng.choice(10_400, 400, replace=False)] = rng.integers(1, V, 400)
+    elif pattern == "out of range":
+        ids = (rng.zipf(1.3, size=400) % (V + 40)).astype(np.int32)
+    else:  # one id, one occurrence: K = 1
+        ids = np.array([37], np.int32)
+    grads = rng.normal(size=(ids.size, D)).astype(np.float32)
+    return table, accum, ids, grads
+
+
+@pytest.mark.parametrize("pattern", ["dups", "hot", "out of range", "K=1"])
+@pytest.mark.parametrize("decay", [1.0, 0.9])
+@pytest.mark.parametrize("accum_width", [D, 1], ids=["element", "row"])
+def test_sorted_twin_is_bitwise_sparse_adagrad_and_matches_jax(accum_width, decay, pattern):
+    """The rows kernel's twin on its own input — the stable sort's output
+    through ``sorted_segment_sum``, then ``adagrad_rows_plain`` — is
+    bitwise ``optim.sparse_adagrad_update``, and within the existing
+    tolerance of the JAX rows tail (Pallas, interpret mode)."""
+    table, accum, ids, grads = _occurrences(len(pattern) + accum_width, pattern, accum_width)
+    sid, order = torch.sort(torch.from_numpy(ids), stable=True)
+    t, a = torch.from_numpy(table.copy()), torch.from_numpy(accum.copy())
+    out = rows_tail_sorted_plain(t, a, sid, order, torch.from_numpy(grads), LR, decay)
+    assert out[0] is t and out[1] is a  # in place
+    want_t, want_a = _torch_update(sparse_adagrad_update, table, accum, ids, grads, decay)
+    np.testing.assert_array_equal(t.numpy(), want_t)
+    np.testing.assert_array_equal(a.numpy(), want_a)
+    j_t, j_a = jax_rows_tail(
+        jnp.asarray(table), jnp.asarray(accum), jnp.asarray(ids), jnp.asarray(grads), LR,
+        decay=decay, interpret=True, block_rows=4096,
+    )
+    np.testing.assert_allclose(t.numpy(), np.asarray(j_t), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(a.numpy(), np.asarray(j_a), rtol=RTOL, atol=ATOL)
+    untouched = np.setdiff1d(np.arange(V), ids)
+    np.testing.assert_array_equal(t.numpy()[untouched], table[untouched])
+    assert not np.array_equal(a.numpy(), accum)
+
+
+def test_sorted_segment_sum_adds_left_to_right_from_zero():
+    """The order the tail kernels sum in, pinned: each id's occurrences in
+    input order, added one at a time to a float32 0.0 — so a segment of
+    -0.0s sums to +0.0, and a 10,000-long segment is one serial sum."""
+    rng = np.random.default_rng(21)
+    ids = rng.integers(0, 50, size=12_000).astype(np.int32)
+    ids[rng.choice(12_000, 10_000, replace=False)] = 7
+    ids[:3] = 99  # one id whose occurrences are all -0.0
+    grads = (rng.normal(size=(12_000, D)) * 10.0 ** rng.integers(-3, 4, size=(12_000, 1)))
+    grads = grads.astype(np.float32)
+    grads[:3] = -0.0
+    sid, order = torch.sort(torch.from_numpy(ids), stable=True)
+    uids, gsum = sorted_segment_sum(sid, order, torch.from_numpy(grads))
+    for u, got in zip(uids.tolist(), gsum.numpy()):
+        want = np.zeros(D, np.float32)
+        for row in grads[ids == u]:
+            want = want + row  # float32 + float32, one occurrence at a time
+        np.testing.assert_array_equal(got, want)
+        assert not np.signbit(got).any() or u != 99
+    assert torch.equal(uids, dedup_rows(torch.from_numpy(ids), torch.from_numpy(grads))[0])
+
+
+def test_negative_ids_are_skipped_as_the_kernel_skips_them():
+    table, accum, ids, grads = _occurrences(3, "dups", D)
+    ids[::7] = -1 - ids[::7]
+    t, a = _torch_update(sparse_adagrad_update, table, accum, ids, grads, 1.0)
+    keep = ids >= 0
+    want_t, want_a = _torch_update(sparse_adagrad_update, table, accum, ids[keep], grads[keep], 1.0)
+    np.testing.assert_array_equal(t, want_t)
+    np.testing.assert_array_equal(a, want_a)

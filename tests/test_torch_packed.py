@@ -11,7 +11,10 @@
   ``apply_fused_update(..., "dense")``, which sum ‖g‖² in another order
   (1–2 ulp); bitwise equal, after unpacking, to the port's rows update with
   a [V, 1] accumulator, with untouched slots, pad slots and tail lanes
-  unchanged, at every ``k_cap``.
+  unchanged, at every ``k_cap``.  The twin on the kernel's own input (the
+  stable sort's output) over unsorted duplicates, a hot id 0 with 10,000+
+  occurrences, ids out of range and K = 1: bitwise the dedup twin and the
+  rows row update, within rtol 1e-6 of the JAX fused tail.
 * Training: the JAX packed + fused step (``tail = "pallas"``, interpret)
   and the port's from one shared npz, 3 steps at order 2 and 3 (losses
   within rtol 1e-5, unpacked tables and accumulators within atol 1e-5);
@@ -51,8 +54,12 @@ from fast_tffm_tpu_torch.config import Config, build_model
 from fast_tffm_tpu_torch.data.pipeline import batch_stream
 from fast_tffm_tpu_torch.models.base import Batch
 from fast_tffm_tpu_torch.ops import packed_table as pt
-from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update
-from fast_tffm_tpu_torch.optim import sparse_adagrad_update
+from fast_tffm_tpu_torch.ops.tail import (
+    fused_adagrad_plain,
+    fused_tail_adagrad_update,
+    fused_tail_sorted_plain,
+)
+from fast_tffm_tpu_torch.optim import dedup_rows, sparse_adagrad_update
 from fast_tffm_tpu_torch.prediction import load_scoring_state, predict
 from fast_tffm_tpu_torch.serving.engine import serve_lines
 from fast_tffm_tpu_torch.trainer import (
@@ -199,6 +206,52 @@ def test_fused_twin_is_bitwise_the_rows_row_update(decay, k_cap):
     assert not torch.equal(got, fused)
     with pytest.raises(ValueError, match="k_cap"):
         fused_tail_adagrad_update(fused, _t(ids), _t(g), LR, k_cap=-1)
+
+
+@pytest.mark.parametrize("pattern", ["dups", "hot", "out of range", "K=1"])
+@pytest.mark.parametrize("decay", [1.0, 0.9])
+def test_fused_sorted_twin_is_bitwise_the_dedup_twin_and_matches_jax(decay, pattern):
+    """B3's twin on the kernel's own input — the stable sort's output
+    through ``sorted_segment_sum``, then ``fused_adagrad_plain`` — is bitwise
+    ``fused_adagrad_plain`` on ``dedup_rows`` output and, unpacked, the rows
+    row update; within the existing tolerances of the JAX fused tail.
+    "hot": id 0 10,000+ times among unsorted duplicates; "out of range":
+    ids past VPf·P, which every tail skips."""
+    rng = np.random.default_rng(len(pattern))
+    d = 1 + K
+    vmax = pt.fused_packed_rows(V, d) * pt.fused_rows_per_tile(d)
+    if pattern == "hot":
+        ids = np.zeros(10_400, np.int32)
+        ids[rng.choice(10_400, 400, replace=False)] = rng.integers(1, V, 400)
+    elif pattern == "out of range":
+        ids = rng.integers(0, vmax + 30, size=400).astype(np.int32)
+    elif pattern == "dups":
+        ids = rng.integers(0, 64, size=400).astype(np.int32)
+    else:
+        ids = np.array([V - 1], np.int32)
+    g = rng.standard_normal((ids.size, d)).astype(np.float32)
+    table = rng.standard_normal((V, d)).astype(np.float32)
+    accum = rng.uniform(0.05, 2.0, (V, 1)).astype(np.float32)
+    fused = pt.pack_fused(_t(table), _t(accum), 0.1)
+    sid, order = torch.sort(_t(ids), stable=True)
+    got = fused_tail_sorted_plain(fused.clone(), sid, order, _t(g), LR, decay)
+    assert torch.equal(got, fused_adagrad_plain(fused.clone(), *dedup_rows(_t(ids), _t(g)), LR, decay))
+    assert torch.equal(got, fused_tail_adagrad_update(fused.clone(), _t(ids), _t(g), LR, decay=decay))
+    t_r, a_r = sparse_adagrad_update(_t(table), _t(accum), _t(ids), _t(g), LR, decay)
+    gt, ga = pt.unpack_fused(got, V, d)
+    assert torch.equal(gt, t_r) and torch.equal(ga, a_r)
+    want = jax.jit(lambda f: jax_fused_tail(
+        f, jnp.asarray(ids), jnp.asarray(g), LR, decay=decay, interpret=True, block_rows=4096,
+    ))(jpt.pack_fused(jnp.asarray(table), jnp.asarray(accum), 0.1))
+    wt, wa = jpt.unpack_fused(want, V, d)
+    # The JAX fused tail's ‖g‖² is 1–2 ulp off at either γ (ROADMAP §C
+    # caveat 1), and w − lr·g/√acc2 cancels near 0 for some of 400 draws
+    # (seen: 7.5e-9 at γ = 1): the table's atol of 1e-8, as above.
+    np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(ga.numpy(), np.asarray(wa), rtol=1e-6, atol=0)
+    # The pad slots past V are rows too (the JAX tail writes them as well).
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-8)
+    assert not torch.equal(got, fused)
 
 
 # ---------------------------------------------------------------------------
