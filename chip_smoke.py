@@ -19,7 +19,12 @@ last line:
             way (rtol 1e-5, atol 1e-6), at B in {1, 512, 16384} x order in
             {3, 4}, a ragged shape and the criteo width N = 39
   data      tools/gen_synthetic.py writes 24 x 16384 baseline5-shaped train
-            rows (--seed 7) and 2 x 16384 validation rows (--seed 8)
+            rows (--seed 7), 2 x 16384 validation rows (--seed 8) and the
+            config's 64 x 16384-row epoch (--seed 9), all three at once
+  parse     the train file through the native C++ stream at the config's
+            thread_num (8) and at 0 (every usable core), and through the
+            Python stream: every batch bitwise equal; rows/s of each and the
+            host's cores
   rows_tail the rows Adagrad kernel (B4: torch.sort, then one launch on the
             sorted ids) against optim.sparse_adagrad_update on clones of one
             full-width [2^20, 9] state with the first training batch's ids:
@@ -41,9 +46,10 @@ last line:
             same times as rows_tail
   train     configs/baseline5_fm_order3_kdd.cfg at full width trained for
             24 steps on cuda through training.train (resume from a seeded
-            npz; the run traced by torch.profiler), then the same on the CPU:
-            finite losses, every kernel of the path launched (the tail once
-            per step), the final tables and accumulators within atol 1e-7,
+            npz; text parsed natively, thread_num 8; the run traced by
+            torch.profiler), then the same on the CPU:
+            finite losses, every kernel of the path launched (B2 and the
+            tail once per step), the final tables and accumulators within atol 1e-7,
             the updates within 1e-2 by relative norm and moving the same
             elements (to 1e-3), and the validation AUCs within 0.002 of
             each other; the order-3 gradient on the card
@@ -65,9 +71,30 @@ last line:
             wall time, and its top kernels); then the same lines served on
             cuda under table_layout = packed, within atol 1e-6 of the rows
             config's scores
-  kernels   one record per kernel: route, source, launches on the training
-            path (the fused kernel's on the fused one), error and times at
-            the training shapes
+  train_fmb the train phase's checks with binary_cache and shuffle, 2 epochs
+            (48 steps; the card's and the CPU's shuffled batches are the
+            same); then a second card run that reuses the cache
+  train_cached, train_cached_fused  device_cache, shuffle and
+            steps_per_call = 8 for 2 epochs on the rows and the fused layout:
+            every 8 steps one CUDA-graph replay.  The train phase's checks
+            against the CPU (the replays' launches counted by kernel name
+            in the run's profiler trace, less the wrappers' own: the
+            capture's warm-up and validation), and bitwise against the
+            card's own steps_per_call = 1 run from the same npz and cache;
+            the graph's step time p50 beside the eager K = 1 step's, the
+            device busy time per step of a traced replay and its idle share
+  throughput the config's 1,048,576-row epoch on the card only, streamed
+            through the native parser, from FMB (converted first, timed
+            apart), from FMB with steps_per_call = 8 and device-cached with
+            steps_per_call = 8: logged and whole-run ex/s and the card's
+            idle share of each run
+  kernels   one record per kernel: route, source, launches (the wrappers'
+            counts over the eager train run; B3's over train_fused;
+            launches_by_run adds the graphed train_cached runs' replays),
+            error and times at the training shapes
+
+Every traced training run also counts each kernel by name in its profiler
+trace (launches_traced); an eager run's count must equal its wrappers'.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -96,6 +123,14 @@ RTOL, ATOL = 1e-5, 1e-6
 SERVE_LINES = 4096
 NNZ = 11
 KERNELS = ["anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad"]
+# Each kernel's function names (csrc/*.cu), by which a profiler trace counts
+# what ran on the card.
+KERNEL_SYMBOLS = {
+    "anova_fwd": ("anova_fwd_kernel",),
+    "anova_bwd": ("anova_bwd_kernel",),
+    "rows_tail_adagrad": ("rows_element_kernel", "rows_row_kernel"),
+    "fused_tail_adagrad": ("fused_slot_kernel",),
+}
 ANOVA_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 8, 64, 512, 16384)]
 ANOVA_SHAPES.append((130, 7, 5, 3))  # ragged: B off the block edge, k not dividing 32
 BWD_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 512, 16384)]
@@ -103,6 +138,7 @@ BWD_SHAPES += [(130, 7, 5, 3), (2048, 39, 8, 3)]  # ragged; criteo's 39 features
 TRAIN_SHAPE = (16384, NNZ, 8, 3)  # baseline5's training batch
 BATCH = 16384  # baseline5's batch_size
 TRAIN_BATCHES, VALID_BATCHES = 24, 2
+THROUGHPUT_BATCHES = 64  # the config's epoch: 64 x 16384 = 1,048,576 rows
 # The card's trained table and accumulators against the CPU run's.  24 steps
 # move a factor element by ~1e-7 or less, so 1e-5 would pass a run that
 # dropped them: the atol sits near the float32 spacing of the table's values
@@ -171,9 +207,10 @@ def trace_device(fn):
 def traced_window(fn) -> dict:
     """``fn`` under the profiler, its wall time taken inside the traced
     region (so the profiler's own start and export are not counted): the
-    card's busy time, idle share of that wall time and top kernels.  A
-    trace without device events gives None for busy and idle (not
-    measured)."""
+    card's busy time, idle share of that wall time, top kernels and how
+    many times each of KERNELS ran (``launches_traced``).  A trace without
+    device events gives None for busy and idle, and one without kernel
+    events None for the counts (not measured)."""
     import torch
 
     wall = []
@@ -189,7 +226,12 @@ def traced_window(fn) -> dict:
     for _, name, dur in events:
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + dur / 1e3
     busy_ms = sum(dur for _, _, dur in events) / 1e3 if events else None
+    kernels = [name for cat, name, _ in events if cat == "kernel"]
     return {
+        "launches_traced": {
+            k: sum(any(sym in name for sym in syms) for name in kernels)
+            for k, syms in KERNEL_SYMBOLS.items()
+        } if kernels else None,
         "wall_ms": 1e3 * wall[0],
         "device_busy_ms": busy_ms,
         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / (1e3 * wall[0]),
@@ -465,7 +507,8 @@ def phase_data(tmp: str) -> tuple[str, str]:
     t0 = time.perf_counter()
     gen = os.path.join(HERE, "tools", "gen_synthetic.py")
     out, procs = {}, []
-    for name, batches, seed in (("train", TRAIN_BATCHES, 7), ("valid", VALID_BATCHES, 8)):
+    for name, batches, seed in (("train", TRAIN_BATCHES, 7), ("valid", VALID_BATCHES, 8),
+                                ("big", THROUGHPUT_BATCHES, 9)):
         out[name] = os.path.join(tmp, f"baseline5.{name}.libsvm")
         cmd = [sys.executable, gen, "--rows", str(batches * BATCH), "--fields", str(NNZ),
                "--vocab", str(1 << 20), "--seed", str(seed), "--out", out[name]]
@@ -482,8 +525,9 @@ def phase_data(tmp: str) -> tuple[str, str]:
         if proc.returncode != 0:
             fail(f"gen_synthetic ({name}) failed with exit {proc.returncode}: {err}")
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
-          "train_rows": TRAIN_BATCHES * BATCH, "valid_rows": VALID_BATCHES * BATCH})
-    return out["train"], out["valid"]
+          "train_rows": TRAIN_BATCHES * BATCH, "valid_rows": VALID_BATCHES * BATCH,
+          "throughput_rows": THROUGHPUT_BATCHES * BATCH})
+    return out["train"], out["valid"], out["big"]
 
 
 def _first_batch_ids(path: str, vocab: int):
@@ -681,7 +725,9 @@ def _write_checkpoint(path: str, table, accum_width: int) -> None:
         )
 
 
-def _train_once(cfg, device: str, log_to: list):
+def _train_once(cfg, device: str, log_to: list, resume: bool = True):
+    """``training.train`` on ``device``, resumed from ``cfg.model_file`` (or
+    from its seeded init), its log lines kept; returns (state, seconds)."""
     from fast_tffm_tpu_torch.training import train
 
     def log(*a):
@@ -690,7 +736,7 @@ def _train_once(cfg, device: str, log_to: list):
         log_stderr(f"[train {device}] {msg}")
 
     t0 = time.perf_counter()
-    state = train(cfg, resume=True, log=log, device=device)
+    state = train(cfg, resume=resume, log=log, device=device)
     return state, time.perf_counter() - t0
 
 
@@ -751,122 +797,409 @@ def _gradient_check(model, table, batch) -> dict:
     return {"max_abs_err": err, "max_abs_grad": scale, "factor_max_abs_grad": factor_max}
 
 
+def _seeded_init(rng, tmp: str, name: str, base, model, fused: bool):
+    """The initial state of a training phase, as an npz: factors U(±0.01)
+    from the seed, zero bias, element accumulators (rows) or a [V, 1] row
+    accumulator (fused).  Returns (table, path)."""
+    import numpy as np
+
+    table = np.zeros((base.vocabulary_size, model.row_dim), np.float32)
+    table[:, 1:] = rng.uniform(-0.01, 0.01, (base.vocabulary_size, model.row_dim - 1))
+    init = os.path.join(tmp, f"{name}.init.ckpt")
+    _write_checkpoint(init, table, 1 if fused else model.row_dim)
+    return table, init
+
+
+def _phase_cfg(base, tmp: str, name: str, device: str, init: str, **kw):
+    """``base`` for one run of a phase: its own copy of the initial npz."""
+    import dataclasses
+    import shutil
+
+    model_file = os.path.join(tmp, f"{name}.{device}.ckpt")
+    shutil.copy(init, model_file)
+    return dataclasses.replace(
+        base, model_file=model_file, score_path=os.path.join(tmp, f"{name}.{device}.scores"),
+        **kw,
+    ).validate()
+
+
+def _wrapper_counts() -> dict:
+    from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_bwd
+    from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
+
+    return {"anova_fwd": anova_inter.launches, "anova_bwd": anova_inter_bwd.launches,
+            "rows_tail_adagrad": rows_tail_adagrad_update.launches,
+            "fused_tail_adagrad": fused_tail_adagrad_update.launches}
+
+
+def _zero_counters() -> None:
+    from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_bwd
+    from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
+
+    anova_inter.launches = anova_inter_bwd.launches = 0
+    rows_tail_adagrad_update.launches = fused_tail_adagrad_update.launches = 0
+
+
+def _counted_run(run_once, what: str) -> tuple[dict, dict]:
+    """``run_once()`` under ``traced_window``, every wrapper counter zeroed
+    just before and read just after.  A trace that comes back without
+    kernel events is run again with a fresh ``run_once()``, twice at most.
+    Returns (the window, the wrappers' counts)."""
+    for _ in range(3):
+        _zero_counters()
+        window = traced_window(run_once)
+        counts = _wrapper_counts()
+        if window["launches_traced"] is not None:
+            return window, counts
+        log_stderr(f"{what}: the profiler trace has no kernel events; running it again")
+    fail(f"{what}: three profiler traces without kernel events: launches not measured")
+
+
+def _step_launches(window: dict, wrappers: dict, graphed: bool, what: str) -> dict:
+    """The kernel launches a run's train steps made.  Eager steps launch
+    through the wrappers, whose counts must equal the trace's.  A graphed
+    run's steps are CUDA-graph replays, which never pass through a
+    wrapper: their launches are the trace's counts less the wrappers'
+    (the capture's warm-up on a scratch state, and validation)."""
+    traced = window["launches_traced"]
+    if graphed:
+        return {k: traced[k] - wrappers[k] for k in KERNELS}
+    if traced != wrappers:
+        fail(f"{what}: the trace counts {traced} kernel launches, the wrappers {wrappers}")
+    return dict(wrappers)
+
+
+def _card_and_cpu(name: str, cfg_for, model, table, steps: int, fused: bool) -> dict:
+    """The main path: ``training.train`` on the card under the profiler,
+    every kernel counter zeroed just before and read just after; then the
+    same run on the CPU.  Fails unless the path launched both ANOVA kernels
+    and its tail once per step (the other tail never), the losses are
+    finite, the card's final table and accumulators are within TABLE_ATOL
+    of the CPU's, the updates agree (``_update_check``) and the validation
+    AUCs within AUC_TOL.  Returns the record and the live card state."""
+    import numpy as np
+
+    from fast_tffm_tpu_torch.trainer import unpack_state
+
+    tail = "fused_tail_adagrad" if fused else "rows_tail_adagrad"
+    other = "rows_tail_adagrad" if fused else "fused_tail_adagrad"
+    attempts, result = [], {}
+
+    def run_once():
+        cfg, lines = cfg_for("cuda"), []
+        attempts.append(lines)
+        result["cfg"] = cfg
+        result["state"] = _train_once(cfg, "cuda", lines)[0]
+
+    run, wrappers = _counted_run(run_once, name)
+    cuda_cfg, cuda_log = result["cfg"], attempts[-1]
+    graphed = cuda_cfg.steps_per_call > 1
+    stepped = _step_launches(run, wrappers, graphed, name)
+    launches = {k: stepped[k] for k in ("anova_fwd", "anova_bwd", tail)}
+    if launches["anova_fwd"] < steps or launches["anova_bwd"] != steps:
+        fail(f"the {name} path did not launch both ANOVA kernels once per step: {launches}")
+    if launches[tail] != steps or run["launches_traced"][other]:
+        fail(f"the {tail} kernel ran {launches[tail]} times for {steps} steps "
+             f"(the other tail {run['launches_traced'][other]} times)")
+    losses = _logged(cuda_log, "loss")
+    if not losses or not all(np.isfinite(losses)):
+        fail(f"non-finite or missing training losses on the card: {losses}")
+    cuda_state, cuda_s = unpack_state(result["state"], model), run["wall_ms"] / 1e3
+
+    cpu_log = []
+    cpu_state, cpu_s = _train_once(cfg_for("cpu"), "cpu", cpu_log)
+    cpu_state = unpack_state(cpu_state, model)
+    table_err = float((cuda_state.table.cpu() - cpu_state.table).abs().max())
+    accum_err = float((cuda_state.table_accum.cpu() - cpu_state.table_accum).abs().max())
+    if not (table_err <= TABLE_ATOL and accum_err <= TABLE_ATOL):
+        fail(f"{name}: the card's trained table and accumulators differ from the CPU "
+             f"run's by {table_err} and {accum_err}")
+    updates = _update_check(table, cuda_state.table.cpu().numpy(), cpu_state.table.numpy())
+    auc_cuda, auc_cpu = _logged(cuda_log, "auc"), _logged(cpu_log, "auc")
+    if not (auc_cuda and auc_cpu and abs(auc_cuda[-1] - auc_cpu[-1]) <= AUC_TOL
+            and auc_cuda[-1] > 0.5):
+        fail(f"{name}: validation AUC on the card {auc_cuda} against the CPU's {auc_cpu}")
+    return {
+        "rec": {
+            "steps": steps,
+            "batch_size": BATCH,
+            "launches": launches,
+            "launches_by_wrappers": wrappers,
+            "launches_traced": run["launches_traced"],
+            "losses": losses,
+            "examples_per_s_logged": _logged(cuda_log, "examples/sec"),
+            "examples_per_s_run": steps * BATCH / cuda_s,
+            "seconds": {"cuda": cuda_s, "cpu": cpu_s},
+            "validation_auc": {"cuda": auc_cuda[-1], "cpu": auc_cpu[-1]},
+            "max_abs_table_diff": table_err,
+            "max_abs_accum_diff": accum_err,
+            "updates": updates,
+            "traced_run": run,
+        },
+        "cuda_cfg": cuda_cfg,
+        "cuda_log": cuda_log,
+        "cuda_logs_all": [m for lines in attempts for m in lines],
+        "state": result["state"],
+        "cpu_state": cpu_state,
+    }
+
+
+def _step_times(fn, reps: int = 12, per_call: int = 1) -> list[float]:
+    """Sorted wall ms per step of ``fn`` (``per_call`` steps a call), each
+    call ended by a synchronize, the first two calls dropped."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / per_call)
+    return sorted(times[2:])
+
+
 def phase_train(rng, tmp: str, train_path: str, valid_path: str, fused: bool = False):
     """The rows run (``fused`` False) or the fused lane-packed run of
     baseline5, on the card and then on the CPU from one seeded npz."""
     import dataclasses
-    import shutil
-
-    import numpy as np
-    import torch
 
     from fast_tffm_tpu_torch.config import build_model, load_config
     from fast_tffm_tpu_torch.data.pipeline import batch_stream
     from fast_tffm_tpu_torch.models.base import Batch
-    from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_bwd
-    from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
-    from fast_tffm_tpu_torch.trainer import make_packed_train_step, make_train_step, unpack_state
+    from fast_tffm_tpu_torch.trainer import make_packed_train_step, make_train_step
 
     name = "train_fused" if fused else "train"
     base = load_config(os.path.join(HERE, CONFIG))
     if fused:
         base = dataclasses.replace(base, **FUSED).validate()
     model = build_model(base)
-    # The initial state: factors U(±0.01) from the seed, zero bias, element
-    # accumulators (rows) or a [V, 1] row accumulator (fused).
-    table = np.zeros((base.vocabulary_size, model.row_dim), np.float32)
-    table[:, 1:] = rng.uniform(-0.01, 0.01, (base.vocabulary_size, model.row_dim - 1))
-    init = os.path.join(tmp, f"{name}.init.ckpt")
-    _write_checkpoint(init, table, 1 if fused else model.row_dim)
-
-    def cfg_for(device):
-        model_file = os.path.join(tmp, f"{name}.{device}.ckpt")
-        shutil.copy(init, model_file)
-        return dataclasses.replace(
-            base, train_files=(train_path,), validation_files=(valid_path,),
-            predict_files=(valid_path,), model_file=model_file,
-            score_path=os.path.join(tmp, f"{name}.{device}.scores"), log_every=4,
-        )
-
-    # The main path: train on the card, under the profiler for its idle share.
-    cuda_cfg, cuda_log, result = cfg_for("cuda"), [], {}
-    tail_kernel, tail_name = (
-        (fused_tail_adagrad_update, "fused_tail") if fused else (rows_tail_adagrad_update, "rows_tail")
+    table, init = _seeded_init(rng, tmp, name, base, model, fused)
+    out = _card_and_cpu(
+        name,
+        lambda device: _phase_cfg(base, tmp, name, device, init, train_files=(train_path,),
+                                  validation_files=(valid_path,), predict_files=(valid_path,),
+                                  log_every=4),
+        model, table, TRAIN_BATCHES, fused,
     )
-    anova_inter.launches = anova_inter_bwd.launches = 0
-    rows_tail_adagrad_update.launches = fused_tail_adagrad_update.launches = 0
-    run = traced_window(lambda: result.update(state=_train_once(cuda_cfg, "cuda", cuda_log)[0]))
-    launches = {
-        "anova_fwd": anova_inter.launches,
-        "anova_bwd": anova_inter_bwd.launches,
-        tail_name: tail_kernel.launches,
-    }
-    other_tail = rows_tail_adagrad_update.launches if fused else fused_tail_adagrad_update.launches
-    cuda_state, cuda_s = unpack_state(result["state"], model), run["wall_ms"] / 1e3
-    if launches["anova_fwd"] == 0 or launches["anova_bwd"] == 0:
-        fail(f"the {name} path did not launch both ANOVA kernels: {launches}")
-    if launches[tail_name] != TRAIN_BATCHES or other_tail:
-        fail(f"the {tail_name} kernel ran {launches[tail_name]} times for "
-             f"{TRAIN_BATCHES} steps (the other tail {other_tail} times)")
-    losses = _logged(cuda_log, "loss")
-    if not losses or not all(np.isfinite(losses)):
-        fail(f"non-finite or missing training losses on the card: {losses}")
-
-    cpu_cfg, cpu_log = cfg_for("cpu"), []
-    cpu_state, cpu_s = _train_once(cpu_cfg, "cpu", cpu_log)
-    cpu_state = unpack_state(cpu_state, model)
-    table_err = float((cuda_state.table.cpu() - cpu_state.table).abs().max())
-    accum_err = float((cuda_state.table_accum.cpu() - cpu_state.table_accum).abs().max())
-    if not (table_err <= TABLE_ATOL and accum_err <= TABLE_ATOL):
-        fail(f"the card's trained table and accumulators differ from the CPU run's by "
-             f"{table_err} and {accum_err}")
-    updates = _update_check(table, cuda_state.table.cpu().numpy(), cpu_state.table.numpy())
-    auc_cuda, auc_cpu = _logged(cuda_log, "auc"), _logged(cpu_log, "auc")
-    if not (auc_cuda and auc_cpu and abs(auc_cuda[-1] - auc_cpu[-1]) <= AUC_TOL
-            and auc_cuda[-1] > 0.5):
-        fail(f"validation AUC on the card {auc_cuda} against the CPU's {auc_cpu}")
-
     parsed, w = next(batch_stream([valid_path], batch_size=BATCH,
                                   vocabulary_size=base.vocabulary_size, max_nnz=NNZ))
     host_batch = Batch.from_parsed(parsed, w)
     # The repaired gradient, on a validation batch, from the CPU run's table.
-    grad = None if fused else _gradient_check(model, cpu_state.table, host_batch)
+    grad = None if fused else _gradient_check(model, out["cpu_state"].table, host_batch)
 
     # Step time on the card with the input already there; then one traced step.
-    if fused:
-        step, cuda_state = make_packed_train_step(model, base.learning_rate), result["state"]
-    else:
-        step = make_train_step(model, base.learning_rate)
-    batch = host_batch.to("cuda")
-    times = []
-    for _ in range(12):
-        t0 = time.perf_counter()
-        cuda_state, _ = step(cuda_state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    times = sorted(times[2:])
+    step = (make_packed_train_step if fused else make_train_step)(model, base.learning_rate)
+    state, batch = out["state"], host_batch.to("cuda")
+    times = _step_times(lambda: step(state, batch))
     emit({
         "phase": name,
         "config": CONFIG + (" + " + json.dumps(FUSED) if fused else ""),
-        "steps": TRAIN_BATCHES,
-        "batch_size": BATCH,
-        "launches": launches,
-        "losses": losses,
-        "examples_per_s_logged": _logged(cuda_log, "examples/sec"),
-        "examples_per_s_run": TRAIN_BATCHES * BATCH / cuda_s,
-        "seconds": {"cuda": cuda_s, "cpu": cpu_s},
+        "thread_num": base.thread_num,
+        **out["rec"],
         "step_ms_p50": times[len(times) // 2],
         "step_ms_min": times[0],
         "step_examples_per_s": BATCH / (times[len(times) // 2] / 1e3),
-        "validation_auc": {"cuda": auc_cuda[-1], "cpu": auc_cpu[-1]},
-        "max_abs_table_diff": table_err,
-        "max_abs_accum_diff": accum_err,
-        "updates": updates,
         "gradient": grad,
-        "traced_run": run,
-        "traced_step": traced_window(lambda: step(cuda_state, batch)),
+        "traced_step": traced_window(lambda: step(state, batch)),
     })
-    return cuda_cfg, launches
+    return out["cuda_cfg"], out["rec"]["launches"]
+
+
+def phase_parse(train_path: str):
+    """The 24-batch train file through the native stream at the config's
+    thread_num and at 0 (every usable core), and through the Python stream:
+    every batch bitwise equal, rows/s of each."""
+    import numpy as np
+
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.native import best_parser, native_batch_stream, usable_cores
+    from fast_tffm_tpu_torch.data.pipeline import batch_stream
+
+    cfg = load_config(os.path.join(HERE, CONFIG))
+    kw = dict(batch_size=BATCH, vocabulary_size=cfg.vocabulary_size,
+              hash_feature_id=cfg.hash_feature_id, max_nnz=NNZ)
+    runs = {}
+    for threads in (cfg.thread_num, 0):
+        parser = best_parser(threads)
+        runs[f"native_threads_{threads}"] = (
+            parser.threads, lambda p=parser: native_batch_stream(p, [train_path], **kw))
+    runs["python"] = (1, lambda: batch_stream([train_path], **kw))
+    out, batches = {}, {}
+    for name, (threads, make) in runs.items():
+        t0 = time.perf_counter()
+        batches[name] = list(make())
+        dt = time.perf_counter() - t0
+        out[name] = {"threads": threads, "seconds": dt, "rows_per_s": TRAIN_BATCHES * BATCH / dt}
+    want = batches["python"]
+    for name, got in batches.items():
+        if len(got) != len(want) or len(got) != TRAIN_BATCHES:
+            fail(f"parse: {name} gave {len(got)} batches, python {len(want)}")
+        for (p, w), (q, v) in zip(got, want):
+            same = np.array_equal(w, v) and all(
+                np.array_equal(getattr(p, f).astype(np.int64) if f == "ids" else getattr(p, f),
+                               getattr(q, f).astype(np.int64) if f == "ids" else getattr(q, f))
+                for f in ("labels", "ids", "vals", "fields", "nnz"))
+            if not same:
+                fail(f"parse: {name}'s batches are not bitwise the Python parser's")
+    emit({"phase": "parse", "rows": TRAIN_BATCHES * BATCH, "bitwise": True,
+          "host_cores": os.cpu_count(), "usable_cores": usable_cores(), **out})
+
+
+def phase_train_fmb(rng, tmp: str, train_path: str, valid_path: str):
+    """baseline5 with binary_cache and shuffle, rows layout, 2 epochs on the
+    card and on the CPU (``_card_and_cpu``'s checks); then a second card
+    run, which must reuse the cache the first built."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.config import build_model, load_config
+
+    name, kw = "train_fmb", {"binary_cache": True, "shuffle": True}
+    base = dataclasses.replace(load_config(os.path.join(HERE, CONFIG)), **kw)
+    model = build_model(base)
+    table, init = _seeded_init(rng, tmp, name, base, model, False)
+    files = dict(train_files=(train_path,), validation_files=(valid_path,), epoch_num=2,
+                 log_every=8)
+    out = _card_and_cpu(name, lambda device: _phase_cfg(base, tmp, name, device, init, **files),
+                        model, table, 2 * TRAIN_BATCHES, False)
+    # The first run builds the train and the validation file's caches.
+    built = [m for m in out["cuda_logs_all"] if m.startswith("building binary cache")]
+    again = []
+    t0 = time.perf_counter()
+    _train_once(_phase_cfg(base, tmp, name, "cuda2", init, **files), "cuda", again)
+    rebuilt = [m for m in again if m.startswith("building binary cache")]
+    if len(built) != 2 or rebuilt:
+        fail(f"train_fmb: {len(built)} caches built by the first run and {len(rebuilt)} "
+             "by the second (expected 2 and 0)")
+    emit({"phase": name, "config": CONFIG + " + " + json.dumps(kw), **out["rec"],
+          "caches_built": built, "second_run": {
+              "cache_reused": True, "seconds": time.perf_counter() - t0,
+              "examples_per_s_logged": _logged(again, "examples/sec")}})
+
+
+def phase_train_cached(rng, tmp: str, train_path: str, valid_path: str, fused: bool):
+    """device_cache + shuffle + steps_per_call = 8 for 2 epochs: the card
+    (CUDA-graph replays) against the CPU (``_card_and_cpu``), and bitwise
+    against the card's own K = 1 run from the same npz and cache; the graph's
+    step time against the eager K = 1 step's, and a traced replay."""
+    import dataclasses
+
+    import torch
+
+    from fast_tffm_tpu_torch.config import build_model, load_config
+    from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache
+    from fast_tffm_tpu_torch.data.device_cache import (
+        epoch_index_chunks,
+        load_device_dataset,
+        make_cached_scan_train_step,
+        make_cached_train_step,
+    )
+    from fast_tffm_tpu_torch.trainer import packed_train_step_body, train_step_body, unpack_state
+
+    name = "train_cached_fused" if fused else "train_cached"
+    kw = {"device_cache": True, "binary_cache": True, "shuffle": True, "steps_per_call": 8}
+    base = load_config(os.path.join(HERE, CONFIG))
+    base = dataclasses.replace(base, **kw, **(FUSED if fused else {})).validate()
+    model = build_model(base)
+    table, init = _seeded_init(rng, tmp, name, base, model, fused)
+    files = dict(train_files=(train_path,), validation_files=(valid_path,), epoch_num=2,
+                 log_every=8)
+    out = _card_and_cpu(name, lambda device: _phase_cfg(base, tmp, name, device, init, **files),
+                        model, table, 2 * TRAIN_BATCHES, fused)
+    one_log = []
+    one, _ = _train_once(_phase_cfg(base, tmp, name, "cuda_k1", init, steps_per_call=1, **files),
+                         "cuda", one_log)
+    k8, k1 = unpack_state(out["state"], model), unpack_state(one, model)
+    if not (torch.equal(k8.table, k1.table) and torch.equal(k8.table_accum, k1.table_accum)
+            and k8.step == k1.step):
+        err = float((k8.table - k1.table).abs().max())
+        fail(f"{name}: steps_per_call = 8 is not bitwise the card's K = 1 run (table {err})")
+    if _logged(one_log, "auc") != _logged(out["cuda_log"], "auc"):
+        fail(f"{name}: validation AUC of K = 8 and K = 1 differ")
+
+    # Step times: one replay of 8 steps against 8 eager K = 1 steps, on the
+    # resident epoch, continuing from the trained state.
+    cfg = out["cuda_cfg"]
+    data = load_device_dataset(
+        ensure_fmb_cache(cfg.train_files, vocabulary_size=cfg.vocabulary_size, max_nnz=NNZ,
+                         log=log_stderr),
+        batch_size=BATCH, vocabulary_size=cfg.vocabulary_size, max_nnz=NNZ, device="cuda")
+    body = (lambda m, lr, st, b: packed_train_step_body(m, lr, st, b)) if fused else train_step_body
+    scan, _ = make_cached_scan_train_step(model, cfg.learning_rate, data, body)
+    eager, _ = make_cached_train_step(model, cfg.learning_rate, data, body)
+    state, idxs = out["state"], epoch_index_chunks(data.batches, 8, "cuda")[0]
+    index = torch.tensor(0, dtype=torch.int64, device="cuda")
+    graph_ms = _step_times(lambda: scan(state, idxs), per_call=8)
+    eager_ms = _step_times(lambda: eager(state, index))
+    replay = traced_window(lambda: scan(state, idxs))
+    single = traced_window(lambda: eager(state, index))
+    emit({
+        "phase": name,
+        "config": CONFIG + " + " + json.dumps({**kw, **(FUSED if fused else {})}),
+        **out["rec"],
+        "bitwise_k1": True,
+        "graph_step_ms_p50": graph_ms[len(graph_ms) // 2],
+        "eager_step_ms_p50": eager_ms[len(eager_ms) // 2],
+        "graph_busy_ms_per_step": None if replay["device_busy_ms"] is None
+        else replay["device_busy_ms"] / 8,
+        "eager_busy_ms_per_step": single["device_busy_ms"],
+        "traced_replay": replay,
+        "traced_eager_step": single,
+    })
+    return out["rec"]["launches"]
+
+
+def phase_throughput(tmp: str, big_path: str):
+    """The config's 1,048,576-row epoch on the card only: streamed through
+    the native parser, from FMB (the cache built first, its time apart),
+    from FMB with steps_per_call = 8 (the streamed K-step graph) and
+    device-cached with steps_per_call = 8; ex/s (the logged windows and
+    the whole run) and the card's idle share of each run."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache
+    from fast_tffm_tpu_torch.data.native import best_parser
+
+    base = dataclasses.replace(
+        load_config(os.path.join(HERE, CONFIG)), train_files=(big_path,), validation_files=(),
+        predict_files=(), save_every_epochs=0,
+    )
+    t0 = time.perf_counter()
+    ensure_fmb_cache((big_path,), vocabulary_size=base.vocabulary_size, max_nnz=NNZ,
+                     parser=best_parser(base.thread_num), log=log_stderr)
+    convert_s = time.perf_counter() - t0
+    rec = {"phase": "throughput", "rows": THROUGHPUT_BATCHES * BATCH, "config": CONFIG,
+           "fmb_convert_seconds": convert_s}
+    for mode, kw in (("streamed_native", {}), ("fmb", {"binary_cache": True}),
+                     ("fmb_k8", {"binary_cache": True, "steps_per_call": 8}),
+                     ("device_cached_k8", {"binary_cache": True, "device_cache": True,
+                                           "steps_per_call": 8})):
+        cfg = dataclasses.replace(base, model_file=os.path.join(tmp, f"tp.{mode}.ckpt"),
+                                  **kw).validate()
+        attempts = []
+
+        def run_once(cfg=cfg):
+            attempts.append([])
+            _train_once(cfg, "cuda", attempts[-1], resume=False)
+
+        run, wrappers = _counted_run(run_once, f"throughput {mode}")
+        lines = attempts[-1]
+        stepped = _step_launches(run, wrappers, cfg.steps_per_call > 1, f"throughput {mode}")
+        if any(stepped[k] != THROUGHPUT_BATCHES
+               for k in ("anova_fwd", "anova_bwd", "rows_tail_adagrad")):
+            fail(f"throughput {mode}: {stepped} kernel launches for {THROUGHPUT_BATCHES} steps")
+        logged = _logged(lines, "examples/sec")
+        rec[mode] = {
+            **kw,
+            "examples_per_s_logged": logged,
+            "examples_per_s_logged_median": sorted(logged)[len(logged) // 2] if logged else None,
+            "examples_per_s_run": THROUGHPUT_BATCHES * BATCH / (run["wall_ms"] / 1e3),
+            "device_idle_share": run["device_idle_share"],
+            "device_busy_ms": run["device_busy_ms"],
+            "wall_ms": run["wall_ms"],
+            "launches": stepped,
+        }
+    emit(rec)
 
 
 def phase_predict(cuda_cfg, name: str = "predict"):
@@ -1017,13 +1350,14 @@ def phase_serve(rng, tmp: str):
     })
 
 
-def _kernel_record(name, source, replaces, launches, worst, main) -> dict:
+def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run) -> dict:
     return {
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": launches,
+        "launches_by_run": launches_by_run,
         "max_abs_err": worst,
         "ms": main["ms"],
         "device_ms": main["device_ms"],
@@ -1050,7 +1384,8 @@ def main() -> int:
     fwd = phase_anova(rng)
     bwd = phase_anova_bwd(rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        train_path, valid_path = phase_data(tmp)
+        train_path, valid_path, big_path = phase_data(tmp)
+        phase_parse(train_path)
         tail = phase_rows_tail(rng, train_path)
         fused_tail = phase_fused_tail(rng, train_path)
         cuda_cfg, launches = phase_train(rng, tmp, train_path, valid_path)
@@ -1058,17 +1393,31 @@ def main() -> int:
         fused_cfg, fused_launches = phase_train(rng, tmp, train_path, valid_path, fused=True)
         phase_predict(fused_cfg, "predict_packed")
         phase_serve(rng, tmp)
+        phase_train_fmb(rng, tmp, train_path, valid_path)
+        graphed = phase_train_cached(rng, tmp, train_path, valid_path, fused=False)
+        graphed_fused = phase_train_cached(rng, tmp, train_path, valid_path, fused=True)
+        phase_throughput(tmp, big_path)
     src = "fast_tffm_tpu_torch/csrc/"
+    # Launches: the wrappers' counts over the main path, the eager train run
+    # (train_fused for B3; 24 steps: B1 once per step and per validation
+    # batch, B2 and the tail once per step).  Beside them, the graphed
+    # device-cached runs' steps (48, every 8 one CUDA-graph replay), counted
+    # in their profiler traces.
+    by_run = lambda k, eager, graph: {"train": eager[k], "train_cached_replays": graph[k]}  # noqa: E731
     emit({"kernels": [
         _kernel_record("anova_fwd", src + "anova_fwd.cu",
-                       "fast_tffm_tpu/ops/pallas_anova.py:66", launches["anova_fwd"], *fwd),
+                       "fast_tffm_tpu/ops/pallas_anova.py:66", launches["anova_fwd"], *fwd,
+                       by_run("anova_fwd", launches, graphed)),
         _kernel_record("anova_bwd", src + "anova_bwd.cu",
-                       "fast_tffm_tpu/ops/pallas_anova.py:91", launches["anova_bwd"], *bwd),
+                       "fast_tffm_tpu/ops/pallas_anova.py:91", launches["anova_bwd"], *bwd,
+                       by_run("anova_bwd", launches, graphed)),
         _kernel_record("rows_tail_adagrad", src + "rows_tail_adagrad.cu",
-                       "fast_tffm_tpu/ops/pallas_tail.py:267", launches["rows_tail"], *tail),
+                       "fast_tffm_tpu/ops/pallas_tail.py:267", launches["rows_tail_adagrad"],
+                       *tail, by_run("rows_tail_adagrad", launches, graphed)),
         _kernel_record("fused_tail_adagrad", src + "fused_tail_adagrad.cu",
-                       "fast_tffm_tpu/ops/pallas_tail.py:119", fused_launches["fused_tail"],
-                       *fused_tail),
+                       "fast_tffm_tpu/ops/pallas_tail.py:119",
+                       fused_launches["fused_tail_adagrad"], *fused_tail,
+                       by_run("fused_tail_adagrad", fused_launches, graphed_fused)),
     ]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"], "count": dev["count"]}})

@@ -68,11 +68,16 @@ class Config:
     #   rows_tail_adagrad.cu or csrc/fused_tail_adagrad.cu; xla names a JAX
     #   compiler path the port does not have, and says so in the log); on
     #   the CPU its plain twin
-    thread_num: int = 0  # read for parity; the port parses in one thread
-    binary_cache: bool = False  # read to be refused (a later slice)
-    shuffle: bool = False  # read to be refused (FMB input, a later slice)
-    device_cache: bool = False  # read to be refused (a later slice)
-    steps_per_call: int = 1  # read to be refused when > 1 (a later slice)
+    thread_num: int = 0  # the native C++ parser's threads (data/native.py;
+    #   0 = all usable cores): every text stream of train, validation and
+    #   predict parses through it
+    binary_cache: bool = False  # parse text once into <file>.fmb, stream that
+    shuffle: bool = False  # per-epoch global shuffle of train rows (FMB input only)
+    shuffle_seed: int = 0
+    device_cache: bool = False  # the (FMB) train set resident on the device,
+    #   each step's batch gathered there (data/device_cache.py)
+    steps_per_call: int = 1  # K train steps per call: on the card one replay
+    #   of a CUDA graph of K steps (utils/step_graph.py), on the CPU a loop
     dedup_gather_rows: int = 0  # read to be refused when > 0 (a later slice)
     wire_format: str = "packed"  # read for parity; the port always stages
     #   one pinned host->device buffer per flush (serving/buckets.py), and
@@ -108,6 +113,8 @@ class Config:
     paramstore: bool = False  # read to be refused (a later slice)
     # [Resilience]
     on_nan: str = "abort"  # abort (rollback: a later slice)
+    io_retries: int = 3  # FMB reader: transient-OSError retries per read op
+    io_retry_backoff_s: float = 0.05  # first retry backoff (doubles per try)
 
     def validate(self) -> "Config":
         if self.model not in ("fm", "ffm", "deepfm"):
@@ -183,6 +190,9 @@ class Config:
             raise ValueError(f"steps_per_call must be >= 1, got {self.steps_per_call}")
         if self.thread_num < 0:
             raise ValueError(f"thread_num must be >= 0 (0 = all cores), got {self.thread_num}")
+        if self.shuffle_seed < 0:
+            # numpy's SeedSequence rejects negatives: fail at the config.
+            raise ValueError(f"shuffle_seed must be >= 0, got {self.shuffle_seed}")
         if self.adagrad_accumulator not in ("element", "row", "fused"):
             raise ValueError(
                 f"unknown adagrad_accumulator {self.adagrad_accumulator!r} "
@@ -226,9 +236,29 @@ class Config:
                 "= element or row (the fused layout has no separate "
                 "accumulator array to reset)"
             )
+        if self.online_follow and self.shuffle:
+            raise ValueError(
+                "[Online] follow = true cannot shuffle: an append-only "
+                "stream has no fixed row count to permute"
+            )
+        if self.online_follow and self.device_cache:
+            raise ValueError(
+                "[Online] follow = true is a streamed input mode — "
+                "device_cache loads a FIXED dataset to HBM once"
+            )
         if self.dedup_gather_rows < 0:
             raise ValueError(
                 f"dedup_gather_rows must be >= 0 (0 = off), got {self.dedup_gather_rows}"
+            )
+        if self.dedup_gather_rows > 0 and self.device_cache:
+            raise ValueError(
+                "dedup_gather_rows applies to the STREAMED path; "
+                "device_cache slices resident batches (drop one)"
+            )
+        if self.paramstore and self.device_cache:
+            raise ValueError(
+                "[ParamStore] and device_cache are exclusive: the "
+                "tiered store IS the residency decision"
             )
         if self.delta_every_steps < 0:
             raise ValueError(
@@ -236,6 +266,10 @@ class Config:
             )
         if self.on_nan not in ("abort", "rollback"):
             raise ValueError(f"unknown on_nan {self.on_nan!r} (abort | rollback)")
+        if self.io_retries < 0:
+            raise ValueError(f"io_retries must be >= 0, got {self.io_retries}")
+        if self.io_retry_backoff_s < 0:
+            raise ValueError(f"io_retry_backoff_s must be >= 0, got {self.io_retry_backoff_s}")
         if self.packed_update not in ("auto", "dense", "compact", "sorted"):
             raise ValueError(
                 f"unknown packed_update {self.packed_update!r} (auto | dense | compact | sorted)"
@@ -383,6 +417,7 @@ def load_config(path: str) -> Config:
     cfg.thread_num = get(t, "thread_num", int, cfg.thread_num)
     cfg.binary_cache = get(t, "binary_cache", boolean, cfg.binary_cache)
     cfg.shuffle = get(t, "shuffle", boolean, cfg.shuffle)
+    cfg.shuffle_seed = get(t, "shuffle_seed", int, cfg.shuffle_seed)
     cfg.device_cache = get(t, "device_cache", boolean, cfg.device_cache)
     cfg.dedup_gather_rows = get(t, "dedup_gather_rows", int, cfg.dedup_gather_rows)
     cfg.steps_per_call = get(t, "steps_per_call", int, cfg.steps_per_call)
@@ -428,7 +463,10 @@ def load_config(path: str) -> Config:
         o, "accum_restart_steps", int, cfg.online_accum_restart_steps
     )
     cfg.paramstore = get("ParamStore", "enabled", boolean, cfg.paramstore)
-    cfg.on_nan = get("Resilience", "on_nan", str, cfg.on_nan).lower()
+    r = "Resilience"
+    cfg.on_nan = get(r, "on_nan", str, cfg.on_nan).lower()
+    cfg.io_retries = get(r, "io_retries", int, cfg.io_retries)
+    cfg.io_retry_backoff_s = get(r, "io_retry_backoff_s", float, cfg.io_retry_backoff_s)
     return cfg.validate()
 
 

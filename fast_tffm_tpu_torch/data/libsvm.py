@@ -131,24 +131,17 @@ def pad_batch(batch: ParsedBatch, batch_size: int) -> ParsedBatch:
 
 def scan_max_nnz(cfg) -> int:
     """The static feature width: ``cfg.max_nnz``, or the widest row of the
-    configured text files (``fast_tffm_tpu/training.py::scan_max_nnz``'s
-    contract; the binary FMB/FMS inputs it also reads are a later slice)."""
+    configured data files (``fast_tffm_tpu/training.py::scan_max_nnz``'s
+    contract): one C++ pass per text file, the header of an FMB file
+    (``data/native.scan_files``).  (FMS stream files are a later slice.)"""
     if cfg.max_nnz > 0:
         return cfg.max_nnz
+    from fast_tffm_tpu_torch.data.native import scan_files
+
     paths = (*cfg.train_files, *cfg.validation_files, *cfg.predict_files)
     if not paths:
         raise ValueError(
             "serving needs a static feature width: set max_nnz in [Train], "
             "or configure data files for the width scan"
         )
-    widest = 0
-    for p in paths:
-        if p.endswith((".fmb", ".fms")):
-            raise ValueError(
-                f"{p}: binary FMB/FMS input is not ported yet (a later slice of "
-                "fast_tffm_tpu_torch); set max_nnz in [Train]"
-            )
-        with open(p) as f:
-            for line in f:
-                widest = max(widest, len(line.split()) - 1)
-    return max(1, widest)
+    return max(1, scan_files(paths)[1])

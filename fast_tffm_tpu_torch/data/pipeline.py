@@ -1,11 +1,19 @@
-"""Host-side input pipeline: text files → line batches → ParsedBatch stream.
+"""Host-side input pipeline: files → ParsedBatch stream — the counterpart
+of ``fast_tffm_tpu/data/pipeline.py``.
 
-The counterpart of ``fast_tffm_tpu/data/pipeline.py`` for libsvm/libffm
-text (numpy only).  ``batch_stream`` yields ``(ParsedBatch, weights)``
-pairs with a static ``[batch_size, max_nnz]`` shape; a short final batch is
-zero-padded with weight-0 rows, so the loss and the AUC ignore them.
-Binary FMB input and its cache, shuffling, multi-host sharding and
-resume seeks are later slices of the port.
+``batch_stream`` yields ``(ParsedBatch, weights)`` pairs with a static
+``[batch_size, max_nnz]`` shape; a short final batch is zero-padded with
+weight-0 rows, so the loss and the AUC ignore them.  It routes by input:
+
+* FMB files (data/binary.py) → ``fmb_batch_stream``: memmap copies, no
+  parsing, and the only input that shuffles;
+* text with the native parser (data/native.py) → ``native_batch_stream``:
+  reading, splitting and parsing in C++;
+* text otherwise → the Python line stream and ``parser`` (default
+  ``libsvm.parse_lines``).
+
+Multi-host sharding and the resume seek (``skip_rows``) are later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -17,7 +25,25 @@ import numpy as np
 
 from fast_tffm_tpu_torch.data.libsvm import ParsedBatch, pad_batch, parse_lines
 
-__all__ = ["line_stream", "batch_stream"]
+__all__ = ["line_stream", "batch_stream", "emit_assembled_tail"]
+
+
+def emit_assembled_tail(alloc, buffers, filled, emitted, drop_remainder, pad_to_batches):
+    """The end of a buffer-assembling stream (``native_batch_stream``,
+    ``fmb_batch_stream``): ``buffers`` (labels, ids, vals, fields, nnz,
+    weights) holds ``filled`` real rows, zeros with weight 0 beyond
+    (``pad_batch``'s padding).  Emits that short batch unless
+    ``drop_remainder``, then all-empty weight-0 batches up to
+    ``pad_to_batches``."""
+    labels, ids, vals, fields, nnz, w = buffers
+    if filled and not drop_remainder and (pad_to_batches is None or emitted < pad_to_batches):
+        yield ParsedBatch(labels, ids, vals, fields, nnz), w
+        emitted += 1
+    if pad_to_batches is not None:
+        while emitted < pad_to_batches:
+            labels, ids, vals, fields, nnz, w = alloc()  # all-zero, weight-0
+            yield ParsedBatch(labels, ids, vals, fields, nnz), w
+            emitted += 1
 
 
 def line_stream(
@@ -50,26 +76,94 @@ def batch_stream(
     max_nnz: int | None = None,
     epochs: int = 1,
     weights: Sequence[float] | None = None,
+    drop_remainder: bool = False,
+    pad_to_batches: int | None = None,
+    parser=None,
+    binary_cache: bool = False,
+    shuffle_seed: int | None = None,
+    skip_rows: int = 0,
+    io_retries: int = 3,
+    io_retry_backoff_s: float = 0.05,
+    log=print,
 ) -> Iterator[tuple[ParsedBatch, np.ndarray]]:
     """Yield (ParsedBatch, example_weights[batch]) with static shapes.
 
-    A short final batch is zero-padded up to ``batch_size`` (padded rows
-    get weight 0).  ``max_nnz`` fixes the
-    feature-axis width across all batches; None makes each batch as wide as
-    its widest row."""
-    for p in files:
-        if p.endswith((".fmb", ".fms")):
+    A short final batch is zero-padded up to ``batch_size`` (padded rows get
+    weight 0) unless ``drop_remainder``.  ``max_nnz`` fixes the feature-axis
+    width across all batches; None makes each batch as wide as its widest
+    row.  ``pad_to_batches`` forces exactly that many batches, appending
+    all-empty weight-0 ones (requires ``max_nnz``).
+
+    ``parser`` overrides the line parser (``parse_lines``' signature); the
+    native parser streams whole files through C++ when ``max_nnz`` is set.
+    ``binary_cache`` converts text files to ``<file>.fmb`` caches first
+    (reused while fresh) and streams those.  ``shuffle_seed`` shuffles the
+    rows of every epoch and needs FMB input.  A list mixing FMB and text
+    files is refused."""
+    from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, fmb_batch_stream, is_fmb
+    from fast_tffm_tpu_torch.data.native import NativeParser, native_batch_stream
+
+    if skip_rows:
+        raise ValueError(
+            "skip_rows (the exact-position resume seek) is not ported yet (a later "
+            "slice of fast_tffm_tpu_torch)"
+        )
+    if pad_to_batches is not None and max_nnz is None:
+        raise ValueError(
+            "pad_to_batches requires max_nnz (pad batches must share the "
+            "data batches' static feature width)"
+        )
+    if binary_cache:
+        files = ensure_fmb_cache(
+            files, vocabulary_size=vocabulary_size, hash_feature_id=hash_feature_id,
+            max_nnz=max_nnz, parser=parser, log=log,
+        )
+    fmb = [is_fmb(p) for p in files]
+    if any(fmb):
+        if not all(fmb):
             raise ValueError(
-                f"{p}: binary FMB/FMS input is not ported yet (a later slice of "
-                "fast_tffm_tpu_torch); stream the text file"
+                "cannot mix FMB and text files in one stream: "
+                f"{[p for p, b in zip(files, fmb) if not b]} are not FMB"
             )
+        yield from fmb_batch_stream(
+            files, batch_size=batch_size, vocabulary_size=vocabulary_size,
+            hash_feature_id=hash_feature_id, max_nnz=max_nnz, epochs=epochs,
+            weights=weights, drop_remainder=drop_remainder, pad_to_batches=pad_to_batches,
+            shuffle_seed=shuffle_seed, io_retries=io_retries,
+            io_retry_backoff_s=io_retry_backoff_s, log=log,
+        )
+        return
+    if shuffle_seed is not None:
+        if binary_cache:
+            raise ValueError(
+                "shuffle requires memmap (FMB) input, and the binary cache "
+                "could not be built (cache location unwritable?) — fix the "
+                "cache-directory permissions or convert the files to a "
+                "writable location (tools/convert_dataset.py / the convert "
+                "CLI verb)"
+            )
+        raise ValueError(
+            "shuffle requires memmap (FMB) input — sequential text streaming "
+            "cannot reorder rows; set binary_cache = true or convert the "
+            "files (tools/convert_dataset.py / the convert CLI verb)"
+        )
+    if isinstance(parser, NativeParser) and max_nnz is not None:
+        yield from native_batch_stream(
+            parser, files, batch_size=batch_size, vocabulary_size=vocabulary_size,
+            hash_feature_id=hash_feature_id, max_nnz=max_nnz, epochs=epochs,
+            weights=weights, drop_remainder=drop_remainder, pad_to_batches=pad_to_batches,
+        )
+        return
+
+    parse = parser if parser is not None else parse_lines
     stream = line_stream(files, epochs=epochs, weights=weights)
+    emitted = 0
     while True:
         chunk = list(itertools.islice(stream, batch_size))
-        if not chunk:
-            return
+        if not chunk or (len(chunk) < batch_size and drop_remainder):
+            break
         w = np.asarray([c[1] for c in chunk], np.float32)
-        batch = parse_lines(
+        batch = parse(
             [c[0] for c in chunk],
             vocabulary_size=vocabulary_size,
             hash_feature_id_flag=hash_feature_id,
@@ -79,3 +173,17 @@ def batch_stream(
             batch = pad_batch(batch, batch_size)
             w = np.concatenate([w, np.zeros((batch_size - len(chunk),), np.float32)])
         yield batch, w
+        emitted += 1
+        if pad_to_batches is not None and emitted >= pad_to_batches:
+            return
+    if pad_to_batches is not None:
+        while emitted < pad_to_batches:
+            empty = ParsedBatch(
+                labels=np.zeros((batch_size,), np.float32),
+                ids=np.zeros((batch_size, max_nnz), np.int64),
+                vals=np.zeros((batch_size, max_nnz), np.float32),
+                fields=np.zeros((batch_size, max_nnz), np.int32),
+                nnz=np.zeros((batch_size,), np.int32),
+            )
+            yield empty, np.zeros((batch_size,), np.float32)
+            emitted += 1

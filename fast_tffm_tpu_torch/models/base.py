@@ -50,6 +50,28 @@ class Batch:
         )
         return host if torch.device(device).type == "cpu" else host.to(device)
 
+    @staticmethod
+    def stack_parsed(parsed_seq, weights_seq=None):
+        """K host ParsedBatches → ONE host superbatch [K, B, ...]
+        (``steps_per_call`` > 1), so each field crosses to the card once
+        per K steps.  ``fields`` follows ``from_parsed``'s [K, B, 0]
+        placeholder; ids become int32 whatever the parser gave (the native
+        stream's int32, the Python parser's int64), so both give the same
+        tensors."""
+        if weights_seq is None:
+            weights_seq = [None] * len(parsed_seq)
+        k, b = len(parsed_seq), parsed_seq[0].labels.shape[0]
+        return Batch(
+            labels=torch.from_numpy(np.stack([p.labels for p in parsed_seq])),
+            ids=torch.from_numpy(np.stack([p.ids.astype(np.int32, copy=False) for p in parsed_seq])),
+            vals=torch.from_numpy(np.stack([p.vals for p in parsed_seq])),
+            fields=torch.from_numpy(np.zeros((k, b, 0), np.int32)),
+            weights=torch.from_numpy(np.stack([
+                np.ones_like(p.labels) if w is None else np.asarray(w, np.float32)
+                for p, w in zip(parsed_seq, weights_seq)
+            ])),
+        )
+
 
 def masked_l2(rows: torch.Tensor, vals: torch.Tensor, bias_lambda: float, factor_lambda: float):
     """Reference-style L2 over the batch's gathered rows, col 0 = bias.

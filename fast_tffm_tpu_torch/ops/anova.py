@@ -21,7 +21,7 @@ an order the kernels were not instantiated for, a shape whose backward
 carries do not fit in shared memory or a refused launch is an error, never a
 silent switch to the plain version.  ``anova_inter.launches`` counts forward
 kernel launches and ``anova_inter_bwd.launches`` backward ones (never
-plain-version calls).
+plain-version calls, nor the launches a CUDA-graph capture records).
 """
 
 from __future__ import annotations
@@ -128,7 +128,8 @@ def _fwd_cuda(z: torch.Tensor, order: int) -> torch.Tensor:
         rc = kernel(z.data_ptr(), out.data_ptr(), B, N, K, order, stream)
     if rc != 0:
         raise RuntimeError(f"anova_fwd kernel launch failed with CUDA error {rc}")
-    anova_inter.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        anova_inter.launches += 1
     return out
 
 
@@ -201,7 +202,8 @@ def anova_inter_bwd(z: torch.Tensor, g: torch.Tensor, order: int) -> torch.Tenso
         rc = kernel(z.data_ptr(), g.data_ptr(), zbar.data_ptr(), B, N, K, order, stream)
     if rc != 0:
         raise RuntimeError(f"anova_bwd kernel launch failed with CUDA error {rc}")
-    anova_inter_bwd.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        anova_inter_bwd.launches += 1
     return zbar
 
 

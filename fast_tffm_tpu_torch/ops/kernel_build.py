@@ -14,6 +14,14 @@ is newer.  Without ``nvcc``, or when a build fails, this raises; it never
 hands back a plain version in place of a kernel.  ``build`` starts one
 ``nvcc`` per source, all at once, for callers that want every kernel ready
 before traffic (chip_smoke.py).
+
+The port's host code in C++ (``csrc/<name>.cpp``, the native libsvm
+parser) builds the same way with ``g++`` (``load_host``):
+
+    g++ -O2 -fPIC -std=c++17 -pthread -shared -o _build/lib<name>.so csrc/<name>.cpp
+
+Without ``g++``, or when that build fails, ``load_host`` raises too: the
+caller never falls back to a slower path than the one it asked for.
 """
 
 from __future__ import annotations
@@ -26,7 +34,10 @@ import subprocess
 import threading
 import time
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "build", "load"]
+__all__ = [
+    "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS", "nvcc_path", "build", "load",
+    "load_host",
+]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -35,6 +46,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread", "-shared")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -87,17 +99,60 @@ def build(names) -> dict[str, dict]:
     return report
 
 
+def _stale(path: str, inputs) -> bool:
+    return not os.path.isfile(path) or any(
+        os.path.isfile(f) and os.path.getmtime(f) > os.path.getmtime(path) for f in inputs
+    )
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first when missing or stale."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             src, path = _paths(name)
-            inputs = [src] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
-            stale = not os.path.isfile(path) or any(
-                os.path.isfile(f) and os.path.getmtime(f) > os.path.getmtime(path) for f in inputs
-            )
-            if stale:
+            if _stale(path, [src] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
                 build([name])
             lib = _libs[name] = ctypes.CDLL(path)
+        return lib
+
+
+def _build_host(src: str, lib: str) -> None:
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError(
+            f"g++ not found on PATH: {os.path.basename(src)} of fast_tffm_tpu_torch is "
+            "built at first use and there is no fallback to a slower path"
+        )
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"host build of {os.path.basename(src)} failed (exit {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of host source ``csrc/<name>.cpp``, built with
+    ``g++`` first when missing or older than its source.  Raises when the
+    build fails."""
+    with _lock:
+        key = f"host:{name}"
+        lib = _libs.get(key)
+        if lib is None:
+            src = os.path.join(CSRC_DIR, f"{name}.cpp")
+            path = os.path.join(BUILD_DIR, f"lib{name}.so")
+            if not os.path.isfile(src):
+                raise RuntimeError(f"no host source {name!r} at {src}")
+            if _stale(path, [src]):
+                _build_host(src, path)
+            lib = _libs[key] = ctypes.CDLL(path)
         return lib

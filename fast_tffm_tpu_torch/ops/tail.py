@@ -38,7 +38,7 @@ On a CPU tensor each entry runs the twin, so ``rows_tail_adagrad_update``
 is ``optim.sparse_adagrad_update`` there (the dedup is the sort plus
 ``sorted_segment_sum``) and ``*_apply`` is the plain update.  On a CUDA
 tensor it launches the kernel or raises.  ``<wrapper>_update.launches``
-counts kernel launches.
+counts kernel launches (not the launches a CUDA-graph capture records).
 """
 
 from __future__ import annotations
@@ -175,7 +175,8 @@ def _rows_launch(table, accum, sid, order, row_grads, lr: float, decay: float):
         table.data_ptr(), accum.data_ptr(), sid.data_ptr(), order.data_ptr(),
         row_grads.data_ptr(), m, d, a, v, float(lr), float(decay),
     )
-    rows_tail_adagrad_update.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        rows_tail_adagrad_update.launches += 1
     return table, accum
 
 
@@ -294,7 +295,8 @@ def _fused_launch(fused, sid, order, row_grads, lr: float, decay: float):
         fused.data_ptr(), sid.data_ptr(), order.data_ptr(), row_grads.data_ptr(),
         m, d, fused.shape[0], float(lr), float(decay),
     )
-    fused_tail_adagrad_update.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
+        fused_tail_adagrad_update.launches += 1
     return fused
 
 

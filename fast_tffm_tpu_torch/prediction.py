@@ -1,7 +1,9 @@
 """Load a model for inference, build its scoring function and run the
 offline predict driver — the counterpart of ``fast_tffm_tpu/prediction.py``
 ``load_scoring_state`` / ``make_score_fn`` / ``predict`` (rows and packed
-layouts, single process; ``dist_predict`` is a later slice).
+layouts, single process; ``dist_predict`` is a later slice).  ``predict``
+reads text through the native parser (``thread_num``), FMB
+``predict_files`` by memmap, and with ``binary_cache`` converts text once.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
 from fast_tffm_tpu_torch.config import Config, build_model, refuse_later_slices
 from fast_tffm_tpu_torch.data.libsvm import scan_max_nnz
+from fast_tffm_tpu_torch.data.native import best_parser, count_lines
 from fast_tffm_tpu_torch.data.pipeline import batch_stream
 from fast_tffm_tpu_torch.device import resolve_device
 from fast_tffm_tpu_torch.models.base import Batch
@@ -82,7 +85,6 @@ def predict(cfg: Config, log=print, device=None) -> str:
     step on ``device`` (None = cuda) and write one ``%.6f`` sigmoid score
     per input line to ``cfg.score_path``.  Returns the score path."""
     refuse_later_slices("predict", [
-        (cfg.binary_cache, "binary_cache = true (FMB input)"),
         (bool(cfg.metrics_path), "metrics_path (telemetry)"),
     ])
     if not cfg.predict_files:
@@ -90,6 +92,7 @@ def predict(cfg: Config, log=print, device=None) -> str:
     model, state = load_scoring_state(cfg, log, device)
     device = state.table.device
     score = make_score_fn(cfg, state, scan_max_nnz(cfg), model=model)
+    total = count_lines(cfg.predict_files)  # the rows to score; padding follows them
     stream = prefetch(
         batch_stream(
             cfg.predict_files,
@@ -97,6 +100,11 @@ def predict(cfg: Config, log=print, device=None) -> str:
             vocabulary_size=cfg.vocabulary_size,
             hash_feature_id=cfg.hash_feature_id,
             max_nnz=score.max_nnz,
+            parser=best_parser(cfg.thread_num),
+            binary_cache=cfg.binary_cache,
+            io_retries=cfg.io_retries,
+            io_retry_backoff_s=cfg.io_retry_backoff_s,
+            log=log,
         ),
         depth=cfg.queue_size,
     )
@@ -109,9 +117,9 @@ def predict(cfg: Config, log=print, device=None) -> str:
                     "non-finite scores — a diverged model (non-finite weights); "
                     f"refusing to write a poisoned score file to {cfg.score_path}"
                 )
-            real = w > 0  # drop batch-size padding rows
-            for s in scores[real]:
+            take = min(total - n, len(scores))  # drop batch-size padding rows
+            for s in scores[:take]:
                 out.write(f"{s:.6f}\n")
-            n += int(real.sum())
+            n += take
     log(f"wrote {n} scores -> {cfg.score_path}")
     return cfg.score_path

@@ -8,7 +8,10 @@ CUDA kernel per layout that dedups and updates; on a CPU state: dedup, then
 the plain update).  The JAX step is
 one jitted program that donates the state; here the step runs eagerly and
 updates the state's tensors in place, which is the port's counterpart of
-donation: a step never copies the table.
+donation: a step never copies the table.  ``make_scanned_train_step`` runs
+K steps per call (``steps_per_call``): on a CUDA state one replay of a
+CUDA graph of the K step bodies (``utils/step_graph.py``), the port's
+counterpart of the JAX package's ``lax.scan`` in one dispatch.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from fast_tffm_tpu_torch.ops.packed_table import (
 )
 from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
 from fast_tffm_tpu_torch.optim import dense_adagrad_update, init_table_adagrad
+from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
 
 __all__ = [
     "LAYOUTS",
@@ -35,6 +39,8 @@ __all__ = [
     "batch_loss",
     "train_step_body",
     "make_train_step",
+    "k_step_loop",
+    "make_scanned_train_step",
     "make_decayed_body",
     "make_pallas_tail_body",
     "make_predict_step",
@@ -154,6 +160,48 @@ def make_train_step(model, learning_rate: float, decay: float = 1.0, body=None):
     def step(state: TrainState, batch: Batch):
         return body(model, learning_rate, state, batch)
 
+    return step
+
+
+def k_step_loop(model, learning_rate: float, body, batch_at):
+    """``run(state, *inputs) -> (state, losses [K])``: ``body`` applied to
+    ``batch_at(k, *inputs)`` for k = 0..K-1 in order, K the first input's
+    leading dim; the plain loop that a CUDA graph captures."""
+
+    def run(state: TrainState, *inputs):
+        losses = []
+        for i in range(inputs[0].shape[0]):
+            state, loss = body(model, learning_rate, state, batch_at(i, *inputs))
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return run
+
+
+def make_scanned_train_step(model, learning_rate: float, body=None):
+    """Returns ``step(state, superbatch) -> (state, losses [K])``: K
+    consecutive train steps per call, the counterpart of the JAX
+    ``make_scanned_train_step``.  ``superbatch`` is a Batch whose fields
+    carry a leading micro-step dim ([K, B], [K, B, N], …;
+    ``Batch.stack_parsed``), K read from its shape, so one step serves the
+    main groups and the epoch's short tail group.  The body (default
+    ``train_step_body``; the fused layout takes ``packed_train_step_body``)
+    is the K = 1 step's, applied to the same values in the same order, so
+    the per-step losses and the final state are bitwise those of K
+    sequential steps.
+
+    On a CPU state the K steps are a plain loop.  On a CUDA state they are
+    captured once per (K, layout) into a CUDA graph and replayed
+    (``utils/step_graph.StepGraphs``, exposed as ``step.graphs``); the
+    superbatch, on the host or the card, is copied into the graph's static
+    input buffers."""
+    graphs = StepGraphs(k_step_loop(model, learning_rate, body or train_step_body,
+                                    batch_at=lambda i, *fields: Batch(*(f[i] for f in fields))))
+
+    def step(state: TrainState, superbatch: Batch):
+        return graphs(state, *(getattr(superbatch, f.name) for f in dataclasses.fields(Batch)))
+
+    step.graphs = graphs
     return step
 
 

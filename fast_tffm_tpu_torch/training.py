@@ -1,14 +1,30 @@
 """The local training driver — the counterpart of ``fast_tffm_tpu/training.py``
-``train`` + ``_run_training`` (single device, streamed text input).
+``train`` + ``_run_training`` (single device).
 
   train(cfg, resume=False, log=print, device=None) -> TrainState
 
-One epoch is a prefetched ``batch_stream`` over ``train_files`` (host
-parsing overlaps the card's step), one train step per batch, a log line
-every ``log_every`` steps (mean loss, examples/sec, in the JAX package's
-wording), a non-finite loss check before any save, the validation AUC over
-``validation_files`` and a save every ``save_every_epochs`` epochs; the
-final state is saved and returned.  ``device`` None means the card.
+Input, as in the JAX package:
+
+* streamed (the default): one prefetched stream per epoch
+  (``data/pipeline.batch_stream``): text parsed by the native C++ parser
+  with ``thread_num`` threads, or FMB files by memmap; ``binary_cache``
+  converts text to ``<file>.fmb`` once and streams that; ``shuffle``
+  draws a fresh permutation of the rows per epoch (FMB input).
+* ``device_cache``: the FMB-backed train set is resident on the device
+  and every step gathers its batch there (``data/device_cache.py``).
+
+``steps_per_call`` K > 1 runs K steps per call (``trainer.
+make_scanned_train_step``; cached: ``make_cached_scan_train_step``): on
+the card one replay of a CUDA graph of the K steps, on the CPU a loop,
+bitwise K single steps either way; the epoch's last group is shorter.
+K = 1 is the eager step.
+
+A log line every ``log_every`` steps (mean loss, examples/sec, in the JAX
+package's wording; K-step aligned), a non-finite loss check on every
+K-step group (one group late, so the host does not wait on the group it
+just launched) and at every log point before any save, the validation AUC
+over ``validation_files`` and a save every ``save_every_epochs`` epochs;
+the final state is saved and returned.  ``device`` None means the card.
 
 Two table layouts train.  ``rows``: the sparse tail is the rows Adagrad
 kernel's wrapper (``trainer.train_step_body``).  ``packed`` with
@@ -20,10 +36,10 @@ gather, and every save writes the logical arrays (``trainer.unpack_state``).
 Either tail is its kernel on the card, whatever ``[Train] tail`` and
 ``packed_update`` say, and its plain twin on the CPU; a setting that names
 a JAX compiler path the port has no counterpart of says so in the log on
-the card.  The packed element/row tails, the telemetry monitor, the
-async/delta checkpointer, rollback, signals, step fusion and the other
-input paths are later slices; ``train`` refuses their config keys before
-it touches a device.
+the card.  The packed element/row tails, ``dedup_gather_rows``, the
+telemetry monitor, the async/delta checkpointer, rollback, signals and the
+resume cursor are later slices; ``train`` refuses their config keys
+before it touches a device.
 """
 
 from __future__ import annotations
@@ -33,7 +49,9 @@ import torch
 
 from fast_tffm_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
 from fast_tffm_tpu_torch.config import Config, build_model, refuse_later_slices
+from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, fold_epoch_seed, is_fmb
 from fast_tffm_tpu_torch.data.libsvm import scan_max_nnz
+from fast_tffm_tpu_torch.data.native import best_parser
 from fast_tffm_tpu_torch.data.pipeline import batch_stream
 from fast_tffm_tpu_torch.device import resolve_device
 from fast_tffm_tpu_torch.metrics import StreamingAUC, Throughput
@@ -41,16 +59,18 @@ from fast_tffm_tpu_torch.models.base import Batch
 from fast_tffm_tpu_torch.trainer import (
     init_packed_state,
     init_state,
+    make_decayed_body,
     make_packed_predict_step,
-    make_packed_train_step,
     make_predict_step,
+    make_scanned_train_step,
     make_train_step,
     pack_state,
+    packed_train_step_body,
     unpack_state,
 )
-from fast_tffm_tpu_torch.utils.prefetch import prefetch
+from fast_tffm_tpu_torch.utils.prefetch import grouped_pairs, prefetch
 
-__all__ = ["train", "NonFiniteLossError"]
+__all__ = ["train", "binary_input", "NonFiniteLossError"]
 
 
 class NonFiniteLossError(RuntimeError):
@@ -75,8 +95,76 @@ def _check_finite(loss: float, step: int) -> None:
         )
 
 
-def _stream(cfg: Config, files, max_nnz: int, weights=None):
-    """One prefetched pass over ``files``: (ParsedBatch, weights) pairs."""
+class _GroupCheck:
+    """The finite check on each K-step group's losses, one group late.
+    ``push`` starts copying a group's [K] losses to the host behind it on
+    the card's stream and then checks the group before it, whose copy the
+    card has finished or is about to: the host never waits on the group
+    it just launched, so it builds the next while the card runs.  The
+    check is never inside a captured graph.  ``drain`` checks the last
+    group (at log points and before a save).  A K = 1 step's 0-d loss is
+    left to the log-point check, as in the JAX package."""
+
+    def __init__(self, device):
+        self._cuda = device.type == "cuda"
+        self._last = None  # (host losses, copy event or None, step after the group)
+
+    def push(self, loss: torch.Tensor, step: int) -> None:
+        last, self._last = self._last, None
+        if loss.dim():
+            if self._cuda:
+                host = torch.empty(loss.shape, dtype=loss.dtype, pin_memory=True)
+                host.copy_(loss, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                self._last = (host, done, step)
+            else:
+                self._last = (loss, None, step)
+        if last is not None:
+            self._check(*last)
+
+    def drain(self) -> None:
+        if self._last is not None:
+            self._check(*self._last)
+            self._last = None
+
+    @staticmethod
+    def _check(host: torch.Tensor, done, step: int) -> None:
+        if done is not None:
+            done.synchronize()
+        _check_finite(float(host.mean()), step)
+
+
+def binary_input(files) -> bool:
+    """True when every file of the (cache-resolved) list is FMB: the stream
+    is memmap-backed, not parsed."""
+    return bool(files) and all(is_fmb(f) for f in files)
+
+
+def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
+            steps_per_call: int = 1, log=print):
+    """One prefetched pass over ``files``: (ParsedBatch, weights) pairs, or
+    K-long lists of them when ``steps_per_call`` > 1.  Text parses through
+    the native parser; ``binary_cache`` resolves the FMB caches first (an
+    unwritable location falls back to the text, and a shuffle on that
+    fallback is dropped with a log line); ``shuffle_epoch`` (train streams)
+    folds the epoch into ``shuffle_seed``."""
+    files = tuple(files)
+    parser = best_parser(cfg.thread_num)
+    if cfg.binary_cache:
+        files = ensure_fmb_cache(
+            files, vocabulary_size=cfg.vocabulary_size, hash_feature_id=cfg.hash_feature_id,
+            max_nnz=max_nnz, parser=parser, log=log,
+        )
+    shuffle_seed = (
+        fold_epoch_seed(cfg.shuffle_seed, shuffle_epoch)
+        if cfg.shuffle and shuffle_epoch is not None
+        else None
+    )
+    if shuffle_seed is not None and cfg.binary_cache and not binary_input(files):
+        log("shuffle disabled: the binary cache is unavailable (text fallback) and "
+            "text streaming cannot reorder rows")
+        shuffle_seed = None
     raw = batch_stream(
         files,
         batch_size=cfg.batch_size,
@@ -84,22 +172,31 @@ def _stream(cfg: Config, files, max_nnz: int, weights=None):
         hash_feature_id=cfg.hash_feature_id,
         max_nnz=max_nnz,
         weights=weights,
+        parser=parser,
+        shuffle_seed=shuffle_seed,
+        io_retries=cfg.io_retries,
+        io_retry_backoff_s=cfg.io_retry_backoff_s,
+        log=log,
     )
-    return prefetch(raw, depth=cfg.queue_size)
+    if steps_per_call > 1:
+        raw = grouped_pairs(raw, steps_per_call)
+    # An item holds K batches: scale the depth down to keep the host memory
+    # in flight at the K = 1 level.
+    return prefetch(raw, depth=max(1, cfg.queue_size // max(1, steps_per_call)))
 
 
-def _evaluate(cfg: Config, predict_step, state, files, max_nnz: int, device) -> float:
+def _evaluate(cfg: Config, predict_step, state, files, max_nnz: int, device, log) -> float:
     """AUC over ``files`` through the predict step, folded into a bounded
     streaming AUC (validation examples weigh 1.0; batch padding 0)."""
     meter = StreamingAUC()
-    for parsed, w in _stream(cfg, files, max_nnz):
+    for parsed, w in _stream(cfg, files, max_nnz, log=log):
         scores = predict_step(state, Batch.from_parsed(parsed, w, device))
         meter.add(parsed.labels, scores.cpu().numpy(), w)
     return meter.value()
 
 
 def _mean(losses) -> float:
-    return float(torch.stack(losses).mean())
+    return float(torch.cat([l.reshape(-1) for l in losses]).mean())
 
 
 def _refuse_later_slices(cfg: Config) -> None:
@@ -108,10 +205,6 @@ def _refuse_later_slices(cfg: Config) -> None:
         (cfg.table_layout == "packed" and cfg.adagrad_accumulator != "fused",
          f"table_layout = packed with adagrad_accumulator = {cfg.adagrad_accumulator} "
          "(the XLA packed tails)"),
-        (cfg.shuffle, "shuffle = true (FMB memmap input)"),
-        (cfg.binary_cache, "binary_cache = true (FMB input)"),
-        (cfg.device_cache, "device_cache = true"),
-        (cfg.steps_per_call > 1, "steps_per_call > 1 (step fusion)"),
         (cfg.dedup_gather_rows > 0, "dedup_gather_rows > 0 (dedup-before-gather)"),
         (cfg.paramstore, "[ParamStore] (the tiered parameter store)"),
         (cfg.online_follow, "[Online] follow (online learning)"),
@@ -123,6 +216,58 @@ def _refuse_later_slices(cfg: Config) -> None:
         (bool(cfg.trace_dir), "trace_dir (profiling)"),
         (bool(cfg.telemetry_profile_steps), "[Telemetry] profile_steps (profiling)"),
     ])
+
+
+def _device_cached_input(cfg: Config, model, max_nnz: int, log, body, device):
+    """``device_cache = true``: the train set as resident device arrays.
+    Input must be FMB-backed (.fmb train_files, or ``binary_cache`` to
+    convert text once).  Returns ``(step_fn, train_stream)``: the stream
+    yields (batch index or [K] index chunk, examples) and the step gathers
+    the batch on the device, through the epoch's permutation when
+    shuffling."""
+    from fast_tffm_tpu_torch.data.device_cache import (
+        epoch_index_chunks,
+        full_epoch_perm,
+        load_device_dataset,
+        make_cached_scan_train_step,
+        make_cached_train_step,
+        set_permutation,
+    )
+
+    files = tuple(cfg.train_files)
+    if cfg.binary_cache:
+        files = ensure_fmb_cache(
+            files, vocabulary_size=cfg.vocabulary_size, hash_feature_id=cfg.hash_feature_id,
+            max_nnz=max_nnz, parser=best_parser(cfg.thread_num), log=log,
+        )
+    if not binary_input(files):
+        raise ValueError(
+            "device_cache = true needs FMB-backed input: list .fmb files in "
+            "train_files, or set binary_cache = true to convert text once"
+        )
+    data = load_device_dataset(
+        files, batch_size=cfg.batch_size, vocabulary_size=cfg.vocabulary_size,
+        hash_feature_id=cfg.hash_feature_id, max_nnz=max_nnz,
+        weights=cfg.weight_files or None, device=device,
+    )
+    log(
+        f"device cache: {data.n_rows} rows resident "
+        f"({data.nbytes / 2**20:.1f} MiB, {data.batches} batches/epoch)"
+    )
+    k = cfg.steps_per_call
+    if k > 1:
+        step, step_shuffled = make_cached_scan_train_step(model, cfg.learning_rate, data, body)
+        items = epoch_index_chunks(data.batches, k, device)
+    else:
+        step, step_shuffled = make_cached_train_step(model, cfg.learning_rate, data, body)
+        items = [torch.tensor(i, dtype=torch.int64, device=device) for i in range(data.batches)]
+
+    def train_stream(epoch):
+        if cfg.shuffle:
+            set_permutation(data, full_epoch_perm(data, cfg.shuffle_seed, epoch))
+        return ((i, cfg.batch_size * i.numel()) for i in items)
+
+    return (step_shuffled if cfg.shuffle else step), train_stream
 
 
 def train(cfg: Config, *, resume: bool = False, log=print, device=None):
@@ -181,45 +326,78 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
         )
     if fused:
         log("sparse tail: fused_tail_adagrad (fused one-pass gather→Adagrad→scatter)")
-        step_fn = make_packed_train_step(model, cfg.learning_rate, cfg.packed_compact_cap)
+        body = lambda mdl, lr, st, b: packed_train_step_body(  # noqa: E731
+            mdl, lr, st, b, cfg.packed_compact_cap
+        )
         predict_step = make_packed_predict_step(model, fused=True)
     else:
-        step_fn = make_train_step(model, cfg.learning_rate, decay=cfg.online_adagrad_decay)
+        body = make_decayed_body(cfg.online_adagrad_decay)
         predict_step = make_predict_step(model)
-    weights = cfg.weight_files or None
+    k = cfg.steps_per_call
+    if cfg.device_cache:
+        step_fn, train_stream = _device_cached_input(cfg, model, max_nnz, log, body, device)
+    else:
+        step_fn = (make_scanned_train_step if k > 1 else make_train_step)(
+            model, cfg.learning_rate, body=body
+        )
+        weights = cfg.weight_files or None
+
+        def train_stream(epoch):
+            for parsed, w in _stream(cfg, cfg.train_files, max_nnz, weights,
+                                     shuffle_epoch=epoch, steps_per_call=k, log=log):
+                if isinstance(parsed, list):
+                    yield Batch.stack_parsed(parsed, w), sum(p.batch_size for p in parsed)
+                else:
+                    yield Batch.from_parsed(parsed, w, device), parsed.batch_size
 
     meter = Throughput()
-    losses: list[torch.Tensor] = []  # device values; only synced at log points
+    losses: list[torch.Tensor] = []  # device values; synced at log points
+    groups = _GroupCheck(device)
+    pending = 0  # steps since the last log point
+    counted = 0  # examples the meter holds
     start_step = state.step
     for epoch in range(cfg.epoch_num):
-        for parsed, w in _stream(cfg, cfg.train_files, max_nnz, weights):
+        for batch, examples in train_stream(epoch):
             first_call = state.step == start_step
-            state, loss = step_fn(state, Batch.from_parsed(parsed, w, device))
+            state, loss = step_fn(state, batch)
+            groups.push(loss, state.step)
             if first_call:
-                # Call 1 pays the kernel builds and the allocator's warm-up;
-                # a meter window that includes it reads as a collapse.
+                # Call 1 pays the kernel builds, the graph capture and the
+                # allocator's warm-up: the meter's window starts after it
+                # and holds none of its examples.
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 meter.reset()
+            else:
+                meter.add(examples)
+                counted += examples
             losses.append(loss)
-            meter.add(parsed.batch_size)
-            if len(losses) >= cfg.log_every:
-                rate = meter.rate()
+            pending += loss.numel()
+            if pending >= cfg.log_every:
+                pending = 0
+                groups.drain()
                 mean_loss = _mean(losses)
+                # Read after the sync above, so the window's examples are
+                # trained, not only launched.
+                rate = meter.rate()
                 _check_finite(mean_loss, state.step)
+                # A window that holds only the first call (K >= log_every)
+                # has no examples to rate: its line gives the loss alone.
                 log(
-                    f"step {state.step} epoch {epoch} "
-                    f"loss {mean_loss:.5f} "
-                    f"examples/sec {rate:,.0f} (/chip {rate:,.0f})"
+                    f"step {state.step} epoch {epoch} loss {mean_loss:.5f}"
+                    + (f" examples/sec {rate:,.0f} (/chip {rate:,.0f})" if counted else "")
                 )
                 losses.clear()
                 meter.reset()
+                counted = 0
+        # A poisoned state must abort BEFORE the save below replaces the
+        # last good checkpoint.
+        groups.drain()
         if losses:
-            # A poisoned state must abort BEFORE the save below replaces
-            # the last good checkpoint.
             _check_finite(_mean(losses), state.step)
         if cfg.validation_files:
-            val_auc = _evaluate(cfg, predict_step, state, cfg.validation_files, max_nnz, device)
+            val_auc = _evaluate(cfg, predict_step, state, cfg.validation_files, max_nnz,
+                                device, log)
             log(f"epoch {epoch} validation auc {val_auc:.5f}")
         if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
             save_checkpoint(cfg.model_file, unpack_state(state, model))
@@ -227,4 +405,3 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
     save_checkpoint(cfg.model_file, unpack_state(state, model))
     log(f"training done: steps {start_step}->{state.step}, model -> {cfg.model_file}")
     return state
-

@@ -2,16 +2,18 @@
 
 ``prefetch(it, depth)`` runs an iterator in a daemon thread with a bounded
 queue, so host parsing of the next batches overlaps the card's step.
-Threading only.
+``grouped_pairs(pairs, k)`` groups a ``(parsed, weights)`` stream into
+K-long lists for ``steps_per_call``.  Threading only.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from collections.abc import Iterable, Iterator
 
-__all__ = ["prefetch", "PrefetchError"]
+__all__ = ["prefetch", "PrefetchError", "grouped_pairs"]
 
 _SENTINEL = object()
 
@@ -19,6 +21,15 @@ _SENTINEL = object()
 class PrefetchError(RuntimeError):
     """The prefetch producer thread failed (or died without signaling);
     the original exception rides as ``__cause__``."""
+
+
+def grouped_pairs(pairs: Iterable, k: int) -> Iterator[tuple[list, list]]:
+    """``(parsed, weights)`` pairs → ``([parsed]*k, [w]*k)`` lists, the last
+    group shorter when the stream ends mid-group (the steps_per_call
+    grouping rule)."""
+    it = iter(pairs)
+    while items := list(itertools.islice(it, k)):
+        yield [p for p, _ in items], [w for _, w in items]
 
 
 def prefetch(it: Iterable, depth: int = 8) -> Iterator:

@@ -5,11 +5,19 @@ imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed (the repository's conftest imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+The K-step CUDA graphs (``steps_per_call``) are held bitwise against the
+eager steps they replay, and a failed build of the native parser raises.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
+
+from fast_tffm_tpu_torch.data import device_cache
+from fast_tffm_tpu_torch.ops import kernel_build
 
 from fast_tffm_tpu_torch.ops.anova import (
     MAX_ORDER,
@@ -39,8 +47,11 @@ from fast_tffm_tpu_torch.trainer import (
     make_decayed_body,
     make_packed_train_step,
     make_pallas_tail_body,
+    make_scanned_train_step,
     make_train_step,
     pack_state,
+    packed_train_step_body,
+    train_step_body,
     unpack_state,
 )
 
@@ -371,3 +382,110 @@ def test_packed_fused_train_step_on_the_card_matches_the_cpu(cuda):
     cpu, card = states["cpu"], states[str(cuda)]
     torch.testing.assert_close(card.table.cpu(), cpu.table, rtol=0, atol=1e-7)
     torch.testing.assert_close(card.table_accum.cpu(), cpu.table_accum, rtol=0, atol=1e-7)
+
+
+def _batches(rng, n, b=64, v=4099):
+    return [
+        Batch(
+            labels=torch.from_numpy(rng.integers(0, 2, size=b).astype(np.float32)),
+            ids=torch.from_numpy(rng.integers(0, v, size=(b, 11)).astype(np.int32)),
+            vals=torch.from_numpy(rng.uniform(0.1, 1.0, size=(b, 11)).astype(np.float32)),
+            fields=torch.zeros((b, 0), dtype=torch.int32),
+            weights=torch.from_numpy(rng.uniform(0.0, 1.0, size=b).astype(np.float32)),
+        )
+        for _ in range(n)
+    ]
+
+
+def _card_state(model, fused, cuda):
+    st = init_state(model, torch.Generator(device="cpu").manual_seed(5), 0.1,
+                    "row" if fused else "element")
+    st.table, st.table_accum = st.table.to(cuda), st.table_accum.to(cuda)
+    return pack_state(st, 0.1, fused=True) if fused else st
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["rows", "fused"])
+def test_graph_replay_is_bitwise_the_eager_steps(cuda, fused):
+    """K = 3 over 7 batches (groups 3, 3, 1): each group one replay of a
+    captured graph, the losses and the state bitwise those of 7 eager
+    steps.  The wrappers counted only the warm-ups' launches (3 + 1
+    steps): a capture launches nothing, and a replay does not pass
+    through a wrapper."""
+    model = FMModel(vocabulary_size=4099, factor_num=8, order=3)
+    batches = _batches(np.random.default_rng(17), 7)
+    eager_step = (make_packed_train_step if fused else make_train_step)(model, 0.05)
+    eager, want = _card_state(model, fused, cuda), []
+    for b in batches:
+        eager, loss = eager_step(eager, b.to(cuda))
+        want.append(loss)
+    body = packed_train_step_body if fused else train_step_body
+    step = make_scanned_train_step(model, 0.05, body=body)
+    tail_fn = fused_tail_adagrad_update if fused else rows_tail_adagrad_update
+    anova_inter.launches = anova_inter_bwd.launches = tail_fn.launches = 0
+    st, got = _card_state(model, fused, cuda), []
+    for lo in range(0, 7, 3):
+        group = batches[lo : lo + 3]
+        sb = Batch(*(torch.stack([getattr(b, f) for b in group])
+                     for f in ("labels", "ids", "vals", "fields", "weights")))
+        st, losses = step(st, sb)  # a host superbatch, as training gives it
+        got.append(losses)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(got), torch.stack(want))
+    assert st.step == eager.step == 7
+    assert torch.equal(st.table, eager.table)
+    if not fused:
+        assert torch.equal(st.table_accum, eager.table_accum)
+    assert (step.graphs.captures, step.graphs.replays) == (2, 3)
+    assert anova_inter.launches == anova_inter_bwd.launches == tail_fn.launches == 4
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["rows", "fused"])
+def test_cached_graph_replay_is_bitwise_the_cached_eager_steps(cuda, fused):
+    """The resident epoch, shuffled: K = 4 graph replays over 10 batches
+    bitwise the eager K = 1 cached steps."""
+    model = FMModel(vocabulary_size=4099, factor_num=8, order=3)
+    rng = np.random.default_rng(19)
+    batches = _batches(rng, 10)
+    data = device_cache.DeviceDataset(
+        *(torch.cat([getattr(b, f) for b in batches]).to(cuda)
+          for f in ("labels", "ids", "vals", "fields", "weights")),
+        batches=10, batch_size=64, n_rows=640,
+        offsets=torch.arange(64, device=cuda),
+    )
+    device_cache.set_permutation(data, rng.permutation(640))
+    body = packed_train_step_body if fused else train_step_body
+    _, one = device_cache.make_cached_train_step(model, 0.05, data, body)
+    eager, want = _card_state(model, fused, cuda), []
+    for i in range(10):
+        eager, loss = one(eager, torch.tensor(i, device=cuda))
+        want.append(loss)
+    _, scan = device_cache.make_cached_scan_train_step(model, 0.05, data, body)
+    st, got = _card_state(model, fused, cuda), []
+    for idxs in device_cache.epoch_index_chunks(10, 4, cuda):
+        st, losses = scan(st, idxs)
+        got.append(losses)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(got), torch.stack(want))
+    assert torch.equal(st.table, eager.table) and st.step == 10
+    assert scan.replays == 3 and scan.captures == 2
+
+
+def test_native_parser_build_failure_raises(monkeypatch, tmp_path):
+    """No g++, or a g++ that fails: the parser raises, and nothing parses
+    in Python in its place."""
+    from fast_tffm_tpu_torch.data.native import best_parser
+
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(kernel_build, "_libs", {})
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    monkeypatch.delenv("CXX", raising=False)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        best_parser(2)
+    fake = tmp_path / "bin" / "g++"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\necho 'error: broken' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(fake.parent))
+    with pytest.raises(RuntimeError, match="host build of libsvm_parser.cpp failed"):
+        best_parser(2)
+    assert not os.path.exists(tmp_path / "_build" / "liblibsvm_parser.so")

@@ -49,7 +49,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import importlib, pkgutil, sys\n"
         "import fast_tffm_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "assert len(mods) >= 23, mods\n"
+        "assert len(mods) >= 34, mods\n"
+        "new = {'data.native', 'data.binary', 'data.device_cache', 'utils.step_graph'}\n"
+        "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'fast_tffm_tpu' or m.startswith('fast_tffm_tpu.'))\n"
@@ -58,7 +60,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     r = _run(["-c", code], cwd=REPO)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 23
+    assert int(r.stdout.strip()) >= 34
 
 
 def test_engine_without_device_raises_on_a_cpu_only_box(tmp_path):
@@ -244,10 +246,6 @@ def test_config_refusals(kw, needle):
 
 
 TRAIN_ONLY = [
-    dict(shuffle=True),
-    dict(binary_cache=True),
-    dict(device_cache=True),
-    dict(steps_per_call=4),
     dict(dedup_gather_rows=1024),
     dict(paramstore=True),
     dict(online_follow=True),
@@ -272,8 +270,7 @@ def test_train_refuses_later_slice_settings(kw, tmp_path):
     assert not os.listdir(tmp_path)  # refused before any read or write
 
 
-@pytest.mark.parametrize("kw", [dict(binary_cache=True), dict(metrics_path="m.jsonl")],
-                         ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("kw", [dict(metrics_path="m.jsonl")], ids=lambda kw: next(iter(kw)))
 def test_predict_refuses_later_slice_settings(kw, tmp_path):
     cfg = Config(order=3, vocabulary_size=8, max_nnz=2, predict_files=(str(tmp_path / "p"),),
                  model_file=str(tmp_path / "m.ckpt"), **kw).validate()
