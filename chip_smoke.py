@@ -21,6 +21,10 @@ last line:
   data      tools/gen_synthetic.py writes 24 x 16384 baseline5-shaped train
             rows (--seed 7), 2 x 16384 validation rows (--seed 8) and the
             config's 64 x 16384-row epoch (--seed 9), all three at once
+  data_zoo  the same tool, the four files at once with the seeds of the
+            configs' headers: 262,144 + 16,384 criteo-shaped libsvm rows
+            (39 fields) and 131,072 + 16,384 avazu-shaped libffm rows (22
+            fields, binary values)
   parse     the train file through the native C++ stream at the config's
             thread_num (8) and at 0 (every usable core), and through the
             Python stream: every batch bitwise equal; rows/s of each and the
@@ -35,7 +39,11 @@ last line:
             and after a 64 MiB write), the update (sort + kernel), the
             kernel on deduped input, dedup_rows alone, dedup_rows + kernel,
             the hot-id update, the plain twin; bounds for M occurrences and
-            for deduped input, and the M-occurrence bound in whole sectors
+            for deduped input, and the M-occurrence bound in whole sectors;
+            then the zoo's shapes, element and row accumulators at decay 1
+            and 0.9, each bitwise: baseline1's first batch (N = 39, D = 9,
+            M = 638,976) and baseline3's (N = 22, D = 89, M = 180,224), with
+            the kernel's, the update's and the twin's times and the bound
   fused_tail the fused Adagrad kernel (B3) on a full-width fused state packed
             from a seeded [2^20, 9] table and [2^20, 1] accumulator, against
             its plain version on the card, bitwise, at decay 1 and 0.9 for
@@ -71,6 +79,26 @@ last line:
             wall time, and its top kernels); then the same lines served on
             cuda under table_layout = packed, within atol 1e-6 of the rows
             config's scores
+  train_fm2, train_ffm, train_deepfm  configs/baseline1_fm_criteo_sample.cfg
+            (order-2 FM), baseline3_ffm_avazu.cfg (FFM, rows 89 wide) and
+            baseline4_deepfm_criteo.cfg (DeepFM, bf16 MLP operands) at full
+            width through training.train on cuda and on the CPU from one
+            seeded npz (16, 16 and 32 steps): B4 once per step and no other
+            kernel; the FM and FFM runs held as the train phase holds
+            baseline5; DeepFM's table and MLP updates within MLP_DRIFT_RTOL
+            by relative norm and one step's gradients, card against CPU from
+            the CPU's final state, within MLP_GRAD_RTOL; AUCs within 0.002;
+            the step time with the input on the card, a traced step, and
+            DeepFM's MLP route and its time (with aten::mm.dtype measured
+            beside it)
+  predict_<model>, serve_<model>  each trained zoo model: predict on cuda
+            against the CPU, and 4096 validation lines (libffm with fields
+            for FFM) served on cuda against the port's CPU path, within atol
+            1e-6 (bf16 DeepFM: 1e-4); no kernel on these paths
+  train_cached_deepfm  baseline4 with device_cache and steps_per_call = 8:
+            B4's 32 launches inside 4 CUDA-graph replays, the final state
+            (MLP included) and AUC bitwise train_deepfm's eager card run;
+            the graph's step time beside the eager cached step's
   train_fmb the train phase's checks with binary_cache and shuffle, 2 epochs
             (48 steps; the card's and the CPU's shuffled batches are the
             same); then a second card run that reuses the cache
@@ -90,8 +118,9 @@ last line:
             idle share of each run
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
-            launches_by_run adds the graphed train_cached runs' replays),
-            error and times at the training shapes
+            launches_by_run adds the graphed train_cached runs' replays, and
+            for B4 the zoo's runs), error and times at the training shapes
+            (B4's `shapes` adds baseline1's and baseline3's)
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -150,6 +179,39 @@ UPDATE_RTOL, MOVED_RTOL = 1e-2, 1e-3
 CONFIG = os.path.join("configs", "baseline5_fm_order3_kdd.cfg")
 # baseline5 on the fused lane-packed layout: no shipped config sets these.
 FUSED = {"table_layout": "packed", "adagrad_accumulator": "fused"}
+# The model zoo at the configs' full widths: {key: (config, data set)}.
+ZOO = {
+    "fm2": (os.path.join("configs", "baseline1_fm_criteo_sample.cfg"), "criteo"),
+    "ffm": (os.path.join("configs", "baseline3_ffm_avazu.cfg"), "avazu"),
+    "deepfm": (os.path.join("configs", "baseline4_deepfm_criteo.cfg"), "criteo"),
+}
+# The zoo's data, cut in depth only: 262,144 criteo-shaped rows (16 steps
+# of baseline1's 16,384, 32 of baseline4's 8,192) and 131,072 avazu-shaped
+# ones (16 steps of baseline3's 8,192) instead of the headers' 1M, 16,384
+# validation rows instead of 100,000.
+ZOO_DATA = {
+    "criteo": dict(fields=39, train=16 * 16384, valid=16384, seeds=(1, 2), ext="libsvm", args=[]),
+    "avazu": dict(fields=22, train=16 * 8192, valid=16384, seeds=(5, 6), ext="libffm",
+                  args=["--format", "libffm", "--binary-vals"]),
+}
+ZOO_SERVE_LINES = 4096
+# Scores of a bfloat16 DeepFM, card against CPU: both round the same float32
+# operands to bfloat16, but a hidden activation that differs in its last
+# float32 bit between the two (the sums run in another order) can round to
+# the neighbouring bfloat16 value, 2^-8 of it, and that moves the score by
+# ~1e-5; atol 1e-4 holds a few such flips and no wrong layer.
+BF16_SCORE_ATOL = 1e-4
+# DeepFM, card against CPU.  One step from one state agrees to the float32
+# summation order (float32 compute: the gradients within 1e-5 by relative
+# norm) or to one bfloat16 rounding step (2^-8).  Over a run the MLP's
+# Adagrad steps amplify those last-bit differences: the end states of the
+# two runs differ by percents where one step's gradients differ by 1e-4
+# (train_deepfm's gradient and updates records).  So a DeepFM run's
+# updates are held by relative norm within 0.25 (a run that dropped the
+# deep half's gradient or the dense update is ~1 off), beside the
+# one-step gradient check and the AUC.
+MLP_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 2.0**-8}
+MLP_DRIFT_RTOL = 0.25
 
 
 def emit(obj) -> None:
@@ -501,36 +563,62 @@ def phase_anova_bwd(rng):
     return worst, main
 
 
-def phase_data(tmp: str) -> tuple[str, str]:
-    """baseline5-shaped libsvm files from tools/gen_synthetic.py (numpy
-    only), both generators at once."""
-    t0 = time.perf_counter()
+def _generate(jobs) -> None:
+    """tools/gen_synthetic.py (numpy only) once per (path, rows, arguments)
+    job, every job started at once."""
     gen = os.path.join(HERE, "tools", "gen_synthetic.py")
-    out, procs = {}, []
-    for name, batches, seed in (("train", TRAIN_BATCHES, 7), ("valid", VALID_BATCHES, 8),
-                                ("big", THROUGHPUT_BATCHES, 9)):
-        out[name] = os.path.join(tmp, f"baseline5.{name}.libsvm")
-        cmd = [sys.executable, gen, "--rows", str(batches * BATCH), "--fields", str(NNZ),
-               "--vocab", str(1 << 20), "--seed", str(seed), "--out", out[name]]
-        procs.append((name, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+    procs = []
+    for path, rows, args in jobs:
+        cmd = [sys.executable, gen, "--rows", str(rows), "--vocab", str(1 << 20),
+               "--out", path, *args]
+        procs.append((path, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
                                              stderr=subprocess.PIPE, text=True)))
-    for name, proc in procs:
+    for path, proc in procs:
         try:
             _, err = proc.communicate(timeout=300)
         except subprocess.TimeoutExpired:
             for _, p in procs:
                 p.kill()
                 p.wait()
-            fail(f"gen_synthetic ({name}) did not finish in 300 s")
+            fail(f"gen_synthetic ({path}) did not finish in 300 s")
         if proc.returncode != 0:
-            fail(f"gen_synthetic ({name}) failed with exit {proc.returncode}: {err}")
+            fail(f"gen_synthetic ({path}) failed with exit {proc.returncode}: {err}")
+
+
+def phase_data(tmp: str) -> tuple[str, str]:
+    """baseline5-shaped libsvm files, all three generated at once."""
+    t0 = time.perf_counter()
+    out = {name: os.path.join(tmp, f"baseline5.{name}.libsvm") for name in ("train", "valid", "big")}
+    _generate([(out[name], batches * BATCH, ["--fields", str(NNZ), "--seed", str(seed)])
+               for name, batches, seed in (("train", TRAIN_BATCHES, 7), ("valid", VALID_BATCHES, 8),
+                                           ("big", THROUGHPUT_BATCHES, 9))])
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "train_rows": TRAIN_BATCHES * BATCH, "valid_rows": VALID_BATCHES * BATCH,
           "throughput_rows": THROUGHPUT_BATCHES * BATCH})
     return out["train"], out["valid"], out["big"]
 
 
-def _first_batch_ids(path: str, vocab: int):
+def phase_data_zoo(tmp: str) -> dict:
+    """The zoo's inputs, all four files at once with the seeds of the
+    configs' headers: criteo-shaped libsvm (39 fields; baselines 1 and 4)
+    and avazu-shaped libffm (22 fields, binary values; baseline 3).
+    Returns {data set: (train path, validation path)}."""
+    t0 = time.perf_counter()
+    paths, jobs = {}, []
+    for data, spec in ZOO_DATA.items():
+        paths[data] = tuple(os.path.join(tmp, f"{data}.{part}.{spec['ext']}")
+                            for part in ("train", "valid"))
+        for path, rows, seed in zip(paths[data], (spec["train"], spec["valid"]), spec["seeds"]):
+            jobs.append((path, rows, ["--fields", str(spec["fields"]), "--seed", str(seed),
+                                      *spec["args"]]))
+    _generate(jobs)
+    emit({"phase": "data_zoo", "seconds": time.perf_counter() - t0,
+          **{data: {k: spec[k] for k in ("fields", "train", "valid", "seeds")}
+             for data, spec in ZOO_DATA.items()}})
+    return paths
+
+
+def _first_batch_ids(path: str, vocab: int, batch: int = BATCH, nnz: int = NNZ):
     import itertools
 
     import numpy as np
@@ -538,8 +626,8 @@ def _first_batch_ids(path: str, vocab: int):
     from fast_tffm_tpu_torch.data.libsvm import parse_lines
 
     with open(path) as f:
-        lines = list(itertools.islice(f, BATCH))
-    return parse_lines(lines, vocabulary_size=vocab, max_nnz=NNZ).ids.astype(np.int32)
+        lines = list(itertools.islice(f, batch))
+    return parse_lines(lines, vocabulary_size=vocab, max_nnz=nnz).ids.astype(np.int32)
 
 
 def phase_rows_tail(rng, train_path: str):
@@ -709,11 +797,17 @@ def phase_fused_tail(rng, train_path: str):
     return 0.0, main
 
 
-def _write_checkpoint(path: str, table, accum_width: int) -> None:
+def _write_checkpoint(path: str, table, accum_width: int, dense=()) -> None:
     """An npz with fast_tffm_tpu/checkpoint.py::_save_npz's members at step
-    0: ``table`` and Adagrad accumulators of ``accum_width`` at 0.1."""
+    0: ``table``, Adagrad accumulators of ``accum_width`` at 0.1, and the
+    ``dense`` leaves (``dense_{i}``, in the JAX package's order) with
+    accumulators at 0.1."""
     import numpy as np
 
+    leaves = {}
+    for i, p in enumerate(dense):
+        leaves[f"dense_{i}"] = p
+        leaves[f"dense_accum_{i}"] = np.full(p.shape, 0.1, np.float32)
     with open(path, "wb") as f:
         np.savez(
             f,
@@ -722,6 +816,7 @@ def _write_checkpoint(path: str, table, accum_width: int) -> None:
             step=np.int32(0),
             save_id=np.frombuffer(os.path.basename(path).encode(), np.uint8),
             published_at=np.float64(time.time()),
+            **leaves,
         )
 
 
@@ -751,10 +846,10 @@ def _logged(lines: list, what: str) -> list[float]:
     return out
 
 
-def _update_check(init, card, cpu) -> dict:
+def _update_check(init, card, cpu, rtol: float = UPDATE_RTOL) -> dict:
     """The run's updates (final table minus ``init``) on the card against
     the CPU's, for the bias column and the factor columns apart: the
-    relative norm of their difference within UPDATE_RTOL, and the count of
+    relative norm of their difference within ``rtol``, and the count of
     elements they moved within MOVED_RTOL of the CPU's (a path that drops
     the small updates of ordinary rows moves far fewer)."""
     import numpy as np
@@ -767,7 +862,7 @@ def _update_check(init, card, cpu) -> dict:
         norm = float(np.linalg.norm(d_cpu))
         rel = float(np.linalg.norm(d_card - d_cpu)) / norm if norm else float("inf")
         out[name] = {"rel_norm_diff": rel, "moved": moved, "max_abs_update": float(np.abs(d_cpu).max())}
-        if not (moved["cpu"] and rel <= UPDATE_RTOL
+        if not (moved["cpu"] and rel <= rtol
                 and abs(moved["cuda"] - moved["cpu"]) <= MOVED_RTOL * moved["cpu"]):
             fail(f"the card's {name} updates differ from the CPU run's: {out[name]}")
     return out
@@ -800,14 +895,24 @@ def _gradient_check(model, table, batch) -> dict:
 def _seeded_init(rng, tmp: str, name: str, base, model, fused: bool):
     """The initial state of a training phase, as an npz: factors U(±0.01)
     from the seed, zero bias, element accumulators (rows) or a [V, 1] row
-    accumulator (fused).  Returns (table, path)."""
+    accumulator (fused); a DeepFM's MLP He-initialised from the seed, zero
+    biases.  Returns (table, dense leaves, path)."""
     import numpy as np
 
     table = np.zeros((base.vocabulary_size, model.row_dim), np.float32)
     table[:, 1:] = rng.uniform(-0.01, 0.01, (base.vocabulary_size, model.row_dim - 1))
+    dense = []
+    if model.dense_names:
+        dims = (model.num_fields * model.factor_num, *model.hidden_dims, 1)
+        leaves = {}
+        for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+            leaves[f"w{i}"] = (rng.normal(size=(d_in, d_out)) * np.sqrt(2.0 / d_in)).astype(
+                np.float32)
+            leaves[f"b{i}"] = np.zeros(d_out, np.float32)
+        dense = [leaves[n] for n in model.dense_names]
     init = os.path.join(tmp, f"{name}.init.ckpt")
-    _write_checkpoint(init, table, 1 if fused else model.row_dim)
-    return table, init
+    _write_checkpoint(init, table, 1 if fused else model.row_dim, dense)
+    return table, dense, init
 
 
 def _phase_cfg(base, tmp: str, name: str, device: str, init: str, **kw):
@@ -840,19 +945,27 @@ def _zero_counters() -> None:
     rows_tail_adagrad_update.launches = fused_tail_adagrad_update.launches = 0
 
 
-def _counted_run(run_once, what: str) -> tuple[dict, dict]:
+def _counted_run(run_once, what: str, graphed) -> tuple[dict, dict]:
     """``run_once()`` under ``traced_window``, every wrapper counter zeroed
     just before and read just after.  A trace that comes back without
-    kernel events is run again with a fresh ``run_once()``, twice at most.
-    Returns (the window, the wrappers' counts)."""
-    for _ in range(3):
+    kernel events, or for an eager run (``graphed()`` false: every launch
+    passes a wrapper) with other counts than the wrappers' (the profiler
+    lost events), is run again with a fresh ``run_once()``, twice at most;
+    ``_step_launches`` holds the last attempt.  Returns (the window, with
+    its ``trace_attempts``, and the wrappers' counts)."""
+    for attempt in range(1, 4):
         _zero_counters()
         window = traced_window(run_once)
         counts = _wrapper_counts()
-        if window["launches_traced"] is not None:
+        window["trace_attempts"] = attempt
+        traced = window["launches_traced"]
+        if traced is not None and (graphed() or traced == counts):
             return window, counts
-        log_stderr(f"{what}: the profiler trace has no kernel events; running it again")
-    fail(f"{what}: three profiler traces without kernel events: launches not measured")
+        log_stderr(f"{what}: the profiler trace counts {traced} kernel launches, the "
+                   f"wrappers {counts}; running it again")
+    if window["launches_traced"] is None:
+        fail(f"{what}: three profiler traces without kernel events: launches not measured")
+    return window, counts
 
 
 def _step_launches(window: dict, wrappers: dict, graphed: bool, what: str) -> dict:
@@ -869,14 +982,70 @@ def _step_launches(window: dict, wrappers: dict, graphed: bool, what: str) -> di
     return dict(wrappers)
 
 
-def _card_and_cpu(name: str, cfg_for, model, table, steps: int, fused: bool) -> dict:
+def _dense_check(init, card, cpu, rtol: float) -> dict:
+    """A DeepFM run's dense leaves and accumulators on the card against the
+    CPU's, leaf by leaf: the norm of the difference of their updates (final
+    minus ``init``; the accumulators' from 0.1) within ``rtol`` of the CPU
+    update's norm, plus TABLE_ATOL per element (an accumulator whose g²
+    stays below half a float32 step of 0.1 never moves on either device),
+    and their largest elementwise difference."""
+    import numpy as np
+
+    out = {}
+    for what, leaves, start in (("dense", zip(card.dense, cpu.dense), init),
+                                ("dense_accum", zip(card.dense_accum, cpu.dense_accum),
+                                 [np.full(p.shape, 0.1, np.float32) for p in init])):
+        rels, errs, ok = [], [], True
+        for (a, b), p0 in zip(leaves, start):
+            d_card = a.cpu().numpy().astype(np.float64) - p0
+            d_cpu = b.numpy().astype(np.float64) - p0
+            norm, diff = float(np.linalg.norm(d_cpu)), float(np.linalg.norm(d_card - d_cpu))
+            rels.append(diff / norm if norm else (0.0 if diff == 0.0 else float("inf")))
+            errs.append(float(np.abs(d_card - d_cpu).max()))
+            ok = ok and diff <= rtol * norm + TABLE_ATOL * np.sqrt(d_cpu.size)
+        out[what] = {"rel_norm_diff": rels, "max_abs_diff": errs}
+        if not ok:
+            fail(f"the card's {what} updates differ from the CPU run's: {out[what]}")
+    return out
+
+
+def _mlp_gradient_check(model, state, batch) -> dict:
+    """One step's gradients of a DeepFM's training loss, with respect to the
+    gathered rows and to each dense leaf, on the card and on the CPU from
+    one state (the CPU run's final one): within MLP_GRAD_RTOL of the
+    compute dtype by relative norm."""
+    import torch
+
+    from fast_tffm_tpu_torch.trainer import batch_loss
+
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        b = batch.to(dev)
+        rows = state.table.to(dev)[b.ids.long()].detach().requires_grad_(True)
+        dense = [p.to(dev).detach().requires_grad_(True) for p in state.dense]
+        g = torch.autograd.grad(batch_loss(model, rows, dense, b)[0], [rows, *dense])
+        grads[dev] = [x.cpu().double() for x in g]
+    rels = [float((a - b).norm() / b.norm()) for a, b in zip(grads["cuda"], grads["cpu"])]
+    rtol = MLP_GRAD_RTOL[model.compute_dtype]
+    if not max(rels) <= rtol:
+        fail(f"the DeepFM gradients on the card differ from the CPU's by {rels} (rtol {rtol})")
+    return {"rel_norm_diff": {"rows": rels[0], **dict(zip(model.dense_names, rels[1:]))},
+            "rtol": rtol}
+
+
+def _card_and_cpu(name: str, cfg_for, model, table, steps: int, fused: bool,
+                  expect: dict | None = None, dense=()) -> dict:
     """The main path: ``training.train`` on the card under the profiler,
     every kernel counter zeroed just before and read just after; then the
-    same run on the CPU.  Fails unless the path launched both ANOVA kernels
-    and its tail once per step (the other tail never), the losses are
-    finite, the card's final table and accumulators are within TABLE_ATOL
-    of the CPU's, the updates agree (``_update_check``) and the validation
-    AUCs within AUC_TOL.  Returns the record and the live card state."""
+    same run on the CPU.  Fails unless the path launched each kernel
+    ``expect`` names that many times and no other (``expect`` None, the
+    FM of order 3: both ANOVA kernels and its tail once per step, the
+    other tail never), the losses are finite, the card's final table and
+    accumulators are within TABLE_ATOL of the CPU's, the updates agree
+    (``_update_check``) and the validation AUCs within AUC_TOL.  A DeepFM
+    (``dense``, its initial leaves) is held by its updates instead, the
+    table's and the MLP's (``_dense_check``), within MLP_DRIFT_RTOL.  Returns the record and the
+    live card state."""
     import numpy as np
 
     from fast_tffm_tpu_torch.trainer import unpack_state
@@ -891,16 +1060,21 @@ def _card_and_cpu(name: str, cfg_for, model, table, steps: int, fused: bool) -> 
         result["cfg"] = cfg
         result["state"] = _train_once(cfg, "cuda", lines)[0]
 
-    run, wrappers = _counted_run(run_once, name)
+    run, wrappers = _counted_run(run_once, name, lambda: result["cfg"].steps_per_call > 1)
     cuda_cfg, cuda_log = result["cfg"], attempts[-1]
     graphed = cuda_cfg.steps_per_call > 1
     stepped = _step_launches(run, wrappers, graphed, name)
-    launches = {k: stepped[k] for k in ("anova_fwd", "anova_bwd", tail)}
-    if launches["anova_fwd"] < steps or launches["anova_bwd"] != steps:
-        fail(f"the {name} path did not launch both ANOVA kernels once per step: {launches}")
-    if launches[tail] != steps or run["launches_traced"][other]:
-        fail(f"the {tail} kernel ran {launches[tail]} times for {steps} steps "
-             f"(the other tail {run['launches_traced'][other]} times)")
+    if expect is None:
+        launches = {k: stepped[k] for k in ("anova_fwd", "anova_bwd", tail)}
+        if launches["anova_fwd"] < steps or launches["anova_bwd"] != steps:
+            fail(f"the {name} path did not launch both ANOVA kernels once per step: {launches}")
+        if launches[tail] != steps or run["launches_traced"][other]:
+            fail(f"the {tail} kernel ran {launches[tail]} times for {steps} steps "
+                 f"(the other tail {run['launches_traced'][other]} times)")
+    else:
+        launches = dict(stepped)
+        if any(stepped[k] != expect.get(k, 0) for k in KERNELS):
+            fail(f"the {name} path launched {stepped} for {steps} steps, expected {expect}")
     losses = _logged(cuda_log, "loss")
     if not losses or not all(np.isfinite(losses)):
         fail(f"non-finite or missing training losses on the card: {losses}")
@@ -911,28 +1085,33 @@ def _card_and_cpu(name: str, cfg_for, model, table, steps: int, fused: bool) -> 
     cpu_state = unpack_state(cpu_state, model)
     table_err = float((cuda_state.table.cpu() - cpu_state.table).abs().max())
     accum_err = float((cuda_state.table_accum.cpu() - cpu_state.table_accum).abs().max())
-    if not (table_err <= TABLE_ATOL and accum_err <= TABLE_ATOL):
+    if not dense and not (table_err <= TABLE_ATOL and accum_err <= TABLE_ATOL):
         fail(f"{name}: the card's trained table and accumulators differ from the CPU "
              f"run's by {table_err} and {accum_err}")
-    updates = _update_check(table, cuda_state.table.cpu().numpy(), cpu_state.table.numpy())
+    rtol = MLP_DRIFT_RTOL if dense else UPDATE_RTOL
+    updates = _update_check(table, cuda_state.table.cpu().numpy(), cpu_state.table.numpy(), rtol)
+    if dense:
+        updates.update(_dense_check(dense, cuda_state, cpu_state, rtol))
     auc_cuda, auc_cpu = _logged(cuda_log, "auc"), _logged(cpu_log, "auc")
     if not (auc_cuda and auc_cpu and abs(auc_cuda[-1] - auc_cpu[-1]) <= AUC_TOL
             and auc_cuda[-1] > 0.5):
         fail(f"{name}: validation AUC on the card {auc_cuda} against the CPU's {auc_cpu}")
+    batch = cuda_cfg.batch_size
     return {
         "rec": {
             "steps": steps,
-            "batch_size": BATCH,
+            "batch_size": batch,
             "launches": launches,
             "launches_by_wrappers": wrappers,
             "launches_traced": run["launches_traced"],
             "losses": losses,
             "examples_per_s_logged": _logged(cuda_log, "examples/sec"),
-            "examples_per_s_run": steps * BATCH / cuda_s,
+            "examples_per_s_run": steps * batch / cuda_s,
             "seconds": {"cuda": cuda_s, "cpu": cpu_s},
             "validation_auc": {"cuda": auc_cuda[-1], "cpu": auc_cpu[-1]},
             "max_abs_table_diff": table_err,
             "max_abs_accum_diff": accum_err,
+            "updates_rtol": rtol,
             "updates": updates,
             "traced_run": run,
         },
@@ -973,7 +1152,7 @@ def phase_train(rng, tmp: str, train_path: str, valid_path: str, fused: bool = F
     if fused:
         base = dataclasses.replace(base, **FUSED).validate()
     model = build_model(base)
-    table, init = _seeded_init(rng, tmp, name, base, model, fused)
+    table, _, init = _seeded_init(rng, tmp, name, base, model, fused)
     out = _card_and_cpu(
         name,
         lambda device: _phase_cfg(base, tmp, name, device, init, train_files=(train_path,),
@@ -1056,7 +1235,7 @@ def phase_train_fmb(rng, tmp: str, train_path: str, valid_path: str):
     name, kw = "train_fmb", {"binary_cache": True, "shuffle": True}
     base = dataclasses.replace(load_config(os.path.join(HERE, CONFIG)), **kw)
     model = build_model(base)
-    table, init = _seeded_init(rng, tmp, name, base, model, False)
+    table, _, init = _seeded_init(rng, tmp, name, base, model, False)
     files = dict(train_files=(train_path,), validation_files=(valid_path,), epoch_num=2,
                  log_every=8)
     out = _card_and_cpu(name, lambda device: _phase_cfg(base, tmp, name, device, init, **files),
@@ -1100,7 +1279,7 @@ def phase_train_cached(rng, tmp: str, train_path: str, valid_path: str, fused: b
     base = load_config(os.path.join(HERE, CONFIG))
     base = dataclasses.replace(base, **kw, **(FUSED if fused else {})).validate()
     model = build_model(base)
-    table, init = _seeded_init(rng, tmp, name, base, model, fused)
+    table, _, init = _seeded_init(rng, tmp, name, base, model, fused)
     files = dict(train_files=(train_path,), validation_files=(valid_path,), epoch_num=2,
                  log_every=8)
     out = _card_and_cpu(name, lambda device: _phase_cfg(base, tmp, name, device, init, **files),
@@ -1182,7 +1361,8 @@ def phase_throughput(tmp: str, big_path: str):
             attempts.append([])
             _train_once(cfg, "cuda", attempts[-1], resume=False)
 
-        run, wrappers = _counted_run(run_once, f"throughput {mode}")
+        run, wrappers = _counted_run(run_once, f"throughput {mode}",
+                                     lambda cfg=cfg: cfg.steps_per_call > 1)
         lines = attempts[-1]
         stepped = _step_launches(run, wrappers, cfg.steps_per_call > 1, f"throughput {mode}")
         if any(stepped[k] != THROUGHPUT_BATCHES
@@ -1202,7 +1382,12 @@ def phase_throughput(tmp: str, big_path: str):
     emit(rec)
 
 
-def phase_predict(cuda_cfg, name: str = "predict"):
+def phase_predict(cuda_cfg, name: str = "predict", rows: int = VALID_BATCHES * BATCH,
+                  anova: bool = True, atol: float = ATOL):
+    """prediction.predict of a trained model on the card and on the CPU:
+    ``rows`` finite printed scores within ``atol`` of each other; the
+    forward ANOVA kernel launched on the
+    card for an FM of order >= 3 (``anova``), and never for the others."""
     import dataclasses
 
     import numpy as np
@@ -1217,19 +1402,20 @@ def phase_predict(cuda_cfg, name: str = "predict"):
         t0 = time.perf_counter()
         predict(cfg, log=log_stderr, device=device)
         seconds[device] = time.perf_counter() - t0
-        if device == "cuda" and anova_inter.launches == 0:
-            fail(f"{name} on cuda never launched the anova_fwd kernel")
+        if device == "cuda" and (anova_inter.launches > 0) != anova:
+            fail(f"{name} on cuda launched the anova_fwd kernel {anova_inter.launches} times")
         paths[device] = cfg.score_path
     got, want = np.loadtxt(paths["cuda"]), np.loadtxt(paths["cpu"])
-    if got.shape != (VALID_BATCHES * BATCH,) or not np.isfinite(got).all():
-        fail(f"predict wrote {got.shape} scores, expected {VALID_BATCHES * BATCH} finite")
+    if got.shape != (rows,) or not np.isfinite(got).all():
+        fail(f"{name} wrote {got.shape} scores, expected {rows} finite")
     err = float(np.abs(got - want).max())
     # %.6f scores: the card's and the CPU's printed values may differ by one
     # decimal step where the unrounded scores straddle a rounding boundary.
-    if err > ATOL + 1e-9:
-        fail(f"predict scores on the card differ from the CPU's by {err}")
-    emit({"phase": name, "table_layout": cuda_cfg.table_layout, "scores": int(got.shape[0]),
-          "max_abs_err_printed": err, "seconds": seconds})
+    if err > atol + 1e-9:
+        fail(f"{name} scores on the card differ from the CPU's by {err}")
+    emit({"phase": name, "table_layout": cuda_cfg.table_layout, "model": cuda_cfg.model,
+          "scores": int(got.shape[0]), "max_abs_err_printed": err, "atol": atol,
+          "seconds": seconds})
 
 
 def _lines(rng, n: int, vocab: int) -> list[str]:
@@ -1350,8 +1536,310 @@ def phase_serve(rng, tmp: str):
     })
 
 
-def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run) -> dict:
-    return {
+def _zoo_base(key: str):
+    from fast_tffm_tpu_torch.config import build_model, load_config
+
+    config, data = ZOO[key]
+    base = load_config(os.path.join(HERE, config))
+    return config, data, base, build_model(base)
+
+
+def _score_atol(cfg) -> float:
+    return BF16_SCORE_ATOL if cfg.compute_dtype == "bfloat16" else ATOL
+
+
+def _mlp_route(model, state, batch) -> dict:
+    """DeepFM's MLP at the training batch on the card: the route the port
+    takes (a float32 product over operands rounded to bfloat16, TF32 off:
+    the float32 pre-activations of JAX's bf16 dot with
+    preferred_element_type=float32), its forward and forward + backward
+    time, and its bound at the float32 rate.  Beside it, measured only:
+    whether this torch has aten::mm.dtype (bf16 operands on the tensor
+    cores, a float32 output), its time on the first layer, and whether
+    autograd has a backward for it."""
+    import torch
+
+    from fast_tffm_tpu_torch.models.base import compute_round
+
+    b = batch.vals.shape[0]
+    emb = (state.table[batch.ids.long()][..., 1:] * batch.vals[..., None]).reshape(b, -1)
+    x = emb.detach().requires_grad_(True)
+    dense = [p.detach().requires_grad_(True) for p in state.dense]
+
+    def fwd():
+        with torch.no_grad():
+            model._mlp(dense, x)
+
+    def fwd_bwd():
+        torch.autograd.grad(model._mlp(dense, x).sum(), [x, *dense])
+
+    dims = (x.shape[1], *model.hidden_dims, 1)
+    flops = 3 * sum(2 * b * i * o for i, o in zip(dims[:-1], dims[1:]))
+    rec = {
+        "compute_dtype": model.compute_dtype,
+        "route": "torch.matmul float32 over operands rounded to " + model.compute_dtype,
+        "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "fwd_ms": time_ms(fwd, 50),
+        "fwd_bwd_ms": time_ms(fwd_bwd, 50),
+        "fwd_bwd_device_ms": device_ms(fwd_bwd, 20, None),
+        "fwd_bwd_flops": flops,
+        "fwd_bwd_bound_ms": 1e3 * flops / FP32_FLOPS_PER_S,
+    }
+    w0 = dict(zip(model.dense_names, state.dense))["w0"]
+    xr, wr = compute_round(emb, "bfloat16"), compute_round(w0, "bfloat16")
+    xb, wb = xr.to(torch.bfloat16), wr.to(torch.bfloat16)
+    probe = {"w0_route_ms": time_ms(lambda: xr @ wr, 50)}
+    try:  # a probe of this torch build, not a path of the port
+        got = torch.mm(xb, wb, out_dtype=torch.float32)
+        probe.update(available=True, w0_ms=time_ms(lambda: torch.mm(xb, wb, out_dtype=torch.float32), 50),
+                     w0_max_abs_diff_vs_route=float((got - xr @ wr).abs().max()))
+        try:
+            torch.mm(xb.clone().requires_grad_(True), wb, out_dtype=torch.float32).sum().backward()
+            probe["backward"] = True
+        except RuntimeError as e:
+            probe["backward"] = f"no: {str(e)[:160]}"
+    except (RuntimeError, TypeError) as e:
+        probe.update(available=False, error=str(e)[:160])
+    rec["aten_mm_dtype"] = probe
+    return rec
+
+
+def phase_train_zoo(rng, tmp: str, key: str, paths: dict) -> dict:
+    """One zoo config at full width through training.train, on the card and
+    then on the CPU from one seeded npz (``_card_and_cpu``: B4 once per
+    step and no other kernel; tables, accumulators, a DeepFM's MLP, AUC);
+    then the step time with the input on the card, a traced step and, for
+    DeepFM, its MLP route (``_mlp_route``)."""
+    from fast_tffm_tpu_torch.data.pipeline import batch_stream
+    from fast_tffm_tpu_torch.models.base import Batch
+    from fast_tffm_tpu_torch.trainer import make_train_step
+
+    config, data, base, model = _zoo_base(key)
+    name = f"train_{key}"
+    table, dense, init = _seeded_init(rng, tmp, name, base, model, False)
+    train_path, valid_path = paths[data]
+    steps = ZOO_DATA[data]["train"] // base.batch_size
+
+    def cfg_for(device):
+        return _phase_cfg(base, tmp, name, device, init, train_files=(train_path,),
+                          validation_files=(valid_path,), predict_files=(valid_path,), log_every=4)
+
+    out = _card_and_cpu(name, cfg_for, model, table, steps, False,
+                        expect={"rows_tail_adagrad": steps}, dense=dense)
+    parsed, w = next(batch_stream([valid_path], batch_size=base.batch_size,
+                                  vocabulary_size=base.vocabulary_size, max_nnz=base.max_nnz))
+    batch = Batch.from_parsed(parsed, w, "cuda", with_fields=model.uses_fields)
+    # Timed on the trained card state (the checks above are done with it).
+    state, step = out["state"], make_train_step(model, base.learning_rate)
+    times = _step_times(lambda: step(state, batch))
+    rec = {
+        "phase": name,
+        "config": config,
+        "model": base.model,
+        "row_dim": model.row_dim,
+        "max_nnz": base.max_nnz,
+        "compute_dtype": base.compute_dtype,
+        "thread_num": base.thread_num,
+        **out["rec"],
+        "step_ms_p50": times[len(times) // 2],
+        "step_ms_min": times[0],
+        "step_examples_per_s": base.batch_size / (times[len(times) // 2] / 1e3),
+        "traced_step": traced_window(lambda: step(state, batch)),
+    }
+    if model.dense_names:
+        rec["gradient"] = _mlp_gradient_check(model, out["cpu_state"], batch)
+        rec["mlp"] = _mlp_route(model, state, batch)
+    emit(rec)
+    return {"cuda_cfg": out["cuda_cfg"], "launches": out["rec"]["launches"], "init": init,
+            "auc": _logged(out["cuda_log"], "auc")}
+
+
+def phase_serve_zoo(key: str, cuda_cfg, valid_path: str):
+    """The trained card model serving the first ZOO_SERVE_LINES validation
+    lines (libffm with their fields for FFM) through serve_lines on the
+    card: every score finite and within the model's tolerance of the port's
+    own CPU path on the same checkpoint, printed and unrounded; no kernel
+    runs on this path."""
+    import itertools
+
+    import numpy as np
+
+    from fast_tffm_tpu_torch.data.libsvm import parse_lines
+    from fast_tffm_tpu_torch.models.base import Batch
+    from fast_tffm_tpu_torch.prediction import load_scoring_state, make_score_fn
+    from fast_tffm_tpu_torch.serving import serve_lines
+
+    with open(valid_path) as f:
+        lines = [s.strip() for s in itertools.islice(f, ZOO_SERVE_LINES)]
+    atol, quiet = _score_atol(cuda_cfg), (lambda *_: None)
+    out = io.StringIO()
+    _zero_counters()
+    t0 = time.perf_counter()
+    snap = serve_lines(cuda_cfg, lines, out=out, log=log_stderr, device="cuda")
+    serve_s = time.perf_counter() - t0
+    if any(_wrapper_counts().values()):
+        fail(f"serve_{key} launched {_wrapper_counts()}: its path has no kernel")
+    printed = np.array([float(v) for v in out.getvalue().split()], np.float64)
+    if printed.shape != (ZOO_SERVE_LINES,) or not np.isfinite(printed).all():
+        fail(f"serve_{key} returned {printed.shape[0]} scores, expected {ZOO_SERVE_LINES} finite")
+    model, cpu_state = load_scoring_state(cuda_cfg, quiet, device="cpu")
+    parsed = parse_lines(lines, vocabulary_size=cuda_cfg.vocabulary_size, max_nnz=cuda_cfg.max_nnz)
+    batch = Batch.from_parsed(parsed, with_fields=model.uses_fields)
+    want = make_score_fn(cuda_cfg, cpu_state, cuda_cfg.max_nnz, model=model)(cpu_state, batch).numpy()
+    printed_err = float(np.abs(printed - np.array([float(f"{v:.6f}") for v in want])).max())
+    _, gpu_state = load_scoring_state(cuda_cfg, quiet, device="cuda")
+    got = make_score_fn(cuda_cfg, gpu_state, cuda_cfg.max_nnz, model=model)(
+        gpu_state, batch.to("cuda")).cpu().numpy()
+    raw_err = float(np.abs(got - want).max())
+    if printed_err > atol + 1e-9 or raw_err > atol:
+        fail(f"serve_{key}: card scores differ from the CPU path by {raw_err} (printed "
+             f"{printed_err}; atol {atol})")
+    total = snap["total_ms"]
+    emit({"phase": f"serve_{key}", "config": ZOO[key][0], "lines": ZOO_SERVE_LINES,
+          "seconds": serve_s, "lines_per_s": ZOO_SERVE_LINES / serve_s,
+          "p50_total_ms": total.get("p50"), "p99_total_ms": total.get("p99"),
+          "compute_ms": snap["compute_ms"], "flushes": snap["flushes"],
+          "max_abs_err_printed": printed_err, "max_abs_err_raw": raw_err, "atol": atol})
+
+
+def phase_train_cached_deepfm(tmp: str, paths: dict, eager: dict) -> dict:
+    """baseline4 with device_cache and steps_per_call = 8 (every 8 steps one
+    CUDA-graph replay, cuBLAS products and the dense update inside), from
+    train_deepfm's npz: B4 once per step in the replays (counted in the
+    profiler trace), and the final state, dense leaves included, and the
+    validation AUC bitwise train_deepfm's eager card run; the graph's step
+    time beside the eager cached step's."""
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+    from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache
+    from fast_tffm_tpu_torch.data.device_cache import (
+        epoch_index_chunks,
+        load_device_dataset,
+        make_cached_scan_train_step,
+        make_cached_train_step,
+    )
+
+    name, kw = "train_cached_deepfm", {"device_cache": True, "binary_cache": True,
+                                       "steps_per_call": 8}
+    config, data, base, model = _zoo_base("deepfm")
+    train_path, valid_path = paths[data]
+    steps = ZOO_DATA[data]["train"] // base.batch_size
+    attempts, result = [], {}
+
+    def run_once():
+        cfg, lines = _phase_cfg(base, tmp, name, "cuda", eager["init"], **kw, log_every=8,
+                                train_files=(train_path,), validation_files=(valid_path,)), []
+        attempts.append(lines)
+        result["cfg"] = cfg
+        result["state"] = _train_once(cfg, "cuda", lines)[0]
+
+    run, wrappers = _counted_run(run_once, name, lambda: True)
+    stepped = _step_launches(run, wrappers, True, name)
+    if any(stepped[k] != (steps if k == "rows_tail_adagrad" else 0) for k in KERNELS):
+        fail(f"{name}: the replays launched {stepped} for {steps} steps")
+    want = restore_checkpoint(eager["cuda_cfg"].model_file, torch.device("cpu"),
+                              n_dense=len(model.dense_names), accum_width=model.row_dim)
+    got = result["state"]
+    pairs = [(got.table, want.table), (got.table_accum, want.table_accum),
+             *zip(got.dense, want.dense), *zip(got.dense_accum, want.dense_accum)]
+    if not (all(torch.equal(a.cpu(), b) for a, b in pairs) and got.step == want.step == steps):
+        fail(f"{name}: steps_per_call = 8 is not bitwise the eager card run")
+    if _logged(attempts[-1], "auc") != eager["auc"]:
+        fail(f"{name}: validation AUC {_logged(attempts[-1], 'auc')} against the eager "
+             f"run's {eager['auc']}")
+    cfg = result["cfg"]
+    data_set = load_device_dataset(
+        ensure_fmb_cache(cfg.train_files, vocabulary_size=cfg.vocabulary_size,
+                         max_nnz=cfg.max_nnz, log=log_stderr),
+        batch_size=cfg.batch_size, vocabulary_size=cfg.vocabulary_size, max_nnz=cfg.max_nnz,
+        device="cuda")
+    scan, _ = make_cached_scan_train_step(model, cfg.learning_rate, data_set)
+    step, _ = make_cached_train_step(model, cfg.learning_rate, data_set)
+    idxs = epoch_index_chunks(data_set.batches, 8, "cuda")[0]
+    index = torch.tensor(0, dtype=torch.int64, device="cuda")
+    graph_ms = _step_times(lambda: scan(got, idxs), per_call=8)
+    eager_ms = _step_times(lambda: step(got, index))
+    replay = traced_window(lambda: scan(got, idxs))
+    emit({"phase": name, "config": config + " + " + json.dumps(kw), "steps": steps,
+          "launches": stepped, "launches_by_wrappers": wrappers,
+          "launches_traced": run["launches_traced"], "bitwise_eager": True,
+          "validation_auc": eager["auc"][-1], "wall_ms": run["wall_ms"],
+          "examples_per_s_run": steps * cfg.batch_size / (run["wall_ms"] / 1e3),
+          "examples_per_s_logged": _logged(attempts[-1], "examples/sec"),
+          "device_idle_share": run["device_idle_share"],
+          "graph_step_ms_p50": graph_ms[len(graph_ms) // 2],
+          "eager_step_ms_p50": eager_ms[len(eager_ms) // 2],
+          "graph_busy_ms_per_step": None if replay["device_busy_ms"] is None
+          else replay["device_busy_ms"] / 8, "traced_replay": replay})
+    return stepped
+
+
+def phase_rows_tail_zoo(rng, label: str, path: str, batch: int, nnz: int, d: int) -> dict:
+    """B4 at a zoo shape: the first training batch's ids ([batch, nnz], M =
+    batch·nnz occurrences) onto a full-width [2^20, d] state, element and
+    row accumulators at decay 1 and 0.9, each bitwise its twin on the card;
+    at decay 1 the kernel's time on the sort's output (events; device, warm
+    and L2-flushed), the update's (sort + kernel), the twin's, and the
+    bound.  Returns the element record."""
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.ops.tail import (
+        rows_tail_adagrad_update,
+        rows_tail_sorted,
+        rows_tail_sorted_plain,
+    )
+    from fast_tffm_tpu_torch.optim import sparse_adagrad_update
+
+    vocab, lr = 1 << 20, 0.05
+    ids = torch.from_numpy(_first_batch_ids(path, vocab, batch, nnz)).cuda()
+    grads = torch.from_numpy((rng.normal(size=(batch, nnz, d)) * 1e-3).astype(np.float32)).cuda()
+    table = torch.from_numpy(rng.uniform(-0.01, 0.01, size=(vocab, d)).astype(np.float32)).cuda()
+    flat_ids, flat_g = ids.reshape(-1), grads.reshape(-1, d)
+    k = int(torch.unique(flat_ids).numel())
+    main = None
+    for acc in ("element", "row"):
+        width = d if acc == "element" else 1
+        accum = torch.from_numpy(rng.uniform(0.1, 0.5, size=(vocab, width)).astype(np.float32)).cuda()
+        for decay in (1.0, 0.9):
+            t_k, a_k, t_p, a_p = table.clone(), accum.clone(), table.clone(), accum.clone()
+            rows_tail_adagrad_update(t_k, a_k, ids, grads, lr, decay=decay)
+            sparse_adagrad_update(t_p, a_p, ids, grads, lr, decay=decay)
+            torch.cuda.synchronize()
+            if not (torch.equal(t_k, t_p) and torch.equal(a_k, a_p)):
+                err = float(max((t_k - t_p).abs().max(), (a_k - a_p).abs().max()))
+                fail(f"rows_tail {label}: not bitwise its plain version ({acc}, decay {decay}), "
+                     f"max abs err {err}")
+            rec = {"phase": "rows_tail", "shape": label, "accumulator": acc, "decay": decay,
+                   "D": d, "N": nnz, "M": int(flat_ids.numel()), "K": k, "bitwise": True,
+                   "max_abs_err": 0.0}
+            if decay == 1.0:
+                sid, order = torch.sort(flat_ids, stable=True)
+                kern = f"rows_{acc}_kernel"
+                kernel = lambda: rows_tail_sorted(t_k, a_k, sid, order, flat_g, lr)  # noqa: E731
+                update = lambda: rows_tail_adagrad_update(t_k, a_k, ids, grads, lr)  # noqa: E731
+                plain = lambda: rows_tail_sorted_plain(t_p, a_p, sid, order, flat_g, lr)  # noqa: E731
+                rec.update({
+                    "ms": time_ms(kernel, 50),
+                    "device_ms": device_ms(kernel, 20, kern),
+                    "device_ms_flushed": device_ms(flushed(kernel), 20, kern),
+                    "update_ms": time_ms(update, 50),
+                    "update_device_ms": device_ms(update, 20, None),
+                    "plain_ms": time_ms(plain, 20),
+                    "plain_device_ms": device_ms(plain, 10, None),
+                })
+                rec["bound_ms"], rec["bound_by"] = tail_bound(rec["M"], k, d, width)
+                rec["sector_bound_ms"] = tail_sector_bound(rec["M"], k, d, width, fused=False)
+                if acc == "element":
+                    main = rec
+            emit(rec)
+    return main
+
+
+def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
+                   shapes=None) -> dict:
+    rec = {
         "name": name,
         "route": "cuda",
         "source": source,
@@ -1366,6 +1854,14 @@ def _kernel_record(name, source, replaces, launches, worst, main, launches_by_ru
         "bound_by": main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function
     }
+    if shapes:
+        rec["shapes"] = {
+            label: {k: r[k] for k in ("D", "N", "M", "K", "ms", "device_ms", "device_ms_flushed",
+                                      "update_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "sector_bound_ms")}
+            for label, r in shapes.items()
+        }
+    return rec
 
 
 def main() -> int:
@@ -1385,14 +1881,27 @@ def main() -> int:
     bwd = phase_anova_bwd(rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train_path, valid_path, big_path = phase_data(tmp)
+        zoo_paths = phase_data_zoo(tmp)
         phase_parse(train_path)
         tail = phase_rows_tail(rng, train_path)
+        tail_shapes = {
+            "baseline1": phase_rows_tail_zoo(rng, "baseline1", zoo_paths["criteo"][0], 16384, 39, 9),
+            "baseline3": phase_rows_tail_zoo(rng, "baseline3", zoo_paths["avazu"][0], 8192, 22, 89),
+        }
         fused_tail = phase_fused_tail(rng, train_path)
         cuda_cfg, launches = phase_train(rng, tmp, train_path, valid_path)
         phase_predict(cuda_cfg)
         fused_cfg, fused_launches = phase_train(rng, tmp, train_path, valid_path, fused=True)
         phase_predict(fused_cfg, "predict_packed")
         phase_serve(rng, tmp)
+        zoo = {}
+        for key, (_, data) in ZOO.items():
+            zoo[key] = phase_train_zoo(rng, tmp, key, zoo_paths)
+            cfg = zoo[key]["cuda_cfg"]
+            phase_predict(cfg, f"predict_{key}", rows=ZOO_DATA[data]["valid"], anova=False,
+                          atol=_score_atol(cfg))
+            phase_serve_zoo(key, cfg, zoo_paths[data][1])
+        cached_deepfm = phase_train_cached_deepfm(tmp, zoo_paths, zoo["deepfm"])
         phase_train_fmb(rng, tmp, train_path, valid_path)
         graphed = phase_train_cached(rng, tmp, train_path, valid_path, fused=False)
         graphed_fused = phase_train_cached(rng, tmp, train_path, valid_path, fused=True)
@@ -1402,8 +1911,12 @@ def main() -> int:
     # (train_fused for B3; 24 steps: B1 once per step and per validation
     # batch, B2 and the tail once per step).  Beside them, the graphed
     # device-cached runs' steps (48, every 8 one CUDA-graph replay), counted
-    # in their profiler traces.
+    # in their profiler traces, and B4's over the zoo's eager runs and the
+    # graphed DeepFM run's replays.
     by_run = lambda k, eager, graph: {"train": eager[k], "train_cached_replays": graph[k]}  # noqa: E731
+    b4_runs = by_run("rows_tail_adagrad", launches, graphed)
+    b4_runs.update({f"train_{key}": z["launches"]["rows_tail_adagrad"] for key, z in zoo.items()})
+    b4_runs["train_cached_deepfm_replays"] = cached_deepfm["rows_tail_adagrad"]
     emit({"kernels": [
         _kernel_record("anova_fwd", src + "anova_fwd.cu",
                        "fast_tffm_tpu/ops/pallas_anova.py:66", launches["anova_fwd"], *fwd,
@@ -1413,7 +1926,7 @@ def main() -> int:
                        by_run("anova_bwd", launches, graphed)),
         _kernel_record("rows_tail_adagrad", src + "rows_tail_adagrad.cu",
                        "fast_tffm_tpu/ops/pallas_tail.py:267", launches["rows_tail_adagrad"],
-                       *tail, by_run("rows_tail_adagrad", launches, graphed)),
+                       *tail, b4_runs, shapes=tail_shapes),
         _kernel_record("fused_tail_adagrad", src + "fused_tail_adagrad.cu",
                        "fast_tffm_tpu/ops/pallas_tail.py:119",
                        fused_launches["fused_tail_adagrad"], *fused_tail,

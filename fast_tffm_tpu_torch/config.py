@@ -1,5 +1,5 @@
 """INI config for the port: the JAX package's key vocabulary, cut to the
-ported paths (training, offline prediction, serving).
+ported paths (training, offline prediction, serving of FM, FFM and DeepFM).
 
 A copy of ``fast_tffm_tpu/config.py`` reduced to what those paths read.
 It parses the same files (``sample.cfg``, ``configs/*.cfg``) with the same
@@ -24,15 +24,21 @@ __all__ = [
     "validate_classes",
     "refuse_later_slices",
     "build_model",
+    "check_deepfm_width",
 ]
 
 
 @dataclasses.dataclass
 class Config:
     # [General]
-    model: str = "fm"  # fm (ffm | deepfm are later slices of the port)
+    model: str = "fm"  # fm | ffm | deepfm
     factor_num: int = 8
     order: int = 2
+    num_fields: int = 0  # required for ffm/deepfm
+    hidden_dims: tuple[int, ...] = (400, 400, 400)  # deepfm MLP head
+    compute_dtype: str = "float32"  # deepfm MLP matmuls and ffm interaction
+    #   einsums: float32 | bfloat16 (operands rounded to bfloat16, products
+    #   accumulated in float32, float32 master weights)
     vocabulary_size: int = 1 << 20
     hash_feature_id: bool = False
     table_layout: str = "rows"  # rows ([V, D]) | packed (lane-packed tile
@@ -119,13 +125,13 @@ class Config:
     def validate(self) -> "Config":
         if self.model not in ("fm", "ffm", "deepfm"):
             raise ValueError(f"unknown model {self.model!r}")
-        if self.model != "fm":
-            raise ValueError(
-                f"model = {self.model} is not ported yet (FFM and DeepFM are a "
-                "later slice of fast_tffm_tpu_torch); use fast_tffm_tpu"
-            )
-        if self.order < 2:
+        if self.model in ("ffm", "deepfm") and self.num_fields <= 0:
+            raise ValueError(f"{self.model} requires num_fields > 0")
+        if self.model == "fm" and self.order < 2:
             raise ValueError("order must be >= 2")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        self.check_width(self.max_nnz)
         if self.factor_num < 1:
             raise ValueError(f"factor_num must be >= 1, got {self.factor_num}")
         if self.vocabulary_size <= 0:
@@ -177,6 +183,13 @@ class Config:
             )
         self.serve_classes = validate_classes(self.serve_classes)
         return self
+
+    def check_width(self, max_nnz: int) -> None:
+        """Refuse a slot width the model cannot take (DeepFM: max_nnz must
+        be num_fields).  The entry points call it again with the width they
+        infer when ``max_nnz`` is 0."""
+        if self.model == "deepfm":
+            check_deepfm_width(self.num_fields, max_nnz)
 
     def _validate_train(self) -> None:
         """The JAX checks of the [Train]/[Online]/[Resilience] keys, for
@@ -301,6 +314,19 @@ class Config:
             )
 
 
+def check_deepfm_width(num_fields: int, max_nnz: int) -> None:
+    """DeepFM reshapes its [B, N, k] embeddings to [B, N·k] for an MLP
+    whose input is num_fields·k wide, so N must be num_fields.  ``max_nnz``
+    0 (inferred from the data) is checked once the entry point knows it
+    (``Config.check_width``)."""
+    if max_nnz and max_nnz != num_fields:
+        raise ValueError(
+            f"deepfm needs max_nnz = num_fields (one slot per field, the MLP "
+            f"input is num_fields·factor_num wide); got max_nnz {max_nnz} and "
+            f"num_fields {num_fields}"
+        )
+
+
 def refuse_later_slices(verb: str, refusals) -> None:
     """Raise for the first ``(refused, what)`` pair that holds: a setting
     whose path the port's ``verb`` does not run yet.  Each entry point
@@ -388,6 +414,11 @@ def load_config(path: str) -> Config:
     cfg.model = get(g, "model", str, cfg.model).lower()
     cfg.factor_num = get(g, "factor_num", int, cfg.factor_num)
     cfg.order = get(g, "order", int, cfg.order)
+    cfg.num_fields = get(g, "num_fields", int, cfg.num_fields)
+    cfg.hidden_dims = get(
+        g, "hidden_dims", lambda s: tuple(int(x) for x in _split(s)), cfg.hidden_dims
+    )
+    cfg.compute_dtype = get(g, "compute_dtype", str, cfg.compute_dtype).lower()
     cfg.vocabulary_size = get(g, "vocabulary_size", int, cfg.vocabulary_size)
     cfg.hash_feature_id = get(g, "hash_feature_id", boolean, cfg.hash_feature_id)
     cfg.table_layout = get(g, "table_layout", str, cfg.table_layout).lower()
@@ -471,14 +502,35 @@ def load_config(path: str) -> Config:
 
 
 def build_model(cfg: Config):
-    """Instantiate the configured model (FM only in this slice)."""
-    from fast_tffm_tpu_torch.models.fm import FMModel
+    """Instantiate the configured model (the JAX ``build_model``)."""
+    from fast_tffm_tpu_torch.models import DeepFMModel, FFMModel, FMModel
 
-    return FMModel(
+    if cfg.model == "fm":
+        return FMModel(
+            vocabulary_size=cfg.vocabulary_size,
+            factor_num=cfg.factor_num,
+            order=cfg.order,
+            init_value_range=cfg.init_value_range,
+            factor_lambda=cfg.factor_lambda,
+            bias_lambda=cfg.bias_lambda,
+        )
+    if cfg.model == "ffm":
+        return FFMModel(
+            vocabulary_size=cfg.vocabulary_size,
+            num_fields=cfg.num_fields,
+            factor_num=cfg.factor_num,
+            init_value_range=cfg.init_value_range,
+            factor_lambda=cfg.factor_lambda,
+            bias_lambda=cfg.bias_lambda,
+            compute_dtype=cfg.compute_dtype,
+        )
+    return DeepFMModel(
         vocabulary_size=cfg.vocabulary_size,
+        num_fields=cfg.num_fields,
         factor_num=cfg.factor_num,
-        order=cfg.order,
+        hidden_dims=cfg.hidden_dims,
         init_value_range=cfg.init_value_range,
         factor_lambda=cfg.factor_lambda,
         bias_lambda=cfg.bias_lambda,
+        compute_dtype=cfg.compute_dtype,
     )

@@ -54,7 +54,7 @@ class DeviceDataset:
     labels: torch.Tensor  # f32 [batches·B]
     ids: torch.Tensor  # i32 [batches·B, N]
     vals: torch.Tensor  # f32 [batches·B, N]
-    fields: torch.Tensor  # i32 [batches·B, 0] (only FFM reads fields, a later slice)
+    fields: torch.Tensor  # i32 [batches·B, N], or [batches·B, 0] when the model ignores fields
     weights: torch.Tensor  # f32 [batches·B] (0.0 on tail-padding rows)
     batches: int
     batch_size: int
@@ -79,10 +79,12 @@ def _load_host_arrays(
     hash_feature_id: bool = False,
     max_nnz: int | None = None,
     weights=None,
+    with_fields: bool = False,
 ):
     """Flat host staging arrays filled batch by batch from
     ``fmb_batch_stream`` (preallocated: a list-then-concatenate would hold
-    the dataset on the host twice).  Returns (arrays, batches, n_rows)."""
+    the dataset on the host twice); ``fields`` [rows, N] ``with_fields``,
+    else [rows, 0].  Returns (arrays, batches, n_rows)."""
     from fast_tffm_tpu_torch.data.binary import fmb_batch_stream, open_fmb
 
     files = [str(f) for f in files]
@@ -102,13 +104,15 @@ def _load_host_arrays(
                 labels=np.zeros(flat, np.float32),
                 ids=np.zeros((flat, width), np.int32),
                 vals=np.zeros((flat, width), np.float32),
-                fields=np.zeros((flat, 0), np.int32),
+                fields=np.zeros((flat, width if with_fields else 0), np.int32),
                 weights=np.zeros(flat, np.float32),
             )
         hi = lo + parsed.labels.shape[0]
         host["labels"][lo:hi] = parsed.labels
         host["ids"][lo:hi] = parsed.ids
         host["vals"][lo:hi] = parsed.vals
+        if with_fields:
+            host["fields"][lo:hi] = parsed.fields
         host["weights"][lo:hi] = w
         lo = hi
     return host, batches, n_rows
@@ -122,13 +126,16 @@ def load_device_dataset(
     hash_feature_id: bool = False,
     max_nnz: int | None = None,
     weights=None,
+    with_fields: bool = False,
     device="cpu",
 ) -> DeviceDataset:
     """Assemble FMB files into one DeviceDataset on ``device``: every row
-    through ``fmb_batch_stream``, then one copy to the device."""
+    through ``fmb_batch_stream``, then one copy to the device.  The field
+    matrix is carried ``with_fields`` (the model's ``uses_fields``)."""
     host, batches, n_rows = _load_host_arrays(
         files, batch_size=batch_size, vocabulary_size=vocabulary_size,
         hash_feature_id=hash_feature_id, max_nnz=max_nnz, weights=weights,
+        with_fields=with_fields,
     )
     put = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     return DeviceDataset(

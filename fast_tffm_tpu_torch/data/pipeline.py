@@ -138,14 +138,12 @@ def batch_stream(
             raise ValueError(
                 "shuffle requires memmap (FMB) input, and the binary cache "
                 "could not be built (cache location unwritable?) — fix the "
-                "cache-directory permissions or convert the files to a "
-                "writable location (tools/convert_dataset.py / the convert "
-                "CLI verb)"
+                "cache-directory permissions so that binary_cache = true can "
+                "write it"
             )
         raise ValueError(
             "shuffle requires memmap (FMB) input — sequential text streaming "
-            "cannot reorder rows; set binary_cache = true or convert the "
-            "files (tools/convert_dataset.py / the convert CLI verb)"
+            "cannot reorder rows; set binary_cache = true"
         )
     if isinstance(parser, NativeParser) and max_nnz is not None:
         yield from native_batch_stream(

@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Batch", "masked_l2", "logistic_loss"]
+__all__ = ["Batch", "masked_l2", "logistic_loss", "compute_round"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,28 +34,30 @@ class Batch:
         )
 
     @staticmethod
-    def from_parsed(parsed, weights=None, device="cpu"):
+    def from_parsed(parsed, weights=None, device="cpu", *, with_fields: bool = False):
         """Host ParsedBatch → Batch on ``device`` (the per-step H2D copy).
 
-        ``fields`` is a [B, 0] placeholder instead of the [B, N] field
-        matrix: only FFM reads it, a later slice."""
+        ``with_fields=True`` ships the [B, N] field matrix, else a [B, 0]
+        placeholder: only FFM reads ``fields`` (``uses_fields``), and for
+        the other models it is a third of the bytes copied.  Callers pass
+        the model's ``uses_fields``."""
         w = np.ones_like(parsed.labels) if weights is None else np.asarray(weights, np.float32)
-        fields = np.zeros((parsed.labels.shape[0], 0), np.int32)
+        fields = parsed.fields if with_fields else np.zeros((parsed.labels.shape[0], 0), np.int32)
         host = Batch(
             labels=torch.from_numpy(np.ascontiguousarray(parsed.labels)),
             ids=torch.from_numpy(parsed.ids.astype(np.int32, copy=False)),
             vals=torch.from_numpy(np.ascontiguousarray(parsed.vals)),
-            fields=torch.from_numpy(np.ascontiguousarray(fields)),
+            fields=torch.from_numpy(np.ascontiguousarray(fields, np.int32)),
             weights=torch.from_numpy(np.ascontiguousarray(w)),
         )
         return host if torch.device(device).type == "cpu" else host.to(device)
 
     @staticmethod
-    def stack_parsed(parsed_seq, weights_seq=None):
+    def stack_parsed(parsed_seq, weights_seq=None, *, with_fields: bool = False):
         """K host ParsedBatches → ONE host superbatch [K, B, ...]
         (``steps_per_call`` > 1), so each field crosses to the card once
-        per K steps.  ``fields`` follows ``from_parsed``'s [K, B, 0]
-        placeholder; ids become int32 whatever the parser gave (the native
+        per K steps.  ``fields`` follows ``from_parsed``'s rule ([K, B, 0]
+        when unused); ids become int32 whatever the parser gave (the native
         stream's int32, the Python parser's int64), so both give the same
         tensors."""
         if weights_seq is None:
@@ -65,12 +67,29 @@ class Batch:
             labels=torch.from_numpy(np.stack([p.labels for p in parsed_seq])),
             ids=torch.from_numpy(np.stack([p.ids.astype(np.int32, copy=False) for p in parsed_seq])),
             vals=torch.from_numpy(np.stack([p.vals for p in parsed_seq])),
-            fields=torch.from_numpy(np.zeros((k, b, 0), np.int32)),
+            fields=torch.from_numpy(
+                np.stack([p.fields.astype(np.int32, copy=False) for p in parsed_seq])
+                if with_fields
+                else np.zeros((k, b, 0), np.int32)
+            ),
             weights=torch.from_numpy(np.stack([
                 np.ones_like(p.labels) if w is None else np.asarray(w, np.float32)
                 for p, w in zip(parsed_seq, weights_seq)
             ])),
         )
+
+
+def compute_round(x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """A matmul operand in ``compute_dtype``, held as float32: ``bfloat16``
+    rounds it to bfloat16 and back, so a float32 product of such operands
+    is exact per term and sums in float32, which is what the JAX package's
+    bf16 ``dot`` with ``preferred_element_type=float32`` computes (a
+    bf16-output product would round the pre-activations).  Its backward
+    rounds the operand's gradient to bfloat16 at the same point as the
+    transpose of JAX's ``astype``.  ``float32`` returns ``x``."""
+    if compute_dtype == "float32":
+        return x
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def masked_l2(rows: torch.Tensor, vals: torch.Tensor, bias_lambda: float, factor_lambda: float):

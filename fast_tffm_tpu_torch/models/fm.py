@@ -28,6 +28,7 @@ class FMModel:
     bias_lambda: float = 0.0
 
     uses_fields = False  # score() never reads batch.fields
+    dense_names = ()  # no dense parameters
 
     @property
     def row_dim(self) -> int:

@@ -54,6 +54,7 @@ from fast_tffm_tpu_torch.optim import (
     adagrad_rows_plain,
     rows_in_range,
     sorted_segment_sum,
+    sqrt_rn,
 )
 
 __all__ = [
@@ -259,7 +260,7 @@ def fused_adagrad_plain(
     if decay != 1.0:
         acc_prev = decay * acc_prev
     acc_rows = acc_prev + accum_sq(acc_prev, gsum)
-    slots[phys, slot, :d] = cur[:, :d] - lr * gsum / torch.sqrt(acc_rows)
+    slots[phys, slot, :d] = cur[:, :d] - lr * gsum / sqrt_rn(acc_rows)
     slots[phys, slot, d:] = acc_rows
     return fused
 

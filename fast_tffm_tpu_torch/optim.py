@@ -36,7 +36,19 @@ __all__ = [
     "adagrad_rows_plain",
     "sparse_adagrad_update",
     "dense_adagrad_update",
+    "sqrt_rn",
 ]
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root the kernels take (``__fsqrt_rn``).
+    On a CPU tensor it goes through float64, whose sqrt rounded back to
+    float32 is exact for a float32 input: the CPU's float32 ``torch.sqrt``
+    is not correctly rounded in every build.  A CUDA tensor's sqrt is
+    IEEE-exact already and stays in its own type."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
 
 
 def init_table_adagrad(
@@ -122,7 +134,7 @@ def adagrad_rows_plain(
     if decay != 1.0:
         acc_prev = decay * acc_prev
     acc_rows = acc_prev + accum_sq(accum, gsum)
-    table[idx] = table[idx] - lr * gsum / torch.sqrt(acc_rows)
+    table[idx] = table[idx] - lr * gsum / sqrt_rn(acc_rows)
     accum[idx] = acc_rows
     return table, accum
 
@@ -154,5 +166,5 @@ def dense_adagrad_update(params, accums, grads, lr: float, decay: float = 1.0):
         if decay != 1.0:
             a.mul_(decay)
         a.add_(g * g)
-        p.sub_(lr * g / torch.sqrt(a))
+        p.sub_(lr * g / sqrt_rn(a))
     return params, accums

@@ -51,7 +51,7 @@ def load_scoring_state(cfg: Config, log=print, device=None):
     checkpoint of any accumulator)."""
     device = resolve_device(device)
     model = build_model(cfg)
-    state = restore_checkpoint(cfg.model_file, device)
+    state = restore_checkpoint(cfg.model_file, device, n_dense=len(model.dense_names))
     v, d = state.table.shape
     if d != model.row_dim or v < model.vocabulary_size:
         raise ValueError(
@@ -91,7 +91,9 @@ def predict(cfg: Config, log=print, device=None) -> str:
         raise ValueError("no predict_files configured")
     model, state = load_scoring_state(cfg, log, device)
     device = state.table.device
-    score = make_score_fn(cfg, state, scan_max_nnz(cfg), model=model)
+    max_nnz = scan_max_nnz(cfg)
+    cfg.check_width(max_nnz)
+    score = make_score_fn(cfg, state, max_nnz, model=model)
     total = count_lines(cfg.predict_files)  # the rows to score; padding follows them
     stream = prefetch(
         batch_stream(
@@ -111,7 +113,8 @@ def predict(cfg: Config, log=print, device=None) -> str:
     n = 0
     with open(cfg.score_path, "w") as out:
         for parsed, w in stream:
-            scores = score(state, Batch.from_parsed(parsed, w, device)).cpu().numpy()
+            batch = Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields)
+            scores = score(state, batch).cpu().numpy()
             if not np.isfinite(scores).all():
                 raise RuntimeError(
                     "non-finite scores — a diverged model (non-finite weights); "

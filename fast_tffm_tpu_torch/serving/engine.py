@@ -94,8 +94,14 @@ class ServingEngine:
             )
         self._cfg = cfg
         self._log = log
+        if cfg.metrics_path:
+            log(
+                f"note: metrics_path = {cfg.metrics_path} is ignored by serve: the "
+                "kind=serving records are a later slice of fast_tffm_tpu_torch"
+            )
         self.device = resolve_device(device)
         max_nnz = scan_max_nnz(cfg)
+        cfg.check_width(max_nnz)
         if state is None:
             model, state = load_scoring_state(cfg, log, device=self.device)
         elif state.table.device.type != self.device.type:

@@ -185,12 +185,13 @@ def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
     return prefetch(raw, depth=max(1, cfg.queue_size // max(1, steps_per_call)))
 
 
-def _evaluate(cfg: Config, predict_step, state, files, max_nnz: int, device, log) -> float:
+def _evaluate(cfg: Config, model, predict_step, state, files, max_nnz: int, device, log) -> float:
     """AUC over ``files`` through the predict step, folded into a bounded
     streaming AUC (validation examples weigh 1.0; batch padding 0)."""
     meter = StreamingAUC()
     for parsed, w in _stream(cfg, files, max_nnz, log=log):
-        scores = predict_step(state, Batch.from_parsed(parsed, w, device))
+        scores = predict_step(
+            state, Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields))
         meter.add(parsed.labels, scores.cpu().numpy(), w)
     return meter.value()
 
@@ -248,7 +249,7 @@ def _device_cached_input(cfg: Config, model, max_nnz: int, log, body, device):
     data = load_device_dataset(
         files, batch_size=cfg.batch_size, vocabulary_size=cfg.vocabulary_size,
         hash_feature_id=cfg.hash_feature_id, max_nnz=max_nnz,
-        weights=cfg.weight_files or None, device=device,
+        weights=cfg.weight_files or None, with_fields=model.uses_fields, device=device,
     )
     log(
         f"device cache: {data.n_rows} rows resident "
@@ -289,12 +290,14 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
     device = resolve_device(device)
     model = build_model(cfg)
     max_nnz = scan_max_nnz(cfg)
+    cfg.check_width(max_nnz)
     fused = cfg.table_layout == "packed"  # and so adagrad_accumulator = fused
     if resume:
         # The logical arrays first, packed after (never a fresh packed state
         # beside them).
         accum_width = model.row_dim if cfg.adagrad_accumulator == "element" else 1
-        state = restore_checkpoint(cfg.model_file, device, accum_width=accum_width)
+        state = restore_checkpoint(cfg.model_file, device, n_dense=len(model.dense_names),
+                                   accum_width=accum_width)
         if state.table.shape != (model.vocabulary_size, model.row_dim):
             raise ValueError(
                 f"checkpoint {cfg.model_file!r} holds a {tuple(state.table.shape)} table; "
@@ -346,9 +349,11 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
             for parsed, w in _stream(cfg, cfg.train_files, max_nnz, weights,
                                      shuffle_epoch=epoch, steps_per_call=k, log=log):
                 if isinstance(parsed, list):
-                    yield Batch.stack_parsed(parsed, w), sum(p.batch_size for p in parsed)
+                    yield (Batch.stack_parsed(parsed, w, with_fields=model.uses_fields),
+                           sum(p.batch_size for p in parsed))
                 else:
-                    yield Batch.from_parsed(parsed, w, device), parsed.batch_size
+                    yield (Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields),
+                           parsed.batch_size)
 
     meter = Throughput()
     losses: list[torch.Tensor] = []  # device values; synced at log points
@@ -396,8 +401,8 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
         if losses:
             _check_finite(_mean(losses), state.step)
         if cfg.validation_files:
-            val_auc = _evaluate(cfg, predict_step, state, cfg.validation_files, max_nnz,
-                                device, log)
+            val_auc = _evaluate(cfg, model, predict_step, state, cfg.validation_files,
+                                max_nnz, device, log)
             log(f"epoch {epoch} validation auc {val_auc:.5f}")
         if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
             save_checkpoint(cfg.model_file, unpack_state(state, model))

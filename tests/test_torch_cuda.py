@@ -26,8 +26,7 @@ from fast_tffm_tpu_torch.ops.anova import (
     anova_inter_bwd_plain,
     anova_inter_plain,
 )
-from fast_tffm_tpu_torch.models.base import Batch
-from fast_tffm_tpu_torch.models.fm import FMModel
+from fast_tffm_tpu_torch.models import Batch, DeepFMModel, FFMModel, FMModel
 from fast_tffm_tpu_torch.ops.fm import fm_score
 from fast_tffm_tpu_torch.ops.packed_table import (
     fused_rows_per_tile,
@@ -186,6 +185,11 @@ def _tail_case(rng, v, d, a, m, ids_from):
         (4096, 17, 1, 3000, 0.9, "zipf"),
         (300, 64, 64, 3000, 1.0, "hot"),  # wider than a warp: the block path only
         (300, 64, 1, 3000, 0.9, "zipf"),
+        (1 << 20, 89, 89, 180224, 1.0, "zipf"),  # baseline3 (FFM, 22 fields x k 4): D = 89
+        (1 << 20, 89, 1, 180224, 0.9, "uniform"),
+        (4096, 89, 89, 3000, 0.9, "hot"),
+        (4096, 89, 1, 3000, 1.0, "padded"),
+        (1 << 20, 9, 9, 638976, 1.0, "zipf"),  # baseline1 (criteo): 16384 x 39 occurrences
     ],
 )
 def test_rows_tail_kernel_matches_twin(cuda, v, d, a, m, decay, ids_from):
@@ -276,6 +280,9 @@ def _fused_case(rng, v, d, m, ids_from, cuda):
         (4099, 17, 3000, "hot", 1.0),  # factor_num 16: 2-lane float2 slots
         (300, 64, 500, "zipf", 1.0),  # P = 1, wider than a warp: the block path
         (300, 64, 3000, "hot", 0.9),
+        (4099, 89, 3000, "hot", 1.0),  # D = 89: P = 128 // 90 = 1, the widest slot
+        ((1 << 20), 89, 180224, "uniform", 0.9),
+        (4099, 89, 3000, "out of range", 1.0),
     ],
 )
 def test_fused_tail_kernel_is_bitwise_its_twin_and_the_rows_kernel(cuda, v, d, m, ids_from, decay):
@@ -468,6 +475,107 @@ def test_cached_graph_replay_is_bitwise_the_cached_eager_steps(cuda, fused):
     assert torch.equal(torch.cat(got), torch.stack(want))
     assert torch.equal(st.table, eager.table) and st.step == 10
     assert scan.replays == 3 and scan.captures == 2
+
+
+ZOO = {
+    "fm2": lambda: FMModel(vocabulary_size=4099, factor_num=8, order=2),
+    "ffm": lambda: FFMModel(vocabulary_size=4099, num_fields=22, factor_num=4),
+    "deepfm": lambda: DeepFMModel(vocabulary_size=4099, num_fields=11, factor_num=8),
+    "deepfm_bf16": lambda: DeepFMModel(vocabulary_size=4099, num_fields=11, factor_num=8,
+                                       compute_dtype="bfloat16"),
+}
+
+
+def _zoo_batches(rng, model, n, b=64):
+    """Batches of the model's width: FFM 22 slots with field ids up to 23
+    (the two past F one-hot to zeros), the others 11; two padding slots."""
+    nnz = 22 if isinstance(model, FFMModel) else 11
+    out = []
+    for _ in range(n):
+        vals = rng.uniform(0.1, 1.0, size=(b, nnz)).astype(np.float32)
+        vals[:, -2:] = 0.0
+        fields = rng.integers(0, 24, size=(b, nnz)).astype(np.int32)
+        out.append(Batch(
+            labels=torch.from_numpy(rng.integers(0, 2, size=b).astype(np.float32)),
+            ids=torch.from_numpy(rng.integers(0, 4099, size=(b, nnz)).astype(np.int32)),
+            vals=torch.from_numpy(vals),
+            fields=torch.from_numpy(fields if model.uses_fields else fields[:, :0].copy()),
+            weights=torch.ones(b),
+        ))
+    return out
+
+
+def _zoo_state(model, dev):
+    st = init_state(model, torch.Generator(device="cpu").manual_seed(7), 0.1, "element")
+    st.table, st.table_accum = st.table.to(dev), st.table_accum.to(dev)
+    st.dense = [p.to(dev) for p in st.dense]
+    st.dense_accum = [a.to(dev) for a in st.dense_accum]
+    return st
+
+
+@pytest.mark.parametrize("name", list(ZOO))
+def test_zoo_train_steps_on_the_card_match_the_cpu(cuda, name):
+    """Three steps of each zoo model: one B4 launch a step and no other
+    kernel; the card's table and accumulators within 1e-7 of the CPU's,
+    and the MLP's leaves and accumulators (DeepFM) within 1e-6.  At
+    bfloat16 a gradient element may round to its other bfloat16 neighbour
+    on one device (the float32 sums before the cast run in another
+    order), moving its step by up to 2^-8: there each tensor is held
+    within 2^-6 of its largest step (plus those atols)."""
+    model = ZOO[name]()
+    batches = _zoo_batches(np.random.default_rng(23), model, 3)
+    states = {}
+    for dev in ("cpu", cuda):
+        st, step = _zoo_state(model, dev), make_train_step(model, 0.05)
+        counts = (anova_inter.launches, anova_inter_bwd.launches, rows_tail_adagrad_update.launches)
+        for b in batches:
+            st, loss = step(st, b.to(dev))
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        launched = (anova_inter.launches - counts[0], anova_inter_bwd.launches - counts[1],
+                    rows_tail_adagrad_update.launches - counts[2])
+        assert launched == ((0, 0, 3) if dev == cuda else (0, 0, 0))
+        states[str(dev)] = st
+    cpu, card = states["cpu"], states[str(cuda)]
+    init = _zoo_state(model, "cpu")
+    share = 2.0**-6 if name.endswith("bf16") else 0.0
+    pairs = [(card.table, cpu.table, init.table, 1e-7),
+             (card.table_accum, cpu.table_accum, init.table_accum, 1e-7),
+             *((a, b, c, 1e-6) for a, b, c in zip(card.dense + card.dense_accum,
+                                                  cpu.dense + cpu.dense_accum,
+                                                  init.dense + init.dense_accum, strict=True))]
+    assert len(card.dense) == (8 if name.startswith("deepfm") else 0)
+    for got, want, start, atol in pairs:
+        step = float((want - start).abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol + share * step)
+
+
+@pytest.mark.parametrize("name", ["ffm", "deepfm_bf16"])
+def test_zoo_graph_replay_is_bitwise_the_eager_steps(cuda, name):
+    """K = 8 over 16 batches: two replays of one captured graph (cuBLAS
+    products, FFM's one-hot and einsums, DeepFM's dense update inside),
+    the losses and the whole state bitwise 16 eager steps."""
+    model = ZOO[name]()
+    batches = _zoo_batches(np.random.default_rng(29), model, 16)
+    eager_step, eager, want = make_train_step(model, 0.05), _zoo_state(model, cuda), []
+    for b in batches:
+        eager, loss = eager_step(eager, b.to(cuda))
+        want.append(loss)
+    step = make_scanned_train_step(model, 0.05)
+    st, got = _zoo_state(model, cuda), []
+    for lo in (0, 8):
+        group = batches[lo : lo + 8]
+        sb = Batch(*(torch.stack([getattr(b, f) for b in group])
+                     for f in ("labels", "ids", "vals", "fields", "weights")))
+        st, losses = step(st, sb)
+        got.append(losses)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(got), torch.stack(want))
+    assert st.step == eager.step == 16
+    assert (step.graphs.captures, step.graphs.replays) == (1, 2)
+    pairs = [(st.table, eager.table), (st.table_accum, eager.table_accum),
+             *zip(st.dense, eager.dense), *zip(st.dense_accum, eager.dense_accum)]
+    assert all(torch.equal(a, b) for a, b in pairs)
 
 
 def test_native_parser_build_failure_raises(monkeypatch, tmp_path):

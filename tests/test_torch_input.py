@@ -246,6 +246,22 @@ def test_fmb_stream_refusals_like_jax(tmp_path):
         list(batch_stream([src], batch_size=8, vocabulary_size=V, max_nnz=9, skip_rows=8))
 
 
+def test_shuffle_refusals_name_binary_cache_and_no_absent_verb(tmp_path, monkeypatch):
+    """Both shuffle refusals tell the user to set binary_cache = true; the
+    port has no convert verb or conversion tool to name."""
+    src = _write(tmp_path, "s.libsvm", _lines(np.random.default_rng(8), 20))
+    kw = dict(batch_size=8, vocabulary_size=V, max_nnz=9, shuffle_seed=1)
+    with pytest.raises(ValueError) as text:
+        list(batch_stream([src], **kw))
+    # A cache that cannot be built leaves the text files in the list.
+    monkeypatch.setattr(binary, "ensure_fmb_cache", lambda files, **_: tuple(files))
+    with pytest.raises(ValueError) as unbuilt:
+        list(batch_stream([src], binary_cache=True, **kw))
+    for msg in (str(text.value), str(unbuilt.value)):
+        assert "binary_cache = true" in msg
+        assert "convert" not in msg and "tools/" not in msg
+
+
 def test_fmb_reads_retry_a_transient_error_with_a_log_line(tmp_path, monkeypatch):
     rng = np.random.default_rng(6)
     src = _write(tmp_path, "t.libsvm", _lines(rng, 20))

@@ -40,6 +40,7 @@ from fast_tffm_tpu_torch.optim import (
     init_table_adagrad,
     sorted_segment_sum,
     sparse_adagrad_update,
+    sqrt_rn,
 )
 
 V, D = 512, 9
@@ -236,3 +237,24 @@ def test_negative_ids_are_skipped_as_the_kernel_skips_them():
     want_t, want_a = _torch_update(sparse_adagrad_update, table, accum, ids[keep], grads[keep], 1.0)
     np.testing.assert_array_equal(t, want_t)
     np.testing.assert_array_equal(a, want_a)
+
+
+def test_cpu_sqrt_is_correctly_rounded():
+    """The twins' sqrt on a CPU tensor is IEEE float32's (numpy's), the
+    kernels' ``__fsqrt_rn``, on 9000 values in [0.1, 40.1] and on a
+    64-element tensor; the float32 product w − lr·g/√acc of the rows twin
+    follows it."""
+    rng = np.random.default_rng(12)
+    for n in (64, 9000):
+        x = rng.uniform(0.1, 40.1, size=n).astype(np.float32)
+        assert np.array_equal(sqrt_rn(torch.from_numpy(x)).numpy(), np.sqrt(x))
+    table = rng.uniform(-0.1, 0.1, size=(300, D)).astype(np.float32)
+    accum = rng.uniform(0.1, 40.0, size=(300, D)).astype(np.float32)
+    g = rng.normal(size=(300, D)).astype(np.float32)
+    t, a = torch.from_numpy(table.copy()), torch.from_numpy(accum.copy())
+    ids = torch.arange(300, dtype=torch.int32)
+    sparse_adagrad_update(t, a, ids, torch.from_numpy(g), LR)
+    acc2 = accum + g * g
+    assert np.array_equal(a.numpy(), acc2)
+    assert np.array_equal(t.numpy(), table - np.float32(LR) * g / np.sqrt(acc2))
+

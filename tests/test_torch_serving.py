@@ -391,6 +391,19 @@ def test_hot_reload_is_refused_until_ported(tmp_path):
         _engine(cfg)
 
 
+def test_serve_logs_that_it_ignores_metrics_path(tmp_path):
+    """serve takes a training config that sets metrics_path and says, in a
+    note naming the key, that it writes no records there."""
+    _, cfg = _cfgs(tmp_path, metrics_path=str(tmp_path / "m.jsonl"))
+    _npz(cfg.model_file)
+    log = []
+    out = io.StringIO()
+    serve_lines(cfg, _lines(np.random.default_rng(3), 5), out=out, log=log.append, device="cpu")
+    notes = [m for m in log if m.startswith("note: metrics_path")]
+    assert len(notes) == 1 and str(tmp_path / "m.jsonl") in notes[0]
+    assert len(out.getvalue().split()) == 5 and not os.path.exists(tmp_path / "m.jsonl")
+
+
 def test_latency_histogram_matches_jax():
     rng = np.random.default_rng(6)
     samples = np.exp(rng.normal(-6, 1.5, size=500))
