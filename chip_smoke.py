@@ -111,6 +111,34 @@ last line:
             card's own steps_per_call = 1 run from the same npz and cache;
             the graph's step time p50 beside the eager K = 1 step's, the
             device busy time per step of a traced replay and its idle share
+  packed_tail kernel B4 at the packed address (P = 14 rows of 9 floats to a
+            128-float tile row) on a full-width packed state, against its
+            twin on the card and, unpacked, the rows kernel, bitwise: element
+            and row accumulators, decay 1 and 0.9, the first batch, one id,
+            the last partial tile row, the hot id 0; pad lanes and slots
+            untouched; times and bounds at the first batch
+  resume_streamed  rows, native text, 24 steps: the uninterrupted card run,
+            one stopped by SIGTERM from its step hook at step 10 (its saved
+            cursor checked) and its resume, bitwise the uninterrupted run;
+            then cli train in a subprocess sent SIGTERM after its first
+            logged window (exit 0) and cli train --resume, bitwise the
+            in-process run of the same 2-epoch config
+  resume_fmb_shuffled  binary_cache + shuffle, 2 epochs, stopped at step 31
+            (epoch 1): the same checks
+  resume_cached, resume_cached_fused  device_cache + shuffle +
+            steps_per_call = 8, 2 epochs, stopped at the call that holds step
+            20 (it ends at 24): bitwise, and no capture beyond the one an
+            uninterrupted run makes
+  convert   cli convert on a config whose files have no caches: each packed;
+            then a binary_cache card run that rebuilds none
+  train_packed_element, train_packed_row  table_layout = packed with an
+            element or row accumulator, 24 steps: the train phase's checks
+            against the CPU, and bitwise the card's rows run with the same
+            accumulator
+  train_dedup  dedup_gather_rows = 180,224 at K = 1 and K = 8 (streamed, a
+            CUDA graph; the port gathers directly and checks the cap):
+            bitwise the resume_streamed phase's plain run; a cap of 16,384
+            fails before any batch ships
   throughput the config's 1,048,576-row epoch on the card only, streamed
             through the native parser, from FMB (converted first, timed
             apart), from FMB with steps_per_call = 8 and device-cached with
@@ -119,11 +147,16 @@ last line:
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
             launches_by_run adds the graphed train_cached runs' replays, and
-            for B4 the zoo's runs), error and times at the training shapes
-            (B4's `shapes` adds baseline1's and baseline3's)
+            for B4 the zoo's, resume, convert, packed and dedup runs, for B3
+            the fused resume runs), error and times at the training shapes
+            (B4's `shapes` adds baseline1's and baseline3's, its `packed`
+            the packed address)
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
+One exception, the one loss the profiler has shown: a trace that lacks the
+run's first forward launch, and nothing else, in three attempts keeps the
+wrappers' counts and records trace_lost_events.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -132,10 +165,12 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -245,6 +280,9 @@ def time_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+_LAST_TRACE: list = []  # (start µs, kernel) of KERNELS in the last trace
+
+
 def trace_device(fn):
     """Run ``fn`` once under torch.profiler (CUDA activity, i.e. CUPTI) and
     return its device events as (category, name, microseconds)."""
@@ -259,6 +297,13 @@ def trace_device(fn):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
+    # The order of the kernels' launches, for a trace that disagrees with
+    # the wrappers' counts (_counted_run logs it).
+    _LAST_TRACE[:] = sorted(
+        (float(e["ts"]), name) for e in events
+        if str(e.get("cat", "")).lower() == "kernel" and "ts" in e
+        for name, syms in KERNEL_SYMBOLS.items() if any(sym in e.get("name", "") for sym in syms)
+    )
     return [
         (str(e.get("cat", "")).lower(), e.get("name", ""), float(e["dur"]))
         for e in events
@@ -290,6 +335,7 @@ def traced_window(fn) -> dict:
     busy_ms = sum(dur for _, _, dur in events) / 1e3 if events else None
     kernels = [name for cat, name, _ in events if cat == "kernel"]
     return {
+        "first_traced": _LAST_TRACE[0][1] if _LAST_TRACE else None,
         "launches_traced": {
             k: sum(any(sym in name for sym in syms) for name in kernels)
             for k, syms in KERNEL_SYMBOLS.items()
@@ -459,7 +505,7 @@ def _ptxas_report(log: str) -> dict:
     function in nvcc's ``-Xptxas=-v`` output."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*?([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
+        m = re.search(r"Function properties for \S*?([a-z][a-z_]*_kernel)(?:IL[ib](\d+)E)?", line)
         if m:
             name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             out[name] = {}
@@ -820,7 +866,7 @@ def _write_checkpoint(path: str, table, accum_width: int, dense=()) -> None:
         )
 
 
-def _train_once(cfg, device: str, log_to: list, resume: bool = True):
+def _train_once(cfg, device: str, log_to: list, resume: bool = True, step_hook=None):
     """``training.train`` on ``device``, resumed from ``cfg.model_file`` (or
     from its seeded init), its log lines kept; returns (state, seconds)."""
     from fast_tffm_tpu_torch.training import train
@@ -831,7 +877,7 @@ def _train_once(cfg, device: str, log_to: list, resume: bool = True):
         log_stderr(f"[train {device}] {msg}")
 
     t0 = time.perf_counter()
-    state = train(cfg, resume=resume, log=log, device=device)
+    state = train(cfg, resume=resume, log=log, device=device, step_hook=step_hook)
     return state, time.perf_counter() - t0
 
 
@@ -945,12 +991,26 @@ def _zero_counters() -> None:
     rows_tail_adagrad_update.launches = fused_tail_adagrad_update.launches = 0
 
 
+def _trace_agrees(traced, counts, graphed: bool) -> bool:
+    """Whether a run's trace holds every launch: an eager run's (every
+    launch passes a wrapper) equals the wrappers' counts; a graphed run's
+    holds at least the wrappers' launches, and its replays (trace less
+    wrappers) one forward and one tail per backward, as every replayed
+    order-3 step makes (an order-2 step: a tail alone)."""
+    if not graphed:
+        return traced == counts
+    replays = {k: traced[k] - counts[k] for k in KERNELS}
+    tails = replays["rows_tail_adagrad"] + replays["fused_tail_adagrad"]
+    return (min(replays.values()) >= 0 and replays["anova_fwd"] == replays["anova_bwd"]
+            and replays["anova_bwd"] in (0, tails))
+
+
 def _counted_run(run_once, what: str, graphed) -> tuple[dict, dict]:
     """``run_once()`` under ``traced_window``, every wrapper counter zeroed
     just before and read just after.  A trace that comes back without
-    kernel events, or for an eager run (``graphed()`` false: every launch
-    passes a wrapper) with other counts than the wrappers' (the profiler
-    lost events), is run again with a fresh ``run_once()``, twice at most;
+    kernel events, or whose counts do not agree with the wrappers'
+    (``_trace_agrees``; ``graphed()`` says which rule: the profiler lost
+    events), is run again with a fresh ``run_once()``, twice at most;
     ``_step_launches`` holds the last attempt.  Returns (the window, with
     its ``trace_attempts``, and the wrappers' counts)."""
     for attempt in range(1, 4):
@@ -959,10 +1019,11 @@ def _counted_run(run_once, what: str, graphed) -> tuple[dict, dict]:
         counts = _wrapper_counts()
         window["trace_attempts"] = attempt
         traced = window["launches_traced"]
-        if traced is not None and (graphed() or traced == counts):
+        if traced is not None and _trace_agrees(traced, counts, graphed()):
             return window, counts
         log_stderr(f"{what}: the profiler trace counts {traced} kernel launches, the "
-                   f"wrappers {counts}; running it again")
+                   f"wrappers {counts}; running it again.  The traced launches in order: "
+                   + " ".join(f"{k}@{ts - _LAST_TRACE[0][0]:.0f}" for ts, k in _LAST_TRACE))
     if window["launches_traced"] is None:
         fail(f"{what}: three profiler traces without kernel events: launches not measured")
     return window, counts
@@ -970,16 +1031,35 @@ def _counted_run(run_once, what: str, graphed) -> tuple[dict, dict]:
 
 def _step_launches(window: dict, wrappers: dict, graphed: bool, what: str) -> dict:
     """The kernel launches a run's train steps made.  Eager steps launch
-    through the wrappers, whose counts must equal the trace's.  A graphed
+    through the wrappers, whose counts the trace must equal.  A graphed
     run's steps are CUDA-graph replays, which never pass through a
     wrapper: their launches are the trace's counts less the wrappers'
-    (the capture's warm-up on a scratch state, and validation)."""
+    (the capture's warm-up on a scratch state, and validation), one
+    forward per backward.
+
+    In a long process the profiler has dropped one kernel event of a
+    run, the same one in every attempt: the run's first forward launch
+    (its trace opens with the first step's backward; in a graphed run the
+    capture warm-up's), which the wrapper counted and the run's results
+    (bitwise resumes, card against CPU) show ran.  That one pattern, and
+    no other, passes after ``_counted_run``'s three attempts: exactly one
+    anova_fwd event short, every other kernel's count as it must be, and
+    the trace's first kernel of KERNELS not a forward.  The run keeps the
+    wrappers' counts (graphed: its replays' forwards are its backwards'
+    count) and its window records ``trace_lost_events``.  Any other
+    difference fails."""
     traced = window["launches_traced"]
-    if graphed:
-        return {k: traced[k] - wrappers[k] for k in KERNELS}
-    if traced != wrappers:
-        fail(f"{what}: the trace counts {traced} kernel launches, the wrappers {wrappers}")
-    return dict(wrappers)
+    if _trace_agrees(traced, wrappers, graphed):
+        return ({k: traced[k] - wrappers[k] for k in KERNELS} if graphed else dict(wrappers))
+    short = dict(traced, anova_fwd=traced["anova_fwd"] + 1)
+    if (window["trace_attempts"] < 3 or window["first_traced"] == "anova_fwd"
+            or not _trace_agrees(short, wrappers, graphed)):
+        fail(f"{what}: the trace counts {traced} kernel launches, the wrappers {wrappers} "
+             f"(graphed: {graphed}; first traced: {window['first_traced']})")
+    window["trace_lost_events"] = {"anova_fwd": 1}
+    log_stderr(f"{what}: the trace lost the first forward launch in every attempt; "
+               "keeping the wrappers' counts")
+    return {k: short[k] - wrappers[k] for k in KERNELS} if graphed else dict(wrappers)
 
 
 def _dense_check(init, card, cpu, rtol: float) -> dict:
@@ -1837,8 +1917,587 @@ def phase_rows_tail_zoo(rng, label: str, path: str, batch: int, nnz: int, d: int
     return main
 
 
+# --- exact resume, convert, the packed element/row tails, dedup_gather_rows ---
+
+RESUME_STOP = {"resume_streamed": 10, "resume_fmb_shuffled": 31, "resume_cached": 20}
+DEDUP_CAP = BATCH * NNZ  # a batch's occurrences: a cap no batch can pass
+DEDUP_SMALL_CAP = 16384  # below every baseline5 batch's ~144K unique ids
+
+
+def _stop_hook(at_step: int, fired: list):
+    """A ``step_hook`` that raises SIGTERM in this process once, after the
+    call that reaches ``at_step``."""
+
+    def hook(step):
+        if step >= at_step and not fired:
+            fired.append(step)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    return hook
+
+
+@contextlib.contextmanager
+def _captures():
+    """Counts ``StepGraphs`` captures (CUDA-graph recordings) while active."""
+    from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
+
+    real, box = StepGraphs._capture, {"n": 0}
+
+    def counted(self, *a):
+        box["n"] += 1
+        return real(self, *a)
+
+    StepGraphs._capture = counted
+    try:
+        yield box
+    finally:
+        StepGraphs._capture = real
+
+
+def _card_train(what: str, make_cfg, *, graphed: bool, stop_at: int | None = None,
+                resume: bool = True) -> dict:
+    """One card run of ``training.train``, every kernel counter zeroed just
+    before and read just after: an eager run's launches are the wrappers'
+    counts; a graphed run's replays never pass a wrapper, so it runs under
+    ``_counted_run`` and its trace counts them.  ``make_cfg()`` prepares a
+    fresh model file for each attempt; ``stop_at`` raises SIGTERM from the
+    step hook.  Returns the run's cfg, log, state, step launches, graph
+    captures, the steps the hook saw and the wall time."""
+    import torch
+
+    result = {}
+
+    def run_once():
+        cfg, lines, fired = make_cfg(), [], []
+        result.update(cfg=cfg, log=lines, fired=fired)
+        hook = _stop_hook(stop_at, fired) if stop_at else None
+        with _captures() as caps:
+            result["state"], _ = _train_once(cfg, "cuda", lines, resume=resume, step_hook=hook)
+        result["captures"] = caps["n"]
+
+    if graphed:
+        window, wrappers = _counted_run(run_once, what, lambda: True)
+        result["launches"] = _step_launches(window, wrappers, True, what)
+        result["wall_ms"] = window["wall_ms"]
+        return result
+    _zero_counters()
+    t0 = time.perf_counter()
+    run_once()
+    torch.cuda.synchronize()
+    result["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    result["launches"] = _wrapper_counts()
+    return result
+
+
+def _expect_steps(what: str, launches: dict, steps: int, tail: str = "rows_tail_adagrad"):
+    """An order-3 run of ``steps`` steps: B2 and ``tail`` once per step, B1
+    at least once per step (validation adds some), the other tail never."""
+    other = "fused_tail_adagrad" if tail == "rows_tail_adagrad" else "rows_tail_adagrad"
+    if (launches["anova_bwd"] != steps or launches[tail] != steps
+            or launches["anova_fwd"] < steps or launches[other]):
+        fail(f"{what}: {launches} kernel launches for {steps} steps (tail {tail})")
+
+
+def _logical_equal(a, b) -> bool:
+    import torch
+
+    return (a.step == b.step and torch.equal(a.table.cpu(), b.table.cpu())
+            and torch.equal(a.table_accum.cpu(), b.table_accum.cpu()))
+
+
+def _expected_cursor(cfg, epoch: int, batch: int) -> dict:
+    from fast_tffm_tpu_torch.training import _files_fingerprint
+
+    return {"version": 1, "epoch": epoch, "batch_in_epoch": batch,
+            "batch_size": cfg.batch_size, "shuffle": cfg.shuffle,
+            "shuffle_seed": cfg.shuffle_seed, "steps_per_call": cfg.steps_per_call,
+            "files": _files_fingerprint(cfg.train_files)}
+
+
+def _stop_and_resume(name: str, base, tmp: str, init: str, model, files: dict, stop_at: int,
+                     steps: int, batches_per_epoch: int, tail: str = "rows_tail_adagrad") -> dict:
+    """The uninterrupted card run, one stopped by SIGTERM from its step hook
+    at ``stop_at`` (the call that reaches it), and its ``--resume``: the
+    stopped run saves the cursor and returns, the resumed run reopens the
+    input at it and ends bitwise equal to the uninterrupted run, each run
+    launching the kernels once per step it took."""
+    import shutil
+
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor
+    from fast_tffm_tpu_torch.trainer import unpack_state
+
+    graphed = base.steps_per_call > 1
+    whole = _card_train(f"{name} uninterrupted",
+                        lambda: _phase_cfg(base, tmp, f"{name}_whole", "cuda", init, **files),
+                        graphed=graphed)
+    _expect_steps(f"{name} uninterrupted", whole["launches"], steps, tail)
+    cut = _card_train(f"{name} stopped",
+                      lambda: _phase_cfg(base, tmp, f"{name}_cut", "cuda", init, **files),
+                      graphed=graphed, stop_at=stop_at)
+    stopped = cut["state"].step
+    if not cut["fired"] or cut["fired"][0] != stopped or not stop_at <= stopped < steps:
+        fail(f"{name}: the run stopped at step {stopped}, the hook fired at {cut['fired']}")
+    cfg = cut["cfg"]
+    if not any(m.startswith(f"stopped on signal at step {stopped}") for m in cut["log"]):
+        fail(f"{name}: the stopped run did not log its stop: {cut['log'][-3:]}")
+    _expect_steps(f"{name} stopped", cut["launches"], stopped, tail)
+    # A stop on an epoch's last batch leaves the cursor at that epoch's end.
+    epoch, batch = divmod(stopped - 1, batches_per_epoch)
+    batch += 1
+    cursor = read_input_cursor(cfg.model_file)
+    want = _expected_cursor(cfg, epoch, batch)
+    if cursor != want:
+        fail(f"{name}: the stopped run saved the cursor {cursor}, expected {want}")
+    saved = os.path.join(tmp, f"{name}.stopped.ckpt")
+    shutil.copy(cfg.model_file, saved)
+    resumed = _card_train(f"{name} resumed",
+                          lambda: _phase_cfg(base, tmp, f"{name}_cut", "cuda", saved, **files),
+                          graphed=graphed)
+    seek = f"resuming input at epoch {epoch}, batch {batch} (exact-position cursor)"
+    if seek not in resumed["log"]:
+        fail(f"{name}: the resumed run did not reopen the input at the cursor: "
+             f"{resumed['log'][:4]}")
+    _expect_steps(f"{name} resumed", resumed["launches"], steps - stopped, tail)
+    a, b = unpack_state(whole["state"], model), unpack_state(resumed["state"], model)
+    if not _logical_equal(a, b):
+        err = float((a.table - b.table).abs().max())
+        fail(f"{name}: the resumed run is not bitwise the uninterrupted one (table {err})")
+    return {
+        "steps": steps, "stop_at": stop_at, "stopped_at": stopped, "cursor": cursor,
+        "bitwise": True,
+        "launches": {"uninterrupted": whole["launches"], "stopped": cut["launches"],
+                     "resumed": resumed["launches"]},
+        "captures": {"uninterrupted": whole["captures"], "stopped": cut["captures"],
+                     "resumed": resumed["captures"]},
+        "wall_ms": {"uninterrupted": whole["wall_ms"], "stopped": cut["wall_ms"],
+                    "resumed": resumed["wall_ms"]},
+        "cut_cfg": cfg, "whole": whole,
+    }
+
+
+def _write_ini(path: str, **sections) -> str:
+    """configs/baseline5_fm_order3_kdd.cfg with the given keys set, per
+    section, written to ``path``."""
+    import configparser
+
+    ini = configparser.ConfigParser(inline_comment_prefixes=(";", "#"))
+    with open(os.path.join(HERE, CONFIG)) as f:
+        ini.read_file(f)
+    for section, keys in sections.items():
+        for k, v in keys.items():
+            ini.set(section, k, str(v))
+    with open(path, "w") as f:
+        ini.write(f)
+    return path
+
+
+def _cli(args: list, timeout: int = 300) -> subprocess.CompletedProcess:
+    """``python -m fast_tffm_tpu_torch.cli`` from the checkout."""
+    return subprocess.run([sys.executable, "-m", "fast_tffm_tpu_torch.cli", *args], cwd=HERE,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _cli_stop_and_resume(base, tmp: str, init: str, train_path: str, valid_path: str,
+                         reference) -> dict:
+    """``cli train --resume`` in a subprocess from the seeded npz, sent
+    SIGTERM after its first logged window: it must log the stop and exit 0;
+    ``cli train --resume`` then ends bitwise equal to ``reference``, the
+    in-process uninterrupted run of the same config."""
+    import shutil
+
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+
+    model_file = os.path.join(tmp, "resume_cli.ckpt")
+    shutil.copy(init, model_file)
+    ini = _write_ini(
+        os.path.join(tmp, "resume_cli.cfg"),
+        General={"model_file": model_file},
+        Train={"train_files": train_path, "validation_files": valid_path, "epoch_num": 2,
+               "log_every": 4},
+        Predict={"predict_files": valid_path, "score_path": model_file + ".scores"},
+    )
+    args = [sys.executable, "-m", "fast_tffm_tpu_torch.cli", "train", ini, "--resume"]
+    proc = subprocess.Popen(args, cwd=HERE, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    lines, signalled = [], None
+    t0 = time.perf_counter()
+    try:
+        for line in proc.stderr:
+            lines.append(line.rstrip("\n"))
+            if signalled is None and line.startswith("step "):
+                proc.send_signal(signal.SIGTERM)
+                signalled = lines[-1]
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    first_s = time.perf_counter() - t0
+    stop = [m for m in lines if m.startswith("stopped on signal at step")]
+    if rc != 0 or not stop:
+        fail(f"cli train sent SIGTERM after {signalled!r} exited {rc} without a stop: "
+             f"{lines[-5:]}")
+    t0 = time.perf_counter()
+    r = _cli(["train", ini, "--resume"])
+    second_s = time.perf_counter() - t0
+    seek = [m for m in r.stderr.splitlines() if m.startswith("resuming input at epoch")]
+    if r.returncode != 0 or not seek:
+        fail(f"cli train --resume after the stop exited {r.returncode}: {r.stderr[-2000:]}")
+    got = restore_checkpoint(model_file, torch.device("cpu"), accum_width=base.factor_num + 1)
+    if not _logical_equal(got, reference):
+        fail("cli train stopped by SIGTERM and resumed is not bitwise the uninterrupted run")
+    return {"signalled_after": signalled, "stop": stop[0], "exit_code": rc, "resume": seek[0],
+            "bitwise": True, "seconds": {"stopped": first_s, "resumed": second_s}}
+
+
+def _own_files(tmp: str, sub: str, *paths) -> list:
+    """``paths`` linked (or copied) into ``tmp/sub``, so that the phase's
+    binary caches are its own and the train_fmb phase still builds its."""
+    d = os.path.join(tmp, sub)
+    os.makedirs(d, exist_ok=True)
+    out = []
+    for p in paths:
+        dst = os.path.join(d, os.path.basename(p))
+        if not os.path.exists(dst):
+            try:
+                os.link(p, dst)
+            except OSError:
+                import shutil
+
+                shutil.copy(p, dst)
+        out.append(dst)
+    return out
+
+
+def _b5(**kw):
+    """baseline5's config with ``kw`` set."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.config import load_config
+
+    return dataclasses.replace(load_config(os.path.join(HERE, CONFIG)), **kw).validate()
+
+
+def phase_resume_streamed(rng, tmp: str, train_path: str, valid_path: str) -> dict:
+    """Rows layout, text through the native parser, 24 steps: stopped by the
+    step hook at step 10 and resumed, bitwise the uninterrupted run; then
+    the same config for 2 epochs through the CLI with a real SIGTERM."""
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.trainer import unpack_state
+
+    name = "resume_streamed"
+    base = _b5()
+    model = build_model(base)
+    _, _, init = _seeded_init(rng, tmp, name, base, model, False)
+    files = dict(train_files=(train_path,), validation_files=(valid_path,),
+                 predict_files=(valid_path,), log_every=4)
+    rec = _stop_and_resume(name, base, tmp, init, model, files, RESUME_STOP[name],
+                           TRAIN_BATCHES, TRAIN_BATCHES)
+    reference = _card_train(f"{name} cli reference",
+                            lambda: _phase_cfg(base, tmp, f"{name}_cli_ref", "cuda", init,
+                                               **dict(files, epoch_num=2)),
+                            graphed=False)
+    _expect_steps(f"{name} cli reference", reference["launches"], 2 * TRAIN_BATCHES)
+    rec["cli"] = _cli_stop_and_resume(base, tmp, init, train_path, valid_path,
+                                      unpack_state(reference["state"], model))
+    rec["launches"]["cli_reference"] = reference["launches"]
+    out = {"plain": rec.pop("whole"), "base": base, "init": init, "files": files}
+    rec.pop("cut_cfg")
+    emit({"phase": name, "config": CONFIG, **rec})
+    out["launches"] = rec["launches"]
+    return out
+
+
+def phase_resume_fmb_shuffled(rng, tmp: str, train_path: str, valid_path: str) -> dict:
+    """binary_cache + shuffle, 2 epochs (48 steps), stopped at step 31
+    (inside epoch 1, whose permutation the resumed stream redraws)."""
+    from fast_tffm_tpu_torch.config import build_model
+
+    name, kw = "resume_fmb_shuffled", {"binary_cache": True, "shuffle": True}
+    train_path, valid_path = _own_files(tmp, "resume", train_path, valid_path)
+    base = _b5(**kw)
+    model = build_model(base)
+    _, _, init = _seeded_init(rng, tmp, name, base, model, False)
+    files = dict(train_files=(train_path,), validation_files=(valid_path,), epoch_num=2,
+                 log_every=8)
+    rec = _stop_and_resume(name, base, tmp, init, model, files, RESUME_STOP[name],
+                           2 * TRAIN_BATCHES, TRAIN_BATCHES)
+    rec.pop("whole"), rec.pop("cut_cfg")
+    emit({"phase": name, "config": CONFIG + " + " + json.dumps(kw), **rec})
+    return rec["launches"]
+
+
+def phase_resume_cached(rng, tmp: str, train_path: str, valid_path: str, fused: bool) -> dict:
+    """device_cache + shuffle + steps_per_call = 8, 2 epochs (48 steps),
+    stopped at the call that holds step 20 (it ends at step 24, the end of
+    epoch 0): bitwise the uninterrupted run, and the K-aligned resume makes
+    no capture beyond the one length-8 graph an uninterrupted run makes."""
+    from fast_tffm_tpu_torch.config import build_model
+
+    name = "resume_cached_fused" if fused else "resume_cached"
+    kw = {"device_cache": True, "binary_cache": True, "shuffle": True, "steps_per_call": 8}
+    train_path, valid_path = _own_files(tmp, "resume", train_path, valid_path)
+    base = _b5(**kw, **(FUSED if fused else {}))
+    model = build_model(base)
+    _, _, init = _seeded_init(rng, tmp, name, base, model, fused)
+    files = dict(train_files=(train_path,), validation_files=(valid_path,), epoch_num=2,
+                 log_every=8)
+    tail = "fused_tail_adagrad" if fused else "rows_tail_adagrad"
+    rec = _stop_and_resume(name, base, tmp, init, model, files, RESUME_STOP["resume_cached"],
+                           2 * TRAIN_BATCHES, TRAIN_BATCHES, tail)
+    rec.pop("whole"), rec.pop("cut_cfg")
+    if rec["stopped_at"] != 24:
+        fail(f"{name}: the call holding step 20 ended at step {rec['stopped_at']}, not 24")
+    caps = rec["captures"]
+    if not caps["resumed"] == caps["uninterrupted"] == 1:
+        fail(f"{name}: graph captures {caps}: the K-aligned resume must make no extra one")
+    emit({"phase": name, "config": CONFIG + " + " + json.dumps({**kw, **(FUSED if fused else {})}),
+          **rec, "extra_captures": 0})
+    return rec["launches"]
+
+
+def phase_convert(rng, tmp: str, train_path: str, valid_path: str) -> dict:
+    """``cli convert`` on a config whose files have no caches yet: every
+    file packed, rc 0; then a binary_cache train run on the card (24 steps)
+    that finds the caches fresh and rebuilds none."""
+    import shutil
+
+    from fast_tffm_tpu_torch.config import build_model, load_config
+
+    d = os.path.join(tmp, "convert")
+    os.makedirs(d, exist_ok=True)
+    files = [shutil.copy(p, d) for p in (train_path, valid_path)]
+    model_file = os.path.join(d, "convert.ckpt")
+    ini = _write_ini(
+        os.path.join(d, "convert.cfg"), General={"model_file": model_file},
+        Train={"train_files": files[0], "validation_files": files[1], "binary_cache": "true",
+               "log_every": 4},
+        Predict={"predict_files": files[1], "score_path": model_file + ".scores"},
+    )
+    t0 = time.perf_counter()
+    r = _cli(["convert", ini])
+    seconds = time.perf_counter() - t0
+    packed = [f"{p} -> {p}.fmb" for p in files]
+    if r.returncode != 0 or any(line not in r.stdout.splitlines() for line in packed):
+        fail(f"cli convert exited {r.returncode}: {r.stdout[-1000:]} {r.stderr[-2000:]}")
+    stamps = {p: os.stat(p + ".fmb").st_mtime_ns for p in files}
+    base = load_config(ini)
+    model = build_model(base)
+    _, _, init = _seeded_init(rng, tmp, "convert", base, model, False)
+    run = _card_train("convert train",
+                      lambda: _phase_cfg(base, tmp, "convert", "cuda", init), graphed=False)
+    _expect_steps("convert train", run["launches"], TRAIN_BATCHES)
+    built = [m for m in run["log"] if m.startswith("building binary cache")]
+    if built or any(os.stat(p + ".fmb").st_mtime_ns != t for p, t in stamps.items()):
+        fail(f"the train run after convert rebuilt caches: {built}")
+    emit({"phase": "convert", "files": len(files), "seconds": seconds,
+          "stdout": r.stdout.splitlines(), "train_rebuilt_caches": 0,
+          "train_launches": run["launches"]})
+    return run["launches"]
+
+
+def phase_train_packed(rng, tmp: str, train_path: str, valid_path: str, accumulator: str):
+    """table_layout = packed with an element or row accumulator, 24 steps:
+    kernel B4 at the packed address once per step, the card's logical
+    arrays within the train phase's bounds of the CPU run's, and bitwise
+    the card's rows-layout run with the same accumulator from one npz; the
+    step time p50 of each layout with the input on the card, and a traced
+    step's device busy time."""
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.data.pipeline import batch_stream
+    from fast_tffm_tpu_torch.models.base import Batch
+    from fast_tffm_tpu_torch.trainer import make_packed_train_step, make_train_step, unpack_state
+
+    name = f"train_packed_{accumulator}"
+    kw = {"table_layout": "packed", "adagrad_accumulator": accumulator}
+    base = _b5(**kw)
+    model = build_model(base)
+    table, _, init = _seeded_init(rng, tmp, name, base, model, accumulator == "row")
+    files = dict(train_files=(train_path,), validation_files=(valid_path,),
+                 predict_files=(valid_path,), log_every=4)
+    out = _card_and_cpu(name, lambda device: _phase_cfg(base, tmp, name, device, init, **files),
+                        model, table, TRAIN_BATCHES, False)
+    if out["state"].layout != "packed":
+        fail(f"{name}: the run trained a {out['state'].layout} state")
+    rows_base = _b5(adagrad_accumulator=accumulator)
+    rows = _card_train(f"{name} rows reference",
+                       lambda: _phase_cfg(rows_base, tmp, f"{name}_rows", "cuda", init, **files),
+                       graphed=False)
+    _expect_steps(f"{name} rows reference", rows["launches"], TRAIN_BATCHES)
+    if not _logical_equal(unpack_state(out["state"], model), rows["state"]):
+        fail(f"{name}: the packed run is not bitwise the card's rows run")
+    # Step time with a validation batch on the card, packed and rows in
+    # turns, continuing from each run's trained state; then one traced step.
+    parsed, w = next(batch_stream([valid_path], batch_size=BATCH,
+                                  vocabulary_size=base.vocabulary_size, max_nnz=NNZ))
+    batch = Batch.from_parsed(parsed, w).to("cuda")
+    steps = {"packed": lambda st=out["state"], f=make_packed_train_step(model, base.learning_rate):
+             f(st, batch),
+             "rows": lambda st=rows["state"], f=make_train_step(model, base.learning_rate):
+             f(st, batch)}
+    times = {k: [] for k in steps}
+    for k in ("packed", "rows", "rows", "packed"):
+        times[k] += _step_times(steps[k])
+    p50 = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    busy = {k: traced_window(f)["device_busy_ms"] for k, f in steps.items()}
+    rec = out["rec"]
+    emit({"phase": name, "config": CONFIG + " + " + json.dumps(kw), **rec,
+          "bitwise_rows_run": True, "rows_launches": rows["launches"],
+          "step_ms_p50": p50, "step_busy_ms": busy})
+    return rec["launches"]
+
+
+def phase_train_dedup(tmp: str, plain: dict) -> dict:
+    """dedup_gather_rows on the resume_streamed phase's config and npz (rows,
+    native text, 24 steps) at K = 1 (eager) and K = 8 (CUDA-graph replays):
+    the port gathers directly and checks each batch's unique ids against
+    the cap, so both are bitwise the plain uninterrupted run; then a cap
+    below the batches' unique ids (16,384) fails before any batch ships,
+    naming the knob."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.utils.prefetch import PrefetchError
+
+    base, init, files = plain["base"], plain["init"], plain["files"]
+    rec, launches = {"cap": DEDUP_CAP}, {}
+    for k in (1, 8):
+        cfg_base = dataclasses.replace(base, dedup_gather_rows=DEDUP_CAP, steps_per_call=k)
+        run = _card_train(f"train_dedup K={k}",
+                          lambda cb=cfg_base, k=k: _phase_cfg(cb, tmp, f"train_dedup_k{k}",
+                                                              "cuda", init, **files),
+                          graphed=k > 1)
+        _expect_steps(f"train_dedup K={k}", run["launches"], TRAIN_BATCHES)
+        if not _logical_equal(run["state"], plain["plain"]["state"]):
+            fail(f"train_dedup: dedup_gather_rows at K = {k} is not bitwise the plain run")
+        if k > 1 and run["captures"] != 1:
+            fail(f"train_dedup: {run['captures']} graph captures at K = 8 (24 steps: one)")
+        launches[f"k{k}"] = run["launches"]
+        rec[f"k{k}"] = {"bitwise_plain": True, "captures": run["captures"],
+                        "wall_ms": run["wall_ms"], "launches": run["launches"]}
+    small = _phase_cfg(dataclasses.replace(base, dedup_gather_rows=DEDUP_SMALL_CAP), tmp,
+                       "train_dedup_small", "cuda", init, **files)
+    before = open(small.model_file, "rb").read()
+    _zero_counters()
+    try:
+        _train_once(small, "cuda", [])
+        fail("train_dedup: a cap below a batch's unique ids trained")
+    except PrefetchError as e:
+        msg = str(e)
+    counts = _wrapper_counts()
+    if f"dedup_gather_rows = {DEDUP_SMALL_CAP} but a batch carries" not in msg or any(
+            counts.values()) or open(small.model_file, "rb").read() != before:
+        fail(f"train_dedup: the over-cap run ({msg}) launched {counts} or wrote the model")
+    rec["over_cap"] = {"cap": DEDUP_SMALL_CAP, "error": msg, "launches": counts}
+    emit({"phase": "train_dedup", "config": CONFIG, **rec})
+    return launches
+
+
+def phase_packed_tail(rng, train_path: str) -> dict:
+    """Kernel B4 at the packed address (``rows_tail_sorted(packed=True)``) on a
+    full-width packed state from a seeded [2^20, 9] table, against its plain
+    twin on the card, bitwise: element and row accumulators, decay 1 and
+    0.9, the first batch's ids, one id, the ids of the last, partial tile
+    row and the padded batch's hot id 0; pad lanes and slots untouched;
+    unpacked, bitwise the rows kernel on the logical arrays.  Times at the
+    first batch: the kernel on the sort's output (events; device time
+    L2-warm and flushed), the update (sort + kernel) and the twin, beside
+    the bytes and sector bounds (the rows layout's: the same rows move)."""
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.ops.packed_table import (
+        pack_accum_any,
+        pack_table,
+        rows_per_tile,
+        unpack_accum_any,
+        unpack_table,
+    )
+    from fast_tffm_tpu_torch.ops.tail import (
+        rows_tail_adagrad_update,
+        rows_tail_sorted,
+        rows_tail_sorted_plain,
+    )
+
+    vocab, d, lr = 1 << 20, 1 + 8, 0.05
+    p = rows_per_tile(d)
+    ids = torch.from_numpy(_first_batch_ids(train_path, vocab)).cuda()
+    grads = torch.from_numpy((rng.normal(size=(BATCH, NNZ, d)) * 1e-3).astype(np.float32)).cuda()
+    table = torch.from_numpy(rng.uniform(-0.01, 0.01, size=(vocab, d)).astype(np.float32)).cuda()
+    accums = {
+        "element": torch.from_numpy(rng.uniform(0.1, 0.5, (vocab, d)).astype(np.float32)).cuda(),
+        "row": torch.from_numpy(rng.uniform(0.1, 0.5, (vocab, 1)).astype(np.float32)).cuda(),
+    }
+    last = torch.arange(vocab - vocab % p, vocab, dtype=torch.int32).to(ids.device)
+    sets = {
+        "batch": (ids, grads),
+        "one id": (ids[:1, :1], grads[:1, :1]),
+        "last tile row": (last, grads.reshape(-1, d)[: last.numel()]),
+        "hot id 0": _padded_batch(ids, grads),
+    }
+    cases = [("element", 1.0, "batch"), ("element", 0.9, "batch"), ("row", 1.0, "batch"),
+             ("row", 0.9, "batch"), ("element", 1.0, "one id"), ("row", 1.0, "one id"),
+             ("element", 1.0, "last tile row"), ("row", 0.9, "last tile row"),
+             ("element", 1.0, "hot id 0"), ("row", 0.9, "hot id 0")]
+    out = {}
+    for acc, decay, which in cases:
+        c_ids, c_grads = sets[which]
+        flat_ids, flat_g = c_ids.reshape(-1), c_grads.reshape(-1, d).contiguous()
+        sid, order = torch.sort(flat_ids, stable=True)
+        tp, ap = pack_table(table), pack_accum_any(accums[acc], d, 0.1)
+        t_k, a_k, t_p, a_p = tp.clone(), ap.clone(), tp.clone(), ap.clone()
+        rows_tail_sorted(t_k, a_k, sid, order, flat_g, lr, decay=decay, packed=True)
+        rows_tail_sorted_plain(t_p, a_p, sid, order, flat_g, lr, decay, packed=True)
+        t_r, a_r = table.clone(), accums[acc].clone()
+        rows_tail_adagrad_update(t_r, a_r, c_ids, c_grads, lr, decay=decay)
+        torch.cuda.synchronize()
+        k = int(torch.unique(c_ids).numel())
+        where = f"{acc} accumulator, decay {decay}, {which} (K={k})"
+        if not (torch.equal(t_k, t_p) and torch.equal(a_k, a_p)):
+            fail(f"packed_tail is not bitwise its plain version: {where}")
+        if not (torch.equal(unpack_table(t_k, vocab, d), t_r)
+                and torch.equal(unpack_accum_any(a_k, vocab, d), a_r)):
+            fail(f"packed_tail, unpacked, is not bitwise the rows kernel: {where}")
+        # Pad lanes (126, 127) and the last tile row's pad slots keep their values.
+        tail_floats = (-vocab) % p * d + (128 - p * d)
+        if not (torch.equal(t_k[:, p * d:], tp[:, p * d:])
+                and torch.equal(t_k.view(-1)[-tail_floats:], tp.view(-1)[-tail_floats:])):
+            fail(f"packed_tail wrote a pad lane or slot: {where}")
+        rec = {"phase": "packed_tail", "accumulator": acc, "decay": decay, "ids": which,
+               "P": p, "M": int(flat_ids.numel()), "K": k, "bitwise": True,
+               "bitwise_rows_kernel": True, "max_abs_err": 0.0}
+        if which == "batch" and decay == 1.0:
+            m, a = flat_ids.numel(), d if acc == "element" else 1
+            kern = f"rows_{acc}_kernel"
+            kernel = lambda: rows_tail_sorted(  # noqa: E731
+                t_k, a_k, sid, order, flat_g, lr, packed=True)
+            rec.update({
+                "ms": time_ms(kernel, 100),
+                "device_ms": device_ms(kernel, 30, kern),
+                "device_ms_flushed": device_ms(flushed(kernel), 30, kern),
+                "update_ms": time_ms(lambda: rows_tail_adagrad_update(
+                    t_k, a_k, c_ids, c_grads, lr, packed=True), 100),
+                "update_device_ms": device_ms(lambda: rows_tail_adagrad_update(
+                    t_k, a_k, c_ids, c_grads, lr, packed=True), 30, None),
+                "plain_ms": time_ms(lambda: rows_tail_sorted_plain(
+                    t_p, a_p, sid, order, flat_g, lr, packed=True), 30),
+                "plain_device_ms": device_ms(lambda: rows_tail_sorted_plain(
+                    t_p, a_p, sid, order, flat_g, lr, packed=True), 10, None),
+            })
+            rec["bound_ms"], rec["bound_by"] = tail_bound(m, k, d, a)
+            rec["sector_bound_ms"] = tail_sector_bound(m, k, d, a, fused=False)
+            out[acc] = {x: rec[x] for x in ("P", "M", "K", "ms", "device_ms",
+                                            "device_ms_flushed", "update_ms",
+                                            "update_device_ms", "plain_ms", "plain_device_ms",
+                                            "bound_ms", "bound_by", "sector_bound_ms")}
+        emit(rec)
+    return out
+
+
+
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
-                   shapes=None) -> dict:
+                   shapes=None, packed=None) -> dict:
     rec = {
         "name": name,
         "route": "cuda",
@@ -1861,6 +2520,8 @@ def _kernel_record(name, source, replaces, launches, worst, main, launches_by_ru
                                       "sector_bound_ms")}
             for label, r in shapes.items()
         }
+    if packed:
+        rec["packed"] = packed  # the packed address, baseline5's first batch
     return rec
 
 
@@ -1905,6 +2566,19 @@ def main() -> int:
         phase_train_fmb(rng, tmp, train_path, valid_path)
         graphed = phase_train_cached(rng, tmp, train_path, valid_path, fused=False)
         graphed_fused = phase_train_cached(rng, tmp, train_path, valid_path, fused=True)
+        packed_tail = phase_packed_tail(rng, train_path)
+        streamed = phase_resume_streamed(rng, tmp, train_path, valid_path)
+        resumed = {
+            "resume_streamed": streamed["launches"],
+            "resume_fmb_shuffled": phase_resume_fmb_shuffled(rng, tmp, train_path, valid_path),
+            "resume_cached": phase_resume_cached(rng, tmp, train_path, valid_path, fused=False),
+            "resume_cached_fused": phase_resume_cached(rng, tmp, train_path, valid_path,
+                                                       fused=True),
+        }
+        convert = phase_convert(rng, tmp, train_path, valid_path)
+        packed = {acc: phase_train_packed(rng, tmp, train_path, valid_path, acc)
+                  for acc in ("element", "row")}
+        dedup = phase_train_dedup(tmp, streamed)
         phase_throughput(tmp, big_path)
     src = "fast_tffm_tpu_torch/csrc/"
     # Launches: the wrappers' counts over the main path, the eager train run
@@ -1917,6 +2591,20 @@ def main() -> int:
     b4_runs = by_run("rows_tail_adagrad", launches, graphed)
     b4_runs.update({f"train_{key}": z["launches"]["rows_tail_adagrad"] for key, z in zoo.items()})
     b4_runs["train_cached_deepfm_replays"] = cached_deepfm["rows_tail_adagrad"]
+    # This slice's runs: each resume phase's three runs (the graphed ones'
+    # replays from their traces), convert's train run, the packed element/row
+    # runs and the dedup runs.
+    for phase, runs in resumed.items():
+        for run, counts in runs.items():
+            b4_runs[f"{phase}_{run}"] = counts["rows_tail_adagrad"]
+    b4_runs["convert_train"] = convert["rows_tail_adagrad"]
+    for acc, counts in packed.items():
+        b4_runs[f"train_packed_{acc}"] = counts["rows_tail_adagrad"]
+    for k, counts in dedup.items():
+        b4_runs[f"train_dedup_{k}"] = counts["rows_tail_adagrad"]
+    b3_runs = by_run("fused_tail_adagrad", fused_launches, graphed_fused)
+    for run, counts in resumed["resume_cached_fused"].items():
+        b3_runs[f"resume_cached_fused_{run}"] = counts["fused_tail_adagrad"]
     emit({"kernels": [
         _kernel_record("anova_fwd", src + "anova_fwd.cu",
                        "fast_tffm_tpu/ops/pallas_anova.py:66", launches["anova_fwd"], *fwd,
@@ -1926,11 +2614,10 @@ def main() -> int:
                        by_run("anova_bwd", launches, graphed)),
         _kernel_record("rows_tail_adagrad", src + "rows_tail_adagrad.cu",
                        "fast_tffm_tpu/ops/pallas_tail.py:267", launches["rows_tail_adagrad"],
-                       *tail, b4_runs, shapes=tail_shapes),
+                       *tail, b4_runs, shapes=tail_shapes, packed=packed_tail),
         _kernel_record("fused_tail_adagrad", src + "fused_tail_adagrad.cu",
                        "fast_tffm_tpu/ops/pallas_tail.py:119",
-                       fused_launches["fused_tail_adagrad"], *fused_tail,
-                       by_run("fused_tail_adagrad", fused_launches, graphed_fused)),
+                       fused_launches["fused_tail_adagrad"], *fused_tail, b3_runs),
     ]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"], "count": dev["count"]}})

@@ -7,10 +7,12 @@ host-only modules it needs (config parsing, libsvm parsing, hashing) are its
 own copies.
 
 What this package covers so far: training an FM of any order, an FFM and
-a DeepFM (``models/``) on the rows layout, and an FM on the fused
-lane-packed layout (``training.py``), offline prediction, and serving
-through the micro-batched ``ServingEngine`` (``serving/engine.py``), with
-the order ≥ 3 interaction DP, its backward and both sparse Adagrad tails in
+a DeepFM (``models/``) on the rows layout, and an FM on the lane-packed
+layout with an element, row or fused accumulator (``training.py``), on
+every input path, resumable at the exact batch after a stop (SIGTERM) or a
+crash; offline prediction; the FMB ``convert`` verb; and serving through
+the micro-batched ``ServingEngine`` (``serving/engine.py``), with the
+order ≥ 3 interaction DP, its backward and both sparse Adagrad tails in
 hand-written CUDA kernels (``csrc/``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device they raise instead of falling back to the CPU.

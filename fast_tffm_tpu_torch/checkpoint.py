@@ -2,14 +2,17 @@
 
 Save: ``save_checkpoint`` writes what ``fast_tffm_tpu/checkpoint.py::_save_npz``
 writes — members ``table`` [V, D], ``table_accum``, ``step``, ``save_id``,
-``published_at`` and ``dense_{i}`` / ``dense_accum_{i}`` — streaming each
-array device→host in bounded row chunks into a ZIP_STORED npz, to
-``<path>.tmp`` first and then ``os.replace`` onto ``path``, after removing
-any sibling delta files.  Either package restores what the other saved.
+``published_at``, ``dense_{i}`` / ``dense_accum_{i}`` and, given a
+``cursor``, ``input_cursor`` (the exact input position the state stands
+at, canonical JSON bytes) — streaming each array device→host in bounded
+row chunks into a ZIP_STORED npz, to ``<path>.tmp`` first and then
+``os.replace`` onto ``path``, after removing any sibling delta files.
+Either package restores what the other saved, cursor included.
 
 Restore: ``restore_checkpoint`` reads the parameters (``table``, ``step``,
 ``dense_{i}``) for scoring and, given the accumulator width a training
-config expects, the Adagrad accumulators too.
+config expects, the Adagrad accumulators too; ``read_input_cursor`` reads
+the cursor (None for a checkpoint saved without one).
 
 Both hold the logical arrays whatever layout the run trains in: a fused
 run saves ``trainer.unpack_state`` of its state (a [V, D] table and a
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import glob
 import io
+import json
 import os
 import re
 import time
@@ -42,6 +46,7 @@ from fast_tffm_tpu_torch.weights import from_jax_arrays
 __all__ = [
     "save_checkpoint",
     "restore_checkpoint",
+    "read_input_cursor",
     "checkpoint_signature",
     "latest_step",
     "delta_paths",
@@ -141,19 +146,26 @@ def _write_npz_streaming(fileobj, entries: dict, chunk_bytes: int) -> int:
     return total
 
 
+def _cursor_entry(cursor: dict) -> np.ndarray:
+    """The input cursor as an npz member: canonical JSON bytes (sort_keys,
+    so equal cursors are byte-equal members, as the JAX package writes)."""
+    return np.frombuffer(json.dumps(cursor, sort_keys=True).encode(), np.uint8)
+
+
 def save_checkpoint(
     path: str,
     state: TrainState,
     *,
     chunk_bytes: int = DEFAULT_CHUNK_BYTES,
     save_id: str | None = None,
+    cursor: dict | None = None,
 ) -> int:
     """Atomic full npz save of a training state; returns payload bytes.
 
-    The members are ``_save_npz``'s.  No ``input_cursor`` is written in
-    this slice (exact-position resume is a later one): the JAX package's
-    ``--resume`` reads a checkpoint without one as a legacy resume and
-    restarts the input at the first file, as the port's does."""
+    The members are ``_save_npz``'s; ``cursor`` (``training.train``'s
+    input position: epoch, batch in epoch, the input's identity) becomes
+    the ``input_cursor`` member, and a save without one writes the
+    pre-cursor layout, which both packages resume from the first file."""
     if state.layout != "rows":
         raise ValueError(
             f"save_checkpoint writes the logical arrays; unpack the {state.layout} "
@@ -171,6 +183,8 @@ def save_checkpoint(
         # freshness metrics; stamped at write start.
         "published_at": np.asarray(time.time(), np.float64),
     }
+    if cursor is not None:
+        entries["input_cursor"] = _cursor_entry(cursor)
     for i, (p, a) in enumerate(zip(state.dense, state.dense_accum, strict=True)):
         entries[f"dense_{i}"] = p
         entries[f"dense_accum_{i}"] = a
@@ -269,6 +283,26 @@ def restore_checkpoint(
         arrays["table"], arrays["dense_leaves"], arrays["step"], device,
         table_accum=arrays.get("table_accum"), dense_accum=arrays.get("dense_accum"),
     )
+
+
+def read_input_cursor(path: str) -> dict | None:
+    """The ``input_cursor`` of the checkpoint at ``path`` (of its delta
+    chain's head when delta files extend it), or None when the file, the
+    member or a readable dict is absent: a pre-cursor checkpoint resumes
+    from the first file, never an error."""
+    path = path.rstrip("/")
+    if not os.path.isfile(path):
+        return None
+    deltas = delta_paths(path)
+    head = deltas[-1] if deltas else path
+    try:
+        with _open_npz(head) as z:
+            if "input_cursor" not in getattr(z, "files", ()):
+                return None
+            out = json.loads(bytes(np.asarray(z["input_cursor"]).tobytes()).decode())
+        return out if isinstance(out, dict) else None
+    except (ValueError, OSError):  # json.JSONDecodeError is a ValueError
+        return None
 
 
 def latest_step(path: str) -> int | None:

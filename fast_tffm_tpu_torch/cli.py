@@ -1,17 +1,24 @@
 """Command line of the port: ``python -m fast_tffm_tpu_torch.cli <verb> <cfg>``.
 
-The ``train``, ``predict`` and ``serve`` verbs of the JAX package's CLI
-(``fast_tffm_tpu/cli.py``):
+The ``train``, ``predict``, ``serve`` and ``convert`` verbs of the JAX
+package's CLI (``fast_tffm_tpu/cli.py``):
 
   train <cfg> [--resume]   train on [Train] train_files, validate, save model_file
+                           (with the input cursor); --resume restores it and
+                           reopens the input at the saved batch.  SIGTERM or
+                           SIGINT: finish the current call, save, exit 0
   predict <cfg>            write one %.6f score per [Predict] predict_files line
                            to score_path
   serve <cfg>              pipe mode: libsvm lines on stdin, one %.6f score
                            per line on stdout
+  convert <cfg>            pack every configured train, validation and predict
+                           file into its <file>.fmb cache (one file at a time;
+                           rc 1 when any file failed)
 
 Logs go to stderr.  ``--device`` picks the device (default cuda; there is
-no CPU fallback).  The socket front end (``--port`` / ``[Serving] port``)
-and the distributed verbs are later slices of the port.
+no CPU fallback; ``convert`` touches no device but keeps the rule).  The
+socket front end (``--port`` / ``[Serving] port``) and the distributed
+verbs are later slices of the port.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ __all__ = ["main"]
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="fast_tffm_tpu_torch.cli")
-    ap.add_argument("mode", choices=["train", "predict", "serve"])
+    ap.add_argument("mode", choices=["train", "predict", "serve", "convert"])
     ap.add_argument("config")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--resume", action="store_true", help="train: restore model_file first")
@@ -48,6 +55,11 @@ def main(argv=None) -> int:
 
         predict(cfg, log=log, device=args.device)
         return 0
+    if args.mode == "convert":
+        from fast_tffm_tpu_torch.device import resolve_device
+
+        resolve_device(args.device)
+        return _convert(cfg)
     if cfg.serve_port > 0:
         ap.error(
             "[Serving] port > 0: the socket front end is not ported yet (a later "
@@ -56,6 +68,49 @@ def main(argv=None) -> int:
     from fast_tffm_tpu_torch.serving import serve_lines
 
     serve_lines(cfg, log=log, device=args.device)
+    return 0
+
+
+def _convert(cfg) -> int:
+    """Pre-pack every configured data file into its FMB cache (what
+    ``binary_cache = true`` does at the first stream).  One file at a time:
+    the all-or-nothing text fallback is a rule of one stream, and these
+    files feed separate streams, so one unwritable or malformed file fails
+    alone.  Returns 1 when any file failed."""
+    from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, is_fmb
+
+    files = tuple(dict.fromkeys((*cfg.train_files, *cfg.validation_files, *cfg.predict_files)))
+    if not files:
+        print("no data files configured", file=sys.stderr)
+        return 1
+    if not cfg.binary_cache:
+        print(
+            "note: this config has binary_cache = false — set it to true "
+            "(or put the .fmb paths in the file lists) so train/predict "
+            "actually stream the packed caches",
+            file=sys.stderr,
+        )
+    failures = 0
+    for src in files:
+        try:
+            (dst,) = ensure_fmb_cache(
+                [src], vocabulary_size=cfg.vocabulary_size,
+                hash_feature_id=cfg.hash_feature_id, max_nnz=cfg.max_nnz or None, log=print,
+            )
+        except (OSError, ValueError, RuntimeError) as e:
+            print(f"{src}: FAILED ({e})", file=sys.stderr)
+            failures += 1
+            continue
+        if dst == src and not is_fmb(src):  # the unwritable-location fallback
+            print(f"{src}: FAILED (cache location unwritable)", file=sys.stderr)
+            failures += 1
+        elif src == dst:
+            print(f"{src} (already FMB)")
+        else:
+            print(f"{src} -> {dst}")
+    if failures:
+        print(f"{failures} of {len(files)} files not converted", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -42,8 +42,7 @@ class Config:
     vocabulary_size: int = 1 << 20
     hash_feature_id: bool = False
     table_layout: str = "rows"  # rows ([V, D]) | packed (lane-packed tile
-    #   rows, ops/packed_table.py; train runs it with adagrad_accumulator =
-    #   fused, predict and serve with any accumulator)
+    #   rows, ops/packed_table.py; with any adagrad_accumulator)
     model_file: str = "model.ckpt"
     checkpoint_format: str = "npz"  # npz (orbax is a later slice)
     # [Checkpoint] — read so they can be refused (async/delta saves are a
@@ -68,7 +67,8 @@ class Config:
     packed_compact_cap: int = 0  # the fused tail's deduped-row cap (read and
     #   passed through: the port's tail always visits exactly the K rows)
     packed_update: str = "auto"  # packed sparse tail: auto | dense | compact |
-    #   sorted (JAX compiler paths; the port's fused tail is always kernel B3)
+    #   sorted (JAX compiler paths; the port's packed tails are always kernel
+    #   B4 at the packed address or, fused, kernel B3)
     tail: str = "auto"  # sparse Adagrad tail: auto | xla | pallas.  On the
     #   card every value runs the layout's Adagrad kernel (csrc/
     #   rows_tail_adagrad.cu or csrc/fused_tail_adagrad.cu; xla names a JAX
@@ -84,7 +84,9 @@ class Config:
     #   each step's batch gathered there (data/device_cache.py)
     steps_per_call: int = 1  # K train steps per call: on the card one replay
     #   of a CUDA graph of K steps (utils/step_graph.py), on the CPU a loop
-    dedup_gather_rows: int = 0  # read to be refused when > 0 (a later slice)
+    dedup_gather_rows: int = 0  # > 0 (streamed rows layout): each batch's
+    #   unique ids checked against the cap before it ships; the step gathers
+    #   directly (the JAX package's dedup gather gives the same values)
     wire_format: str = "packed"  # read for parity; the port always stages
     #   one pinned host->device buffer per flush (serving/buckets.py), and
     #   the packed wire (data/wire.py) changes no value
@@ -263,6 +265,9 @@ class Config:
             raise ValueError(
                 f"dedup_gather_rows must be >= 0 (0 = off), got {self.dedup_gather_rows}"
             )
+        if self.dedup_gather_rows > 0 and self.table_layout != "rows":
+            # The dedup body gathers from the plain [V, D] table.
+            raise ValueError("dedup_gather_rows > 0 requires table_layout = rows")
         if self.dedup_gather_rows > 0 and self.device_cache:
             raise ValueError(
                 "dedup_gather_rows applies to the STREAMED path; "

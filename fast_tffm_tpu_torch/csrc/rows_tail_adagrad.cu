@@ -1,11 +1,24 @@
-// Sparse Adagrad on a [V, D] table with a [V, A] accumulator, A in
-// {1 (row), D (element)}, in place, straight from the step's sorted ids:
+// Sparse Adagrad on a table of logical rows of width D with an accumulator
+// of A in {1 (row), D (element)} floats a row, in place, straight from the
+// step's sorted ids:
 //   g   = sum of row_grads[order[j]] over the id's occurrences (in order)
 //   acc <- decay*acc + g*g   (row accumulator: + sum_d g_d^2)
 //   w   <- w - (lr*g) / sqrt(acc)
 // for every unique id in [0, V) of sid (the stable sort of the M flat ids,
 // with its int64 permutation order).  tail_segment.cuh holds the pass over
 // the sorted occurrences: heads, segment sums, the warp and block paths.
+//
+// Addressing: logical row r starts at (r / P) * pitch + (r % P) * D, P rows
+// to a physical row of `pitch` floats.
+//   * rows layout: [V, D], P = 1, pitch = D;
+//   * packed layout (ops/packed_table.py): [VP, 128], P = max(1, 128 / D),
+//     pitch = 128, V = VP * P.  The element accumulator [VP, 128] packs as
+//     the table does; the row accumulator [VP, P] is flat, row r at r, as
+//     the rows layout's [V, 1].
+// The JAX package updates the packed layout with XLA (whole 128-lane tile
+// rows, untouched lanes seeing a zero gradient, which leaves them as they
+// are); here the same rows take the same sums and expressions, so a packed
+// run is bitwise the rows run after unpacking.
 //
 // Replaces the TPU kernel fast_tffm_tpu/ops/pallas_tail.py::_rows_kernel
 // (reached through rows_tail_adagrad_update) AND the dedup before it
@@ -26,6 +39,10 @@
 // is 15.1 us (element) and 12.3 us (row), the floor random rows set.
 //
 // Design:
+//   * one kernel source for both layouts: P and the pitch are arguments; a
+//     packed row (P > 1) costs one 32-bit division and one modulo by P, and
+//     P = 1 (the rows layout, and packed rows wider than 64) runs an
+//     instantiation without them (kPacked = false);
 //   * the dedup is folded in: each occurrence is read once, straight from
 //     the sort's output, and no host sync waits on the count of unique ids;
 //   * a group of D lanes per row (element mode: lane d owns element d, no
@@ -46,12 +63,23 @@ namespace {
 using tail::decayed;
 using tail::step;
 
-// A = D: each lane its own table and accumulator element.
+// Where logical row s starts: P rows of D floats to a physical row of
+// `pitch` floats.  kPacked is false when P = 1: then the row costs no
+// division, no modulo and no registers for them.
+template <bool kPacked>
+__device__ __forceinline__ long long row_start(int s, int D, int P, int pitch) {
+  if (!kPacked) return (long long)s * pitch;
+  return (long long)(s / P) * pitch + (s % P) * D;
+}
+
+// A = D: each lane its own table and accumulator element; the accumulator
+// is laid out as the table is.
+template <bool kPacked>
 struct Element {
   static constexpr int kVpl = 1;
   float* table;
   float* accum;
-  int D, W;
+  int D, W, P, pitch;
   long long bound;
   float lr, decay;
 
@@ -62,7 +90,7 @@ struct Element {
   __device__ __forceinline__ Row load(int s, int e0) const {
     Row r{0.f, 0.f};
     if (e0 < D) {
-      const long long o = (long long)s * D + e0;
+      const long long o = row_start<kPacked>(s, D, P, pitch) + e0;
       r.w = table[o];
       r.a = accum[o];
     }
@@ -73,19 +101,21 @@ struct Element {
   __device__ __forceinline__ void update(const Row& r, int s, int e0, const float (&gs)[1],
                                          const Comm&, bool write) const {
     if (!write || e0 >= D) return;
-    const long long o = (long long)s * D + e0;
+    const long long o = row_start<kPacked>(s, D, P, pitch) + e0;
     const float acc2 = __fadd_rn(decayed(r.a, decay), __fmul_rn(gs[0], gs[0]));
     table[o] = step(r.w, gs[0], acc2, lr);
     accum[o] = acc2;
   }
 };
 
-// A = 1: the row's one accumulator, read and written by lane 0 alone.
+// A = 1: the row's one accumulator, at flat index s, read and written by
+// lane 0 alone.
+template <bool kPacked>
 struct RowAcc {
   static constexpr int kVpl = 1;
   float* table;
   float* accum;
-  int D, W;
+  int D, W, P, pitch;
   long long bound;
   float lr, decay;
 
@@ -95,7 +125,7 @@ struct RowAcc {
 
   __device__ __forceinline__ Row load(int s, int e0) const {
     Row r{0.f, 0.f};
-    if (e0 < D) r.w = table[(long long)s * D + e0];
+    if (e0 < D) r.w = table[row_start<kPacked>(s, D, P, pitch) + e0];
     if (e0 == 0) r.a = accum[s];
     return r;
   }
@@ -106,40 +136,56 @@ struct RowAcc {
     const float sq = comm.norm(gs, D);
     const float acc2 = __fadd_rn(decayed(comm.bcast(r.a, 0), decay), sq);
     if (!write || e0 >= D) return;
-    table[(long long)s * D + e0] = step(r.w, gs[0], acc2, lr);
+    table[row_start<kPacked>(s, D, P, pitch) + e0] = step(r.w, gs[0], acc2, lr);
     if (e0 == 0) accum[s] = acc2;
   }
 };
 
 // Named for the profiler: chip_smoke.py finds the kernels by these names.
+template <bool kPacked>
 __global__ void __launch_bounds__(tail::kThreads, tail::kMinBlocks)
-rows_element_kernel(const Element mode, const int* __restrict__ sid,
+rows_element_kernel(const Element<kPacked> mode, const int* __restrict__ sid,
                     const long long* __restrict__ order, const float* __restrict__ g, int M) {
   tail::run(mode, sid, order, g, M);
 }
 
+template <bool kPacked>
 __global__ void __launch_bounds__(tail::kThreads, tail::kMinBlocks)
-rows_row_kernel(const RowAcc mode, const int* __restrict__ sid,
+rows_row_kernel(const RowAcc<kPacked> mode, const int* __restrict__ sid,
                 const long long* __restrict__ order, const float* __restrict__ g, int M) {
   tail::run(mode, sid, order, g, M);
 }
 
-}  // namespace
-
-extern "C" int rows_tail_adagrad(float* table, float* accum, const int* sid,
-                                 const long long* order, const float* row_grads, int M, int D,
-                                 int A, long long V, float lr, float decay, cudaStream_t s) {
-  cudaGetLastError();  // clear a stale error of this runtime before launching
-  if (M < 1 || D < 1 || D > tail::kThreads || V < 1 || (A != 1 && A != D) ||
-      (long long)M * D > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+template <bool kPacked>
+void launch(float* table, float* accum, const int* sid, const long long* order,
+            const float* row_grads, int M, int D, int A, long long V, int P, int pitch, float lr,
+            float decay, cudaStream_t s) {
   const int blocks = tail::blocks(M, D);
   if (A == D) {
-    const Element mode{table, accum, D, D, V, lr, decay};
-    rows_element_kernel<<<blocks, tail::kThreads, 0, s>>>(mode, sid, order, row_grads, M);
+    const Element<kPacked> mode{table, accum, D, D, P, pitch, V, lr, decay};
+    rows_element_kernel<kPacked><<<blocks, tail::kThreads, 0, s>>>(mode, sid, order, row_grads,
+                                                                   M);
   } else {
-    const RowAcc mode{table, accum, D, D, V, lr, decay};
-    rows_row_kernel<<<blocks, tail::kThreads, 0, s>>>(mode, sid, order, row_grads, M);
+    const RowAcc<kPacked> mode{table, accum, D, D, P, pitch, V, lr, decay};
+    rows_row_kernel<kPacked><<<blocks, tail::kThreads, 0, s>>>(mode, sid, order, row_grads, M);
   }
+}
+
+}  // namespace
+
+// V: the logical rows (ids in [0, V) are updated); P, pitch: the addressing
+// above (P = 1, pitch = D for the rows layout).
+extern "C" int rows_tail_adagrad(float* table, float* accum, const int* sid,
+                                 const long long* order, const float* row_grads, int M, int D,
+                                 int A, long long V, int P, int pitch, float lr, float decay,
+                                 cudaStream_t s) {
+  cudaGetLastError();  // clear a stale error of this runtime before launching
+  if (M < 1 || D < 1 || D > tail::kThreads || V < 1 || (A != 1 && A != D) ||
+      (long long)M * D > 0x7fffffffLL || P < 1 || pitch < P * D)
+    return (int)cudaErrorInvalidValue;
+  if (P == 1)
+    launch<false>(table, accum, sid, order, row_grads, M, D, A, V, P, pitch, lr, decay, s);
+  else
+    launch<true>(table, accum, sid, order, row_grads, M, D, A, V, P, pitch, lr, decay, s);
   return cudaGetLastError();
 }

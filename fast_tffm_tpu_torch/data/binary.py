@@ -300,6 +300,7 @@ def fmb_batch_stream(
     drop_remainder: bool = False,
     pad_to_batches: int | None = None,
     shuffle_seed: int | None = None,
+    skip_rows: int = 0,
     io_retries: int = 3,
     io_retry_backoff_s: float = 0.05,
     log=print,
@@ -314,14 +315,23 @@ def fmb_batch_stream(
 
     ``shuffle_seed`` shuffles each epoch e: one permutation of ALL rows from
     ``draw_permutation(shuffle_seed, e, rows)`` is the epoch's row order,
-    so every epoch visits every row once.  Reads retry a transient OSError
-    ``io_retries`` times (backoff doubling from ``io_retry_backoff_s``),
-    each retry a line to ``log``.  (The JAX stream's multi-host sharding
-    and resume seek are later slices of the port.)"""
+    so every epoch visits every row once.  ``skip_rows`` (a whole number
+    of batches) is the exact-position resume's seek: the first rows of the
+    stream's order (the permuted order when shuffled, the permutation drawn
+    from the seed as without a seek) are passed over without a copy, and
+    count as emitted for ``pad_to_batches``.  Reads retry a transient
+    OSError ``io_retries`` times (backoff doubling from
+    ``io_retry_backoff_s``), each retry a line to ``log``.  (The JAX
+    stream's multi-host sharding is a later slice of the port.)"""
     from fast_tffm_tpu_torch.data.pipeline import emit_assembled_tail
 
     if weights is not None and len(weights) != len(files):
         raise ValueError(f"weights has {len(weights)} entries for {len(files)} files")
+    if skip_rows < 0 or skip_rows % batch_size:
+        raise ValueError(
+            f"skip_rows must be a non-negative whole number of batches "
+            f"(batch_size {batch_size}), got {skip_rows}"
+        )
 
     def _retry(fn, what):
         return _io_retry(fn, what=what, attempts=io_retries, backoff_s=io_retry_backoff_s, log=log)
@@ -366,7 +376,9 @@ def fmb_batch_stream(
         )
 
     bufs = list(alloc())  # labels, ids, vals, fields, nnz, weights
-    filled = emitted = 0
+    filled = 0
+    emitted = skip_rows // batch_size  # skipped batches count as emitted
+    skip_left = skip_rows
 
     def copy_rows(fi: int, src, dst) -> None:
         """Rows ``src`` of file ``fi`` into batch slots ``dst`` (slices or
@@ -402,6 +414,10 @@ def fmb_batch_stream(
         total = int(bounds[-1])
         for e in range(max(0, epochs)):
             rows = draw_permutation(shuffle_seed, e, total)  # source row per slot
+            # A seek drops the consumed prefix of the redrawn permutation:
+            # slot j of a resumed epoch is slot j of the original.
+            adv = min(skip_left, len(rows))
+            rows, skip_left = rows[adv:], skip_left - adv
             pos = 0
             while pos < len(rows):
                 take = min(len(rows) - pos, batch_size - filled)
@@ -420,7 +436,8 @@ def fmb_batch_stream(
     else:
         for _ in range(max(0, epochs)):
             for fi, f in enumerate(fs):
-                lo = 0
+                lo = min(skip_left, f.n_rows)  # the seek: no copy of skipped rows
+                skip_left -= lo
                 while lo < f.n_rows:
                     take = min(f.n_rows - lo, batch_size - filled)
                     copy_rows(fi, slice(lo, lo + take), slice(filled, filled + take))

@@ -16,7 +16,7 @@ but a [K] index copy (``make_cached_scan_train_step``).
   full_epoch_perm(data, shuffle_seed, epoch) -> the epoch's row order
   make_cached_train_step(model, lr, data, body)       (step, step_shuffled)
   make_cached_scan_train_step(model, lr, data, body)  (step, step_shuffled)
-  epoch_index_chunks(batches, k, device) -> [K]-long batch-index vectors
+  epoch_index_chunks(batches, k, device, start) -> [K]-long batch-index vectors
 
 The shuffled steps read ``data.perm``, a device buffer allocated once and
 filled per epoch by ``set_permutation``.  (The JAX module's mesh-sharded
@@ -213,10 +213,18 @@ def make_cached_scan_train_step(model, learning_rate: float, data: DeviceDataset
     )
 
 
-def epoch_index_chunks(batches: int, k: int, device="cpu") -> list[torch.Tensor]:
+def epoch_index_chunks(batches: int, k: int, device="cpu", start: int = 0) -> list[torch.Tensor]:
     """The batch indices of one epoch as [K]-long int64 device vectors plus
-    one [batches % K] remainder, placed once and reused every epoch."""
+    one [batches % K] remainder, placed once and reused every epoch.
+
+    ``start`` > 0 is the exact-position resume's seek: the chunks keep the
+    K-grid of an uninterrupted epoch (so every full chunk replays a graph
+    already captured for length K) and the first one is clipped to begin
+    at ``start``.  A resume that lands mid-chunk makes one extra length;
+    a K-aligned one (every save of a K-step run is) makes none."""
+    start = max(0, start)
     return [
-        torch.arange(lo, min(lo + k, batches), dtype=torch.int64, device=device)
-        for lo in range(0, batches, k)
+        torch.arange(max(lo, start), min(lo + k, batches), dtype=torch.int64, device=device)
+        for lo in range(start // k * k, batches, k)
+        if max(lo, start) < min(lo + k, batches)
     ]

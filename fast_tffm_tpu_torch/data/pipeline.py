@@ -12,8 +12,8 @@ weight-0 rows, so the loss and the AUC ignore them.  It routes by input:
 * text otherwise → the Python line stream and ``parser`` (default
   ``libsvm.parse_lines``).
 
-Multi-host sharding and the resume seek (``skip_rows``) are later slices
-of the port.
+``skip_rows`` (a whole number of batches) is the exact-position resume's
+seek on every route.  Multi-host sharding is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -99,15 +99,24 @@ def batch_stream(
     ``binary_cache`` converts text files to ``<file>.fmb`` caches first
     (reused while fresh) and streams those.  ``shuffle_seed`` shuffles the
     rows of every epoch and needs FMB input.  A list mixing FMB and text
-    files is refused."""
+    files is refused.
+
+    ``skip_rows`` (a whole number of batches) reopens the stream mid-epoch,
+    the exact-position resume's seek: FMB streams seek in the memmap (in
+    the permuted order when shuffled), the Python text path skips raw
+    lines before parsing, and the native path drops the first
+    ``skip_rows / batch_size`` parsed batches (it has no random access).
+    Skipped batches count as emitted for ``pad_to_batches``, so a resumed
+    stream emits exactly the remaining batches."""
     from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, fmb_batch_stream, is_fmb
     from fast_tffm_tpu_torch.data.native import NativeParser, native_batch_stream
 
-    if skip_rows:
+    if skip_rows < 0 or skip_rows % batch_size:
         raise ValueError(
-            "skip_rows (the exact-position resume seek) is not ported yet (a later "
-            "slice of fast_tffm_tpu_torch)"
+            f"skip_rows must be a non-negative whole number of batches "
+            f"(batch_size {batch_size}), got {skip_rows}"
         )
+    skip_batches = skip_rows // batch_size
     if pad_to_batches is not None and max_nnz is None:
         raise ValueError(
             "pad_to_batches requires max_nnz (pad batches must share the "
@@ -129,7 +138,7 @@ def batch_stream(
             files, batch_size=batch_size, vocabulary_size=vocabulary_size,
             hash_feature_id=hash_feature_id, max_nnz=max_nnz, epochs=epochs,
             weights=weights, drop_remainder=drop_remainder, pad_to_batches=pad_to_batches,
-            shuffle_seed=shuffle_seed, io_retries=io_retries,
+            shuffle_seed=shuffle_seed, skip_rows=skip_rows, io_retries=io_retries,
             io_retry_backoff_s=io_retry_backoff_s, log=log,
         )
         return
@@ -146,16 +155,19 @@ def batch_stream(
             "cannot reorder rows; set binary_cache = true"
         )
     if isinstance(parser, NativeParser) and max_nnz is not None:
-        yield from native_batch_stream(
+        gen = native_batch_stream(
             parser, files, batch_size=batch_size, vocabulary_size=vocabulary_size,
             hash_feature_id=hash_feature_id, max_nnz=max_nnz, epochs=epochs,
             weights=weights, drop_remainder=drop_remainder, pad_to_batches=pad_to_batches,
         )
+        # pad_to_batches counts the dropped batches: N emitted underneath,
+        # the first skip_batches dropped, the remaining N - skip yielded.
+        yield from itertools.islice(gen, skip_batches, None)
         return
 
     parse = parser if parser is not None else parse_lines
-    stream = line_stream(files, epochs=epochs, weights=weights)
-    emitted = 0
+    stream = itertools.islice(line_stream(files, epochs=epochs, weights=weights), skip_rows, None)
+    emitted = skip_batches
     while True:
         chunk = list(itertools.islice(stream, batch_size))
         if not chunk or (len(chunk) < batch_size and drop_remainder):

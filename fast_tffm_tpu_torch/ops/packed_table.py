@@ -1,5 +1,6 @@
-"""Lane-packed tables — the part of ``fast_tffm_tpu/ops/packed_table.py``
-that the fused training path and packed scoring read.
+"""Lane-packed tables — ``fast_tffm_tpu/ops/packed_table.py``'s layouts,
+packers and gathers (its XLA update strategies are one kernel here,
+``ops/tail.py``).
 
 The physical layouts are the JAX package's, bit for bit, so a packed or
 fused state carries across unchanged:
@@ -7,7 +8,10 @@ fused state carries across unchanged:
 * **packed** (``table_layout = packed``, scoring): ``[VP, 128]`` float32,
   ``P = 128 // D`` logical rows per 128-lane tile row, row ``i`` at tile
   row ``i // P``, lanes ``[(i % P)·D, (i % P)·D + D)``; spare lanes and
-  the pad rows of the last tile row hold ``pad_value``.
+  the pad rows of the last tile row hold ``pad_value``.  Its Adagrad
+  accumulator is ``[VP, 128]`` packed the same way (element granularity,
+  pads ``init_value``) or ``[VP, P]``, one slot a row (row granularity);
+  ``pack_accum_any`` packs either.
 * **fused** (``adagrad_accumulator = fused``, training): ``[VPf, 128]``,
   ``P = 128 // (D + 1)`` slots per tile row; slot ``s`` holds its D
   parameters at lanes ``[s·(D+1), s·(D+1)+D)`` and its row accumulator
@@ -32,7 +36,10 @@ __all__ = [
     "packed_rows",
     "pack_table",
     "unpack_table",
+    "packed_slots",
     "packed_gather",
+    "pack_accum_any",
+    "unpack_accum_any",
     "fused_rows_per_tile",
     "fused_packed_rows",
     "fused_slots",
@@ -84,11 +91,40 @@ def unpack_table(packed: torch.Tensor, vocab: int, d: int) -> torch.Tensor:
     return _slots(packed, rows_per_tile(d), d).reshape(-1, d)[:vocab]
 
 
+def packed_slots(packed: torch.Tensor, d: int) -> torch.Tensor:
+    """The ``[VP, P, D]`` view of a packed array's logical rows; writes
+    through it update ``packed``."""
+    return _slots(packed, rows_per_tile(d), d)
+
+
 def packed_gather(packed: torch.Tensor, ids: torch.Tensor, d: int) -> torch.Tensor:
     """rows[..., D] for logical ``ids`` from a packed table."""
     p = rows_per_tile(d)
     ids = ids.long()
     return _slots(packed, p, d)[ids // p, ids % p]
+
+
+def pack_accum_any(accum: torch.Tensor, d: int, init_value: float) -> torch.Tensor:
+    """Pack a logical accumulator of either granularity; pad lanes, rows and
+    slots carry ``init_value``, never 0.  [V, D] element -> [VP, 128],
+    packed as the table is; [V, 1] row -> [VP, P], one slot a logical row
+    (row r at flat index r)."""
+    if accum.shape[-1] != 1:
+        return pack_table(accum, pad_value=init_value)
+    v = accum.shape[0]
+    flat = torch.full((packed_rows(v, d) * rows_per_tile(d),), init_value, dtype=accum.dtype,
+                      device=accum.device)
+    flat[:v] = accum.reshape(-1)
+    return flat.view(-1, rows_per_tile(d))
+
+
+def unpack_accum_any(acc_packed: torch.Tensor, vocab: int, d: int) -> torch.Tensor:
+    """The inverse of ``pack_accum_any`` (a copy): [VP, 128] -> [V, D],
+    [VP, P] -> [V, 1].  At D = 1 (P = 128) the two coincide, and so do both
+    branches."""
+    if acc_packed.shape[-1] == LANES and rows_per_tile(d) != LANES:
+        return unpack_table(acc_packed, vocab, d)
+    return acc_packed.reshape(-1, 1)[:vocab].clone()
 
 
 def fused_rows_per_tile(d: int) -> int:

@@ -12,6 +12,12 @@ place, with no host sync:
   ``acc ← γ·acc + g²`` (row accumulator: ``‖g‖²``) and
   ``w ← w − lr·g/√acc`` on a ``[V, D]`` table and its ``[V, A]``
   accumulator, A ∈ {1, D};
+* **packed layout**, the same kernel at the packed address (P logical rows
+  to a 128-float tile row, ``ops/packed_table.py``): the ``[VP, 128]``
+  table with its ``[VP, 128]`` element or ``[VP, P]`` row accumulator.
+  The JAX package updates this layout with XLA (no Pallas kernel); its
+  sums and expressions are the rows layout's, so the port runs them in
+  kernel B4;
 * **fused layout** (``_fused_kernel``, ``csrc/fused_tail_adagrad.cu``):
   the row-accumulator update on the ``[VPf, 128]`` fused array
   (``ops/packed_table.py``), each row's accumulator in its own slot's
@@ -20,25 +26,30 @@ place, with no host sync:
 The kernels are built for ``sm_90a`` by ops/kernel_build.py at first use
 and called through ctypes on PyTorch's current stream.
 
-  rows_tail_adagrad_update(table, accum, ids, row_grads, lr, *, decay)
+  rows_tail_adagrad_update(table, accum, ids, row_grads, lr, *, decay, packed)
   rows_tail_apply(table, accum, uids, gsum, lr, *, decay)
   fused_tail_adagrad_update(fused, ids, row_grads, lr, *, decay, k_cap)
   fused_tail_apply(fused, uids, gsum, lr, *, decay)
       ``*_update``: sort + kernel, in place; ``*_apply``: the same kernel on
       already-deduped rows (``order = arange(K)``)
-  rows_tail_sorted(table, accum, sid, order, row_grads, lr, *, decay)
+  rows_tail_sorted(table, accum, sid, order, row_grads, lr, *, decay, packed)
   fused_tail_sorted(fused, sid, order, row_grads, lr, *, decay)
       the kernel alone, on the sort's output
-  rows_tail_sorted_plain(table, accum, sid, order, row_grads, lr, decay)
+  rows_tail_sorted_plain(table, accum, sid, order, row_grads, lr, decay, packed)
   fused_tail_sorted_plain(fused, sid, order, row_grads, lr, decay)
       the kernels' plain twins: ``optim.sorted_segment_sum``, then the
-      plain update (``optim.adagrad_rows_plain``, ``fused_adagrad_plain``)
+      plain update (``optim.adagrad_rows_plain``, its packed-layout form,
+      ``fused_adagrad_plain``)
+
+``packed=True`` takes the packed layout's ``[VP, 128]`` table and its
+``[VP, 128]`` or ``[VP, P]`` accumulator; D is ``row_grads``' width.
 
 On a CPU tensor each entry runs the twin, so ``rows_tail_adagrad_update``
 is ``optim.sparse_adagrad_update`` there (the dedup is the sort plus
 ``sorted_segment_sum``) and ``*_apply`` is the plain update.  On a CUDA
 tensor it launches the kernel or raises.  ``<wrapper>_update.launches``
-counts kernel launches (not the launches a CUDA-graph capture records).
+counts kernel launches (not the launches a CUDA-graph capture records);
+B4's count, ``rows_tail_adagrad_update.launches``, holds both layouts'.
 """
 
 from __future__ import annotations
@@ -48,7 +59,13 @@ import ctypes
 import torch
 
 from fast_tffm_tpu_torch.ops import kernel_build
-from fast_tffm_tpu_torch.ops.packed_table import LANES, fused_rows_per_tile, fused_slots
+from fast_tffm_tpu_torch.ops.packed_table import (
+    LANES,
+    fused_rows_per_tile,
+    fused_slots,
+    packed_slots,
+    rows_per_tile,
+)
 from fast_tffm_tpu_torch.optim import (
     accum_sq,
     adagrad_rows_plain,
@@ -84,6 +101,8 @@ def _kernel():
         ctypes.c_int,  # D
         ctypes.c_int,  # A
         ctypes.c_longlong,  # V
+        ctypes.c_int,  # P
+        ctypes.c_int,  # pitch
         ctypes.c_float,  # lr
         ctypes.c_float,  # decay
         ctypes.c_void_p,  # cudaStream_t
@@ -149,18 +168,39 @@ def _check_occurrences(who: str, device, sid, order, row_grads) -> tuple[int, in
     return m, d
 
 
-def _rows_launch(table, accum, sid, order, row_grads, lr: float, decay: float):
-    """Kernel B4 on sorted occurrences (``order`` None: deduped rows), in place."""
+def _packed_geometry(table, accum, d: int) -> tuple[int, int, int]:
+    """(A, P, logical rows) of a packed ``[VP, 128]`` table with its
+    ``[VP, 128]`` element or ``[VP, P]`` row accumulator (at D = 1 the two
+    coincide, and so do their updates)."""
+    p = rows_per_tile(d)
+    vp = table.shape[0]
+    if table.shape != (vp, LANES) or accum.shape not in ((vp, LANES), (vp, p)):
+        raise ValueError(
+            f"a packed tail takes table [VP, {LANES}] and accum [VP, {LANES}] (element) "
+            f"or [VP, P={p}] (row); got {tuple(table.shape)}, {tuple(accum.shape)}"
+        )
+    return (d if accum.shape[-1] == LANES else 1), p, vp * p
+
+
+def _rows_launch(table, accum, sid, order, row_grads, lr: float, decay: float,
+                 packed: bool = False):
+    """Kernel B4 on sorted occurrences (``order`` None: deduped rows), in
+    place, on the rows layout or (``packed``) the packed one."""
     if table.device.type != "cuda":
         raise ValueError(f"rows_tail_adagrad_update takes cuda or cpu tensors, got {table.device}")
-    v, d = table.shape
-    a = accum.shape[-1]
-    if accum.shape != (v, a) or a not in (1, d) or row_grads.shape[-1] != d or d > 256:
-        raise ValueError(
-            "rows_tail_adagrad_update's kernel takes table [V, D] with D <= 256, accum "
-            f"[V, 1|D], row_grads [M, D]; got {tuple(table.shape)}, {tuple(accum.shape)}, "
-            f"{tuple(row_grads.shape)}"
-        )
+    d = row_grads.shape[-1]
+    if packed:
+        a, p, v = _packed_geometry(table, accum, d)
+        pitch = LANES
+    else:
+        v, p, pitch = table.shape[0], 1, d
+        a = accum.shape[-1]
+        if table.shape != (v, d) or accum.shape != (v, a) or a not in (1, d) or d > 256:
+            raise ValueError(
+                "rows_tail_adagrad_update's kernel takes table [V, D] with D <= 256, accum "
+                f"[V, 1|D], row_grads [M, D]; got {tuple(table.shape)}, {tuple(accum.shape)}, "
+                f"{tuple(row_grads.shape)}"
+            )
     _check_operands("rows_tail_adagrad_update", table.device, (
         ("table", table, torch.float32),
         ("accum", accum, torch.float32),
@@ -174,21 +214,22 @@ def _rows_launch(table, accum, sid, order, row_grads, lr: float, decay: float):
     _launch(
         "rows_tail_adagrad", kernel, table.device,
         table.data_ptr(), accum.data_ptr(), sid.data_ptr(), order.data_ptr(),
-        row_grads.data_ptr(), m, d, a, v, float(lr), float(decay),
+        row_grads.data_ptr(), m, d, a, v, p, pitch, float(lr), float(decay),
     )
     if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
         rows_tail_adagrad_update.launches += 1
     return table, accum
 
 
-def rows_tail_sorted(table, accum, sid, order, row_grads, lr: float, *, decay: float = 1.0):
+def rows_tail_sorted(table, accum, sid, order, row_grads, lr: float, *, decay: float = 1.0,
+                     packed: bool = False):
     """Kernel B4 on its own input, the stable sort of the flat ids (``sid``
     int32, its permutation ``order`` int64) and ``row_grads`` [M, D] in
-    occurrence order, in place; on a CPU tensor its twin
-    ``rows_tail_sorted_plain``."""
+    occurrence order, in place, on the rows or (``packed``) the packed
+    layout; on a CPU tensor its twin ``rows_tail_sorted_plain``."""
     if table.device.type == "cpu":
-        return rows_tail_sorted_plain(table, accum, sid, order, row_grads, lr, decay)
-    return _rows_launch(table, accum, sid, order, row_grads, lr, decay)
+        return rows_tail_sorted_plain(table, accum, sid, order, row_grads, lr, decay, packed)
+    return _rows_launch(table, accum, sid, order, row_grads, lr, decay, packed)
 
 
 def rows_tail_apply(
@@ -218,27 +259,65 @@ def rows_tail_adagrad_update(
     lr: float,
     *,
     decay: float = 1.0,
+    packed: bool = False,
 ):
     """``optim.sparse_adagrad_update`` as ``torch.sort`` plus one kernel
     pass: the same segment sums, the same expressions, the same lazy γ
     decay; in place, with no host sync.  ids: [...] int32 ids; row_grads:
-    [..., D]."""
-    d = table.shape[-1]
+    [..., D].  ``packed``: the table is the packed ``[VP, 128]`` one with
+    its ``[VP, 128]`` element or ``[VP, P]`` row accumulator; after
+    unpacking the result is bitwise the rows layout's on the logical
+    arrays (the JAX package's packed tails hold the same sums in the same
+    order)."""
+    d = row_grads.shape[-1]
     sid, order = torch.sort(ids.reshape(-1), stable=True)
     return rows_tail_sorted(
-        table, accum, sid, order, row_grads.reshape(-1, d).contiguous(), lr, decay=decay
+        table, accum, sid, order, row_grads.reshape(-1, d).contiguous(), lr, decay=decay,
+        packed=packed,
     )
 
 
 rows_tail_adagrad_update.launches = 0
 
 
-def rows_tail_sorted_plain(table, accum, sid, order, row_grads, lr: float, decay: float = 1.0):
+def _packed_adagrad_plain(
+    packed: torch.Tensor,
+    accum: torch.Tensor,
+    uids: torch.Tensor,
+    gsum: torch.Tensor,
+    lr: float,
+    decay: float = 1.0,
+):
+    """``optim.adagrad_rows_plain`` on the packed layout, in place: the same
+    expressions in the same order on each unique logical row's D lanes
+    (through the ``[VP, P, D]`` view) and its accumulator (the element
+    accumulator's lanes, or the row accumulator's slot).  Ids outside
+    [0, VP·P) are skipped, as the kernel skips them."""
+    d = gsum.shape[-1]
+    a, p, bound = _packed_geometry(packed, accum, d)
+    uids, gsum = rows_in_range(uids, gsum, bound)
+    idx = uids.long()
+    phys, slot = idx // p, idx % p
+    table_rows = packed_slots(packed, d)
+    acc_rows = packed_slots(accum, d) if a == d else accum.view(-1, p, 1)
+    acc_prev = acc_rows[phys, slot]
+    if decay != 1.0:
+        acc_prev = decay * acc_prev
+    acc_new = acc_prev + accum_sq(acc_prev, gsum)
+    table_rows[phys, slot] = table_rows[phys, slot] - lr * gsum / sqrt_rn(acc_new)
+    acc_rows[phys, slot] = acc_new
+    return packed, accum
+
+
+def rows_tail_sorted_plain(table, accum, sid, order, row_grads, lr: float, decay: float = 1.0,
+                           packed: bool = False):
     """The plain twin of ``csrc/rows_tail_adagrad.cu`` on the kernel's own
     input, the sort's output: ``optim.sorted_segment_sum``, then
-    ``optim.adagrad_rows_plain``; in place."""
+    ``optim.adagrad_rows_plain`` (``packed``: its form on the packed
+    layout); in place."""
     uids, gsum = sorted_segment_sum(sid, order, row_grads)
-    return adagrad_rows_plain(table, accum, uids, gsum, lr, decay)
+    update = _packed_adagrad_plain if packed else adagrad_rows_plain
+    return update(table, accum, uids, gsum, lr, decay)
 
 
 def fused_adagrad_plain(

@@ -1,6 +1,6 @@
 """Model state, the train steps and the predict steps — the counterpart of
-``fast_tffm_tpu/trainer.py`` (single device; the rows layout and the fused
-lane-packed layout).
+``fast_tffm_tpu/trainer.py`` (single device; the rows layout, and the
+lane-packed layout with an element, row or fused accumulator).
 
 One step is gather → scorer (its backward a CUDA kernel at order ≥ 3) →
 loss → sparse Adagrad (on a CUDA state: ``torch.sort`` of the ids, then one
@@ -23,12 +23,18 @@ import torch
 from fast_tffm_tpu_torch.models.base import Batch, logistic_loss
 from fast_tffm_tpu_torch.ops.packed_table import (
     fused_gather,
+    pack_accum_any,
     pack_fused,
     pack_table,
     packed_gather,
+    unpack_accum_any,
     unpack_fused,
+    unpack_table,
 )
-from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
+from fast_tffm_tpu_torch.ops.tail import (
+    fused_tail_adagrad_update,
+    rows_tail_adagrad_update,
+)
 from fast_tffm_tpu_torch.optim import dense_adagrad_update, init_table_adagrad
 from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
 
@@ -65,7 +71,8 @@ class TrainState:
     * ``rows``: ``table`` [V, D]; ``table_accum`` [V, D] (element) or
       [V, 1] (row);
     * ``packed``: ``table`` the [VP, 128] lane-packed array
-      (``ops/packed_table.pack_table``), for scoring;
+      (``ops/packed_table.pack_table``); ``table_accum`` [VP, 128]
+      (element) or [VP, P] (row) for training, none for scoring;
     * ``fused``: ``table`` the [VPf, 128] fused array, each row's
       accumulator in its own slot (``pack_fused``); no ``table_accum``.
 
@@ -238,12 +245,12 @@ def _predict_step(model, gather):
 def pack_state(
     state: TrainState, init_accumulator_value: float = 0.1, fused: bool = False
 ) -> TrainState:
-    """Lane-pack a logical (rows-layout) state; the logical table is dropped
-    once packed.  ``fused=True`` (``adagrad_accumulator = fused``) stores the
-    [V, 1] row accumulator in each row's own slot.  Otherwise the table is
-    packed for scoring, which reads no accumulator: packing the [V, D] or
-    [V, 1] accumulator apart from the table belongs to the packed
-    element/row tails, a later slice of the port."""
+    """Lane-pack a logical (rows-layout) state; the logical arrays are
+    dropped once packed.  ``fused=True`` (``adagrad_accumulator = fused``)
+    stores the [V, 1] row accumulator in each row's own slot.  Otherwise
+    the table packs to [VP, 128] and the accumulator, when the state has
+    one, apart from it (``pack_accum_any``: [V, D] -> [VP, 128], [V, 1] ->
+    [VP, P], pads ``init_accumulator_value``); a scoring state has none."""
     if state.layout != "rows":
         raise ValueError(f"pack_state takes a rows-layout state, got {state.layout}")
     if fused:
@@ -251,68 +258,88 @@ def pack_state(
             raise ValueError("the fused layout packs a [V, 1] row accumulator")
         table = pack_fused(state.table, state.table_accum, init_accumulator_value)
         return dataclasses.replace(state, table=table, table_accum=None, layout="fused")
-    if state.table_accum is not None:
-        raise ValueError(
-            "table_layout = packed with adagrad_accumulator = element | row is "
-            "not ported yet for train (a later slice of fast_tffm_tpu_torch); "
-            "use adagrad_accumulator = fused"
-        )
-    return dataclasses.replace(state, table=pack_table(state.table), layout="packed")
+    d = state.table.shape[-1]
+    accum = state.table_accum
+    if accum is not None:
+        accum = pack_accum_any(accum, d, init_accumulator_value)
+    return dataclasses.replace(state, table=pack_table(state.table), table_accum=accum,
+                               layout="packed")
 
 
 def unpack_state(state: TrainState, model) -> TrainState:
-    """The logical arrays of a fused state, as checkpoints hold them: a
-    [V, D] table and a [V, 1] accumulator (the JAX package's ``saveable``),
-    one copy of the used lanes.  A rows-layout state comes back as it is."""
+    """The logical arrays of a packed or fused training state, as
+    checkpoints hold them: a [V, D] table and its [V, D] or [V, 1]
+    accumulator (the JAX package's ``saveable``), one copy of the used
+    lanes.  A rows-layout state comes back as it is."""
     if state.layout == "rows":
         return state
-    if state.layout != "fused":
+    v, d = model.vocabulary_size, model.row_dim
+    if state.layout == "fused":
+        table, accum = unpack_fused(state.table, v, d)
+    elif state.table_accum is None:
         raise ValueError("a packed scoring state carries no accumulator to save")
-    table, accum = unpack_fused(state.table, model.vocabulary_size, model.row_dim)
+    else:
+        table, accum = unpack_table(state.table, v, d), unpack_accum_any(state.table_accum, v, d)
     return dataclasses.replace(state, table=table, table_accum=accum, layout="rows")
 
 
 def init_packed_state(
-    model, generator: torch.Generator, init_accumulator_value: float = 0.1
+    model,
+    generator: torch.Generator,
+    init_accumulator_value: float = 0.1,
+    accumulator: str = "fused",
 ) -> TrainState:
-    """``init_state`` with a row accumulator, packed fused: the same logical
-    draw, so a fused run starts from the parameters a rows run with the same
-    generator would.  (The JAX function also packs the element and row
-    accumulators apart from the table; those layouts train in a later
-    slice of the port.)"""
+    """``init_state`` packed: the same logical draw, so a packed run starts
+    from the parameters a rows run with the same generator would.
+    ``accumulator`` ``fused`` stores a row accumulator in the table's slots;
+    ``element`` and ``row`` pack it apart ([VP, 128], [VP, P])."""
+    fused = accumulator == "fused"
     return pack_state(
-        init_state(model, generator, init_accumulator_value, "row"),
+        init_state(model, generator, init_accumulator_value, "row" if fused else accumulator),
         init_accumulator_value,
-        fused=True,
+        fused=fused,
     )
 
 
 def packed_train_step_body(
     model, learning_rate: float, state: TrainState, batch: Batch, compact_cap: int = 0
 ):
-    """The single-device step on a fused state: ``fused_gather`` → scorer →
-    loss → sort → kernel B3 (``ops/tail.py::fused_tail_adagrad_update``,
-    ``csrc/fused_tail_adagrad.cu`` on a CUDA state, its plain twin on a CPU
-    one), in place.  ``compact_cap`` (``packed_compact_cap``) is the tail's
-    ``k_cap``.
+    """The single-device step on a lane-packed state, in place:
 
-    The JAX body also takes ``update`` (``packed_update``) and ``tail``,
-    which pick among its compiler paths for the same function (the dense
-    and compact XLA tails, the Pallas kernel); the port has the one tail."""
-    if state.layout != "fused":
-        raise ValueError(
-            f"packed_train_step_body steps a fused state, got {state.layout} (the "
-            "packed element/row tails are a later slice of fast_tffm_tpu_torch)"
-        )
+    * ``fused``: ``fused_gather`` → scorer → loss → sort → kernel B3
+      (``ops/tail.py::fused_tail_adagrad_update``); ``compact_cap``
+      (``packed_compact_cap``) is the tail's ``k_cap``;
+    * ``packed`` (element or row accumulator): ``packed_gather`` → scorer →
+      loss → sort → kernel B4 at the packed address
+      (``ops/tail.py::rows_tail_adagrad_update``, ``packed=True``).
+
+    Each tail is its kernel on a CUDA state and its plain twin on a CPU
+    one.  The JAX body also takes ``update`` (``packed_update``) and
+    ``tail``, which pick among its compiler paths for the same function
+    (the dense, compact and sorted XLA tails, the Pallas kernel); the port
+    has one tail per layout."""
     d = model.row_dim
-    rows = fused_gather(state.table, batch.ids, d)
+    if state.layout == "fused":
+        rows = fused_gather(state.table, batch.ids, d)
+    elif state.layout == "packed" and state.table_accum is not None:
+        rows = packed_gather(state.table, batch.ids, d)
+    else:
+        raise ValueError(
+            f"packed_train_step_body steps a fused or packed training state, got {state.layout}"
+            + ("" if state.layout == "rows" else " without an accumulator")
+        )
     data_loss, g_rows, g_dense = _grads(model, rows, state, batch)
-    fused_tail_adagrad_update(state.table, batch.ids, g_rows, learning_rate, k_cap=compact_cap)
+    if state.layout == "fused":
+        fused_tail_adagrad_update(state.table, batch.ids, g_rows, learning_rate,
+                                  k_cap=compact_cap)
+    else:
+        rows_tail_adagrad_update(state.table, state.table_accum, batch.ids, g_rows,
+                                 learning_rate, packed=True)
     return _finish(learning_rate, state, g_dense), data_loss
 
 
 def make_packed_train_step(model, learning_rate: float, compact_cap: int = 0):
-    """``make_train_step`` for a fused state (``packed_train_step_body``)."""
+    """``make_train_step`` for a fused or packed state (``packed_train_step_body``)."""
     return make_train_step(
         model, learning_rate,
         body=lambda mdl, lr, st, b: packed_train_step_body(mdl, lr, st, b, compact_cap),

@@ -1,7 +1,7 @@
 """The local training driver — the counterpart of ``fast_tffm_tpu/training.py``
 ``train`` + ``_run_training`` (single device).
 
-  train(cfg, resume=False, log=print, device=None) -> TrainState
+  train(cfg, resume=False, log=print, device=None, step_hook=None) -> TrainState
 
 Input, as in the JAX package:
 
@@ -26,28 +26,53 @@ just launched) and at every log point before any save, the validation AUC
 over ``validation_files`` and a save every ``save_every_epochs`` epochs;
 the final state is saved and returned.  ``device`` None means the card.
 
-Two table layouts train.  ``rows``: the sparse tail is the rows Adagrad
-kernel's wrapper (``trainer.train_step_body``).  ``packed`` with
-``adagrad_accumulator = fused``: the state is lane-packed
-(``trainer.pack_state(fused=True)``) after the logical restore or init,
-steps gather through ``fused_gather`` and end in the fused Adagrad kernel
-(``trainer.packed_train_step_body``), validation scores through the fused
-gather, and every save writes the logical arrays (``trainer.unpack_state``).
-Either tail is its kernel on the card, whatever ``[Train] tail`` and
-``packed_update`` say, and its plain twin on the CPU; a setting that names
-a JAX compiler path the port has no counterpart of says so in the log on
-the card.  The packed element/row tails, ``dedup_gather_rows``, the
-telemetry monitor, the async/delta checkpointer, rollback, signals and the
-resume cursor are later slices; ``train`` refuses their config keys
-before it touches a device.
+Exact-position resume: the loop tracks the input cursor (epoch, batch in
+the epoch, and the input's identity: batch size, shuffle and seed, the
+train files' fingerprint), K batches a K-step call, and every save embeds
+it (``input_cursor``, the JAX package's member and JSON): an epoch-end
+save names the next epoch's start.  ``resume`` restores ``model_file`` and
+reopens the input at its cursor's batch on every input path (the seek of
+``batch_stream(skip_rows=)``, the device cache's clipped index chunks),
+so the resumed run is bitwise the run that was never stopped.  A cursor
+that does not match this config, or a checkpoint without one, starts at
+the first file with a warning or a note, as in the JAX package.  The
+first SIGTERM or SIGINT (or one raised by ``step_hook(step)``, called
+after every call) finishes the current call, drains the finite check,
+saves with the cursor and returns; a second one takes the default
+handler.  The handlers are installed on the main thread only, and
+restored on the way out.
+
+The table layouts.  ``rows``: the sparse tail is the rows Adagrad
+kernel's wrapper (``trainer.train_step_body``).  ``dedup_gather_rows`` > 0
+names the JAX package's dedup before the forward gather, which cuts the
+TPU's gather bytes and gives the direct gather's values: the port logs a
+note and gathers directly, and each streamed batch's unique ids are still
+checked against the cap before it ships, so a config fails here where it
+fails in the JAX package.  ``packed``: the state is lane-packed (``trainer.
+pack_state``) after the logical restore or init; with ``adagrad_accumulator
+= fused`` steps gather through ``fused_gather`` and end in the fused
+Adagrad kernel, with ``element`` or ``row`` through ``packed_gather`` and
+the rows kernel at the packed address (``trainer.packed_train_step_body``);
+validation scores through the packed gathers, and every save writes the
+logical arrays (``trainer.unpack_state``).  Each tail is its kernel on the
+card, whatever ``[Train] tail`` and ``packed_update`` say, and its plain
+twin on the CPU; a setting that names a JAX compiler path the port has no
+counterpart of says so in the log on the card.  The telemetry monitor,
+the async/delta checkpointer, rollback and the supervisor are later
+slices; ``train`` refuses their config keys before it touches a device.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import signal
+import threading
+
 import numpy as np
 import torch
 
-from fast_tffm_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+from fast_tffm_tpu_torch.checkpoint import read_input_cursor, restore_checkpoint, save_checkpoint
 from fast_tffm_tpu_torch.config import Config, build_model, refuse_later_slices
 from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, fold_epoch_seed, is_fmb
 from fast_tffm_tpu_torch.data.libsvm import scan_max_nnz
@@ -141,14 +166,112 @@ def binary_input(files) -> bool:
     return bool(files) and all(is_fmb(f) for f in files)
 
 
+def _files_fingerprint(files) -> str:
+    """The train input's identity in the resume cursor: the file list and
+    each file's size (the JAX package's function: a cursor's batch offset
+    means nothing against files that grew, shrank or were replaced)."""
+    h = hashlib.md5()
+    for p in files:
+        try:
+            size = os.path.getsize(p)
+        except OSError:
+            size = -1
+        h.update(f"{p}:{size}\n".encode())
+    return h.hexdigest()[:16]
+
+
+def _resolve_cursor(cfg: Config, cursor, log) -> tuple[int, int]:
+    """(start_epoch, start_batch) from a restored input cursor — the JAX
+    ``_resolve_cursor`` for one process.
+
+    A cursor that does not describe this run's input (batch size, shuffle
+    and its seed, a follow cursor, the train files' fingerprint), or one of
+    a newer version, starts at (0, 0) with a warning.  A cursor at or past
+    ``epoch_num`` is a completed run: resume then trains ``epoch_num``
+    more epochs from (0, 0), unless it is ``_exact`` (a literal position:
+    ``(epoch_num, 0)``, no input left).  A ``hosts`` vector of one entry
+    resolves to that entry; any other vector was saved by another number
+    of processes and takes the warned start, as a topology change does in
+    the JAX package."""
+    if not cursor:
+        return 0, 0
+    exact = bool(cursor.pop("_exact", False))
+    if int(cursor.get("version", 0)) > 1:
+        log(
+            "warning: checkpoint input cursor has a newer version "
+            f"({cursor.get('version')}) than this build understands — "
+            "resuming at the start of the data (legacy behavior)"
+        )
+        return 0, 0
+    hosts = cursor.pop("hosts", None)
+    saved_pcount = cursor.pop("process_count", None)
+    if hosts is not None:
+        if (saved_pcount or len(hosts)) != 1 or not hosts:
+            log(
+                "warning: checkpoint cursor vector was saved by "
+                f"{saved_pcount or len(hosts)} host(s), this run has "
+                "1 — resuming at the start of the data (legacy "
+                "behavior)"
+            )
+            return 0, 0
+        mine = hosts[0] or {}
+        if mine.get("epoch") is not None:
+            cursor["epoch"] = int(mine["epoch"])
+            cursor["batch_in_epoch"] = int(mine.get("batch_in_epoch") or 0)
+    mismatched = [
+        f"{key} {cursor.get(key)!r} != {want!r}"
+        for key, want in (
+            ("batch_size", int(cfg.batch_size)),
+            ("shuffle", bool(cfg.shuffle)),
+            ("shuffle_seed", int(cfg.shuffle_seed) if cfg.shuffle else cursor.get("shuffle_seed")),
+            # This run does not follow a stream (online learning is a later
+            # slice), so a follow cursor never matches.
+            ("follow", False if "follow" in cursor else None),
+            ("files", _files_fingerprint(cfg.train_files)),
+        )
+        if cursor.get(key) != want
+    ]
+    if mismatched:
+        log(
+            "warning: checkpoint input cursor does not match this config "
+            f"({'; '.join(mismatched)}) — resuming at the start of the "
+            "data (legacy behavior)"
+        )
+        return 0, 0
+    e = max(0, int(cursor.get("epoch", 0)))
+    b = max(0, int(cursor.get("batch_in_epoch", 0)))
+    if e >= cfg.epoch_num:
+        return (cfg.epoch_num, 0) if exact else (0, 0)
+    log(f"resuming input at epoch {e}, batch {b} (exact-position cursor)")
+    return e, b
+
+
+def _dedup_cap_guard(raw, cap: int):
+    """Each batch's unique-id count checked against ``dedup_gather_rows``
+    before it ships (in the prefetch thread), with the JAX package's
+    error: its dedup gather keeps at most ``cap`` unique rows, so a larger
+    batch is a loud error naming the knob there, and here too."""
+    for p, w in raw:
+        u = int(np.unique(p.ids).size)
+        if u > cap:
+            raise ValueError(
+                f"dedup_gather_rows = {cap} but a batch carries {u} unique "
+                "ids — the jitted dedup gather would silently drop rows.  "
+                "Raise dedup_gather_rows (or set 0 to disable)."
+            )
+        yield p, w
+
+
 def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
-            steps_per_call: int = 1, log=print):
+            steps_per_call: int = 1, log=print, skip_batches: int = 0, dedup_cap: int = 0):
     """One prefetched pass over ``files``: (ParsedBatch, weights) pairs, or
     K-long lists of them when ``steps_per_call`` > 1.  Text parses through
     the native parser; ``binary_cache`` resolves the FMB caches first (an
     unwritable location falls back to the text, and a shuffle on that
     fallback is dropped with a log line); ``shuffle_epoch`` (train streams)
-    folds the epoch into ``shuffle_seed``."""
+    folds the epoch into ``shuffle_seed``.  ``skip_batches`` opens the
+    pass at that batch (the resume seek); ``dedup_cap`` > 0 checks each
+    batch's unique ids against it before the batch ships."""
     files = tuple(files)
     parser = best_parser(cfg.thread_num)
     if cfg.binary_cache:
@@ -174,10 +297,13 @@ def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
         weights=weights,
         parser=parser,
         shuffle_seed=shuffle_seed,
+        skip_rows=skip_batches * cfg.batch_size,
         io_retries=cfg.io_retries,
         io_retry_backoff_s=cfg.io_retry_backoff_s,
         log=log,
     )
+    if dedup_cap > 0:
+        raw = _dedup_cap_guard(raw, dedup_cap)
     if steps_per_call > 1:
         raw = grouped_pairs(raw, steps_per_call)
     # An item holds K batches: scale the depth down to keep the host memory
@@ -203,10 +329,6 @@ def _mean(losses) -> float:
 def _refuse_later_slices(cfg: Config) -> None:
     """The training settings whose paths are later slices of the port."""
     refuse_later_slices("train", [
-        (cfg.table_layout == "packed" and cfg.adagrad_accumulator != "fused",
-         f"table_layout = packed with adagrad_accumulator = {cfg.adagrad_accumulator} "
-         "(the XLA packed tails)"),
-        (cfg.dedup_gather_rows > 0, "dedup_gather_rows > 0 (dedup-before-gather)"),
         (cfg.paramstore, "[ParamStore] (the tiered parameter store)"),
         (cfg.online_follow, "[Online] follow (online learning)"),
         (cfg.online_accum_restart_steps > 0, "[Online] accum_restart_steps"),
@@ -225,7 +347,9 @@ def _device_cached_input(cfg: Config, model, max_nnz: int, log, body, device):
     convert text once).  Returns ``(step_fn, train_stream)``: the stream
     yields (batch index or [K] index chunk, examples) and the step gathers
     the batch on the device, through the epoch's permutation when
-    shuffling."""
+    shuffling.  ``train_stream(epoch, skip_batches)`` opens the epoch at
+    that batch: K = 1 skips the first indices, K > 1 clips the epoch's
+    K-grid of chunks (``epoch_index_chunks(start=)``)."""
     from fast_tffm_tpu_torch.data.device_cache import (
         epoch_index_chunks,
         full_epoch_perm,
@@ -263,22 +387,52 @@ def _device_cached_input(cfg: Config, model, max_nnz: int, log, body, device):
         step, step_shuffled = make_cached_train_step(model, cfg.learning_rate, data, body)
         items = [torch.tensor(i, dtype=torch.int64, device=device) for i in range(data.batches)]
 
-    def train_stream(epoch):
+    def train_stream(epoch, skip_batches=0):
         if cfg.shuffle:
             set_permutation(data, full_epoch_perm(data, cfg.shuffle_seed, epoch))
-        return ((i, cfg.batch_size * i.numel()) for i in items)
+        use = items
+        if skip_batches:
+            use = (epoch_index_chunks(data.batches, k, device, start=skip_batches) if k > 1
+                   else items[skip_batches:])
+        return ((i, cfg.batch_size * i.numel()) for i in use)
 
     return (step_shuffled if cfg.shuffle else step), train_stream
 
 
-def train(cfg: Config, *, resume: bool = False, log=print, device=None):
+def _signal_stop(log):
+    """(stop event, restore) for the first-signal stop: SIGTERM and SIGINT
+    set the event and put back their previous handler, so a second signal
+    takes it.  Installed on the main thread only (``signal.signal`` works
+    nowhere else); ``restore()`` reinstates the previous handlers."""
+    stop = threading.Event()
+    previous = {}
+
+    def on_signal(signum, frame):
+        log(f"received signal {signum}: checkpointing after current step")
+        stop.set()
+        signal.signal(signum, previous[signum])
+
+    if threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            previous[sig] = signal.signal(sig, on_signal)
+
+    def restore():
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+    return stop, restore
+
+
+def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hook=None):
     """Local (single-device) training — the reference's ``train`` mode.
 
-    ``resume`` restores ``cfg.model_file`` (table, accumulators, step);
-    otherwise the state is a fresh init from a seeded generator.  Returns
-    the final state in the layout it trained in (a fused state for
-    ``table_layout = packed``); its logical arrays are saved to
-    ``cfg.model_file``."""
+    ``resume`` restores ``cfg.model_file`` (table, accumulators, step) and
+    reopens the input at its cursor; otherwise the state is a fresh init
+    from a seeded generator.  ``step_hook(step)`` runs after every call,
+    before the stop check (a test raises SIGTERM from it at an exact
+    step).  Returns the final state in the layout it trained in (a packed
+    or fused state for ``table_layout = packed``); its logical arrays are
+    saved to ``cfg.model_file`` with the cursor."""
     _refuse_later_slices(cfg)
     if not cfg.train_files:
         raise ValueError("no train_files configured")
@@ -291,7 +445,9 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
     model = build_model(cfg)
     max_nnz = scan_max_nnz(cfg)
     cfg.check_width(max_nnz)
-    fused = cfg.table_layout == "packed"  # and so adagrad_accumulator = fused
+    packed = cfg.table_layout == "packed"
+    fused = packed and cfg.adagrad_accumulator == "fused"
+    start_cursor = None
     if resume:
         # The logical arrays first, packed after (never a fresh packed state
         # beside them).
@@ -303,19 +459,20 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
                 f"checkpoint {cfg.model_file!r} holds a {tuple(state.table.shape)} table; "
                 f"this config trains [{model.vocabulary_size}, {model.row_dim}]"
             )
-        if fused:
-            state = pack_state(state, cfg.init_accumulator_value, fused=True)
-        log(f"resumed from {cfg.model_file} at step {state.step}" + (" (packed)" if fused else ""))
-        # No input cursor in this slice's checkpoints: the input restarts at
-        # the first file, as the JAX package does for a cursorless one.
-        log(
-            "note: checkpoint carries no input cursor (pre-resilience "
-            "format) — input restarts at the first file (legacy resume)"
-        )
+        if packed:
+            state = pack_state(state, cfg.init_accumulator_value, fused=fused)
+        log(f"resumed from {cfg.model_file} at step {state.step}" + (" (packed)" if packed else ""))
+        start_cursor = read_input_cursor(cfg.model_file)
+        if start_cursor is None:
+            log(
+                "note: checkpoint carries no input cursor (pre-resilience "
+                "format) — input restarts at the first file (legacy resume)"
+            )
     else:
         generator = torch.Generator(device=device).manual_seed(0)
-        if fused:
-            state = init_packed_state(model, generator, cfg.init_accumulator_value)
+        if packed:
+            state = init_packed_state(model, generator, cfg.init_accumulator_value,
+                                      cfg.adagrad_accumulator)
         else:
             state = init_state(
                 model, generator, cfg.init_accumulator_value, cfg.adagrad_accumulator
@@ -327,13 +484,21 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
             "compiler paths for the same update, which the port does not have; "
             f"running the {kernel}"
         )
-    if fused:
-        log("sparse tail: fused_tail_adagrad (fused one-pass gather→Adagrad→scatter)")
+    if packed:
+        if fused:
+            log("sparse tail: fused_tail_adagrad (fused one-pass gather→Adagrad→scatter)")
+        else:
+            log(f"sparse tail: rows_tail_adagrad at the packed address "
+                f"({cfg.adagrad_accumulator} accumulator)")
         body = lambda mdl, lr, st, b: packed_train_step_body(  # noqa: E731
             mdl, lr, st, b, cfg.packed_compact_cap
         )
-        predict_step = make_packed_predict_step(model, fused=True)
+        predict_step = make_packed_predict_step(model, fused=fused)
     else:
+        if cfg.dedup_gather_rows > 0:
+            log(f"note: dedup_gather_rows = {cfg.dedup_gather_rows} names the JAX package's "
+                "dedup before the gather (the same values, fewer TPU gather bytes); the port "
+                "gathers directly and checks each batch's unique ids against the cap")
         body = make_decayed_body(cfg.online_adagrad_decay)
         predict_step = make_predict_step(model)
     k = cfg.steps_per_call
@@ -345,9 +510,11 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
         )
         weights = cfg.weight_files or None
 
-        def train_stream(epoch):
+        def train_stream(epoch, skip_batches=0):
             for parsed, w in _stream(cfg, cfg.train_files, max_nnz, weights,
-                                     shuffle_epoch=epoch, steps_per_call=k, log=log):
+                                     shuffle_epoch=epoch, steps_per_call=k, log=log,
+                                     skip_batches=skip_batches,
+                                     dedup_cap=cfg.dedup_gather_rows):
                 if isinstance(parsed, list):
                     yield (Batch.stack_parsed(parsed, w, with_fields=model.uses_fields),
                            sum(p.batch_size for p in parsed))
@@ -355,58 +522,103 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None):
                     yield (Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields),
                            parsed.batch_size)
 
+    # The input cursor, tracked per call: every save embeds it.
+    start_epoch, start_batch = _resolve_cursor(cfg, start_cursor, log)
+    cur = {"epoch": start_epoch, "batch": start_batch}
+    files_fp = _files_fingerprint(cfg.train_files)
+
+    def input_cursor() -> dict:
+        return {
+            "version": 1,
+            "epoch": cur["epoch"],
+            "batch_in_epoch": cur["batch"],
+            "batch_size": int(cfg.batch_size),
+            "shuffle": bool(cfg.shuffle),
+            "shuffle_seed": int(cfg.shuffle_seed),
+            "steps_per_call": int(k),
+            "files": files_fp,
+        }
+
+    def save():
+        save_checkpoint(cfg.model_file, unpack_state(state, model), cursor=input_cursor())
+
     meter = Throughput()
     losses: list[torch.Tensor] = []  # device values; synced at log points
     groups = _GroupCheck(device)
     pending = 0  # steps since the last log point
     counted = 0  # examples the meter holds
     start_step = state.step
-    for epoch in range(cfg.epoch_num):
-        for batch, examples in train_stream(epoch):
-            first_call = state.step == start_step
-            state, loss = step_fn(state, batch)
-            groups.push(loss, state.step)
-            if first_call:
-                # Call 1 pays the kernel builds, the graph capture and the
-                # allocator's warm-up: the meter's window starts after it
-                # and holds none of its examples.
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                meter.reset()
-            else:
-                meter.add(examples)
-                counted += examples
-            losses.append(loss)
-            pending += loss.numel()
-            if pending >= cfg.log_every:
-                pending = 0
-                groups.drain()
-                mean_loss = _mean(losses)
-                # Read after the sync above, so the window's examples are
-                # trained, not only launched.
-                rate = meter.rate()
-                _check_finite(mean_loss, state.step)
-                # A window that holds only the first call (K >= log_every)
-                # has no examples to rate: its line gives the loss alone.
-                log(
-                    f"step {state.step} epoch {epoch} loss {mean_loss:.5f}"
-                    + (f" examples/sec {rate:,.0f} (/chip {rate:,.0f})" if counted else "")
-                )
-                losses.clear()
-                meter.reset()
-                counted = 0
-        # A poisoned state must abort BEFORE the save below replaces the
-        # last good checkpoint.
-        groups.drain()
-        if losses:
-            _check_finite(_mean(losses), state.step)
-        if cfg.validation_files:
-            val_auc = _evaluate(cfg, model, predict_step, state, cfg.validation_files,
-                                max_nnz, device, log)
-            log(f"epoch {epoch} validation auc {val_auc:.5f}")
-        if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
-            save_checkpoint(cfg.model_file, unpack_state(state, model))
-            log(f"epoch {epoch} checkpoint -> {cfg.model_file}")
-    save_checkpoint(cfg.model_file, unpack_state(state, model))
-    log(f"training done: steps {start_step}->{state.step}, model -> {cfg.model_file}")
+    stop, restore_handlers = _signal_stop(log)
+    try:
+        for epoch in range(start_epoch, cfg.epoch_num):
+            if stop.is_set():
+                break
+            # A resumed first epoch reopens at the cursor's batch.
+            for batch, examples in train_stream(epoch, cur["batch"] if epoch == start_epoch else 0):
+                first_call = state.step == start_step
+                state, loss = step_fn(state, batch)
+                cur["batch"] += loss.numel()  # K batches consumed
+                groups.push(loss, state.step)
+                if first_call:
+                    # Call 1 pays the kernel builds, the graph capture and the
+                    # allocator's warm-up: the meter's window starts after it
+                    # and holds none of its examples.
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    meter.reset()
+                else:
+                    meter.add(examples)
+                    counted += examples
+                losses.append(loss)
+                pending += loss.numel()
+                if step_hook is not None:
+                    step_hook(state.step)  # before the stop check: a raised signal stops here
+                if stop.is_set():
+                    break
+                if pending >= cfg.log_every:
+                    pending = 0
+                    groups.drain()
+                    mean_loss = _mean(losses)
+                    # Read after the sync above, so the window's examples are
+                    # trained, not only launched.
+                    rate = meter.rate()
+                    _check_finite(mean_loss, state.step)
+                    # A window that holds only the first call (K >= log_every)
+                    # has no examples to rate: its line gives the loss alone.
+                    log(
+                        f"step {state.step} epoch {epoch} loss {mean_loss:.5f}"
+                        + (f" examples/sec {rate:,.0f} (/chip {rate:,.0f})" if counted else "")
+                    )
+                    losses.clear()
+                    meter.reset()
+                    counted = 0
+            if stop.is_set():
+                break
+            # A poisoned state must abort BEFORE the cursor moves and the save
+            # below replaces the last good checkpoint.
+            groups.drain()
+            if losses:
+                _check_finite(_mean(losses), state.step)
+            cur["epoch"], cur["batch"] = epoch + 1, 0  # the next epoch's start
+            if cfg.validation_files:
+                val_auc = _evaluate(cfg, model, predict_step, state, cfg.validation_files,
+                                    max_nnz, device, log)
+                log(f"epoch {epoch} validation auc {val_auc:.5f}")
+            if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
+                save()
+                log(f"epoch {epoch} checkpoint -> {cfg.model_file}")
+    finally:
+        restore_handlers()
+    # The stop save too: never a poisoned state.
+    groups.drain()
+    if losses:
+        _check_finite(_mean(losses), state.step)
+    save()
+    if stop.is_set():
+        log(
+            f"stopped on signal at step {state.step}, model -> {cfg.model_file} "
+            "(resume with --resume)"
+        )
+    else:
+        log(f"training done: steps {start_step}->{state.step}, model -> {cfg.model_file}")
     return state

@@ -8,6 +8,10 @@ installed (the repository's conftest imports JAX, hence ``--noconftest``):
 
 The K-step CUDA graphs (``steps_per_call``) are held bitwise against the
 eager steps they replay, and a failed build of the native parser raises.
+The rows tail at the packed address is held bitwise to its twin and to the
+rows layout's update; a stopped and resumed card run (streamed, and cached
+at K = 8) bitwise to the uninterrupted one; the dedup body captures in a
+K = 8 graph.
 """
 
 import os
@@ -597,3 +601,170 @@ def test_native_parser_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="host build of libsvm_parser.cpp failed"):
         best_parser(2)
     assert not os.path.exists(tmp_path / "_build" / "liblibsvm_parser.so")
+
+
+# --- the packed address, exact resume and dedup_gather_rows on the card ------
+
+
+@pytest.mark.parametrize("d", [1, 9, 64, 89])  # P = 128, 14, 2, 1
+@pytest.mark.parametrize("accumulator", ["element", "row"])
+@pytest.mark.parametrize("decay", [1.0, 0.9])
+def test_packed_tail_kernel_is_bitwise_its_twin_and_the_rows_kernel(cuda, d, accumulator, decay):
+    """B4 at the packed address (P = max(1, 128 // D) rows a 128-float tile
+    row) against its twin on the card, bitwise; ids below 0 or past VP·P
+    skipped, pad lanes and slots untouched; unpacked, bitwise the rows
+    kernel on the logical arrays."""
+    from fast_tffm_tpu_torch.ops.packed_table import (
+        pack_accum_any,
+        pack_table,
+        packed_rows,
+        rows_per_tile,
+        unpack_accum_any,
+        unpack_table,
+    )
+    from fast_tffm_tpu_torch.ops.tail import rows_tail_sorted_plain
+
+    v, m = 4099, 3000
+    p, a = rows_per_tile(d), d if accumulator == "element" else 1
+    rng = np.random.default_rng(d * 10 + a)
+    table, accum, ids, grads = _tail_case(rng, v, d, a, m, "zipf")
+    ids[:40] = rng.integers(-32, 0, 40)
+    ids[40:50] = packed_rows(v, d) * p + 5  # past the packed rows
+    ids[50:400] = 0
+    grads[50:400] = 0.0  # padding slots
+    tp = pack_table(torch.from_numpy(table)).to(cuda)
+    ap = pack_accum_any(torch.from_numpy(accum), d, 0.1).to(cuda)
+    t_k, a_k, t_p, a_p = tp.clone(), ap.clone(), tp.clone(), ap.clone()
+    ids_t, g_t = torch.from_numpy(ids).to(cuda), torch.from_numpy(grads).to(cuda)
+    before = rows_tail_adagrad_update.launches
+    rows_tail_adagrad_update(t_k, a_k, ids_t, g_t, 0.05, decay=decay, packed=True)
+    sid, order = torch.sort(ids_t, stable=True)
+    rows_tail_sorted_plain(t_p, a_p, sid, order, g_t, 0.05, decay, packed=True)
+    torch.cuda.synchronize()
+    assert rows_tail_adagrad_update.launches == before + 1
+    assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
+    assert torch.equal(t_k[:, p * d:], tp[:, p * d:])  # pad lanes
+    pad = (-v) % p * d
+    if pad:
+        assert torch.equal(t_k[-1, p * d - pad : p * d], tp[-1, p * d - pad : p * d])
+    t_r, a_r = torch.from_numpy(table).to(cuda), torch.from_numpy(accum).to(cuda)
+    rows_tail_adagrad_update(t_r, a_r, ids_t, g_t, 0.05, decay=decay)
+    assert torch.equal(unpack_table(t_k, v, d), t_r)
+    assert torch.equal(unpack_accum_any(a_k, v, d), a_r)
+    assert not torch.equal(a_r, torch.from_numpy(accum).to(cuda))
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _resume_cfg(tmp_path, name, **kw):
+    from fast_tffm_tpu_torch.config import Config
+
+    return Config(
+        model="fm", order=3, factor_num=8, vocabulary_size=256, max_nnz=8, batch_size=20,
+        epoch_num=2, learning_rate=0.05, factor_lambda=1e-4, bias_lambda=1e-4, log_every=3,
+        thread_num=2, model_file=str(tmp_path / name),
+        train_files=(str(tmp_path / "train.libsvm"),),
+        validation_files=(str(tmp_path / "test.libsvm"),), **kw,
+    ).validate()
+
+
+@pytest.mark.parametrize(
+    "mode",
+    [dict(), dict(device_cache=True, binary_cache=True, shuffle=True, steps_per_call=8)],
+    ids=["streamed", "cached-shuffle-K8"],
+)
+def test_stopped_and_resumed_card_run_is_bitwise_the_uninterrupted_one(
+        cuda, tmp_path, monkeypatch, mode):
+    """A card run stopped by SIGTERM from its step hook (at step 23: the
+    K = 8 run stops at the call ending at step 28, epoch 1 batch 8) and
+    resumed ends bitwise equal to the uninterrupted card run; the
+    K-aligned resume captures no graph beyond the one length-8 graph (and
+    the epoch's length-4 tail graph) an uninterrupted run captures."""
+    import shutil
+    import signal
+
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor, save_checkpoint
+    from fast_tffm_tpu_torch.trainer import TrainState
+    from fast_tffm_tpu_torch.training import train
+    from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
+
+    for f in ("train.libsvm", "test.libsvm"):
+        shutil.copy(os.path.join(REPO, "data", f), tmp_path)
+    rng = np.random.default_rng(23)
+    save_checkpoint(str(tmp_path / "init.ckpt"), TrainState(
+        table=torch.from_numpy(rng.uniform(-0.3, 0.3, (256, 9)).astype(np.float32)), dense=[],
+        step=0, table_accum=torch.full((256, 9), 0.1)))
+    captures = []
+    real = StepGraphs._capture
+    monkeypatch.setattr(StepGraphs, "_capture",
+                        lambda self, *a: captures.append(1) or real(self, *a))
+    runs = {}
+    for name in ("whole", "cut"):
+        cfg = _resume_cfg(tmp_path, f"{name}.ckpt", **mode)
+        shutil.copy(tmp_path / "init.ckpt", cfg.model_file)
+        runs[name] = cfg
+    quiet = lambda *_: None  # noqa: E731
+    want = train(runs["whole"], resume=True, log=quiet, device="cuda")
+    whole_captures, captures[:] = len(captures), []
+    fired = []
+
+    def hook(step):
+        if step >= 23 and not fired:
+            fired.append(step)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    train(runs["cut"], resume=True, log=quiet, device="cuda", step_hook=hook)
+    k = runs["cut"].steps_per_call
+    assert fired == [23 if k == 1 else 28]
+    cursor = read_input_cursor(runs["cut"].model_file)
+    assert (cursor["epoch"], cursor["batch_in_epoch"]) == divmod(fired[0], 20)
+    captures[:] = []
+    got = train(runs["cut"], resume=True, log=quiet, device="cuda")
+    torch.cuda.synchronize()
+    assert got.step == want.step == 40
+    assert torch.equal(got.table, want.table) and torch.equal(got.table_accum, want.table_accum)
+    if k > 1:
+        assert whole_captures == 2 and len(captures) == 2  # lengths 8 and 4 (20 = 8 + 8 + 4)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_dedup_gather_rows_card_run_is_bitwise_the_plain_run(cuda, tmp_path, monkeypatch, k):
+    """``dedup_gather_rows`` on the card (the port gathers directly and
+    checks the cap): bitwise the plain run, at K = 8 in the plain run's
+    graphs; a cap below a batch's unique ids raises before any launch."""
+    import shutil
+
+    from fast_tffm_tpu_torch.checkpoint import save_checkpoint
+    from fast_tffm_tpu_torch.trainer import TrainState
+    from fast_tffm_tpu_torch.training import train
+    from fast_tffm_tpu_torch.utils.prefetch import PrefetchError
+    from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
+
+    for f in ("train.libsvm", "test.libsvm"):
+        shutil.copy(os.path.join(REPO, "data", f), tmp_path)
+    rng = np.random.default_rng(29)
+    save_checkpoint(str(tmp_path / "init.ckpt"), TrainState(
+        table=torch.from_numpy(rng.uniform(-0.3, 0.3, (256, 9)).astype(np.float32)), dense=[],
+        step=0, table_accum=torch.full((256, 9), 0.1)))
+    captures = []
+    real = StepGraphs._capture
+    monkeypatch.setattr(StepGraphs, "_capture",
+                        lambda self, *a: captures.append(1) or real(self, *a))
+    runs = {}
+    for name, cap in (("plain", 0), ("dedup", 20 * 8), ("small", 4)):
+        runs[name] = _resume_cfg(tmp_path, f"{name}.ckpt", steps_per_call=k,
+                                 dedup_gather_rows=cap)
+        shutil.copy(tmp_path / "init.ckpt", runs[name].model_file)
+    quiet = lambda *_: None  # noqa: E731
+    want = train(runs["plain"], resume=True, log=quiet, device="cuda")
+    plain_captures, captures[:] = len(captures), []
+    got = train(runs["dedup"], resume=True, log=quiet, device="cuda")
+    torch.cuda.synchronize()
+    assert got.step == want.step == 40
+    assert torch.equal(got.table, want.table) and torch.equal(got.table_accum, want.table_accum)
+    assert len(captures) == plain_captures == (0 if k == 1 else 2)
+    before = rows_tail_adagrad_update.launches
+    with pytest.raises(PrefetchError, match="dedup_gather_rows = 4 but a batch carries"):
+        train(runs["small"], resume=True, log=quiet, device="cuda")
+    assert rows_tail_adagrad_update.launches == before

@@ -28,6 +28,7 @@ import torch
 from fast_tffm_tpu.config import Config as JaxConfig
 from fast_tffm_tpu.data import binary as jax_binary
 from fast_tffm_tpu.data import device_cache as jax_device_cache
+from fast_tffm_tpu.data import pipeline as jax_pipeline
 from fast_tffm_tpu.data.native import load_native_parser as jax_load_native_parser
 from fast_tffm_tpu.data.native import native_batch_stream as jax_native_batch_stream
 from fast_tffm_tpu.models.base import Batch as JaxBatch
@@ -242,8 +243,12 @@ def test_fmb_stream_refusals_like_jax(tmp_path):
         list(batch_stream([fmb, src], batch_size=8, vocabulary_size=V, max_nnz=9))
     with pytest.raises(ValueError, match="shuffle requires memmap"):
         list(batch_stream([src], batch_size=8, vocabulary_size=V, max_nnz=9, shuffle_seed=1))
-    with pytest.raises(ValueError, match="later slice"):
-        list(batch_stream([src], batch_size=8, vocabulary_size=V, max_nnz=9, skip_rows=8))
+    for skip in (7, -8):  # the seek takes whole batches only, as JAX's does
+        with pytest.raises(ValueError, match="whole number of batches"):
+            list(batch_stream([src], batch_size=8, vocabulary_size=V, max_nnz=9, skip_rows=skip))
+        with pytest.raises(ValueError, match="whole number of batches"):
+            list(jax_pipeline.batch_stream([src], batch_size=8, vocabulary_size=V, max_nnz=9,
+                                           skip_rows=skip))
 
 
 def test_shuffle_refusals_name_binary_cache_and_no_absent_verb(tmp_path, monkeypatch):

@@ -246,7 +246,6 @@ def test_config_refusals(kw, needle):
 
 
 TRAIN_ONLY = [
-    dict(dedup_gather_rows=1024),
     dict(paramstore=True),
     dict(online_follow=True),
     dict(online_accum_restart_steps=100),
@@ -256,8 +255,6 @@ TRAIN_ONLY = [
     dict(metrics_path="m.jsonl"),
     dict(trace_dir="trace"),
     dict(telemetry_profile_steps="2:4"),
-    dict(table_layout="packed"),  # the element accumulator: an XLA packed tail
-    dict(table_layout="packed", adagrad_accumulator="row"),
 ]
 
 
