@@ -139,18 +139,52 @@ last line:
             CUDA graph; the port gathers directly and checks the cap):
             bitwise the resume_streamed phase's plain run; a cap of 16,384
             fails before any batch ships
+  telemetry_train  the train phase's config and npz with metrics_path,
+            profile_steps 8:12, datastats every 4 steps, the watchdog (60 s)
+            and memory every 0.5 s: every record's envelope and keys, no
+            steady-state compile, the profile window's start/stop records and
+            its trace against the wrappers' launches inside the window (one
+            forward, backward and tail a step; the one loss below aside),
+            the memory records above the state's bytes, the final state
+            bitwise the train phase's; the loop's step p50 with and without
+            telemetry (plain, instrumented, instrumented, plain)
+  telemetry_cached the train_cached config with metrics_path: the capture a
+            warm-up compile, train_step and train_graph_k8 profile records,
+            bitwise the train_cached card run; its replays counted by kernel
+            name in a trace of the run, as train_cached's
+  telemetry_serve, telemetry_predict  the trained model served (2048 lines)
+            and predicted with metrics_path: kind=serving / kind=predict with
+            their keys, profile records per bucket and for predict_step
+  ckpt_async the rows and the fused run (2 epochs) with async_save against
+            the same run saved synchronously: bitwise equal files, kind=ckpt
+            mode full and sync, each save's train_stall_ms
+  ckpt_delta delta_every_steps = 8 at K = 1 (native text) and K = 8 (device
+            cache): the chain to the run's end replays bitwise the
+            uninterrupted run, a resume from the chain head at step 16 ends
+            bitwise it, each delta's rows_written its window's unique ids
+  ckpt_ffm  baseline3 (FFM, a 746 MB state, 16 steps) saved sync and async in
+            turns: bitwise equal files, train_stall_ms and whole-run ex/s
+            (every K = 8 run of these phases traced, as train_cached's)
   throughput the config's 1,048,576-row epoch on the card only, streamed
             through the native parser, from FMB (converted first, timed
             apart), from FMB with steps_per_call = 8 and device-cached with
             steps_per_call = 8: logged and whole-run ex/s and the card's
             idle share of each run
+  telemetry_cost the same streamed native epoch in turns plain, with the
+            monitor (metrics_path, watchdog, memory, a profile window at
+            steps 56:60) and with datastats every 4 steps as well, 8 rounds:
+            each run's step gaps after step 4 to step 52 (p50 and mean), per
+            mode the median of the runs, and per round its time relative to
+            the round's plain run: whether all rounds agree in sign, and the
+            smallest relative difference they resolve
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
             launches_by_run adds the graphed train_cached runs' replays, and
             for B4 the zoo's, resume, convert, packed and dedup runs, for B3
             the fused resume runs), error and times at the training shapes
             (B4's `shapes` adds baseline1's and baseline3's, its `packed`
-            the packed address)
+            the packed address); launches_by_run adds the telemetry_* and
+            ckpt_* runs (K-step runs: the replays in their traces)
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -290,6 +324,7 @@ def trace_device(fn):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()  # the tracing settled before fn's first launch
         fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
@@ -2495,6 +2530,620 @@ def phase_packed_tail(rng, train_path: str) -> dict:
     return out
 
 
+# --- telemetry, profiling and the async/delta checkpoint writer ----------------
+#
+# An eager run's launches are the wrappers' counts.  A K-step run's replays
+# pass no wrapper: it runs under chip_smoke's own profiler (``_counted_run``)
+# and its trace counts them, as train_cached's do.  A run with a profile
+# window never opens that profiler (a run's StepProfiler owns the one
+# torch.profiler a process may have open): such runs are eager, and the
+# window's trace is held against the wrappers' counts taken at its start
+# and stop (``_window_launches``).
+
+DELTA_EVERY = 8
+FFM_STEPS = 16
+
+
+def _model_files(cfg) -> list:
+    import glob
+
+    return sorted(glob.glob(glob.escape(cfg.model_file) + "*"))
+
+
+def _run(what: str, cfg, hook=None, expect_abort: bool = False) -> dict:
+    """One card run of ``training.train`` of an order-3 FM (or, eager, any
+    model), every kernel counter zeroed just before and read just after.
+    ``hook`` is its step hook; ``expect_abort`` a run the hook ends by
+    raising ``_Abort`` (no final save).  Its ``launches`` are those its
+    train steps made: an eager run's are the wrappers' counts; a K-step
+    run's are counted in a profiler trace of the run (``_counted_run``,
+    replays = trace less wrappers, ``_step_launches``), each retry from the
+    model files (base and deltas) and metrics the run started with.
+    Returns the state (None when aborted), the log, the wall time and the
+    counts."""
+    import shutil
+
+    import torch
+
+    graphed = cfg.steps_per_call > 1
+    head, name = os.path.split(cfg.model_file)
+    keep = os.path.join(head, f".keep.{name}")
+    start = _model_files(cfg)
+    if graphed:
+        os.makedirs(keep, exist_ok=True)
+        for path in start:
+            shutil.copy(path, os.path.join(keep, os.path.basename(path)))
+    result = {}
+
+    def run_once():
+        if graphed:  # a retry starts from the files the first attempt had
+            for path in _model_files(cfg):
+                os.remove(path)
+            for path in start:
+                shutil.copy(os.path.join(keep, os.path.basename(path)), path)
+        if cfg.metrics_path and os.path.exists(cfg.metrics_path):
+            os.remove(cfg.metrics_path)
+        lines, state = [], None
+        try:
+            state, _ = _train_once(cfg, "cuda", lines, step_hook=hook)
+            if expect_abort:
+                fail(f"{what}: the run was to be aborted by its step hook and ended")
+        except _Abort:
+            if not expect_abort:
+                raise
+        result.update(state=state, log=lines)
+
+    out = {"cfg": cfg}
+    if graphed:
+        window, wrappers = _counted_run(run_once, what, lambda: True)
+        out["launches"] = _step_launches(window, wrappers, True, what)
+        out.update(wall_ms=window["wall_ms"], wrappers=wrappers,
+                   trace_attempts=window["trace_attempts"],
+                   trace_lost_events=window.get("trace_lost_events"))
+        shutil.rmtree(keep)
+    else:
+        _zero_counters()
+        t0 = time.perf_counter()
+        run_once()
+        torch.cuda.synchronize()
+        out["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["wrappers"] = _wrapper_counts()
+        out["launches"] = dict(out["wrappers"])
+    return {**out, **result}
+
+
+class _Abort(Exception):
+    """Ends a run from its step hook before its final save."""
+
+
+def _abort_at(step_at: int):
+    def hook(step):
+        if step >= step_at:
+            raise _Abort(step)
+
+    return hook
+
+
+def _records(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _check_records(what: str, records: list) -> dict:
+    """Every record's envelope and its kind's required keys (the JAX
+    package's SCHEMAS); no steady-state compile.  Returns the counts by kind."""
+    from fast_tffm_tpu_torch.telemetry import ENVELOPE_FIELDS, SCHEMAS
+
+    kinds: dict = {}
+    for r in records:
+        missing = [k for k in (*ENVELOPE_FIELDS, *SCHEMAS.get(r.get("kind"), ("?",)))
+                   if k not in r]
+        if missing:
+            fail(f"{what}: a {r.get('kind')} record lacks {missing}: {str(r)[:300]}")
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    summary = [r for r in records if r["kind"] == "summary"]
+    if len(summary) != 1 or summary[0]["steady_compiles"] != 0:
+        fail(f"{what}: summary {summary} (one, with steady_compiles 0, expected)")
+    if any(r["kind"] == "compile" and not r["warmup"] for r in records):
+        fail(f"{what}: a steady-state compile record")
+    return kinds
+
+
+def _restored(path: str, width: int):
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+
+    return restore_checkpoint(path, torch.device("cpu"), accum_width=width)
+
+
+def _same_files(what: str, a: str, b: str, width: int, cursor: bool = True) -> None:
+    """Two checkpoints (chains replayed) hold the same step, table and
+    accumulators, bit for bit, and (``cursor``) the same cursor.  (Their
+    save_id and published_at members differ by design.)"""
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor
+
+    if not _logical_equal(_restored(a, width), _restored(b, width)):
+        fail(f"{what}: {os.path.basename(a)} and {os.path.basename(b)} differ")
+    if cursor and read_input_cursor(a) != read_input_cursor(b):
+        fail(f"{what}: the cursors differ: {read_input_cursor(a)} against {read_input_cursor(b)}")
+
+
+def _step_clock():
+    """A step hook that stamps the host clock after every call, and the p50
+    of the gaps between calls (the loop's step time), the first two gaps
+    dropped (builds, capture, warm-up)."""
+    stamps = []
+
+    def hook(step):
+        stamps.append(time.perf_counter())
+
+    def p50():
+        gaps = sorted(1e3 * (b - a) for a, b in zip(stamps[2:], stamps[3:]))
+        return gaps[len(gaps) // 2] if gaps else None
+
+    return hook, p50
+
+
+def _trace_kernels(path: str) -> tuple[dict, str | None]:
+    """Kernel launches by name of KERNELS in a chrome trace file, and the
+    first of them in launch order."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    found = sorted((float(e.get("ts", 0.0)), k) for e in events
+                   if str(e.get("cat", "")).lower() == "kernel"
+                   for k, syms in KERNEL_SYMBOLS.items()
+                   if any(s in e.get("name", "") for s in syms))
+    counts = {k: sum(1 for _, name in found if name == k) for k in KERNEL_SYMBOLS}
+    return counts, found[0][1] if found else None
+
+
+@contextlib.contextmanager
+def _window_counts():
+    """The wrappers' counts when a run's StepProfiler starts its trace and
+    when it stops it (after the window's last call), while active."""
+    from fast_tffm_tpu_torch.profiling import StepProfiler
+
+    real, box = StepProfiler._emit, {}
+
+    def counted(self, step, event, **extra):
+        box[event] = _wrapper_counts()
+        return real(self, step, event, **extra)
+
+    StepProfiler._emit = counted
+    try:
+        yield box
+    finally:
+        StepProfiler._emit = real
+
+
+def _window_launches(what: str, path: str, box: dict) -> dict:
+    """A profile window's trace against the wrappers' launches inside it
+    (the run is eager: every launch passes a wrapper): equal, or short by
+    exactly the window's first launch, a forward (the one loss seen in a
+    long process, PERF.md section 6).  Anything else fails."""
+    traced, first = _trace_kernels(path)
+    want = {k: box["trace_stop"][k] - box["trace_start"][k] for k in KERNELS}
+    rec = {"launches_traced": traced, "launches_by_wrappers": want, "first_traced": first}
+    if traced == want:
+        return rec
+    if (dict(traced, anova_fwd=traced["anova_fwd"] + 1) == want and first != "anova_fwd"
+            and want["anova_fwd"] > 0):
+        rec["trace_lost_events"] = {"anova_fwd": 1}
+        log_stderr(f"{what}: the profile window's trace lost its first forward launch")
+        return rec
+    fail(f"{what}: the profile window's trace counts {traced} kernel launches, the "
+         f"wrappers {want} (first traced: {first})")
+
+
+def phase_telemetry_train(tmp: str, train_cfg) -> dict:
+    """The train phase's config and npz (rows, native text, 24 steps) with
+    metrics_path, profile_steps 8:12, datastats every 4 steps, the watchdog
+    at 60 s and memory every 0.5 s: every record's envelope and keys, no
+    steady-state compile, the profile window's start and stop and its trace
+    against the wrappers' launches inside the window (``_window_launches``;
+    one forward, one backward and one tail a step), the memory records above the
+    table and accumulators' bytes, and the final state bitwise the
+    uninstrumented train phase's.  The loop's step p50 with and without the
+    telemetry, in turns (plain, instrumented, instrumented, plain); its cost
+    is measured in ``phase_telemetry_cost``."""
+    init = os.path.join(tmp, "train.init.ckpt")
+    files = dict(train_files=train_cfg.train_files, validation_files=train_cfg.validation_files,
+                 predict_files=train_cfg.predict_files, log_every=4)
+    on = dict(telemetry_profile_steps="8:12", telemetry_datastats_every_steps=4,
+              telemetry_stall_timeout_s=60.0, telemetry_mem_every_s=0.5)
+    state_bytes = 2 * train_cfg.vocabulary_size * (train_cfg.factor_num + 1) * 4
+    p50s = {"plain": [], "telemetry": []}
+    rec, windows = {"phase": "telemetry_train", "config": CONFIG, **on}, []
+    for i, mode in enumerate(("plain", "telemetry", "telemetry", "plain")):
+        metrics = os.path.join(tmp, f"telemetry_train.{i}.jsonl")
+        cfg = _phase_cfg(train_cfg, tmp, f"telemetry_train_{i}", "cuda", init, **files,
+                         **(dict(on, metrics_path=metrics) if mode == "telemetry" else {}))
+        hook, p50 = _step_clock()
+        with _window_counts() as box:
+            run = _run(f"telemetry_train {mode}", cfg, hook)
+        p50s[mode].append(p50())
+        _expect_steps(f"telemetry_train {mode}", run["launches"], TRAIN_BATCHES)
+        _same_files(f"telemetry_train {mode} against train", cfg.model_file,
+                    train_cfg.model_file, train_cfg.factor_num + 1)
+        if mode == "plain":
+            continue
+        records = _records(metrics)
+        kinds = _check_records("telemetry_train", records)
+        want = {"train", "input", "validation", "ckpt", "profile", "datastats", "mem", "summary"}
+        if not want <= set(kinds):
+            fail(f"telemetry_train: kinds {sorted(kinds)}, expected at least {sorted(want)}")
+        trace = [r for r in records if r["kind"] == "profile" and r["program"] == "trace"]
+        if [r["event"] for r in trace] != ["trace_start", "trace_stop"] or trace[0]["step"] < 8:
+            fail(f"telemetry_train: profile window records {trace}")
+        in_trace = _window_launches("telemetry_train", trace[1]["trace_path"], box)
+        steps = trace[1]["step"] - trace[0]["step"]
+        if in_trace["launches_by_wrappers"] != {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(
+                ("anova_fwd", "anova_bwd", "rows_tail_adagrad"), steps)}:
+            fail(f"telemetry_train: the window of {steps} steps launched "
+                 f"{in_trace['launches_by_wrappers']}")
+        windows.append(in_trace)
+        mem = [r["device_bytes"] for r in records if r["kind"] == "mem"]
+        if not mem or min(mem) < state_bytes:
+            fail(f"telemetry_train: mem device_bytes {mem} below the state's {state_bytes}")
+        ds = [r for r in records if r["kind"] == "datastats"]
+        if not ds or any(r["ids"] != BATCH * NNZ for r in ds):
+            fail(f"telemetry_train: datastats {ds}")
+        rec.update(kinds=kinds, launches=run["launches"], trace_windows=windows,
+                   trace_seconds=trace[1].get("trace_s"), mem_device_bytes=[min(mem), max(mem)],
+                   datastats=ds[-1], summary=[r for r in records if r["kind"] == "summary"][0],
+                   bitwise_train=True, profile_programs=sorted(
+                       r["program"] for r in records if r["kind"] == "profile"))
+    rec["step_ms_p50"] = p50s
+    emit(rec)
+    return rec["launches"]
+
+
+def phase_telemetry_cached(tmp: str, train_cfg) -> dict:
+    """The train_cached phase's config and npz (device cache, shuffle, K = 8,
+    2 epochs) with metrics_path: the graph capture is a warm-up compile, no
+    steady-state one; train_step and train_graph_k8 profile records; the
+    final state bitwise the uninstrumented train_cached card run's; its
+    replayed launches counted in a trace of the run."""
+    kw = {"device_cache": True, "binary_cache": True, "shuffle": True, "steps_per_call": 8}
+    base = _b5(**kw)
+    metrics = os.path.join(tmp, "telemetry_cached.jsonl")
+    cfg = _phase_cfg(base, tmp, "telemetry_cached", "cuda",
+                     os.path.join(tmp, "train_cached.init.ckpt"),
+                     train_files=train_cfg.train_files,
+                     validation_files=train_cfg.validation_files, epoch_num=2, log_every=8,
+                     metrics_path=metrics)
+    run = _run("telemetry_cached", cfg)
+    records = _records(metrics)
+    kinds = _check_records("telemetry_cached", records)
+    compiles = [r for r in records if r["kind"] == "compile"]
+    if sum(r["compiles"] for r in compiles) < 1:
+        fail(f"telemetry_cached: the capture was not counted: {compiles}")
+    programs = sorted(r["program"] for r in records if r["kind"] == "profile")
+    if programs != ["train_graph_k8", "train_step"]:
+        fail(f"telemetry_cached: profile records {programs}")
+    _expect_steps("telemetry_cached", run["launches"], 2 * TRAIN_BATCHES)
+    _same_files("telemetry_cached against train_cached", cfg.model_file,
+                os.path.join(tmp, "train_cached.cuda.ckpt"), base.factor_num + 1)
+    emit({"phase": "telemetry_cached", "config": CONFIG + " + " + json.dumps(kw),
+          "kinds": kinds, "compiles": compiles, "launches": run["launches"],
+          "wrappers": run["wrappers"], "trace_attempts": run["trace_attempts"],
+          "trace_lost_events": run["trace_lost_events"], "wall_ms": run["wall_ms"],
+          "bitwise_train_cached": True,
+          "summary": [r for r in records if r["kind"] == "summary"][0]})
+    return run["launches"]
+
+
+COST_ROUNDS = 8  # rounds of (plain, monitor, datastats), every other one reversed
+COST_GAPS = (4, 52)  # the step gaps measured: after step 4 to step 52
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def phase_telemetry_cost(tmp: str, big_path: str) -> dict:
+    """The telemetry's cost on the loop: the throughput phase's streamed
+    native epoch (1,048,576 rows, 64 eager steps, no validation, no save)
+    in rounds of plain, ``monitor`` (metrics_path, the watchdog at 60 s,
+    memory every 0.5 s, a profile window at steps 56:60) and ``datastats``
+    (the same and datastats every 4 steps), COST_ROUNDS rounds, every other
+    one reversed.  Each run's step time is the host clock's gaps between
+    step hooks after step 4 to step 52 (48 gaps, the profile window after
+    them), as its p50 and its mean.  Per mode: the median of the runs;
+    per round, each mode's time relative to the same round's plain run
+    (pairing cancels the host's drift across the call).  A mode's cost is
+    resolved when every round agrees in sign (a sign test: 2 / 2^8 < 0.01);
+    the smallest difference the rounds resolve is taken as half the range
+    of the paired differences."""
+    import dataclasses
+
+    import torch
+
+    from fast_tffm_tpu_torch.config import load_config
+
+    base = dataclasses.replace(
+        load_config(os.path.join(HERE, CONFIG)), train_files=(big_path,), validation_files=(),
+        predict_files=(), save_every_epochs=0,
+    )
+    monitor = dict(telemetry_stall_timeout_s=60.0, telemetry_mem_every_s=0.5,
+                   telemetry_profile_steps="56:60")
+    modes = {"plain": {}, "monitor": monitor,
+             "datastats": dict(monitor, telemetry_datastats_every_steps=4)}
+    lo, hi = COST_GAPS
+    rounds = []
+    for r in range(COST_ROUNDS):
+        got = {}
+        for mode in (list(modes) if r % 2 == 0 else list(modes)[::-1]):
+            i = len(rounds) * len(modes) + len(got)
+            kw = dict(modes[mode])
+            if kw:
+                kw["metrics_path"] = os.path.join(tmp, f"telemetry_cost.{i}.jsonl")
+            cfg = dataclasses.replace(
+                base, model_file=os.path.join(tmp, f"telemetry_cost.{i}.ckpt"), **kw).validate()
+            stamps = []
+            _zero_counters()
+            t0 = time.perf_counter()
+            _train_once(cfg, "cuda", [], resume=False,
+                        step_hook=lambda step: stamps.append(time.perf_counter()))
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            launches = _wrapper_counts()
+            if launches["anova_fwd"] != THROUGHPUT_BATCHES:
+                fail(f"telemetry_cost {mode}: {launches} for {THROUGHPUT_BATCHES} steps")
+            _expect_steps(f"telemetry_cost {mode}", launches, THROUGHPUT_BATCHES)
+            if kw:
+                _check_records(f"telemetry_cost {mode}", _records(kw["metrics_path"]))
+            # stamps[j] follows step j + 1.
+            gaps = sorted(1e3 * (b - a) for a, b in zip(stamps[lo - 1:hi - 1], stamps[lo:hi]))
+            got[mode] = {"p50": gaps[len(gaps) // 2], "mean": sum(gaps) / len(gaps),
+                         "wall_ms": wall_ms}
+            os.remove(cfg.model_file)
+        rounds.append(got)
+    rec = {"phase": "telemetry_cost", "config": CONFIG, "rows": THROUGHPUT_BATCHES * BATCH,
+           "rounds": COST_ROUNDS, "gaps": list(COST_GAPS), "modes": modes}
+    for stat in ("p50", "mean"):
+        by_run = {m: [r[m][stat] for r in rounds] for m in modes}
+        paired = {m: [r[m][stat] / r["plain"][stat] - 1.0 for r in rounds]
+                  for m in modes if m != "plain"}
+        rec[f"step_ms_{stat}"] = {
+            "by_run": by_run,
+            "median_of_runs": {m: _median(v) for m, v in by_run.items()},
+            "paired_rel_diff": paired,
+            "paired_median": {m: _median(v) for m, v in paired.items()},
+            "resolved": {m: all(d > 0 for d in v) or all(d < 0 for d in v)
+                         for m, v in paired.items()},
+            "resolvable_rel_diff": {m: (max(v) - min(v)) / 2 for m, v in paired.items()},
+        }
+    rec["wall_ms"] = {m: [r[m]["wall_ms"] for r in rounds] for m in modes}
+    emit(rec)
+    return rec
+
+
+def phase_telemetry_serve_predict(rng, tmp: str, train_cfg) -> None:
+    """The trained baseline5 model served (2048 lines through serve_lines)
+    and predicted on the card with metrics_path: kind=serving and
+    kind=predict with their keys, a profile record per bucket and for
+    predict_step, no steady-state compile."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.prediction import predict
+    from fast_tffm_tpu_torch.serving import serve_lines
+
+    out = {"phase": "telemetry_serve"}
+    metrics = os.path.join(tmp, "telemetry_serve.jsonl")
+    cfg = dataclasses.replace(train_cfg, metrics_path=metrics, serve_metrics_every_s=0.05)
+    lines = _lines(rng, 2048, cfg.vocabulary_size)
+    sink = io.StringIO()
+    serve_lines(cfg, lines, out=sink, log=log_stderr, device="cuda")
+    records = _records(metrics)
+    out["kinds"] = _check_records("telemetry_serve", records)
+    serving = [r for r in records if r["kind"] == "serving"]
+    if not serving or serving[-1]["requests"] != len(lines) or serving[-1]["rows"] != len(lines):
+        fail(f"telemetry_serve: serving records {serving[-1:]}")
+    buckets = sorted(r["program"] for r in records if r["kind"] == "profile")
+    if buckets != sorted(f"serve_score_b{b}" for b in cfg.serve_buckets):
+        fail(f"telemetry_serve: profile records {buckets}")
+    out["serving_records"] = len(serving)
+    out["total_ms"] = serving[-1]["total_ms"]
+    emit(out)
+    metrics = os.path.join(tmp, "telemetry_predict.jsonl")
+    cfg = dataclasses.replace(train_cfg, metrics_path=metrics,
+                              score_path=os.path.join(tmp, "telemetry_predict.scores"))
+    predict(cfg, log=log_stderr, device="cuda")
+    records = _records(metrics)
+    kinds = _check_records("telemetry_predict", records)
+    (pred,) = [r for r in records if r["kind"] == "predict"]
+    if pred["examples"] != VALID_BATCHES * BATCH or not pred["examples_per_sec"]:
+        fail(f"telemetry_predict: {pred}")
+    if [r["program"] for r in records if r["kind"] == "profile"] != ["predict_step"]:
+        fail("telemetry_predict: no predict_step profile record")
+    emit({"phase": "telemetry_predict", "kinds": kinds, "predict": pred})
+
+
+def _ckpt_records(what: str, metrics: str, mode: str) -> list:
+    records = _records(metrics)
+    _check_records(what, records)
+    ckpt = [r for r in records if r["kind"] == "ckpt"]
+    if not ckpt or any(r["mode"] != mode for r in ckpt):
+        fail(f"{what}: kind=ckpt modes {[r['mode'] for r in ckpt]}, all {mode!r} expected")
+    return ckpt
+
+
+def _stall(ckpt: list) -> dict:
+    keys = ("step", "train_stall_ms", "snapshot_ms", "convert_ms", "d2h_ms", "write_ms", "bytes")
+    return [{k: r[k] for k in keys} for r in ckpt]
+
+
+def phase_ckpt_async(tmp: str, train_cfg) -> dict:
+    """The rows run and the fused run (native text, 2 epochs, an epoch save
+    each) with async_save, each against the same run saved synchronously:
+    the final files bitwise equal, kind=ckpt mode full (async) and sync,
+    and each save's train_stall_ms."""
+    rec, launches, refs = {"phase": "ckpt_async", "config": CONFIG}, {}, {}
+    for layout, extra, init in (("rows", {}, "train.init.ckpt"),
+                                ("fused", FUSED, "train_fused.init.ckpt")):
+        base = _b5(**extra)
+        width = 1 if extra else base.factor_num + 1
+        files = dict(train_files=train_cfg.train_files,
+                     validation_files=train_cfg.validation_files, epoch_num=2, log_every=8)
+        out = {}
+        for mode in ("sync", "async"):
+            metrics = os.path.join(tmp, f"ckpt_async_{layout}_{mode}.jsonl")
+            cfg = _phase_cfg(base, tmp, f"ckpt_async_{layout}_{mode}", "cuda",
+                             os.path.join(tmp, init), **files, metrics_path=metrics,
+                             async_save=mode == "async")
+            run = _run(f"ckpt_async {layout} {mode}", cfg)
+            tail = "fused_tail_adagrad" if extra else "rows_tail_adagrad"
+            _expect_steps(f"ckpt_async {layout} {mode}", run["launches"], 2 * TRAIN_BATCHES, tail)
+            ckpt = _ckpt_records(f"ckpt_async {layout} {mode}", metrics,
+                                 "full" if mode == "async" else "sync")
+            out[mode] = {"saves": _stall(ckpt), "wall_ms": run["wall_ms"],
+                         "examples_per_s_run": 2 * TRAIN_BATCHES * BATCH / (run["wall_ms"] / 1e3),
+                         "model_file": cfg.model_file}
+            launches[f"ckpt_async_{layout}_{mode}"] = run["launches"]
+        _same_files(f"ckpt_async {layout}", out["async"]["model_file"],
+                    out["sync"]["model_file"], width)
+        refs[layout] = out["sync"].pop("model_file")
+        out["async"].pop("model_file")
+        rec[layout] = {**out, "bitwise": True}
+    emit(rec)
+    return {"launches": launches, "rows_reference": refs["rows"]}
+
+
+def _window_uniques(train_path: str, vocab: int) -> list:
+    """The unique-id count of each 8-batch window of the unshuffled epoch
+    (windows end at batches 8, 16, 24), from the host parse."""
+    import numpy as np
+
+    from fast_tffm_tpu_torch.data.native import best_parser
+    from fast_tffm_tpu_torch.data.pipeline import batch_stream
+
+    ids = [p.ids for p, _ in batch_stream([train_path], batch_size=BATCH, vocabulary_size=vocab,
+                                          max_nnz=NNZ, parser=best_parser(8))]
+    return [int(np.unique(np.concatenate(ids[lo:lo + DELTA_EVERY])).size)
+            for lo in range(0, TRAIN_BATCHES, DELTA_EVERY)]
+
+
+def phase_ckpt_delta(tmp: str, train_cfg, async_out: dict) -> dict:
+    """delta_every_steps = 8 on the rows layout, 2 epochs, at K = 1 (native
+    text) and K = 8 (device cache, a graph per 8 steps): a run aborted after
+    its last call leaves base@24 + deltas @32, @40, @48, which replay
+    bitwise to the uninterrupted run's final file (ckpt_async's synchronous
+    rows run; at K = 8 a plain K = 8 run); a run stopped within the window
+    after step 16 leaves its chain head there, and --resume from it ends
+    bitwise the
+    uninterrupted run; each delta's rows_written is its window's unique
+    ids (from the host parse)."""
+    from fast_tffm_tpu_torch.checkpoint import delta_paths, read_input_cursor
+
+    init = os.path.join(tmp, "train.init.ckpt")
+    width = train_cfg.factor_num + 1
+    uniques = _window_uniques(train_cfg.train_files[0], train_cfg.vocabulary_size)
+    rec, launches = {"phase": "ckpt_delta", "config": CONFIG, "delta_every_steps": DELTA_EVERY,
+                     "window_unique_ids": uniques}, {}
+    files = dict(train_files=train_cfg.train_files, validation_files=train_cfg.validation_files,
+                 epoch_num=2, log_every=8)
+    for k in (1, 8):
+        mode = {"device_cache": True, "binary_cache": True, "steps_per_call": 8} if k > 1 else {}
+        base = _b5(**mode)
+        if k == 1:
+            ref = async_out["rows_reference"]  # ckpt_async's synchronous rows run
+        else:
+            plain = _run("ckpt_delta K=8 plain", _phase_cfg(base, tmp, "ckpt_delta_k8_plain",
+                                                            "cuda", init, **files))
+            launches["ckpt_delta_k8_plain"] = plain["launches"]
+            ref = plain["cfg"].model_file
+        metrics = os.path.join(tmp, f"ckpt_delta_k{k}.jsonl")
+        whole = _run(f"ckpt_delta K={k} to the end",
+                     _phase_cfg(base, tmp, f"ckpt_delta_k{k}_end", "cuda", init, **files,
+                                delta_every_steps=DELTA_EVERY, metrics_path=metrics),
+                     _abort_at(2 * TRAIN_BATCHES), expect_abort=True)
+        end = whole["cfg"].model_file
+        chain = [os.path.basename(p) for p in delta_paths(end)]
+        if len(chain) != 3:
+            fail(f"ckpt_delta K={k}: the chain {chain}, three deltas expected")
+        # The chain head names the position inside the last epoch, (1, 24);
+        # the final save the next epoch's start, (2, 0): the same batch.
+        _same_files(f"ckpt_delta K={k} chain", end, ref, width, cursor=False)
+        head_cursor = read_input_cursor(end)
+        if (head_cursor["epoch"], head_cursor["batch_in_epoch"]) != (1, TRAIN_BATCHES):
+            fail(f"ckpt_delta K={k}: the chain head's cursor {head_cursor}")
+        records = _records(metrics)
+        _check_records(f"ckpt_delta K={k}", records)
+        deltas = [r for r in records if r["kind"] == "ckpt" and r["mode"] == "delta"]
+        (summary,) = [r for r in records if r["kind"] == "summary"]
+        for r in deltas:
+            want = uniques[((r["step"] - 1) % TRAIN_BATCHES) // DELTA_EVERY]
+            if r["rows_written"] != want:
+                fail(f"ckpt_delta K={k}: the delta at step {r['step']} wrote "
+                     f"{r['rows_written']} rows, its window has {want} unique ids")
+        # Stopped inside the call that ends at step 16 (K = 8) or right
+        # after step 18 (K = 1): either way the chain head is the delta at 16.
+        cut = _run(f"ckpt_delta K={k} stopped",
+                   _phase_cfg(base, tmp, f"ckpt_delta_k{k}_cut", "cuda", init, **files,
+                              delta_every_steps=DELTA_EVERY),
+                   _abort_at(9 if k > 1 else 18), expect_abort=True)
+        head = cut["cfg"].model_file
+        cursor = read_input_cursor(head)
+        if len(delta_paths(head)) != 1 or (cursor["epoch"], cursor["batch_in_epoch"]) != (0, 16):
+            fail(f"ckpt_delta K={k}: after the stop {delta_paths(head)} and cursor {cursor}")
+        resumed = _run(f"ckpt_delta K={k} resumed", cut["cfg"])
+        seek = "resuming input at epoch 0, batch 16 (exact-position cursor)"
+        if seek not in resumed["log"]:
+            fail(f"ckpt_delta K={k}: the resume did not seek: {resumed['log'][:4]}")
+        _same_files(f"ckpt_delta K={k} resumed", head, ref, width)
+        for what, r, steps in (("to the end", whole, 48), ("stopped", cut, 16 if k > 1 else 18),
+                               ("resumed", resumed, 32)):
+            _expect_steps(f"ckpt_delta K={k} {what}", r["launches"], steps)
+        out = {"chain": chain, "deltas": [{k2: r[k2] for k2 in ("step", "rows_written", "bytes",
+                                                                 "train_stall_ms", "d2h_ms",
+                                                                 "write_ms")} for r in deltas],
+               "ckpt_summary": {k2: v for k2, v in summary.items() if k2.startswith("ckpt_")},
+               "bitwise_chain": True, "bitwise_resumed": True, "resume": seek,
+               "wall_ms": {"to_the_end": whole["wall_ms"], "stopped": cut["wall_ms"],
+                           "resumed": resumed["wall_ms"]}}
+        for run, r in (("end", whole), ("stopped", cut), ("resumed", resumed)):
+            launches[f"ckpt_delta_k{k}_{run}"] = r["launches"]
+        rec[f"k{k}"] = out
+    emit(rec)
+    return launches
+
+
+def phase_ckpt_ffm(tmp: str, ffm: dict) -> dict:
+    """configs/baseline3_ffm_avazu.cfg at full width (a 746 MB state) with the
+    16-step cut, its epoch save synchronous and async: the final files
+    bitwise equal; each save's train_stall_ms and the whole run's ex/s
+    (numbers to record), in turns (sync, async, async, sync)."""
+    from fast_tffm_tpu_torch.config import build_model
+
+    cfg0 = ffm["cuda_cfg"]
+    row_dim = build_model(cfg0).row_dim
+    width = row_dim if cfg0.adagrad_accumulator == "element" else 1
+    rec = {"phase": "ckpt_ffm", "config": ZOO["ffm"][0], "row_dim": row_dim,
+           "state_bytes": cfg0.vocabulary_size * (row_dim + width) * 4}
+    launches, files = {}, {}
+    for i, mode in enumerate(("sync", "async", "async", "sync")):
+        metrics = os.path.join(tmp, f"ckpt_ffm_{i}.jsonl")
+        cfg = _phase_cfg(cfg0, tmp, f"ckpt_ffm_{i}", "cuda", ffm["init"],
+                         metrics_path=metrics, async_save=mode == "async")
+        run = _run(f"ckpt_ffm {mode}", cfg)
+        if run["launches"]["rows_tail_adagrad"] != FFM_STEPS:
+            fail(f"ckpt_ffm {mode}: {run['launches']} for {FFM_STEPS} steps")
+        ckpt = _ckpt_records(f"ckpt_ffm {mode}", metrics, "full" if mode == "async" else "sync")
+        rec.setdefault(mode, []).append({
+            "saves": _stall(ckpt), "wall_ms": run["wall_ms"],
+            "examples_per_s_run": FFM_STEPS * cfg.batch_size / (run["wall_ms"] / 1e3)})
+        launches[f"ckpt_ffm_{i}_{mode}"] = run["launches"]
+        files.setdefault(mode, cfg.model_file)
+    _same_files("ckpt_ffm", files["async"], files["sync"], width)
+    rec["bitwise"] = True
+    emit(rec)
+    return launches
+
+
 
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
                    shapes=None, packed=None) -> dict:
@@ -2579,7 +3228,16 @@ def main() -> int:
         packed = {acc: phase_train_packed(rng, tmp, train_path, valid_path, acc)
                   for acc in ("element", "row")}
         dedup = phase_train_dedup(tmp, streamed)
+        # This slice's phases (their own seed: the phases above keep their data).
+        observed = {"telemetry_train": phase_telemetry_train(tmp, cuda_cfg),
+                    "telemetry_cached_replays": phase_telemetry_cached(tmp, cuda_cfg)}
+        phase_telemetry_serve_predict(np.random.default_rng(SEED + 8), tmp, cuda_cfg)
+        saved = phase_ckpt_async(tmp, cuda_cfg)
+        observed.update(saved["launches"])
+        observed.update(phase_ckpt_delta(tmp, cuda_cfg, saved))
+        observed.update(phase_ckpt_ffm(tmp, zoo["ffm"]))
         phase_throughput(tmp, big_path)
+        phase_telemetry_cost(tmp, big_path)
     src = "fast_tffm_tpu_torch/csrc/"
     # Launches: the wrappers' counts over the main path, the eager train run
     # (train_fused for B3; 24 steps: B1 once per step and per validation
@@ -2605,13 +3263,20 @@ def main() -> int:
     b3_runs = by_run("fused_tail_adagrad", fused_launches, graphed_fused)
     for run, counts in resumed["resume_cached_fused"].items():
         b3_runs[f"resume_cached_fused_{run}"] = counts["fused_tail_adagrad"]
+    # The telemetry and checkpoint runs (K-step runs: the replays in their traces),
+    # under each kernel that ran in them.
+    fwd_runs, bwd_runs = by_run("anova_fwd", launches, graphed), by_run("anova_bwd", launches,
+                                                                          graphed)
+    for runs, kernel in ((fwd_runs, "anova_fwd"), (bwd_runs, "anova_bwd"),
+                         (b4_runs, "rows_tail_adagrad"), (b3_runs, "fused_tail_adagrad")):
+        runs.update({run: counts[kernel] for run, counts in observed.items() if counts[kernel]})
     emit({"kernels": [
         _kernel_record("anova_fwd", src + "anova_fwd.cu",
                        "fast_tffm_tpu/ops/pallas_anova.py:66", launches["anova_fwd"], *fwd,
-                       by_run("anova_fwd", launches, graphed)),
+                       fwd_runs),
         _kernel_record("anova_bwd", src + "anova_bwd.cu",
                        "fast_tffm_tpu/ops/pallas_anova.py:91", launches["anova_bwd"], *bwd,
-                       by_run("anova_bwd", launches, graphed)),
+                       bwd_runs),
         _kernel_record("rows_tail_adagrad", src + "rows_tail_adagrad.cu",
                        "fast_tffm_tpu/ops/pallas_tail.py:267", launches["rows_tail_adagrad"],
                        *tail, b4_runs, shapes=tail_shapes, packed=packed_tail),

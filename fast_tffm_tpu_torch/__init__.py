@@ -10,7 +10,9 @@ What this package covers so far: training an FM of any order, an FFM and
 a DeepFM (``models/``) on the rows layout, and an FM on the lane-packed
 layout with an element, row or fused accumulator (``training.py``), on
 every input path, resumable at the exact batch after a stop (SIGTERM) or a
-crash; offline prediction; the FMB ``convert`` verb; and serving through
+crash, with async and delta checkpoints (``checkpoint_async.py``) and the
+JAX package's telemetry records (``telemetry.py``, ``profiling.py``);
+offline prediction; the FMB ``convert`` verb; and serving through
 the micro-batched ``ServingEngine`` (``serving/engine.py``), with the
 order ≥ 3 interaction DP, its backward and both sparse Adagrad tails in
 hand-written CUDA kernels (``csrc/``).

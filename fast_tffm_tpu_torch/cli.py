@@ -16,7 +16,11 @@ package's CLI (``fast_tffm_tpu/cli.py``):
                            rc 1 when any file failed)
 
 Logs go to stderr.  ``--device`` picks the device (default cuda; there is
-no CPU fallback; ``convert`` touches no device but keeps the rule).  The
+no CPU fallback; ``convert`` touches no device but keeps the rule).
+``--metrics-path``, ``--run-id`` and ``--profile-steps`` override
+``[Train] metrics_path``, ``[Telemetry] run_id`` and ``[Telemetry]
+profile_steps`` (the JAX CLI's flags): a run is instrumented, and rendered
+with ``tools/report.py``, without editing its config.  The
 socket front end (``--port`` / ``[Serving] port``) and the distributed
 verbs are later slices of the port.
 """
@@ -27,6 +31,8 @@ import argparse
 import sys
 
 from fast_tffm_tpu_torch.config import load_config
+from fast_tffm_tpu_torch.profiling import parse_profile_steps
+from fast_tffm_tpu_torch.telemetry import enable_compilation_cache
 
 __all__ = ["main"]
 
@@ -37,13 +43,31 @@ def main(argv=None) -> int:
     ap.add_argument("config")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--resume", action="store_true", help="train: restore model_file first")
+    ap.add_argument("--metrics-path", default=None, metavar="PATH",
+                    help="telemetry JSONL sink; overrides [Train] metrics_path")
+    ap.add_argument("--run-id", default=None, metavar="ID",
+                    help="telemetry run id of every record; overrides [Telemetry] run_id")
+    ap.add_argument("--profile-steps", default=None, metavar="A:B",
+                    help="a torch.profiler trace over steps [A, B) into "
+                    "<model_file>.profile (trace_dir overrides); overrides "
+                    "[Telemetry] profile_steps")
     args = ap.parse_args(argv)
     if args.resume and args.mode != "train":
         ap.error("--resume applies to the train verb")
     cfg = load_config(args.config)
+    if args.metrics_path is not None:
+        cfg.metrics_path = args.metrics_path
+    if args.run_id is not None:
+        cfg.telemetry_run_id = args.run_id
+    if args.profile_steps is not None:
+        parse_profile_steps(args.profile_steps)  # fail fast on a bad spec
+        cfg.telemetry_profile_steps = args.profile_steps
 
     def log(*a):
         print(*a, file=sys.stderr, flush=True)
+
+    if cfg.telemetry_compilation_cache_dir:
+        enable_compilation_cache(cfg.telemetry_compilation_cache_dir, log)
 
     if args.mode == "train":
         from fast_tffm_tpu_torch.training import train

@@ -45,10 +45,22 @@ class Config:
     #   rows, ops/packed_table.py; with any adagrad_accumulator)
     model_file: str = "model.ckpt"
     checkpoint_format: str = "npz"  # npz (orbax is a later slice)
-    # [Checkpoint] — read so they can be refused (async/delta saves are a
-    #   later slice)
-    async_save: bool = False
-    delta_every_steps: int = 0
+    # [Checkpoint] (checkpoint_async.AsyncCheckpointer)
+    async_save: bool = False  # full saves off the train loop: a device
+    #   snapshot at the boundary, a writer thread does the D2H and the
+    #   write; at most one in flight; the stop and final saves stay
+    #   synchronous
+    delta_every_steps: int = 0  # > 0: between full saves, a delta-NNNN file
+    #   every N steps with only the rows the window touched + dense leaves,
+    #   chained to the base by content signature; 0 = off
+    delta_chain_max: int = 16  # deltas per chain before a delta boundary
+    #   promotes itself to a full save
+    delta_full_every_s: float = 0.0  # [Checkpoint] full_every_s: promote to a
+    #   full save once this many seconds passed since the last one (0 = off)
+    delta_chain_max_bytes: int = 0  # [Checkpoint] chain_max_bytes: promote
+    #   once the chain's delta files total this many bytes (0 = off)
+    checkpoint_chunk_mb: int = 64  # save/restore host staging: arrays move
+    #   device->host and to disk this many MB at a time
     # [Train]
     train_files: tuple[str, ...] = ()
     weight_files: tuple[float, ...] = ()  # per-file example weights
@@ -93,10 +105,24 @@ class Config:
     queue_size: int = 8  # prefetch depth
     log_every: int = 100
     save_every_epochs: int = 1
-    trace_dir: str = ""  # read to be refused when set (a later slice)
-    metrics_path: str = ""  # read to be refused when set (a later slice)
-    # [Telemetry]
-    telemetry_profile_steps: str = ""  # read to be refused when set
+    trace_dir: str = ""  # torch.profiler Chrome traces of a step window
+    trace_steps: int = 20  # that window's length (after 5 warm-up steps)
+    metrics_path: str = ""  # JSONL telemetry sink (telemetry.SCHEMAS records,
+    #   read by tools/report.py)
+    # [Telemetry] (telemetry.RunMonitor, profiling.py)
+    telemetry_run_id: str = ""  # envelope run id; empty = generated
+    telemetry_mem_every_s: float = 30.0  # kind=mem cadence (0 = the final
+    #   record only)
+    telemetry_stall_timeout_s: float = 0.0  # watchdog deadline (0 = off)
+    telemetry_compilation_cache_dir: str = ""  # the JAX package's XLA cache;
+    #   the port logs a note (its kernels are cached in _build/)
+    telemetry_profile_steps: str = ""  # "A:B": a torch.profiler trace over
+    #   steps [A, B) into <model_file>.profile (trace_dir overrides)
+    telemetry_profile_costs: bool = True  # one kind=profile record per step
+    #   program (examples, modeled HBM floor; no compiler cost numbers)
+    telemetry_datastats_every_steps: int = 0  # kind=datastats id statistics
+    #   every N steps (0 = off)
+    telemetry_heavy_hitter_k: int = 16  # top-K buckets of that sketch
     # [Predict]
     predict_files: tuple[str, ...] = ()
     score_path: str = "scores.txt"
@@ -112,6 +138,7 @@ class Config:
     #   at engine construction)
     serve_port: int = 0  # socket front end (a later slice); 0 = pipe mode
     serve_deadline_ms: float = 0.0  # default per-request deadline; 0 = none
+    serve_metrics_every_s: float = 10.0  # kind=serving record cadence
     serve_classes: tuple[tuple[str, int], ...] = ()  # class -> admission tier
     # [Online]
     online_follow: bool = False  # read to be refused (a later slice)
@@ -175,8 +202,8 @@ class Config:
             raise ValueError(f"serve_queue_size must be >= 1, got {self.serve_queue_size}")
         if self.serve_overload not in ("block", "reject"):
             raise ValueError(f"unknown serve_overload {self.serve_overload!r} (block | reject)")
-        if self.serve_reload_interval_s < 0:
-            raise ValueError("serve_reload_interval_s must be >= 0")
+        if self.serve_reload_interval_s < 0 or self.serve_metrics_every_s < 0:
+            raise ValueError("serve_reload_interval_s and serve_metrics_every_s must be >= 0")
         if not (0 <= self.serve_port <= 65535):
             raise ValueError(f"serve_port must be in [0, 65535], got {self.serve_port}")
         if self.serve_deadline_ms < 0:
@@ -281,6 +308,47 @@ class Config:
         if self.delta_every_steps < 0:
             raise ValueError(
                 f"delta_every_steps must be >= 0 (0 = off), got {self.delta_every_steps}"
+            )
+        if self.delta_chain_max < 1:
+            raise ValueError(
+                f"delta_chain_max must be >= 1, got {self.delta_chain_max}"
+            )
+        if self.checkpoint_chunk_mb < 1:
+            raise ValueError(
+                f"checkpoint_chunk_mb must be >= 1, got {self.checkpoint_chunk_mb}"
+            )
+        if self.online_accum_restart_steps > 0 and self.delta_every_steps > 0:
+            raise ValueError(
+                "[Online] accum_restart_steps cannot combine with "
+                "delta_every_steps: a global accumulator reset is not "
+                "representable in a touched-row delta (resume would "
+                "restore stale accumulators) — use full saves, or "
+                "adagrad_decay"
+            )
+        if self.delta_full_every_s < 0 or self.delta_chain_max_bytes < 0:
+            raise ValueError(
+                "[Checkpoint] full_every_s and chain_max_bytes must be >= 0 "
+                "(0 = off)"
+            )
+        if self.telemetry_mem_every_s < 0 or self.telemetry_stall_timeout_s < 0:
+            raise ValueError(
+                "telemetry_mem_every_s and telemetry_stall_timeout_s must be "
+                ">= 0 (0 disables)"
+            )
+        if self.telemetry_profile_steps:
+            # Parse-validate at config time, not at step N of a long run.
+            from fast_tffm_tpu_torch.profiling import parse_profile_steps
+
+            parse_profile_steps(self.telemetry_profile_steps)
+        if self.telemetry_datastats_every_steps < 0:
+            raise ValueError(
+                "telemetry_datastats_every_steps must be >= 0 (0 = off), got "
+                f"{self.telemetry_datastats_every_steps}"
+            )
+        if self.telemetry_heavy_hitter_k < 1:
+            raise ValueError(
+                f"telemetry_heavy_hitter_k must be >= 1, got "
+                f"{self.telemetry_heavy_hitter_k}"
             )
         if self.on_nan not in ("abort", "rollback"):
             raise ValueError(f"unknown on_nan {self.on_nan!r} (abort | rollback)")
@@ -462,14 +530,31 @@ def load_config(path: str) -> Config:
     cfg.log_every = get(t, "log_every", int, cfg.log_every)
     cfg.save_every_epochs = get(t, "save_every_epochs", int, cfg.save_every_epochs)
     cfg.trace_dir = get(t, "trace_dir", str, cfg.trace_dir)
+    cfg.trace_steps = get(t, "trace_steps", int, cfg.trace_steps)
     cfg.metrics_path = get(t, "metrics_path", str, cfg.metrics_path)
 
-    cfg.telemetry_profile_steps = get(
-        "Telemetry", "profile_steps", str, cfg.telemetry_profile_steps
+    te = "Telemetry"
+    cfg.telemetry_run_id = get(te, "run_id", str, cfg.telemetry_run_id)
+    cfg.telemetry_mem_every_s = get(te, "mem_every_s", float, cfg.telemetry_mem_every_s)
+    cfg.telemetry_stall_timeout_s = get(
+        te, "stall_timeout_s", float, cfg.telemetry_stall_timeout_s
     )
+    cfg.telemetry_compilation_cache_dir = get(
+        te, "compilation_cache_dir", str, cfg.telemetry_compilation_cache_dir
+    )
+    cfg.telemetry_profile_steps = get(te, "profile_steps", str, cfg.telemetry_profile_steps)
+    cfg.telemetry_profile_costs = get(te, "profile_costs", boolean, cfg.telemetry_profile_costs)
+    cfg.telemetry_datastats_every_steps = get(
+        te, "datastats_every_steps", int, cfg.telemetry_datastats_every_steps
+    )
+    cfg.telemetry_heavy_hitter_k = get(te, "heavy_hitter_k", int, cfg.telemetry_heavy_hitter_k)
     c = "Checkpoint"
     cfg.async_save = get(c, "async_save", boolean, cfg.async_save)
     cfg.delta_every_steps = get(c, "delta_every_steps", int, cfg.delta_every_steps)
+    cfg.delta_chain_max = get(c, "delta_chain_max", int, cfg.delta_chain_max)
+    cfg.delta_full_every_s = get(c, "full_every_s", float, cfg.delta_full_every_s)
+    cfg.delta_chain_max_bytes = get(c, "chain_max_bytes", int, cfg.delta_chain_max_bytes)
+    cfg.checkpoint_chunk_mb = get(c, "chunk_mb", int, cfg.checkpoint_chunk_mb)
 
     p = "Predict"
     cfg.predict_files = get(p, "predict_files", _split_files, cfg.predict_files)
@@ -490,6 +575,7 @@ def load_config(path: str) -> Config:
     )
     cfg.serve_port = get(s, "port", int, cfg.serve_port)
     cfg.serve_deadline_ms = get(s, "deadline_ms", float, cfg.serve_deadline_ms)
+    cfg.serve_metrics_every_s = get(s, "metrics_every_s", float, cfg.serve_metrics_every_s)
     cfg.serve_classes = get(s, "classes", str, cfg.serve_classes)
 
     o = "Online"

@@ -17,10 +17,12 @@ but a [K] index copy (``make_cached_scan_train_step``).
   make_cached_train_step(model, lr, data, body)       (step, step_shuffled)
   make_cached_scan_train_step(model, lr, data, body)  (step, step_shuffled)
   epoch_index_chunks(batches, k, device, start) -> [K]-long batch-index vectors
+  call_ids(data, i, shuffled) -> the ids a call's batches carry (on the card)
 
 The shuffled steps read ``data.perm``, a device buffer allocated once and
-filled per epoch by ``set_permutation``.  (The JAX module's mesh-sharded
-loaders, touched-row markers and ids slicer are later slices of the port.)
+filled per epoch by ``set_permutation``.  ``call_ids`` is the single-device
+touched-row marker's and ids slicer's source; the JAX module's
+mesh-sharded loaders are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ __all__ = [
     "make_cached_train_step",
     "make_cached_scan_train_step",
     "epoch_index_chunks",
+    "call_ids",
 ]
 
 
@@ -179,6 +182,17 @@ def _batch(data: DeviceDataset, i: torch.Tensor, shuffled: bool) -> Batch:
     if shuffled:
         rows = data.perm.index_select(0, rows)
     return Batch(*(a.index_select(0, rows) for a in data.arrays))
+
+
+def call_ids(data: DeviceDataset, i: torch.Tensor, shuffled: bool) -> torch.Tensor:
+    """The resident ids [K·B, N] of the batches one call trains on (``i`` a
+    0-d batch index or a [K] index chunk), through ``data.perm`` when
+    shuffling: what the delta checkpoint's touched-row bitmap and the id
+    statistics read after the call, without the batch leaving the card."""
+    rows = (i.reshape(-1, 1) * data.batch_size + data.offsets).reshape(-1)
+    if shuffled:
+        rows = data.perm.index_select(0, rows)
+    return data.ids.index_select(0, rows)
 
 
 def make_cached_train_step(model, learning_rate: float, data: DeviceDataset, body=None):

@@ -13,7 +13,9 @@ built at its first use in a process, or again when its source or a header
 is newer.  Without ``nvcc``, or when a build fails, this raises; it never
 hands back a plain version in place of a kernel.  ``build`` starts one
 ``nvcc`` per source, all at once, for callers that want every kernel ready
-before traffic (chip_smoke.py).
+before traffic (chip_smoke.py).  Each build counts as one compile for the
+telemetry's compile sentinel (``telemetry.note_compile``); a library
+loaded from ``_build/`` without a build counts as a cache hit.
 
 The port's host code in C++ (``csrc/<name>.cpp``, the native libsvm
 parser) builds the same way with ``g++`` (``load_host``):
@@ -33,6 +35,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from fast_tffm_tpu_torch.telemetry import note_cache_hit, note_compile
 
 __all__ = [
     "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS", "nvcc_path", "build", "load",
@@ -93,6 +97,7 @@ def build(names) -> dict[str, dict]:
             failures.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+        note_compile()
         report[name] = {"seconds": time.perf_counter() - t0, "log": out}
     if failures:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failures))
@@ -113,6 +118,8 @@ def load(name: str) -> ctypes.CDLL:
             src, path = _paths(name)
             if _stale(path, [src] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
                 build([name])
+            else:
+                note_cache_hit()
             lib = _libs[name] = ctypes.CDLL(path)
         return lib
 
@@ -135,6 +142,7 @@ def _build_host(src: str, lib: str) -> None:
                 f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+        note_compile()
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -154,5 +162,7 @@ def load_host(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"no host source {name!r} at {src}")
             if _stale(path, [src]):
                 _build_host(src, path)
+            else:
+                note_cache_hit()
             lib = _libs[key] = ctypes.CDLL(path)
         return lib

@@ -40,12 +40,14 @@ __all__ = [
     "packed_gather",
     "pack_accum_any",
     "unpack_accum_any",
+    "packed_accum_gather_any",
     "fused_rows_per_tile",
     "fused_packed_rows",
     "fused_slots",
     "pack_fused",
     "unpack_fused",
     "fused_gather",
+    "fused_accum_gather",
 ]
 
 LANES = 128
@@ -127,6 +129,17 @@ def unpack_accum_any(acc_packed: torch.Tensor, vocab: int, d: int) -> torch.Tens
     return acc_packed.reshape(-1, 1)[:vocab].clone()
 
 
+def packed_accum_gather_any(acc_packed: torch.Tensor, ids: torch.Tensor, d: int) -> torch.Tensor:
+    """Logical accumulator rows for ``ids`` from a packed accumulator of
+    either granularity: [VP, 128] element -> [..., D], [VP, P] row ->
+    [..., 1] (the delta writer's twin of ``packed_gather``)."""
+    p = rows_per_tile(d)
+    if acc_packed.shape[-1] == LANES and p != LANES:
+        return packed_gather(acc_packed, ids, d)
+    ids = ids.long()
+    return acc_packed[ids // p, ids % p][..., None]
+
+
 def fused_rows_per_tile(d: int) -> int:
     """Slots per 128-lane row in the fused layout: P = 128 // (D + 1)."""
     if d + 1 > LANES:
@@ -173,3 +186,11 @@ def fused_gather(fused: torch.Tensor, ids: torch.Tensor, d: int) -> torch.Tensor
     p = fused_rows_per_tile(d)
     ids = ids.long()
     return fused_slots(fused, d)[ids // p, ids % p, :d]
+
+
+def fused_accum_gather(fused: torch.Tensor, ids: torch.Tensor, d: int) -> torch.Tensor:
+    """[..., 1] row-accumulator values for logical ``ids`` from a fused
+    table (each slot's lane D)."""
+    p = fused_rows_per_tile(d)
+    ids = ids.long()
+    return fused_slots(fused, d)[ids // p, ids % p, d:]

@@ -4,23 +4,29 @@ offline predict driver — the counterpart of ``fast_tffm_tpu/prediction.py``
 layouts, single process; ``dist_predict`` is a later slice).  ``predict``
 reads text through the native parser (``thread_num``), FMB
 ``predict_files`` by memmap, and with ``binary_cache`` converts text once.
+Its telemetry (``metrics_path``) is the JAX package's: kind=input, one
+kind=profile record for ``predict_step``, kind=compile, kind=mem, a
+kind=anomaly before a non-finite abort, kind=predict and the summary.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 
 from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
-from fast_tffm_tpu_torch.config import Config, build_model, refuse_later_slices
+from fast_tffm_tpu_torch.config import Config, build_model
 from fast_tffm_tpu_torch.data.libsvm import scan_max_nnz
 from fast_tffm_tpu_torch.data.native import best_parser, count_lines
 from fast_tffm_tpu_torch.data.pipeline import batch_stream
 from fast_tffm_tpu_torch.device import resolve_device
 from fast_tffm_tpu_torch.models.base import Batch
+from fast_tffm_tpu_torch.profiling import CostLedger
+from fast_tffm_tpu_torch.telemetry import RunMonitor
 from fast_tffm_tpu_torch.trainer import make_packed_predict_step, make_predict_step, pack_state
-from fast_tffm_tpu_torch.utils.prefetch import prefetch
+from fast_tffm_tpu_torch.utils.prefetch import InputStats, prefetch
 
 __all__ = ["ScoreFn", "load_scoring_state", "make_score_fn", "predict"]
 
@@ -84,9 +90,6 @@ def predict(cfg: Config, log=print, device=None) -> str:
     ``cfg.model_file``, stream ``cfg.predict_files`` through the scoring
     step on ``device`` (None = cuda) and write one ``%.6f`` sigmoid score
     per input line to ``cfg.score_path``.  Returns the score path."""
-    refuse_later_slices("predict", [
-        (bool(cfg.metrics_path), "metrics_path (telemetry)"),
-    ])
     if not cfg.predict_files:
         raise ValueError("no predict_files configured")
     model, state = load_scoring_state(cfg, log, device)
@@ -95,8 +98,9 @@ def predict(cfg: Config, log=print, device=None) -> str:
     cfg.check_width(max_nnz)
     score = make_score_fn(cfg, state, max_nnz, model=model)
     total = count_lines(cfg.predict_files)  # the rows to score; padding follows them
+    stats = InputStats()
     stream = prefetch(
-        batch_stream(
+        stats.timed(batch_stream(
             cfg.predict_files,
             batch_size=cfg.batch_size,
             vocabulary_size=cfg.vocabulary_size,
@@ -107,22 +111,46 @@ def predict(cfg: Config, log=print, device=None) -> str:
             io_retries=cfg.io_retries,
             io_retry_backoff_s=cfg.io_retry_backoff_s,
             log=log,
-        ),
+        )),
         depth=cfg.queue_size,
+        stats=stats,
     )
-    n = 0
-    with open(cfg.score_path, "w") as out:
-        for parsed, w in stream:
-            batch = Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields)
-            scores = score(state, batch).cpu().numpy()
-            if not np.isfinite(scores).all():
-                raise RuntimeError(
-                    "non-finite scores — a diverged model (non-finite weights); "
-                    f"refusing to write a poisoned score file to {cfg.score_path}"
-                )
-            take = min(total - n, len(scores))  # drop batch-size padding rows
-            for s in scores[:take]:
-                out.write(f"{s:.6f}\n")
-            n += take
+    monitor = RunMonitor(
+        cfg.metrics_path or None, run_id=cfg.telemetry_run_id, source="predict",
+        stall_timeout_s=cfg.telemetry_stall_timeout_s, mem_every_s=cfg.telemetry_mem_every_s,
+        device=device, log=log,
+    )
+    monitor.set_queue_depth_fn(stats.queue_depth)
+    monitor.set_producer_alive_fn(stats.producer_alive)
+    ledger = CostLedger(monitor) if cfg.telemetry_profile_costs else None
+    n = batches = 0
+    t_start = time.perf_counter()
+    try:
+        with open(cfg.score_path, "w") as out:
+            for parsed, w in stream:
+                batch = Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields)
+                scores = score(state, batch).cpu().numpy()
+                batches += 1
+                monitor.on_dispatch(batches, warmup=(batches == 1))
+                if ledger is not None and ledger.want("predict_step"):
+                    ledger.stage("predict_step", examples=int(parsed.batch_size))
+                    ledger.flush(batches)
+                if not np.isfinite(scores).all():
+                    monitor.emit_anomaly(batches, None, event="nonfinite_scores", state=state)
+                    raise RuntimeError(
+                        "non-finite scores — a diverged model (non-finite weights); "
+                        f"refusing to write a poisoned score file to {cfg.score_path}"
+                    )
+                take = min(total - n, len(scores))  # drop batch-size padding rows
+                for s in scores[:take]:
+                    out.write(f"{s:.6f}\n")
+                n += take
+        dt = time.perf_counter() - t_start
+        if rec := stats.drain():
+            monitor.emit("input", step=batches, **rec)
+        monitor.emit("predict", step=batches, examples=n,
+                     examples_per_sec=round(n / dt, 1) if dt > 0 else None)
+    finally:
+        monitor.close()
     log(f"wrote {n} scores -> {cfg.score_path}")
     return cfg.score_path

@@ -14,10 +14,16 @@ lifecycle:
      the nearest bucket (buckets.BucketLadder), stages them in one
      host→device copy, scores on the device, and resolves the futures.
 
+Telemetry: each engine owns a ``telemetry.RunMonitor`` (``metrics_path``,
+``source = serving``) and writes a ``kind=serving`` metrics snapshot every
+``serve_metrics_every_s`` and at close; the warm-up's kernel builds count
+as warm-up compiles, any later one as steady-state, and with
+``profile_costs`` each bucket gets one kind=profile record.  There is no
+stall watchdog: an idle engine is healthy.
+
 One process, one device.  Later slices of the port add hot reload and
-delta chains, block (binary frame) submission, chaos injection and the
-RunMonitor telemetry; until then ``serve_reload_interval_s > 0`` is
-refused at construction.
+delta chains, block (binary frame) submission and chaos injection; until
+then ``serve_reload_interval_s > 0`` is refused at construction.
 """
 
 from __future__ import annotations
@@ -33,9 +39,11 @@ import numpy as np
 from fast_tffm_tpu_torch.config import Config
 from fast_tffm_tpu_torch.data.libsvm import parse_lines, scan_max_nnz
 from fast_tffm_tpu_torch.device import resolve_device
+from fast_tffm_tpu_torch.profiling import CostLedger
 from fast_tffm_tpu_torch.serving.admission import AdmissionQueue
 from fast_tffm_tpu_torch.serving.buckets import BucketLadder
 from fast_tffm_tpu_torch.serving.metrics import ServingMetrics
+from fast_tffm_tpu_torch.telemetry import RunMonitor
 
 __all__ = [
     "ServingEngine",
@@ -94,11 +102,6 @@ class ServingEngine:
             )
         self._cfg = cfg
         self._log = log
-        if cfg.metrics_path:
-            log(
-                f"note: metrics_path = {cfg.metrics_path} is ignored by serve: the "
-                "kind=serving records are a later slice of fast_tffm_tpu_torch"
-            )
         self.device = resolve_device(device)
         max_nnz = scan_max_nnz(cfg)
         cfg.check_width(max_nnz)
@@ -119,9 +122,27 @@ class ServingEngine:
         )
         self._last_flush_t = time.perf_counter()
         self.metrics = ServingMetrics()
+        self._monitor = RunMonitor(
+            cfg.metrics_path or None, run_id=cfg.telemetry_run_id, source="serving",
+            mem_every_s=cfg.telemetry_mem_every_s, device=self.device, log=log,
+        )
+        self._flush_seq = 0  # the serving records' step: the flush ordinal
+        self._metrics_every = cfg.serve_metrics_every_s
+        self._last_metrics_log = time.perf_counter()
         self._closed = False  # no new submits (set by close AND by a collector crash)
         self._close_done = False  # close() finalization ran
-        self._ladder.warmup(self._state)
+        try:
+            self._ladder.warmup(self._state)
+        except BaseException:
+            self._monitor.close()
+            raise
+        if cfg.telemetry_profile_costs:
+            ledger = CostLedger(self._monitor)
+            for bucket in self._ladder.buckets:
+                ledger.stage(f"serve_score_b{bucket}", examples=bucket)
+            ledger.flush(0)
+        # Every start-up build is warm-up; anything after is steady-state.
+        self._monitor.on_dispatch(0, warmup=True)
         log(
             f"serving: warmed buckets {self._ladder.buckets} on {self.device} "
             f"(max_nnz {max_nnz}, flush deadline {cfg.serve_flush_deadline_ms}ms, "
@@ -137,6 +158,11 @@ class ServingEngine:
     @property
     def buckets(self) -> tuple[int, ...]:
         return self._ladder.buckets
+
+    @property
+    def run_id(self) -> str:
+        """Telemetry run id of this engine's monitor."""
+        return self._monitor.run_id
 
     @property
     def step(self) -> int:
@@ -387,6 +413,11 @@ class ServingEngine:
         for pos, r in enumerate(reqs):
             r.future.set_result(float(scores[pos]))
         t_resolved = time.perf_counter()
+        self._flush_seq += 1
+        try:
+            self._monitor.on_dispatch(self._flush_seq)
+        except (OSError, ValueError):
+            pass  # a telemetry write failure is a lost record, never a dead collector
         self._last_flush_t = t_resolved
         self.metrics.on_flush(
             bucket,
@@ -397,6 +428,12 @@ class ServingEngine:
             deadline_fired=deadline_fired,
             classes=[r.klass for r in reqs],
         )
+        if self._metrics_every > 0 and t_resolved - self._last_metrics_log >= self._metrics_every:
+            self._last_metrics_log = t_resolved
+            try:
+                self.metrics.log_to(self._monitor)
+            except (OSError, ValueError):
+                pass  # a full metrics disk must not kill the collector
 
     # -- health / shutdown -------------------------------------------------
 
@@ -413,6 +450,7 @@ class ServingEngine:
             "queue_depth": self._q.qsize(),
             "oldest_wait_s": round(oldest, 4) if oldest is not None else None,
             "last_flush_age_s": round(now - self._last_flush_t, 4),
+            "steady_compiles": self._monitor.compiles_steady,
         }
 
     def metrics_snapshot(self) -> dict:
@@ -432,6 +470,12 @@ class ServingEngine:
         # A submit that raced this close may have enqueued after the
         # collector's exit drain — fail it rather than strand the caller.
         self._drain_with_exception(EngineClosed("engine closed"))
+        try:
+            self.metrics.log_to(self._monitor)  # the final snapshot
+        except (OSError, ValueError):
+            pass
+        finally:
+            self._monitor.close()
 
     def __enter__(self):
         return self

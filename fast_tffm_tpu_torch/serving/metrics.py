@@ -1,9 +1,9 @@
 """Serving-side metrics: latency histograms, occupancy, shed counters.
 
-A copy of ``fast_tffm_tpu/serving/metrics.py`` without the parts of later
-slices: the reload, delta and freshness counters (hot reload) and
-``log_to`` (RunMonitor telemetry).  The snapshot's remaining keys and
-their meaning are unchanged.
+A copy of ``fast_tffm_tpu/serving/metrics.py`` without the reload, delta
+and freshness counters (hot reload is a later slice).  The snapshot's
+remaining keys and their meaning are unchanged; ``log_to`` appends it as a
+``kind=serving`` record.
 """
 
 from __future__ import annotations
@@ -199,3 +199,14 @@ class ServingMetrics:
                 "compute_ms": self.compute.snapshot(),
                 "total_ms": self.total.snapshot(),
             }
+
+    def log_to(self, sink) -> None:
+        """Append the snapshot as a ``kind=serving`` record.  ``sink`` is a
+        telemetry.RunMonitor (the engine's: the shared envelope) or, for a
+        bare caller, a utils.tracing.MetricsLogger."""
+        snap = self.snapshot()
+        emit = getattr(sink, "emit", None)
+        if emit is not None:
+            emit("serving", **snap)
+        else:
+            sink.log(kind="serving", **snap)

@@ -201,7 +201,9 @@ def make_scanned_train_step(model, learning_rate: float, body=None):
     captured once per (K, layout) into a CUDA graph and replayed
     (``utils/step_graph.StepGraphs``, exposed as ``step.graphs``); the
     superbatch, on the host or the card, is copied into the graph's static
-    input buffers."""
+    input buffers.  ``step.last_batch()`` is the superbatch the last call
+    trained on, as its steps read it (on the card: the graph's static
+    buffers), until the next call."""
     graphs = StepGraphs(k_step_loop(model, learning_rate, body or train_step_body,
                                     batch_at=lambda i, *fields: Batch(*(f[i] for f in fields))))
 
@@ -209,6 +211,7 @@ def make_scanned_train_step(model, learning_rate: float, body=None):
         return graphs(state, *(getattr(superbatch, f.name) for f in dataclasses.fields(Batch)))
 
     step.graphs = graphs
+    step.last_batch = lambda: Batch(*graphs.last_inputs)
     return step
 
 

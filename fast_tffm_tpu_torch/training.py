@@ -57,13 +57,31 @@ validation scores through the packed gathers, and every save writes the
 logical arrays (``trainer.unpack_state``).  Each tail is its kernel on the
 card, whatever ``[Train] tail`` and ``packed_update`` say, and its plain
 twin on the CPU; a setting that names a JAX compiler path the port has no
-counterpart of says so in the log on the card.  The telemetry monitor,
-the async/delta checkpointer, rollback and the supervisor are later
-slices; ``train`` refuses their config keys before it touches a device.
+counterpart of says so in the log on the card.
+
+Telemetry, as in the JAX package: a ``telemetry.RunMonitor`` writes the
+enveloped records to ``metrics_path`` — kind=train at every log point,
+kind=input (streamed input), kind=validation, kind=compile (kernel builds
+and graph captures: warm-up in the first epoch this process runs, where the
+first call also runs inside ``warmup_window``; steady-state after),
+kind=mem (sampled by the monitor's own thread), kind=stall (the watchdog:
+no call completed for ``stall_timeout_s``; ``step_hook`` runs after the
+call's heartbeat, so a frozen hook fires it), kind=anomaly before a
+non-finite abort, kind=profile (``profiling.CostLedger``: one record per
+step program; ``StepProfiler``'s trace start and stop), kind=datastats,
+kind=ckpt and the closing kind=summary.  ``trace_dir`` adds a
+``torch.profiler`` window of ``trace_steps`` calls.  The per-call work is
+host-only: no device sync is added.  Every save goes through
+``checkpoint_async.AsyncCheckpointer``: ``async_save`` takes the epoch
+saves off the loop, ``delta_every_steps`` writes delta files of the touched
+rows between them; the stop and final saves stay synchronous.  Rollback,
+the tiered store, online learning and the supervisor are later slices;
+``train`` refuses their config keys before it touches a device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import signal
@@ -72,7 +90,8 @@ import threading
 import numpy as np
 import torch
 
-from fast_tffm_tpu_torch.checkpoint import read_input_cursor, restore_checkpoint, save_checkpoint
+from fast_tffm_tpu_torch.checkpoint import read_input_cursor, restore_checkpoint
+from fast_tffm_tpu_torch.checkpoint_async import AsyncCheckpointer
 from fast_tffm_tpu_torch.config import Config, build_model, refuse_later_slices
 from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, fold_epoch_seed, is_fmb
 from fast_tffm_tpu_torch.data.libsvm import scan_max_nnz
@@ -81,6 +100,13 @@ from fast_tffm_tpu_torch.data.pipeline import batch_stream
 from fast_tffm_tpu_torch.device import resolve_device
 from fast_tffm_tpu_torch.metrics import StreamingAUC, Throughput
 from fast_tffm_tpu_torch.models.base import Batch
+from fast_tffm_tpu_torch.profiling import (
+    CostLedger,
+    DataStatsCollector,
+    StepProfiler,
+    modeled_step_bytes,
+)
+from fast_tffm_tpu_torch.telemetry import RunMonitor
 from fast_tffm_tpu_torch.trainer import (
     init_packed_state,
     init_state,
@@ -93,7 +119,9 @@ from fast_tffm_tpu_torch.trainer import (
     packed_train_step_body,
     unpack_state,
 )
-from fast_tffm_tpu_torch.utils.prefetch import grouped_pairs, prefetch
+from fast_tffm_tpu_torch.utils.prefetch import InputStats, InputStream, grouped_pairs, prefetch
+from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
+from fast_tffm_tpu_torch.utils.tracing import WindowTracer, step_trace
 
 __all__ = ["train", "binary_input", "NonFiniteLossError"]
 
@@ -107,10 +135,13 @@ class NonFiniteLossError(RuntimeError):
         self.loss = loss
 
 
-def _check_finite(loss: float, step: int) -> None:
+def _check_finite(loss: float, step: int, anomaly=None) -> None:
     """Abort on a non-finite loss instead of training on (and eventually
-    checkpointing) poisoned state (``on_nan = abort``)."""
+    checkpointing) poisoned state (``on_nan = abort``).  ``anomaly(step,
+    loss)`` records the divergence (a kind=anomaly record) before the raise."""
     if not np.isfinite(loss):
+        if anomaly is not None:
+            anomaly(step, loss)
         raise NonFiniteLossError(
             f"training loss is {loss}; likely a diverged model — lower "
             "learning_rate.  Aborting before the next checkpoint overwrites "
@@ -130,8 +161,9 @@ class _GroupCheck:
     group (at log points and before a save).  A K = 1 step's 0-d loss is
     left to the log-point check, as in the JAX package."""
 
-    def __init__(self, device):
+    def __init__(self, device, anomaly=None):
         self._cuda = device.type == "cuda"
+        self._anomaly = anomaly
         self._last = None  # (host losses, copy event or None, step after the group)
 
     def push(self, loss: torch.Tensor, step: int) -> None:
@@ -153,11 +185,10 @@ class _GroupCheck:
             self._check(*self._last)
             self._last = None
 
-    @staticmethod
-    def _check(host: torch.Tensor, done, step: int) -> None:
+    def _check(self, host: torch.Tensor, done, step: int) -> None:
         if done is not None:
             done.synchronize()
-        _check_finite(float(host.mean()), step)
+        _check_finite(float(host.mean()), step, self._anomaly)
 
 
 def binary_input(files) -> bool:
@@ -264,8 +295,9 @@ def _dedup_cap_guard(raw, cap: int):
 
 def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
             steps_per_call: int = 1, log=print, skip_batches: int = 0, dedup_cap: int = 0):
-    """One prefetched pass over ``files``: (ParsedBatch, weights) pairs, or
-    K-long lists of them when ``steps_per_call`` > 1.  Text parses through
+    """One prefetched pass over ``files`` (an ``InputStream``: its stats feed
+    kind=input records): (ParsedBatch, weights) pairs, or K-long lists of
+    them when ``steps_per_call`` > 1.  Text parses through
     the native parser; ``binary_cache`` resolves the FMB caches first (an
     unwritable location falls back to the text, and a shuffle on that
     fallback is dropped with a log line); ``shuffle_epoch`` (train streams)
@@ -308,7 +340,9 @@ def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
         raw = grouped_pairs(raw, steps_per_call)
     # An item holds K batches: scale the depth down to keep the host memory
     # in flight at the K = 1 level.
-    return prefetch(raw, depth=max(1, cfg.queue_size // max(1, steps_per_call)))
+    stats = InputStats()
+    depth = max(1, cfg.queue_size // max(1, steps_per_call))
+    return InputStream(prefetch(stats.timed(raw), depth=depth, stats=stats), stats)
 
 
 def _evaluate(cfg: Config, model, predict_step, state, files, max_nnz: int, device, log) -> float:
@@ -333,24 +367,21 @@ def _refuse_later_slices(cfg: Config) -> None:
         (cfg.online_follow, "[Online] follow (online learning)"),
         (cfg.online_accum_restart_steps > 0, "[Online] accum_restart_steps"),
         (cfg.on_nan == "rollback", "on_nan = rollback (resilience)"),
-        (cfg.async_save, "[Checkpoint] async_save"),
-        (cfg.delta_every_steps > 0, "[Checkpoint] delta_every_steps (delta saves)"),
-        (bool(cfg.metrics_path), "metrics_path (telemetry)"),
-        (bool(cfg.trace_dir), "trace_dir (profiling)"),
-        (bool(cfg.telemetry_profile_steps), "[Telemetry] profile_steps (profiling)"),
     ])
 
 
 def _device_cached_input(cfg: Config, model, max_nnz: int, log, body, device):
     """``device_cache = true``: the train set as resident device arrays.
     Input must be FMB-backed (.fmb train_files, or ``binary_cache`` to
-    convert text once).  Returns ``(step_fn, train_stream)``: the stream
-    yields (batch index or [K] index chunk, examples) and the step gathers
-    the batch on the device, through the epoch's permutation when
-    shuffling.  ``train_stream(epoch, skip_batches)`` opens the epoch at
-    that batch: K = 1 skips the first indices, K > 1 clips the epoch's
-    K-grid of chunks (``epoch_index_chunks(start=)``)."""
+    convert text once).  Returns ``(step_fn, train_stream, ids_of)``: the
+    stream yields (batch index or [K] index chunk, examples) and the step
+    gathers the batch on the device, through the epoch's permutation when
+    shuffling; ``ids_of(item)`` gives that call's ids from the resident
+    arrays.  ``train_stream(epoch, skip_batches)`` opens the epoch at that
+    batch: K = 1 skips the first indices, K > 1 clips the epoch's K-grid of
+    chunks (``epoch_index_chunks(start=)``)."""
     from fast_tffm_tpu_torch.data.device_cache import (
+        call_ids,
         epoch_index_chunks,
         full_epoch_perm,
         load_device_dataset,
@@ -396,7 +427,10 @@ def _device_cached_input(cfg: Config, model, max_nnz: int, log, body, device):
                    else items[skip_batches:])
         return ((i, cfg.batch_size * i.numel()) for i in use)
 
-    return (step_shuffled if cfg.shuffle else step), train_stream
+    def ids_of(i):
+        return call_ids(data, i, cfg.shuffle)
+
+    return (step_shuffled if cfg.shuffle else step), train_stream, ids_of
 
 
 def _signal_stop(log):
@@ -423,16 +457,31 @@ def _signal_stop(log):
     return stop, restore
 
 
+def _graphs_of(step_fn) -> StepGraphs | None:
+    """The CUDA-graph wrapper behind a K-step ``step_fn``, if any."""
+    if isinstance(step_fn, StepGraphs):
+        return step_fn
+    return getattr(step_fn, "graphs", None)
+
+
+def _modeled_bytes(ids: torch.Tensor, row_dim: int, accum_cols: int) -> int:
+    """``modeled_step_bytes`` of one call's ids, summed per batch when they
+    carry the K-step dim ([K, B, N]), as the JAX package sums its K-list."""
+    host = ids.cpu().numpy()
+    parts = host if host.ndim == 3 else [host]
+    return sum(modeled_step_bytes(p, row_dim, accum_cols)[0] for p in parts)
+
+
 def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hook=None):
     """Local (single-device) training — the reference's ``train`` mode.
 
-    ``resume`` restores ``cfg.model_file`` (table, accumulators, step) and
-    reopens the input at its cursor; otherwise the state is a fresh init
-    from a seeded generator.  ``step_hook(step)`` runs after every call,
-    before the stop check (a test raises SIGTERM from it at an exact
-    step).  Returns the final state in the layout it trained in (a packed
-    or fused state for ``table_layout = packed``); its logical arrays are
-    saved to ``cfg.model_file`` with the cursor."""
+    ``resume`` restores ``cfg.model_file`` (table, accumulators, step; the
+    delta chain replayed) and reopens the input at its cursor; otherwise
+    the state is a fresh init from a seeded generator.  ``step_hook(step)``
+    runs after every call, before the stop check (a test raises SIGTERM
+    from it at an exact step).  Returns the final state in the layout it
+    trained in (a packed or fused state for ``table_layout = packed``); its
+    logical arrays are saved to ``cfg.model_file`` with the cursor."""
     _refuse_later_slices(cfg)
     if not cfg.train_files:
         raise ValueError("no train_files configured")
@@ -503,7 +552,8 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
         predict_step = make_predict_step(model)
     k = cfg.steps_per_call
     if cfg.device_cache:
-        step_fn, train_stream = _device_cached_input(cfg, model, max_nnz, log, body, device)
+        step_fn, train_stream, ids_of = _device_cached_input(cfg, model, max_nnz, log, body,
+                                                             device)
     else:
         step_fn = (make_scanned_train_step if k > 1 else make_train_step)(
             model, cfg.learning_rate, body=body
@@ -511,16 +561,26 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
         weights = cfg.weight_files or None
 
         def train_stream(epoch, skip_batches=0):
-            for parsed, w in _stream(cfg, cfg.train_files, max_nnz, weights,
-                                     shuffle_epoch=epoch, steps_per_call=k, log=log,
-                                     skip_batches=skip_batches,
-                                     dedup_cap=cfg.dedup_gather_rows):
-                if isinstance(parsed, list):
-                    yield (Batch.stack_parsed(parsed, w, with_fields=model.uses_fields),
-                           sum(p.batch_size for p in parsed))
-                else:
-                    yield (Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields),
-                           parsed.batch_size)
+            src = _stream(cfg, cfg.train_files, max_nnz, weights, shuffle_epoch=epoch,
+                          steps_per_call=k, log=log, skip_batches=skip_batches,
+                          dedup_cap=cfg.dedup_gather_rows)
+
+            def batches():
+                for parsed, w in src:
+                    if isinstance(parsed, list):
+                        yield (Batch.stack_parsed(parsed, w, with_fields=model.uses_fields),
+                               sum(p.batch_size for p in parsed))
+                    else:
+                        yield (Batch.from_parsed(parsed, w, device,
+                                                 with_fields=model.uses_fields),
+                               parsed.batch_size)
+
+            return InputStream(batches(), src.stats)
+
+        def ids_of(batch):
+            # A K-step call's superbatch is on the host; its graph's static
+            # buffers hold the same ids on the card.
+            return step_fn.last_batch().ids if k > 1 else batch.ids
 
     # The input cursor, tracked per call: every save embeds it.
     start_epoch, start_batch = _resolve_cursor(cfg, start_cursor, log)
@@ -539,12 +599,43 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
             "files": files_fp,
         }
 
-    def save():
-        save_checkpoint(cfg.model_file, unpack_state(state, model), cursor=input_cursor())
+    cuda = device.type == "cuda"
+    monitor = RunMonitor(
+        cfg.metrics_path or None, run_id=cfg.telemetry_run_id, source="train",
+        stall_timeout_s=cfg.telemetry_stall_timeout_s, mem_every_s=cfg.telemetry_mem_every_s,
+        device=device, log=log,
+    )
+    tracer = WindowTracer(cfg.trace_dir, count=cfg.trace_steps, cuda=cuda)
+    profiler = StepProfiler(cfg.telemetry_profile_steps,
+                            cfg.trace_dir or (cfg.model_file + ".profile"),
+                            monitor=monitor, log=log, cuda=cuda)
+    ledger = CostLedger(monitor) if cfg.telemetry_profile_costs else None
+    datastats = None
+    if cfg.telemetry_datastats_every_steps > 0:
+        datastats = DataStatsCollector(
+            monitor, vocab=cfg.vocabulary_size, row_dim=model.row_dim,
+            every_steps=cfg.telemetry_datastats_every_steps,
+            heavy_hitter_k=cfg.telemetry_heavy_hitter_k, ids_fn=ids_of,
+        )
+    accum_cols = model.row_dim if cfg.adagrad_accumulator == "element" else 1
+    graphs = _graphs_of(step_fn)
+    captures = graphs.captures if graphs is not None else 0
+    saveable = lambda st: unpack_state(st, model)  # noqa: E731
+    ckpt = AsyncCheckpointer(
+        cfg.model_file, device=device, monitor=monitor, log=log,
+        chunk_bytes=cfg.checkpoint_chunk_mb << 20, async_save=cfg.async_save,
+        delta_every_steps=cfg.delta_every_steps, delta_chain_max=cfg.delta_chain_max,
+        full_every_s=cfg.delta_full_every_s, chain_max_bytes=cfg.delta_chain_max_bytes,
+        vocab=cfg.vocabulary_size, row_dim=model.row_dim,
+        start_step=state.step, cursor_fn=input_cursor,
+    )
+
+    def anomaly(step, loss):
+        monitor.emit_anomaly(step, loss, state=state)
 
     meter = Throughput()
     losses: list[torch.Tensor] = []  # device values; synced at log points
-    groups = _GroupCheck(device)
+    groups = _GroupCheck(device, anomaly)
     pending = 0  # steps since the last log point
     counted = 0  # examples the meter holds
     start_step = state.step
@@ -554,21 +645,52 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
             if stop.is_set():
                 break
             # A resumed first epoch reopens at the cursor's batch.
-            for batch, examples in train_stream(epoch, cur["batch"] if epoch == start_epoch else 0):
+            epoch_stream = train_stream(epoch, cur["batch"] if epoch == start_epoch else 0)
+            input_stats = getattr(epoch_stream, "stats", None)
+            monitor.set_queue_depth_fn(getattr(epoch_stream, "queue_depth", None))
+            monitor.set_producer_alive_fn(getattr(epoch_stream, "producer_alive", None))
+            for batch, examples in epoch_stream:
                 first_call = state.step == start_step
-                state, loss = step_fn(state, batch)
+                tracer.on_step()
+                # Call 1 pays the kernel builds and the graph capture.
+                with monitor.warmup_window() if first_call else contextlib.nullcontext():
+                    with step_trace("train", state.step, cuda):
+                        state, loss = step_fn(state, batch)
                 cur["batch"] += loss.numel()  # K batches consumed
                 groups.push(loss, state.step)
                 if first_call:
-                    # Call 1 pays the kernel builds, the graph capture and the
-                    # allocator's warm-up: the meter's window starts after it
-                    # and holds none of its examples.
-                    if device.type == "cuda":
+                    # The meter's window starts after call 1 and holds none
+                    # of its examples (builds, capture, allocator warm-up).
+                    if cuda:
                         torch.cuda.synchronize(device)
                     meter.reset()
                 else:
                     meter.add(examples)
                     counted += examples
+                # Heartbeat and compile drain: the first epoch this process
+                # runs (a K-step run's short epoch tail captures there) is
+                # warm-up, any build or capture later is steady-state.
+                monitor.on_dispatch(state.step, warmup=(epoch == start_epoch))
+                profiler.on_step(state.step)
+                if ledger is not None:
+                    now = graphs.captures if graphs is not None else 0
+                    if ledger.want("train_step"):
+                        ledger.stage("train_step", examples=examples,
+                                     modeled_bytes=_modeled_bytes(ids_of(batch), model.row_dim,
+                                                                  accum_cols))
+                    if now > captures:
+                        ledger.stage(f"train_graph_k{loss.numel()}", examples=examples,
+                                     modeled_bytes=_modeled_bytes(ids_of(batch), model.row_dim,
+                                                                  accum_cols))
+                    captures = now
+                    ledger.flush(state.step)
+                if datastats is not None:
+                    datastats.note(state.step, batch=batch)
+                if ckpt.delta_enabled:
+                    ckpt.note_batch(ids_of(batch))
+                    if ckpt.delta_due(state.step) and not stop.is_set():
+                        with monitor.suspended():
+                            ckpt.delta_boundary(state, saveable, state.step)
                 losses.append(loss)
                 pending += loss.numel()
                 if step_hook is not None:
@@ -582,38 +704,65 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
                     # Read after the sync above, so the window's examples are
                     # trained, not only launched.
                     rate = meter.rate()
-                    _check_finite(mean_loss, state.step)
+                    _check_finite(mean_loss, state.step, anomaly)
                     # A window that holds only the first call (K >= log_every)
                     # has no examples to rate: its line gives the loss alone.
                     log(
                         f"step {state.step} epoch {epoch} loss {mean_loss:.5f}"
                         + (f" examples/sec {rate:,.0f} (/chip {rate:,.0f})" if counted else "")
                     )
+                    monitor.emit(
+                        "train", step=state.step, epoch=epoch, loss=round(mean_loss, 6),
+                        examples_per_sec=round(rate, 1) if counted else None,
+                        examples_per_sec_per_chip=round(rate, 1) if counted else None,
+                    )
+                    if input_stats is not None and (rec := input_stats.drain()):
+                        monitor.emit("input", step=state.step, epoch=epoch, **rec)
                     losses.clear()
                     meter.reset()
                     counted = 0
             if stop.is_set():
                 break
+            if input_stats is not None and (rec := input_stats.drain()):
+                monitor.emit("input", step=state.step, epoch=epoch, **rec)
             # A poisoned state must abort BEFORE the cursor moves and the save
             # below replaces the last good checkpoint.
             groups.drain()
             if losses:
-                _check_finite(_mean(losses), state.step)
+                _check_finite(_mean(losses), state.step, anomaly)
             cur["epoch"], cur["batch"] = epoch + 1, 0  # the next epoch's start
             if cfg.validation_files:
-                val_auc = _evaluate(cfg, model, predict_step, state, cfg.validation_files,
-                                    max_nnz, device, log)
+                with monitor.suspended():  # no train call completes here
+                    val_auc = _evaluate(cfg, model, predict_step, state, cfg.validation_files,
+                                        max_nnz, device, log)
                 log(f"epoch {epoch} validation auc {val_auc:.5f}")
+                monitor.emit("validation", step=state.step, epoch=epoch,
+                             validation_auc=round(val_auc, 6))
+                monitor.on_dispatch(state.step, warmup=(epoch == start_epoch))
             if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
-                save()
+                with monitor.suspended():
+                    ckpt.save_boundary(state, saveable, state.step)
                 log(f"epoch {epoch} checkpoint -> {cfg.model_file}")
+        # The stop save too: never a poisoned state.
+        groups.drain()
+        if losses:
+            _check_finite(_mean(losses), state.step, anomaly)
     finally:
         restore_handlers()
-    # The stop save too: never a poisoned state.
-    groups.drain()
-    if losses:
-        _check_finite(_mean(losses), state.step)
-    save()
+        # Join the in-flight async write BEFORE the final save below: an
+        # older publish must never land after a newer one.
+        ckpt.finalize()
+        summary = ckpt.summary()
+        if ledger is not None:
+            summary.update(ledger.summary())
+        if datastats is not None:
+            summary.update(datastats.summary())
+        profiler.close(state.step)
+        tracer.close()
+        monitor.close(**summary)
+    # The last save is synchronous whatever async_save says: when this
+    # returns, the state on disk is the state returned.
+    ckpt.save_boundary(state, saveable, state.step, sync=True, emit=False)
     if stop.is_set():
         log(
             f"stopped on signal at step {state.step}, model -> {cfg.model_file} "

@@ -25,7 +25,13 @@ host integer, advanced by K per replay.  The losses come back as a fresh
 Launch counters: a kernel wrapper counts the launches it makes.  The
 warm-up's are counted; the capture's are not (a capture records and
 launches nothing); the kernels a replay runs never pass through a wrapper.
-``replays`` counts the graph launches.
+``replays`` counts the graph launches, ``captures`` the recordings (each
+also counts as one compile for the telemetry's compile sentinel).
+``last_inputs`` holds the buffers the last call's steps read (the graph's
+static buffers on the card, the inputs themselves on the CPU), for a
+caller that reads the batch after the call (the delta checkpoint's touched
+rows).  A capture records in ``thread_local`` mode, so a checkpoint writer
+thread working on its own stream does not invalidate it.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from fast_tffm_tpu_torch.telemetry import note_compile
 
 __all__ = ["StepGraphs"]
 
@@ -76,9 +84,11 @@ class StepGraphs:
         self._graphs: dict[tuple, _Captured] = {}
         self.captures = 0
         self.replays = 0
+        self.last_inputs: tuple = ()
 
     def __call__(self, state, *inputs):
         if state.table.device.type != "cuda":
+            self.last_inputs = inputs
             return self.fn(state, *inputs)
         key = (
             state.layout,
@@ -92,6 +102,7 @@ class StepGraphs:
             static.copy_(t, non_blocking=True)
         cap.graph.replay()
         self.replays += 1
+        self.last_inputs = tuple(cap.inputs)
         state.step += cap.losses.shape[0]
         return state, cap.losses.clone()
 
@@ -107,7 +118,7 @@ class StepGraphs:
         persistent, step = _tensors(state), state.step
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out, losses = self.fn(state, *static)
                 for keep, new in zip(persistent, _tensors(out)):
                     if keep is not None and new is not keep:
@@ -116,4 +127,5 @@ class StepGraphs:
             _set_tensors(state, persistent)
             state.step = step
         self.captures += 1
+        note_compile()
         return _Captured(graph, static, losses)

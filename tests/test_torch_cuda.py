@@ -11,7 +11,11 @@ eager steps they replay, and a failed build of the native parser raises.
 The rows tail at the packed address is held bitwise to its twin and to the
 rows layout's update; a stopped and resumed card run (streamed, and cached
 at K = 8) bitwise to the uninterrupted one; the dedup body captures in a
-K = 8 graph.
+K = 8 graph.  An async save's snapshot holds the boundary's bits though the
+next in-place step and K = 8 replay are launched right behind it; the
+touched-row bitmap after a K = 8 replay is its batches' unique ids; a delta
+chain written on the card replays bitwise; ``device_live_bytes`` makes no
+device sync.
 """
 
 import os
@@ -768,3 +772,149 @@ def test_dedup_gather_rows_card_run_is_bitwise_the_plain_run(cuda, tmp_path, mon
     with pytest.raises(PrefetchError, match="dedup_gather_rows = 4 but a batch carries"):
         train(runs["small"], resume=True, log=quiet, device="cuda")
     assert rows_tail_adagrad_update.launches == before
+
+
+# --- async and delta checkpoints, telemetry ------------------------------------------
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["rows", "fused"])
+def test_async_snapshot_is_the_boundary_state_though_launches_follow_at_once(
+        cuda, tmp_path, fused):
+    """An async save boundary clones the state on the compute stream; the
+    next eager step (B4 or B3 in place) and the next K = 8 replay are
+    launched right behind it, and the writer's D2H runs on its own stream:
+    the file holds the boundary's bits."""
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+    from fast_tffm_tpu_torch.checkpoint_async import AsyncCheckpointer
+
+    model = FMModel(vocabulary_size=1 << 20, factor_num=8, order=3)
+    batches = _batches(np.random.default_rng(31), 10, b=4096, v=1 << 20)
+    body = packed_train_step_body if fused else train_step_body
+    eager = (make_packed_train_step if fused else make_train_step)(model, 0.05)
+    graph = make_scanned_train_step(model, 0.05, body=body)
+    st = _card_state(model, fused, cuda)
+    st, _ = eager(st, batches[0].to(cuda))
+    stack = lambda group: Batch(*(torch.stack([getattr(b, f) for b in group])  # noqa: E731
+                                  for f in ("labels", "ids", "vals", "fields", "weights")))
+    st, _ = graph(st, stack(batches[1:9]))  # the capture happens before the boundary
+    torch.cuda.synchronize()
+    want = unpack_state(st, model)
+    want_table, want_accum = want.table.cpu().clone(), want.table_accum.cpu().clone()
+    path = str(tmp_path / "m.ckpt")
+    ck = AsyncCheckpointer(path, device=cuda, async_save=True, chunk_bytes=4 << 20, log=print)
+    ck.save_boundary(st, lambda s: unpack_state(s, model), st.step)
+    st, _ = eager(st, batches[9].to(cuda))  # in place, right behind the snapshot
+    st, _ = graph(st, stack(batches[1:9]))  # a replay overwrites the static state
+    ck.finalize()
+    assert ck.full_saves == 1 and ck.write_failures == 0
+    got = restore_checkpoint(path, torch.device("cpu"), accum_width=1 if fused else 9)
+    assert got.step == 9
+    assert torch.equal(got.table, want_table) and torch.equal(got.table_accum, want_accum)
+    assert not torch.equal(unpack_state(st, model).table.cpu(), want_table)  # it moved on
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_touched_rows_after_a_k8_replay_are_its_batches_unique_ids(cuda, shuffled):
+    """The delta bitmap marked after a K = 8 replay, from the resident ids
+    through the call's indices (and, streamed, from the graph's static
+    buffers), holds exactly the unique ids of the 8 batches."""
+    model = FMModel(vocabulary_size=4099, factor_num=8, order=3)
+    rng = np.random.default_rng(37)
+    batches = _batches(rng, 16)
+    data = device_cache.DeviceDataset(
+        *(torch.cat([getattr(b, f) for b in batches]).to(cuda)
+          for f in ("labels", "ids", "vals", "fields", "weights")),
+        batches=16, batch_size=64, n_rows=1024, offsets=torch.arange(64, device=cuda),
+    )
+    perm = rng.permutation(1024)
+    device_cache.set_permutation(data, perm)
+    step, step_shuffled = device_cache.make_cached_scan_train_step(model, 0.05, data)
+    scan = step_shuffled if shuffled else step
+    st = _card_state(model, False, cuda)
+    host_ids = torch.cat([b.ids for b in batches]).numpy()
+    for idxs in device_cache.epoch_index_chunks(16, 8, cuda):
+        st, _ = scan(st, idxs)
+        bitmap = torch.zeros(4099, dtype=torch.bool, device=cuda)
+        bitmap.index_fill_(0, device_cache.call_ids(data, idxs, shuffled).reshape(-1).long(), True)
+        rows = (idxs.cpu().numpy()[:, None] * 64 + np.arange(64)).reshape(-1)
+        want = np.unique(host_ids[perm[rows] if shuffled else rows])
+        assert np.array_equal(torch.nonzero(bitmap).reshape(-1).cpu().numpy(), want)
+    streamed = make_scanned_train_step(model, 0.05)
+    group = batches[:8]
+    st, _ = streamed(st, Batch(*(torch.stack([getattr(b, f) for b in group])
+                                 for f in ("labels", "ids", "vals", "fields", "weights"))))
+    bitmap = torch.zeros(4099, dtype=torch.bool, device=cuda)
+    bitmap.index_fill_(0, streamed.last_batch().ids.reshape(-1).long(), True)
+    assert streamed.last_batch().ids.device.type == "cuda"
+    want = np.unique(torch.stack([b.ids for b in group]).numpy())
+    assert np.array_equal(torch.nonzero(bitmap).reshape(-1).cpu().numpy(), want)
+
+
+def test_device_live_bytes_makes_no_sync(cuda):
+    from fast_tffm_tpu_torch.telemetry import device_live_bytes
+
+    table = torch.zeros((1 << 20, 9), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # keeps the stream busy for about a second
+    live, peak = device_live_bytes(cuda)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy, "device_live_bytes waited for the device"
+    assert peak >= live >= table.numel() * 4
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_a_k_step_delta_chain_replays_bitwise_on_the_card(cuda, tmp_path, k):
+    """delta_every_steps = 8 on the card (K = 8: device-cached, a graph per
+    8 steps), aborted at step 16: base@8 + delta@16 restores bitwise the
+    full save of a run stopped at 16, and async + delta runs end bitwise
+    their synchronous run."""
+    import shutil
+    import signal
+
+    from fast_tffm_tpu_torch.checkpoint import delta_paths, restore_checkpoint, save_checkpoint
+    from fast_tffm_tpu_torch.trainer import TrainState
+    from fast_tffm_tpu_torch.training import train
+
+    for f in ("train.libsvm", "test.libsvm"):
+        shutil.copy(os.path.join(REPO, "data", f), tmp_path)
+    rng = np.random.default_rng(41)
+    save_checkpoint(str(tmp_path / "init.ckpt"), TrainState(
+        table=torch.from_numpy(rng.uniform(-0.3, 0.3, (256, 9)).astype(np.float32)), dense=[],
+        step=0, table_accum=torch.full((256, 9), 0.1)))
+    mode = dict(device_cache=True, binary_cache=True, shuffle=True, steps_per_call=8) \
+        if k > 1 else {}
+    runs = {}
+    for name, kw in (("delta", dict(delta_every_steps=8)), ("stop", {}),
+                     ("fast", dict(delta_every_steps=8, async_save=True)), ("sync", {})):
+        runs[name] = _resume_cfg(tmp_path, f"{name}.ckpt", **mode, **kw)
+        shutil.copy(tmp_path / "init.ckpt", runs[name].model_file)
+    quiet = lambda *_: None  # noqa: E731
+
+    class Abort(Exception):
+        pass
+
+    def abort(step):
+        if step >= 16:
+            raise Abort()
+
+    with pytest.raises(Abort):
+        train(runs["delta"], resume=True, log=quiet, device="cuda", step_hook=abort)
+    assert len(delta_paths(runs["delta"].model_file)) == 1
+    fired = []
+
+    def stop(step):
+        if step >= 16 and not fired:
+            fired.append(step)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    train(runs["stop"], resume=True, log=quiet, device="cuda", step_hook=stop)
+    cpu = torch.device("cpu")
+    a = restore_checkpoint(runs["delta"].model_file, cpu, accum_width=9)
+    b = restore_checkpoint(runs["stop"].model_file, cpu, accum_width=9)
+    assert a.step == b.step == 16
+    assert torch.equal(a.table, b.table) and torch.equal(a.table_accum, b.table_accum)
+    got = train(runs["fast"], resume=True, log=quiet, device="cuda")
+    want = train(runs["sync"], resume=True, log=quiet, device="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got.table, want.table) and torch.equal(got.table_accum, want.table_accum)

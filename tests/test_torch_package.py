@@ -11,6 +11,7 @@
 
 import glob
 import io
+import json
 import os
 import subprocess
 import sys
@@ -250,11 +251,6 @@ TRAIN_ONLY = [
     dict(online_follow=True),
     dict(online_accum_restart_steps=100),
     dict(on_nan="rollback"),
-    dict(async_save=True),
-    dict(delta_every_steps=10),
-    dict(metrics_path="m.jsonl"),
-    dict(trace_dir="trace"),
-    dict(telemetry_profile_steps="2:4"),
 ]
 
 
@@ -267,12 +263,46 @@ def test_train_refuses_later_slice_settings(kw, tmp_path):
     assert not os.listdir(tmp_path)  # refused before any read or write
 
 
-@pytest.mark.parametrize("kw", [dict(metrics_path="m.jsonl")], ids=lambda kw: next(iter(kw)))
-def test_predict_refuses_later_slice_settings(kw, tmp_path):
-    cfg = Config(order=3, vocabulary_size=8, max_nnz=2, predict_files=(str(tmp_path / "p"),),
-                 model_file=str(tmp_path / "m.ckpt"), **kw).validate()
-    with pytest.raises(ValueError, match="later slice"):
-        predict(cfg, device="cpu", log=lambda *_: None)
+# The telemetry and checkpoint settings the port once refused, and what each
+# leaves on disk after a run takes it.
+TAKEN = [
+    (dict(async_save=True), "m.ckpt"),
+    (dict(delta_every_steps=3), "m.ckpt"),
+    (dict(metrics_path="m.jsonl"), "m.jsonl"),
+    (dict(trace_dir="trace", trace_steps=4), "trace"),
+    (dict(telemetry_profile_steps="2:4"), "m.ckpt.profile"),
+]
+
+
+@pytest.mark.parametrize("kw,left", TAKEN, ids=lambda x: next(iter(x)) if isinstance(x, dict)
+                         else "")
+def test_train_takes_telemetry_and_checkpoint_settings(kw, left, tmp_path):
+    data = tmp_path / "t.libsvm"
+    data.write_text(open(os.path.join(REPO, "data", "train.libsvm")).read())
+    kw = {k: str(tmp_path / v) if k in ("metrics_path", "trace_dir") else v
+          for k, v in kw.items()}
+    cfg = Config(order=3, vocabulary_size=256, max_nnz=8, batch_size=40, log_every=5,
+                 train_files=(str(data),), model_file=str(tmp_path / "m.ckpt"), **kw).validate()
+    state = train(cfg, device="cpu", log=lambda *_: None)
+    assert state.step == 10 and os.path.exists(tmp_path / left)
+    if left in ("trace", "m.ckpt.profile"):
+        assert [f for f in os.listdir(tmp_path / left) if f.endswith(".pt.trace.json")]
+
+
+def test_predict_takes_metrics_path(tmp_path):
+    """predict writes the JAX package's records where it once refused the key."""
+    rng = np.random.default_rng(2)
+    model = tmp_path / "m.ckpt"
+    with open(model, "wb") as f:
+        np.savez(f, table=rng.uniform(-0.3, 0.3, size=(256, 9)).astype(np.float32),
+                 step=np.int64(1))
+    cfg = Config(order=3, vocabulary_size=256, max_nnz=8, batch_size=40,
+                 predict_files=(os.path.join(REPO, "data", "test.libsvm"),),
+                 score_path=str(tmp_path / "s.txt"), model_file=str(model),
+                 metrics_path=str(tmp_path / "m.jsonl")).validate()
+    predict(cfg, device="cpu", log=lambda *_: None)
+    kinds = {json.loads(line)["kind"] for line in open(tmp_path / "m.jsonl")}
+    assert {"predict", "input", "profile", "mem", "summary"} <= kinds
 
 
 def test_serve_takes_a_config_with_training_only_settings(tmp_path):
@@ -289,7 +319,7 @@ def test_serve_takes_a_config_with_training_only_settings(tmp_path):
         f"[General]\norder = 3\nfactor_num = 4\nvocabulary_size = 32\nmodel_file = {model}\n"
         "table_layout = packed\n"
         "[Train]\nmax_nnz = 4\nshuffle = true\nbinary_cache = true\nsteps_per_call = 4\n"
-        "metrics_path = m.jsonl\n[Checkpoint]\nasync_save = true\n"
+        f"metrics_path = {tmp_path / 'm.jsonl'}\n[Checkpoint]\nasync_save = true\n"
     )
     loaded = load_config(str(cfg))
     assert loaded.shuffle and loaded.steps_per_call == 4 and loaded.table_layout == "packed"
@@ -297,6 +327,7 @@ def test_serve_takes_a_config_with_training_only_settings(tmp_path):
     serve_lines(loaded, ["1 1:0.5 2:1.0\n", "0 7:1\n"], out, log=lambda *_: None, device="cpu")
     scores = [float(x) for x in out.getvalue().split()]
     assert len(scores) == 2 and all(0.0 < x < 1.0 for x in scores)
+    assert os.path.isfile(tmp_path / "m.jsonl")  # serve writes its telemetry there
 
 
 def test_cli_serves_stdin_in_pipe_mode(tmp_path):

@@ -10,6 +10,7 @@ deadlines, cancellation, close, and the checkpoints it refuses.
 """
 
 import io
+import json
 import os
 import time
 
@@ -391,17 +392,24 @@ def test_hot_reload_is_refused_until_ported(tmp_path):
         _engine(cfg)
 
 
-def test_serve_logs_that_it_ignores_metrics_path(tmp_path):
-    """serve takes a training config that sets metrics_path and says, in a
-    note naming the key, that it writes no records there."""
+def test_serve_writes_its_records_to_metrics_path(tmp_path):
+    """serve writes the JAX engine's records to metrics_path (kind=serving
+    at close, compile, profile per bucket, mem, summary) and logs no note
+    that it ignores the key."""
     _, cfg = _cfgs(tmp_path, metrics_path=str(tmp_path / "m.jsonl"))
     _npz(cfg.model_file)
     log = []
     out = io.StringIO()
     serve_lines(cfg, _lines(np.random.default_rng(3), 5), out=out, log=log.append, device="cpu")
-    notes = [m for m in log if m.startswith("note: metrics_path")]
-    assert len(notes) == 1 and str(tmp_path / "m.jsonl") in notes[0]
-    assert len(out.getvalue().split()) == 5 and not os.path.exists(tmp_path / "m.jsonl")
+    assert not [m for m in log if m.startswith("note: metrics_path")]
+    assert len(out.getvalue().split()) == 5
+    recs = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
+    (serving,) = [r for r in recs if r["kind"] == "serving"]
+    assert serving["requests"] == 5 and serving["rows"] == 5
+    assert {r["program"] for r in recs if r["kind"] == "profile"} == {
+        f"serve_score_b{b}" for b in cfg.serve_buckets}
+    (summary,) = [r for r in recs if r["kind"] == "summary"]
+    assert summary["steady_compiles"] == 0
 
 
 def test_latency_histogram_matches_jax():
