@@ -165,6 +165,32 @@ last line:
   ckpt_ffm  baseline3 (FFM, a 746 MB state, 16 steps) saved sync and async in
             turns: bitwise equal files, train_stall_ms and whole-run ex/s
             (every K = 8 run of these phases traced, as train_cached's)
+  serve_reload hot reload at full width: a card run (2 epochs, delta every
+            8 steps, async saves) stopped after its last step leaves base@24
+            + deltas @32, @40, @48; an engine polling every 0.2 s serves the
+            base while each delta, then a new full save (the fused run's),
+            then a torn delta land one at a time: after each stage a 64-row
+            probe bitwise a fresh card engine on the same chain head; the
+            torn file counted and given up on (reload_max_retries 3); the
+            counts (a tick racing the full save's chain reset may count a
+            failure: chain_reset_failures, apart from the torn file's
+            three), each stage's landed-to-scored ms and the freshness
+            records; then a flush loop racing reload_once's apply of delta
+            1 (every flush bitwise one head or the other) and the apply's
+            and a full reload's stage times
+  serve_socket python -m fast_tffm_tpu_torch.cli serve <cfg> --port 0 with
+            [Serving] replicas = 2 on the card, serving the chain at delta 2:
+            4096 lines over two affinity-pinned FrameConnections (64-row
+            frames, pipelined) and over JSONL, every score within atol 1e-6
+            of the in-process engine's (a coalesced flush scores at another
+            bucket) and of serve_lines' printed one; lines/s and row latency
+            p50/p99; each replica's stats (device cuda, B1 launches during
+            the traffic)
+  serve_failover the same stream with replica 0 SIGKILLed midway: every
+            row answered, scores serve_socket's; the restart and its MTTR;
+            delta 3 landed: one fan-out, staged_delta once per replica, each
+            replica's probe bitwise serve_reload's head; a replica slowed
+            200 ms x 4 under 50 ms row deadlines answers typed deadlines
   throughput the config's 1,048,576-row epoch on the card only, streamed
             through the native parser, from FMB (converted first, timed
             apart), from FMB with steps_per_call = 8 and device-cached with
@@ -184,7 +210,9 @@ last line:
             the fused resume runs), error and times at the training shapes
             (B4's `shapes` adds baseline1's and baseline3's, its `packed`
             the packed address); launches_by_run adds the telemetry_* and
-            ckpt_* runs (K-step runs: the replays in their traces)
+            ckpt_* runs (K-step runs: the replays in their traces), and for
+            B1 serve_reload's engine and each replica process's launches
+            during serve_socket's traffic (serve_socket_r0, _r1)
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -2119,6 +2147,8 @@ def _write_ini(path: str, **sections) -> str:
     with open(os.path.join(HERE, CONFIG)) as f:
         ini.read_file(f)
     for section, keys in sections.items():
+        if not ini.has_section(section):
+            ini.add_section(section)
         for k, v in keys.items():
             ini.set(section, k, str(v))
     with open(path, "w") as f:
@@ -3145,6 +3175,583 @@ def phase_ckpt_ffm(tmp: str, ffm: dict) -> dict:
 
 
 
+SERVE_PROBE = 64  # probe rows: one bucket-64 flush in every engine that scores them
+SERVE_FRAME = 64  # rows per binary frame on the socket tier
+SERVE_WAIT_S = 120.0  # bound of every wait on the socket tier
+
+
+def _land(src: str, dst: str) -> None:
+    """Publish ``src`` at ``dst`` as a writer does: a copy, then a rename."""
+    import shutil
+
+    shutil.copy(src, dst + ".landing")
+    os.replace(dst + ".landing", dst)
+
+
+def _tear(path: str, member: str) -> None:
+    """Garbage bytes inside ``member`` of the npz at ``path`` (a write torn
+    mid-file): the step still reads, the member fails its CRC check."""
+    import struct
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        off = z.getinfo(member).header_offset
+    with open(path, "r+b") as f:
+        f.seek(off + 26)
+        name_len, extra_len = struct.unpack("<HH", f.read(4))
+        f.seek(off + 30 + name_len + extra_len + 128)
+        chunk = f.read(64)
+        f.seek(off + 30 + name_len + extra_len + 128)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+
+
+def _delta_rows(path: str) -> int:
+    import numpy as np
+
+    with np.load(path) as z:
+        return int(z["delta_idx"].shape[0])
+
+
+def _probe_block(rng, vocab: int):
+    import numpy as np
+
+    from fast_tffm_tpu_torch.data.libsvm import parse_lines
+
+    parsed = parse_lines(_lines(rng, SERVE_PROBE, vocab), vocabulary_size=vocab, max_nnz=NNZ)
+    return parsed.ids.astype(np.int32), parsed.vals
+
+
+def _block_scores(engine, probe):
+    import numpy as np
+
+    st, sc = engine.submit_block(*probe).result(timeout=60)
+    if st.any():
+        fail(f"a probe block came back with statuses {sorted(set(st.tolist()))}")
+    return np.asarray(sc)
+
+
+def _fresh_scores(cfg, probe, ref_launches: list):
+    """A fresh card engine restored from what ``cfg.model_file`` holds now;
+    its forward launches (a reference, not the path under test) are added
+    to ``ref_launches[0]``."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.ops.anova import anova_inter
+    from fast_tffm_tpu_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(cfg, serve_reload_interval_s=0.0, metrics_path="")
+    before = anova_inter.launches
+    with ServingEngine(cfg, log=lambda *_: None, device="cuda") as eng:
+        out = _block_scores(eng, probe)
+    ref_launches[0] += anova_inter.launches - before
+    return out
+
+
+def _until_step(engine, step: int, probe, what: str, timeout: float = 30.0) -> float:
+    """Flush probes until ``engine`` serves ``step`` (a swap happens at a
+    flush); returns the seconds waited."""
+    t0 = time.perf_counter()
+    while engine.step != step:
+        if time.perf_counter() - t0 > timeout:
+            fail(f"{what}: the engine still serves step {engine.step} after {timeout}s "
+                 f"(expected {step})")
+        _block_scores(engine, probe)
+        time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def phase_serve_reload(rng, tmp: str, train_cfg, fused_cfg) -> dict:
+    """Hot reload at full width on the card.  A card training run (native
+    text, 2 epochs, delta_every_steps = 8, async_save) aborted after its
+    last call leaves base@24 + deltas @32, @40, @48.  An engine with
+    reload_interval_s 0.2 serves the base, and the phase lands, one at a
+    time (copy + rename), each delta, then a new full save (the fused run's
+    step-24 file), then a torn delta (reload_max_retries 3): after each
+    stage the 64-row probe's scores equal, bitwise, a fresh card engine
+    restored from the same chain head; the torn file is counted, given up
+    on, and the scores stay.  Then a racing engine (watcher off): a flush
+    loop while reload_once applies delta 1, every flush bitwise one head or
+    the other; the apply and a full reload timed."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import checkpoint_save_id, delta_paths, save_delta
+    from fast_tffm_tpu_torch.serving import ServingEngine
+
+    files = dict(train_files=train_cfg.train_files, validation_files=train_cfg.validation_files,
+                 epoch_num=2, log_every=8)
+    writer = _run("serve_reload writer",
+                  _phase_cfg(_b5(), tmp, "serve_reload_w", "cuda",
+                             os.path.join(tmp, "train.init.ckpt"), **files,
+                             delta_every_steps=DELTA_EVERY, async_save=True),
+                  _abort_at(2 * TRAIN_BATCHES), expect_abort=True)
+    _expect_steps("serve_reload writer", writer["launches"], 2 * TRAIN_BATCHES)
+    base = writer["cfg"].model_file
+    deltas = delta_paths(base)
+    if len(deltas) != 3:
+        fail(f"serve_reload: the writer left {deltas}, three deltas expected")
+    served = os.path.join(tmp, "serve_reload.ckpt")
+    _land(base, served)
+    metrics = os.path.join(tmp, "serve_reload.jsonl")
+    cfg = _b5(model_file=served, serve_reload_interval_s=0.2, serve_reload_max_retries=3,
+              metrics_path=metrics)
+    probe = _probe_block(rng, cfg.vocabulary_size)
+    heads, stages, ref_launches = {}, [], [0]
+    _zero_counters()
+    eng = ServingEngine(cfg, log=log_stderr, device="cuda")
+    try:
+        heads["base"] = _fresh_scores(cfg, probe, ref_launches)
+        got = _block_scores(eng, probe)
+        if eng.step != TRAIN_BATCHES or not np.array_equal(got, heads["base"]):
+            fail(f"serve_reload: the base (step {eng.step}) differs from a fresh engine's")
+        plan = [(f"delta_{i + 1}", d, TRAIN_BATCHES + DELTA_EVERY * (i + 1))
+                for i, d in enumerate(deltas)]
+        plan.append(("full", fused_cfg.model_file, TRAIN_BATCHES))
+        for name, src, step in plan:
+            if name == "full":  # a full save unlinks the chain (newest first,
+                # as checkpoint.save_checkpoint does), then publishes
+                failed_before_reset = eng.metrics_snapshot()["reload_failures"]
+                if failed_before_reset:
+                    fail(f"serve_reload: {failed_before_reset} failed reloads before the "
+                         "full save")
+                for dp in reversed(delta_paths(served)):
+                    os.remove(dp)
+                t_land = time.perf_counter()
+                _land(src, served)
+            else:
+                t_land = time.perf_counter()
+                _land(src, f"{served}.{src.rsplit('.', 2)[-2]}.npz")
+            _until_step(eng, step, probe, f"serve_reload {name}")
+            landed_to_scored = 1e3 * (time.perf_counter() - t_land)
+            got = _block_scores(eng, probe)
+            heads[name] = _fresh_scores(cfg, probe, ref_launches)
+            if not np.array_equal(got, heads[name]):
+                err = float(np.abs(got - heads[name]).max())
+                fail(f"serve_reload {name}: scores differ from a fresh engine's by {err}")
+            stages.append({"stage": name, "step": step, "bitwise_fresh": True,
+                           "landed_to_scored_ms": landed_to_scored})
+        # A tick that lists the chain while the reset unlinks it can find a
+        # file gone (FileNotFoundError): counted and retried, as in the JAX
+        # engine.  Those are reported apart from the torn delta's.
+        reset_failures = eng.metrics_snapshot()["reload_failures"]
+        # A torn delta chained to the new base: counted, given up on after 3.
+        torn = f"{served}.delta-0001.npz"
+        rows = np.arange(0, cfg.vocabulary_size, 7)
+        out, _, _ = save_delta(
+            served + ".tmp-torn", 1, idx=rows,
+            table_rows=np.zeros((rows.size, 1 + cfg.factor_num), np.float32),
+            accum_rows=np.zeros((rows.size, 1 + cfg.factor_num), np.float32),
+            dense_leaves=[], dense_accum_leaves=[], step=TRAIN_BATCHES + 1,
+            parent_sig=checkpoint_save_id(served))
+        _tear(out, "table_rows.npy")
+        os.replace(out, torn)
+        t0 = time.perf_counter()
+        while eng.metrics_snapshot()["reload_giveups"] < 1:
+            if time.perf_counter() - t0 > 30:
+                fail(f"serve_reload torn: no give-up in 30 s: {eng.metrics_snapshot()}")
+            time.sleep(0.05)
+        got = _block_scores(eng, probe)
+        if eng.step != TRAIN_BATCHES or not np.array_equal(got, heads["full"]):
+            fail("serve_reload torn: the torn delta moved the serving state")
+        stages.append({"stage": "torn_delta", "step": eng.step, "bitwise_fresh": True,
+                       "given_up_after_s": time.perf_counter() - t0})
+        snap = eng.metrics_snapshot()
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    launches = _wrapper_counts()
+    launches["anova_fwd"] -= ref_launches[0]  # the watcher engine's own
+    counts = {k: snap[k] for k in ("reloads", "delta_reloads", "reload_failures",
+                                   "reload_giveups")}
+    counts["torn_failures"] = counts["reload_failures"] - reset_failures
+    counts["chain_reset_failures"] = reset_failures
+    if {k: counts[k] for k in ("reloads", "delta_reloads", "torn_failures", "reload_giveups")} \
+            != {"reloads": 1, "delta_reloads": 3, "torn_failures": 3, "reload_giveups": 1}:
+        fail(f"serve_reload: counters {counts}")
+    fresh = [r for r in _records(metrics) if r["kind"] == "freshness"]
+    if [r["mode"] for r in fresh] != ["delta", "delta", "delta", "full"]:
+        fail(f"serve_reload: freshness records {fresh}")
+    if launches["anova_fwd"] == 0:
+        fail("serve_reload: the engine never launched the anova_fwd kernel")
+
+    # The race: a flush loop on a watcher-off engine while reload_once
+    # applies delta 1 to a copy of the table; then a full reload, timed.
+    raced = os.path.join(tmp, "serve_race.ckpt")
+    _land(base, raced)
+    rcfg = dataclasses.replace(cfg, model_file=raced, serve_reload_interval_s=0.0,
+                               metrics_path="")
+    seen, stop = [], threading.Event()
+    with ServingEngine(rcfg, log=log_stderr, device="cuda") as race:
+
+        def loop():
+            while not stop.is_set():
+                seen.append(_block_scores(race, probe))
+
+        t = threading.Thread(target=loop)
+        t.start()
+        try:
+            while len(seen) < 5:
+                time.sleep(0.001)
+            _land(deltas[0], f"{raced}.delta-0001.npz")
+            t0 = time.perf_counter()
+            status = race.reload_once()["status"]
+            apply_ms = 1e3 * (time.perf_counter() - t0)
+            n = len(seen)
+            t0 = time.perf_counter()
+            while (race.step != TRAIN_BATCHES + DELTA_EVERY or len(seen) < n + 5) and \
+                    time.perf_counter() - t0 < 30:
+                time.sleep(0.001)
+        finally:
+            stop.set()
+            t.join(timeout=60)
+        if t.is_alive() or status != "staged_delta":
+            fail(f"serve_reload race: status {status}, loop alive {t.is_alive()}")
+        kinds = [0 if np.array_equal(s, heads["base"]) else
+                 1 if np.array_equal(s, heads["delta_1"]) else -1 for s in seen]
+        if -1 in kinds or kinds != sorted(kinds) or 1 not in kinds:
+            fail(f"serve_reload race: flushes scored {kinds} (0 base, 1 delta head, -1 a mix)")
+        for dp in reversed(delta_paths(raced)):
+            os.remove(dp)
+        _land(fused_cfg.model_file, raced)
+        t0 = time.perf_counter()
+        full_status = race.reload_once()["status"]
+        full_ms = 1e3 * (time.perf_counter() - t0)
+        if full_status != "staged":
+            fail(f"serve_reload race: the full reload gave {full_status}")
+    rec = {
+        "phase": "serve_reload", "config": CONFIG, "reload_interval_s": 0.2,
+        "reload_max_retries": 3, "chain": [os.path.basename(d) for d in deltas],
+        "stages": stages, "counts": counts, "anova_launches": launches["anova_fwd"],
+        "freshness_applied_ms": snap["freshness_applied_ms"],
+        "freshness_scored_ms": snap["freshness_scored_ms"],
+        "freshness_note": "from the writer's publish stamps: includes the replay's delay",
+        "race": {"flushes": len(seen), "on_base": kinds.count(0), "on_delta": kinds.count(1),
+                 "bitwise_one_head": True, "delta_stage_ms": apply_ms,
+                 "delta_rows": _delta_rows(deltas[0]),
+                 "full_stage_ms": full_ms},
+        "writer_wall_ms": writer["wall_ms"],
+    }
+    emit(rec)
+    return {"served_base": base, "deltas": deltas, "heads": heads, "probe": probe,
+            "anova_launches": launches["anova_fwd"]}
+
+
+def _percentiles(xs) -> dict:
+    import numpy as np
+
+    a = np.asarray(xs, np.float64)
+    return {"p50": float(np.percentile(a, 50)), "p99": float(np.percentile(a, 99)),
+            "max": float(a.max())}
+
+
+def _pin(port: int, replica: int, on_result=None, tries: int = 6):
+    """A FrameConnection whose affinity hello placed it on ``replica``."""
+    from fast_tffm_tpu_torch.serving.client import FrameConnection
+
+    for _ in range(tries):
+        fc = FrameConnection(port, timeout=60, on_result=on_result)
+        if fc.replica == replica:
+            return fc
+        fc.close()
+    fail(f"serve_socket: no hello placed a connection on replica {replica}")
+
+
+def _send_frames(fc, ids, vals, rids, sent: dict, deadlines_ms=None) -> None:
+    for a in range(0, len(rids), SERVE_FRAME):
+        r = rids[a:a + SERVE_FRAME]
+        sent[int(r[0])] = time.perf_counter()
+        fc.send_batch(r, ids[a:a + SERVE_FRAME], vals[a:a + SERVE_FRAME],
+                      deadlines_ms=None if deadlines_ms is None else
+                      [deadlines_ms] * len(r))
+
+
+def _frame_results(fc, rids, what: str) -> tuple:
+    import numpy as np
+
+    missing = fc.wait_answered(rids, SERVE_WAIT_S)
+    if missing:
+        fail(f"{what}: {len(missing)} rows never answered")
+    status = [fc.results[int(r)][0] for r in rids]
+    return status, np.array([fc.results[int(r)][1] for r in rids], np.float32)
+
+
+def phase_serve_socket(rng, tmp: str, reload_out: dict) -> dict:
+    """The socket tier on the card: ``python -m fast_tffm_tpu_torch.cli serve
+    <cfg> --port 0`` with replicas = 2, serving the serve_reload chain at
+    delta 2 (@40).  serve_socket: 4096 lines of 11 uniform ids over two
+    affinity-pinned FrameConnections (binary frames of 64 rows, all
+    pipelined) and once over JSONL; every score against the card's
+    in-process engine (64-row blocks) within atol 1e-6 (a flush that
+    coalesces frames scores at another bucket, which may move the last
+    float32 bit) and serve_lines' printed value; each replica's stats
+    (device cuda, B1 launches during the traffic).  serve_failover: the
+    same stream with replica 0 SIGKILLed midway (every row answered, the
+    scores serve_socket's), its restart and MTTR; delta 3 landed: one
+    reload fan-out, staged_delta once per replica, each replica's probe
+    bitwise serve_reload's head @48; a 200 ms x 4 slow replica under
+    50 ms row deadlines: typed deadline answers, none hung."""
+    import signal
+
+    import numpy as np
+
+    from fast_tffm_tpu_torch.data.libsvm import parse_lines
+    from fast_tffm_tpu_torch.serving import ServingEngine, serve_lines
+    from fast_tffm_tpu_torch.serving.client import ServeConnection, spawn_serve
+
+    served = os.path.join(tmp, "serve_socket.ckpt")
+    _land(reload_out["served_base"], served)
+    for i, dp in enumerate(reload_out["deltas"][:2]):
+        _land(dp, f"{served}.delta-{i + 1:04d}.npz")
+    cfg_path = _write_ini(os.path.join(tmp, "serve_socket.cfg"),
+                          General={"model_file": served},
+                          Serving={"replicas": 2, "reload_interval_s": 0.2},
+                          Resilience={"restart_backoff_s": 0.5})
+    from fast_tffm_tpu_torch.config import load_config
+
+    cfg = load_config(cfg_path)
+    lines = _lines(rng, SERVE_LINES, cfg.vocabulary_size)
+    parsed = parse_lines(lines, vocabulary_size=cfg.vocabulary_size, max_nnz=NNZ)
+    ids, vals = parsed.ids.astype(np.int32), parsed.vals
+    # The card's in-process references: 64-row blocks, and serve_lines.
+    import dataclasses
+
+    ref_cfg = dataclasses.replace(cfg, serve_reload_interval_s=0.0)
+    with ServingEngine(ref_cfg, log=lambda *_: None, device="cuda") as eng:
+        ref = np.concatenate([_block_scores(eng, (ids[a:a + 64], vals[a:a + 64]))
+                              for a in range(0, SERVE_LINES, 64)])
+    out = io.StringIO()
+    serve_lines(ref_cfg, lines, out=out, log=lambda *_: None, device="cuda")
+    printed = np.array([float(s) for s in out.getvalue().split()], np.float64)
+
+    def against_ref(got, what: str) -> dict:
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            fail(f"{what}: {got.shape} scores, {SERVE_LINES} finite expected")
+        err = float(np.abs(got.astype(np.float64) - ref).max())
+        perr = float(np.abs(got.astype(np.float64) - printed).max())
+        if err > ATOL or perr > ATOL + 5e-7:
+            fail(f"{what}: scores differ from the in-process engine's by {err} "
+                 f"(serve_lines' printed by {perr})")
+        return {"max_abs_err": err, "bitwise_share": float(np.mean(got == ref)),
+                "max_abs_err_vs_printed": perr}
+
+    t0 = time.perf_counter()
+    proc, port = spawn_serve(cfg_path, device="cuda", timeout_s=240, log=log_stderr)
+    startup_s = time.perf_counter() - t0
+    pids = []
+    try:
+        ops = ServeConnection(port, timeout=60)
+        before = ops.request({"op": "stats"}, timeout=60)
+        pids = [r["pid"] for r in before["replicas"]]
+        # serve_socket, frames: two connections, one per replica, all frames
+        # of each pipelined at once.
+        done_t: dict = {}
+
+        def stamp(rid, st, sc):
+            done_t[rid] = time.perf_counter()
+
+        fcs = [_pin(port, 0, stamp), _pin(port, 1, stamp)]
+        sent: dict = {}
+        half = SERVE_LINES // 2
+        t0 = time.perf_counter()
+        for i, fc in enumerate(fcs):
+            rids = np.arange(i * half, (i + 1) * half, dtype=np.uint32)
+            _send_frames(fc, ids[rids], vals[rids], rids, sent)
+        status, frame_scores = [], []
+        for i, fc in enumerate(fcs):
+            rids = np.arange(i * half, (i + 1) * half, dtype=np.uint32)
+            st, sc = _frame_results(fc, rids, "serve_socket frames")
+            status += st
+            frame_scores.append(sc)
+        frames_s = time.perf_counter() - t0
+        frame_scores = np.concatenate(frame_scores)
+        if set(status) != {"ok"}:
+            fail(f"serve_socket frames: statuses {sorted(set(status))}")
+        frame_lat = [1e3 * (done_t[r] - sent[r - r % SERVE_FRAME]) for r in range(SERVE_LINES)]
+        frame_rec = {"lines_per_s": SERVE_LINES / frames_s, "seconds": frames_s,
+                     "latency_ms": _percentiles(frame_lat), **against_ref(frame_scores, "frames")}
+        # serve_socket, JSONL through the front end and the router.
+        jsent, jdone = {}, {}
+
+        def jstamp(msg, meta):
+            jdone[msg.get("id")] = time.perf_counter()
+            return False  # keep it in responses too
+
+        jconn = ServeConnection(port, timeout=60, on_response=jstamp)
+        t0 = time.perf_counter()
+        for i, ln in enumerate(lines):
+            jsent[i] = time.perf_counter()
+            jconn.send({"id": i, "line": ln})
+        missing = jconn.wait_answered(range(SERVE_LINES), SERVE_WAIT_S)
+        jsonl_s = time.perf_counter() - t0
+        if missing:
+            fail(f"serve_socket jsonl: {len(missing)} lines never answered")
+        bad = [jconn.responses[i] for i in range(SERVE_LINES) if "score" not in jconn.responses[i]]
+        if bad:
+            fail(f"serve_socket jsonl: {len(bad)} errors, first {bad[0]}")
+        jsonl_scores = np.array([jconn.responses[i]["score"] for i in range(SERVE_LINES)],
+                                np.float32)
+        jsonl_rec = {"lines_per_s": SERVE_LINES / jsonl_s, "seconds": jsonl_s,
+                     "latency_ms": _percentiles([1e3 * (jdone[i] - jsent[i])
+                                                 for i in range(SERVE_LINES)]),
+                     **against_ref(jsonl_scores, "jsonl")}
+        after = ops.request({"op": "stats"}, timeout=60)
+        per_replica = {}
+        for r in ("0", "1"):
+            e0, e1 = before["engines"][r], after["engines"][r]
+            if not str(e1.get("device", "")).startswith("cuda"):
+                fail(f"serve_socket: replica {r} runs on {e1.get('device')}")
+            launched = e1["launches"]["anova_fwd"] - e0["launches"]["anova_fwd"]
+            if launched <= 0:
+                fail(f"serve_socket: replica {r} launched the anova_fwd kernel {launched} times")
+            per_replica[r] = {"device": e1["device"], "anova_launches": launched,
+                              "warmup_anova_launches": e0["launches"]["anova_fwd"],
+                              "requests": e1["engine"]["requests"],
+                              "flushes": e1["engine"]["flushes"],
+                              "batch_occupancy": e1["engine"]["batch_occupancy"],
+                              "compute_ms": e1["engine"]["compute_ms"],
+                              "steady_compiles": e1["steady_compiles"]}
+        emit({"phase": "serve_socket", "config": CONFIG, "replicas": 2, "lines": SERVE_LINES,
+              "frame_rows": SERVE_FRAME, "startup_s": startup_s, "frames": frame_rec,
+              "jsonl": jsonl_rec, "atol": ATOL, "replica_stats": per_replica,
+              "router": {k: after[k] for k in ("failovers", "failed_unanswerable",
+                                               "reload_fanouts")}})
+
+        # serve_failover: the same stream, replica 0 SIGKILLed midway.
+        fc = _pin(port, 0)
+        jconn2 = ServeConnection(port, timeout=60)
+        rids = np.arange(10_000, 10_000 + SERVE_LINES, dtype=np.uint32)
+        fsent: dict = {}
+        t0 = time.perf_counter()
+        _send_frames(fc, ids[:half], vals[:half], rids[:half], fsent)
+        for i in range(half):
+            jconn2.send({"id": i, "line": lines[i]})
+        os.kill(pids[0], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        _send_frames(fc, ids[half:], vals[half:], rids[half:], fsent)
+        for i in range(half, SERVE_LINES):
+            jconn2.send({"id": i, "line": lines[i]})
+        fst, fsc = _frame_results(fc, rids, "serve_failover frames")
+        jmissing = jconn2.wait_answered(range(SERVE_LINES), SERVE_WAIT_S)
+        if jmissing:
+            fail(f"serve_failover jsonl: {len(jmissing)} lines never answered")
+        answered_s = time.perf_counter() - t0
+        ok = np.array([s == "ok" for s in fst])
+        ferr = float(np.abs(fsc[ok] - frame_scores[ok]).max()) if ok.any() else None
+        jres = [jconn2.responses[i] for i in range(SERVE_LINES)]
+        jok = np.array(["score" in r for r in jres])
+        jsc = np.array([r.get("score", 0.0) for r in jres], np.float32)
+        jerr = float(np.abs(jsc[jok] - jsonl_scores[jok]).max()) if jok.any() else None
+        if (ferr is not None and ferr > ATOL) or (jerr is not None and jerr > ATOL):
+            fail(f"serve_failover: scores moved by {ferr} (frames) / {jerr} (jsonl)")
+        codes = {}
+        for s in fst:
+            codes[f"frame_{s}"] = codes.get(f"frame_{s}", 0) + 1
+        for r in jres:
+            k = "jsonl_ok" if "score" in r else f"jsonl_{r.get('code')}"
+            codes[k] = codes.get(k, 0) + 1
+        if any(k.endswith(("bad_request", "None")) for k in codes):
+            fail(f"serve_failover: answers {codes}")
+
+        def ping():
+            return ops.request({"op": "ping"}, timeout=60)
+
+        t0 = time.perf_counter()
+        while True:
+            snap = ping()
+            if snap["replicas"][0]["state"] == "healthy" and snap["mttr_s"]:
+                break
+            if time.perf_counter() - t0 > SERVE_WAIT_S:
+                fail(f"serve_failover: replica 0 not back: {snap['replicas']}")
+            time.sleep(0.2)
+        if snap["replicas"][0]["restarts"] != 1 or len(snap["mttr_s"]) != 1:
+            fail(f"serve_failover: restarts {snap['replicas']} mttr {snap['mttr_s']}")
+        pids = [r["pid"] for r in snap["replicas"]]
+        # Delta 3 lands: one fan-out, staged_delta once per replica.
+        _land(reload_out["deltas"][2], f"{served}.delta-0003.npz")
+        t_land = time.perf_counter()
+        while True:
+            snap = ping()
+            if all(r["reload_acks"] >= 1 for r in snap["replicas"]):
+                break
+            if time.perf_counter() - t_land > SERVE_WAIT_S:
+                fail(f"serve_failover: reload acks {snap['replicas']}")
+            time.sleep(0.05)
+        acked_ms = 1e3 * (time.perf_counter() - t_land)
+        probes = {}
+        for r in (0, 1):
+            pfc = _pin(port, r)
+            prid = np.arange(20_000, 20_000 + SERVE_PROBE, dtype=np.uint32)
+            pfc.send_batch(prid, *reload_out["probe"])
+            pst, psc = _frame_results(pfc, prid, f"serve_failover probe r{r}")
+            pfc.close()
+            if set(pst) != {"ok"} or not np.array_equal(psc, reload_out["heads"]["delta_3"]):
+                err = float(np.abs(psc - reload_out["heads"]["delta_3"]).max())
+                fail(f"serve_failover: replica {r}'s probe after delta 3 differs from "
+                     f"serve_reload's head by {err} ({sorted(set(pst))})")
+            probes[str(r)] = {"bitwise_serve_reload_head": True}
+        stats = ops.request({"op": "stats"}, timeout=60)
+        snap = ping()
+        for r in ("0", "1"):
+            e = stats["engines"][r]["engine"]
+            if e["delta_reloads"] != 1 or e["reloads"] != 0 or e["reload_failures"] != 0:
+                fail(f"serve_failover: replica {r} reload counters {e}")
+        if snap["reload_fanouts"] != 1 or [r["reload_acks"] for r in snap["replicas"]] != [1, 1]:
+            fail(f"serve_failover: fan-outs {snap['reload_fanouts']}, acks "
+                 f"{[r['reload_acks'] for r in snap['replicas']]}")
+        # A slow replica under 50 ms row deadlines: typed deadline answers.
+        sfc = _pin(port, 1)
+        ack = ops.request({"op": "slow", "replica": 1, "ms": 200, "flushes": 4}, timeout=60)
+        srids = np.arange(30_000, 30_000 + 8 * SERVE_FRAME, dtype=np.uint32)
+        # One frame first (its flush sleeps 200 ms), the rest during the sleep.
+        _send_frames(sfc, ids[:SERVE_FRAME], vals[:SERVE_FRAME], srids[:SERVE_FRAME], {},
+                     deadlines_ms=50.0)
+        time.sleep(0.02)
+        _send_frames(sfc, ids[SERVE_FRAME:srids.size], vals[SERVE_FRAME:srids.size],
+                     srids[SERVE_FRAME:], {}, deadlines_ms=50.0)
+        sst, _ = _frame_results(sfc, srids, "serve_failover slow")
+        slow_codes = {s: sst.count(s) for s in set(sst)}
+        if not slow_codes.get("deadline") or set(slow_codes) - {"ok", "deadline"}:
+            fail(f"serve_failover slow: answers {slow_codes}")
+        # Drain the injected slowness: single rows without deadlines.
+        drid = np.arange(40_000, 40_004, dtype=np.uint32)
+        for i, r in enumerate(drid):
+            sfc.send_batch(drid[i:i + 1], ids[i:i + 1], vals[i:i + 1])
+        _frame_results(sfc, drid, "serve_failover drain")
+        emit({"phase": "serve_failover", "config": CONFIG, "lines": SERVE_LINES,
+              "killed_replica": 0, "answered": True, "answered_s": answered_s,
+              "kill_at_s": t_kill - fsent[10_000], "answers": codes,
+              "frame_failovers": fc.failovers, "max_abs_err_frames": ferr,
+              "max_abs_err_jsonl": jerr,
+              "bitwise_frames": bool(ferr == 0.0), "bitwise_jsonl": bool(jerr == 0.0),
+              "restarts": snap["replicas"][0]["restarts"], "mttr_s": snap["mttr_s"],
+              "router": {k: snap[k] for k in ("failovers", "failed_unanswerable",
+                                              "reload_fanouts", "reload_retries")},
+              "reload": {"delta": os.path.basename(reload_out["deltas"][2]),
+                         "landed_to_acked_ms": acked_ms, "reload_acks": [1, 1],
+                         "staged_delta_per_replica": [1, 1], "probes": probes,
+                         "freshness_staged_ms": snap["freshness_staged_ms"]},
+              "slow": {"ack": ack.get("ok"), "ms": 200, "flushes": 4, "deadline_ms": 50,
+                       "answers": slow_codes}})
+        for c in (*fcs, fc, sfc, jconn, jconn2, ops):
+            c.close()
+        return {f"serve_socket_r{r}": per_replica[r]["anova_launches"] for r in ("0", "1")}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+        for pid in pids:  # replicas the front end could not close
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+
+
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
                    shapes=None, packed=None) -> dict:
     rec = {
@@ -3236,6 +3843,11 @@ def main() -> int:
         observed.update(saved["launches"])
         observed.update(phase_ckpt_delta(tmp, cuda_cfg, saved))
         observed.update(phase_ckpt_ffm(tmp, zoo["ffm"]))
+        # This slice's phases: hot reload in process, then the socket tier.
+        reload_out = phase_serve_reload(np.random.default_rng(SEED + 9), tmp, cuda_cfg,
+                                        fused_cfg)
+        served = {"serve_reload": reload_out["anova_launches"],
+                  **phase_serve_socket(np.random.default_rng(SEED + 10), tmp, reload_out)}
         phase_throughput(tmp, big_path)
         phase_telemetry_cost(tmp, big_path)
     src = "fast_tffm_tpu_torch/csrc/"
@@ -3270,6 +3882,10 @@ def main() -> int:
     for runs, kernel in ((fwd_runs, "anova_fwd"), (bwd_runs, "anova_bwd"),
                          (b4_runs, "rows_tail_adagrad"), (b3_runs, "fused_tail_adagrad")):
         runs.update({run: counts[kernel] for run, counts in observed.items() if counts[kernel]})
+    # The serving runs' forward launches: the in-process reload engine's
+    # (wrappers zeroed before it), and each replica process's during the
+    # socket traffic (its stats after less before).
+    fwd_runs.update(served)
     emit({"kernels": [
         _kernel_record("anova_fwd", src + "anova_fwd.cu",
                        "fast_tffm_tpu/ops/pallas_anova.py:66", launches["anova_fwd"], *fwd,

@@ -13,7 +13,9 @@ every input path, resumable at the exact batch after a stop (SIGTERM) or a
 crash, with async and delta checkpoints (``checkpoint_async.py``) and the
 JAX package's telemetry records (``telemetry.py``, ``profiling.py``);
 offline prediction; the FMB ``convert`` verb; and serving through
-the micro-batched ``ServingEngine`` (``serving/engine.py``), with the
+the micro-batched ``ServingEngine`` (``serving/engine.py``: hot reload of
+full saves and delta chains, block submission), in process or behind the
+socket tier (``serving/``: front end, router, replica processes), with the
 order ≥ 3 interaction DP, its backward and both sparse Adagrad tails in
 hand-written CUDA kernels (``csrc/``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

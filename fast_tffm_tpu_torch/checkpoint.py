@@ -20,9 +20,8 @@ run saves ``trainer.unpack_state`` of its state (a [V, D] table and a
 runs restore each other's checkpoints, as in the JAX package.
 
 Refused rather than misread: a tiered parameter-store checkpoint (its
-``table`` is only the hot tier), an orbax directory, a checkpoint
-extended by a delta chain (replaying deltas is a later slice; the base
-alone would be stale rows), and for training an accumulator of the wrong
+``table`` is only the hot tier), an orbax directory, a delta that does not
+chain from its base, and for training an accumulator of the wrong
 granularity.
 """
 
@@ -227,8 +226,11 @@ def save_checkpoint(
     with open(tmp, "wb") as f:
         nbytes = _write_npz_streaming(f, entries, chunk_bytes, timings, staging)
     # Reset the delta chain BEFORE the publish: a crash between the two
-    # leaves the old base alone, still a complete checkpoint.
-    for dp in delta_paths(path):
+    # leaves the old base alone, still a complete checkpoint.  Newest delta
+    # first: every state a reader (the serving reload) or a crash can see
+    # in between is the base with a prefix of its chain, never a chain
+    # with a hole.
+    for dp in reversed(delta_paths(path)):
         try:
             os.remove(dp)
         except OSError:

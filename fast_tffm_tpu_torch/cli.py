@@ -10,7 +10,12 @@ package's CLI (``fast_tffm_tpu/cli.py``):
   predict <cfg>            write one %.6f score per [Predict] predict_files line
                            to score_path
   serve <cfg>              pipe mode: libsvm lines on stdin, one %.6f score
-                           per line on stdout
+                           per line on stdout.  With --port P (or [Serving]
+                           port > 0): the socket tier, a TCP front end over a
+                           router and [Serving] replicas worker processes
+                           (each an engine on --device); P = 0 is ephemeral,
+                           announced as SERVE_READY port=... pid=...
+                           replicas=... on stdout; runs until SIGTERM/SIGINT
   convert <cfg>            pack every configured train, validation and predict
                            file into its <file>.fmb cache (one file at a time;
                            rc 1 when any file failed)
@@ -20,9 +25,8 @@ no CPU fallback; ``convert`` touches no device but keeps the rule).
 ``--metrics-path``, ``--run-id`` and ``--profile-steps`` override
 ``[Train] metrics_path``, ``[Telemetry] run_id`` and ``[Telemetry]
 profile_steps`` (the JAX CLI's flags): a run is instrumented, and rendered
-with ``tools/report.py``, without editing its config.  The
-socket front end (``--port`` / ``[Serving] port``) and the distributed
-verbs are later slices of the port.
+with ``tools/report.py``, without editing its config.  The distributed
+verbs are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ def main(argv=None) -> int:
     ap.add_argument("config")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--resume", action="store_true", help="train: restore model_file first")
+    ap.add_argument("--port", type=int, default=None, metavar="P",
+                    help="serve: run the socket front end on port P (0 = ephemeral); "
+                    "overrides [Serving] port")
     ap.add_argument("--metrics-path", default=None, metavar="PATH",
                     help="telemetry JSONL sink; overrides [Train] metrics_path")
     ap.add_argument("--run-id", default=None, metavar="ID",
@@ -54,6 +61,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.resume and args.mode != "train":
         ap.error("--resume applies to the train verb")
+    if args.port is not None and args.mode != "serve":
+        ap.error("--port applies to the serve verb")
     cfg = load_config(args.config)
     if args.metrics_path is not None:
         cfg.metrics_path = args.metrics_path
@@ -84,11 +93,12 @@ def main(argv=None) -> int:
 
         resolve_device(args.device)
         return _convert(cfg)
-    if cfg.serve_port > 0:
-        ap.error(
-            "[Serving] port > 0: the socket front end is not ported yet (a later "
-            "slice of fast_tffm_tpu_torch); pipe mode reads stdin"
-        )
+    if args.port is not None or cfg.serve_port > 0:
+        from fast_tffm_tpu_torch.device import resolve_device
+        from fast_tffm_tpu_torch.serving.frontend import run_frontend
+
+        resolve_device(args.device)  # the replicas inherit it; fail here first
+        return run_frontend(cfg, args.config, port=args.port, device=args.device, log=log)
     from fast_tffm_tpu_torch.serving import serve_lines
 
     serve_lines(cfg, log=log, device=args.device)

@@ -134,12 +134,23 @@ class Config:
     #   oldest pending request (0 = flush instantly)
     serve_queue_size: int = 4096  # bounded admission queue
     serve_overload: str = "block"  # queue-full policy: block | reject
-    serve_reload_interval_s: float = 0.0  # hot reload (a later slice: > 0 raises
-    #   at engine construction)
-    serve_port: int = 0  # socket front end (a later slice); 0 = pipe mode
+    serve_reload_interval_s: float = 0.0  # hot reload poll of model_file: a
+    #   changed checkpoint (full save or new delta files) is staged off the
+    #   hot path and swapped in between flushes (0 = no watcher)
+    serve_reload_max_retries: int = 8  # consecutive reload failures on one
+    #   checkpoint signature before the engine gives up on it until a new
+    #   write lands (retries back off exponentially from the poll interval)
+    serve_port: int = 0  # socket front end (serving/frontend.py); 0 = pipe
+    #   mode unless the CLI passes --port (0 there = ephemeral, announced)
+    serve_replicas: int = 1  # replica worker processes behind the router,
+    #   each owning one engine on the device
     serve_deadline_ms: float = 0.0  # default per-request deadline; 0 = none
     serve_metrics_every_s: float = 10.0  # kind=serving record cadence
     serve_classes: tuple[tuple[str, int], ...] = ()  # class -> admission tier
+    serve_wire: str = "binary"  # data wire a client may negotiate by hello:
+    #   binary (DATA frames, JSONL the fallback) | jsonl (no upgrade)
+    serve_affinity: bool = True  # hello hands the client a healthy replica's
+    #   port; the replica answers its frames directly
     # [Online]
     online_follow: bool = False  # read to be refused (a later slice)
     online_adagrad_decay: float = 1.0  # γ: lazy touched-row accumulator decay
@@ -150,6 +161,9 @@ class Config:
     on_nan: str = "abort"  # abort (rollback: a later slice)
     io_retries: int = 3  # FMB reader: transient-OSError retries per read op
     io_retry_backoff_s: float = 0.05  # first retry backoff (doubles per try)
+    restart_max: int = 5  # the serving router's replica restarts (bounded)
+    restart_backoff_s: float = 1.0  # restart backoff base (doubles)
+    restart_backoff_max_s: float = 30.0  # restart backoff cap
 
     def validate(self) -> "Config":
         if self.model not in ("fm", "ffm", "deepfm"):
@@ -204,13 +218,21 @@ class Config:
             raise ValueError(f"unknown serve_overload {self.serve_overload!r} (block | reject)")
         if self.serve_reload_interval_s < 0 or self.serve_metrics_every_s < 0:
             raise ValueError("serve_reload_interval_s and serve_metrics_every_s must be >= 0")
+        if self.serve_reload_max_retries < 1:
+            raise ValueError(
+                f"serve_reload_max_retries must be >= 1, got {self.serve_reload_max_retries}"
+            )
         if not (0 <= self.serve_port <= 65535):
             raise ValueError(f"serve_port must be in [0, 65535], got {self.serve_port}")
+        if self.serve_replicas < 1:
+            raise ValueError(f"serve_replicas must be >= 1, got {self.serve_replicas}")
         if self.serve_deadline_ms < 0:
             raise ValueError(
                 f"serve_deadline_ms must be >= 0 (0 = none), got {self.serve_deadline_ms}"
             )
         self.serve_classes = validate_classes(self.serve_classes)
+        if self.serve_wire not in ("binary", "jsonl"):
+            raise ValueError(f"unknown serve_wire {self.serve_wire!r} (binary | jsonl)")
         return self
 
     def check_width(self, max_nnz: int) -> None:
@@ -356,6 +378,10 @@ class Config:
             raise ValueError(f"io_retries must be >= 0, got {self.io_retries}")
         if self.io_retry_backoff_s < 0:
             raise ValueError(f"io_retry_backoff_s must be >= 0, got {self.io_retry_backoff_s}")
+        if self.restart_max < 0:
+            raise ValueError(f"restart_max must be >= 0, got {self.restart_max}")
+        if self.restart_backoff_s < 0 or self.restart_backoff_max_s < 0:
+            raise ValueError("restart_backoff_s and restart_backoff_max_s must be >= 0")
         if self.packed_update not in ("auto", "dense", "compact", "sorted"):
             raise ValueError(
                 f"unknown packed_update {self.packed_update!r} (auto | dense | compact | sorted)"
@@ -573,10 +599,16 @@ def load_config(path: str) -> Config:
     cfg.serve_reload_interval_s = get(
         s, "reload_interval_s", float, cfg.serve_reload_interval_s
     )
+    cfg.serve_reload_max_retries = get(
+        s, "reload_max_retries", int, cfg.serve_reload_max_retries
+    )
     cfg.serve_port = get(s, "port", int, cfg.serve_port)
+    cfg.serve_replicas = get(s, "replicas", int, cfg.serve_replicas)
     cfg.serve_deadline_ms = get(s, "deadline_ms", float, cfg.serve_deadline_ms)
     cfg.serve_metrics_every_s = get(s, "metrics_every_s", float, cfg.serve_metrics_every_s)
     cfg.serve_classes = get(s, "classes", str, cfg.serve_classes)
+    cfg.serve_wire = get(s, "wire", str, cfg.serve_wire).lower()
+    cfg.serve_affinity = get(s, "affinity", boolean, cfg.serve_affinity)
 
     o = "Online"
     cfg.online_follow = get(o, "follow", boolean, cfg.online_follow)
@@ -589,6 +621,11 @@ def load_config(path: str) -> Config:
     cfg.on_nan = get(r, "on_nan", str, cfg.on_nan).lower()
     cfg.io_retries = get(r, "io_retries", int, cfg.io_retries)
     cfg.io_retry_backoff_s = get(r, "io_retry_backoff_s", float, cfg.io_retry_backoff_s)
+    cfg.restart_max = get(r, "restart_max", int, cfg.restart_max)
+    cfg.restart_backoff_s = get(r, "restart_backoff_s", float, cfg.restart_backoff_s)
+    cfg.restart_backoff_max_s = get(
+        r, "restart_backoff_max_s", float, cfg.restart_backoff_max_s
+    )
     return cfg.validate()
 
 

@@ -38,6 +38,7 @@ __all__ = [
     "unpack_table",
     "packed_slots",
     "packed_gather",
+    "scatter_logical_rows",
     "pack_accum_any",
     "unpack_accum_any",
     "packed_accum_gather_any",
@@ -104,6 +105,26 @@ def packed_gather(packed: torch.Tensor, ids: torch.Tensor, d: int) -> torch.Tens
     p = rows_per_tile(d)
     ids = ids.long()
     return _slots(packed, p, d)[ids // p, ids % p]
+
+
+def scatter_logical_rows(
+    packed: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor, d: int
+) -> torch.Tensor:
+    """A copy of the packed table with logical ``rows`` [M, D] written at
+    ``ids`` (the inverse of ``packed_gather``; the JAX function of the same
+    name): how the serving reload applies a checkpoint delta without
+    re-reading the full table.  Neighbouring rows of a tile row, spare
+    lanes and untouched rows keep their values; ids past the last tile row
+    are dropped.  Never writes ``packed`` itself: a flush may be reading
+    it."""
+    p = rows_per_tile(d)
+    ids = ids.long().reshape(-1)
+    rows = rows.reshape(-1, d)
+    keep = ids // p < packed.shape[0]
+    ids, rows = ids[keep], rows[keep]
+    out = packed.clone()
+    _slots(out, p, d)[ids // p, ids % p] = rows.to(out.dtype)
+    return out
 
 
 def pack_accum_any(accum: torch.Tensor, d: int, init_value: float) -> torch.Tensor:

@@ -918,3 +918,123 @@ def test_a_k_step_delta_chain_replays_bitwise_on_the_card(cuda, tmp_path, k):
     want = train(runs["sync"], resume=True, log=quiet, device="cuda")
     torch.cuda.synchronize()
     assert torch.equal(got.table, want.table) and torch.equal(got.table_accum, want.table_accum)
+
+
+def _serving_chain(tmp_path, v, rows):
+    """A seeded order-3 FM (k 8) base at step 1 and one delta at step 2
+    rewriting ``rows`` random rows; returns the config and the delta's
+    path, parked beside the chain until the test lands it."""
+    from fast_tffm_tpu_torch.checkpoint import checkpoint_save_id, save_checkpoint, save_delta
+    from fast_tffm_tpu_torch.config import Config
+    from fast_tffm_tpu_torch.trainer import TrainState
+
+    rng = np.random.default_rng(43)
+    path = str(tmp_path / "serve.ckpt")
+    save_checkpoint(path, TrainState(
+        table=torch.from_numpy(rng.uniform(-0.3, 0.3, (v, 9)).astype(np.float32)), dense=[],
+        step=1, table_accum=torch.full((v, 1), 0.1)))
+    idx = np.sort(rng.choice(v, size=rows, replace=False))
+    out, _, _ = save_delta(
+        path, 1, idx=idx, table_rows=rng.uniform(-0.3, 0.3, (rows, 9)).astype(np.float32),
+        accum_rows=np.full((rows, 1), 0.2, np.float32), dense_leaves=[], dense_accum_leaves=[],
+        step=2, parent_sig=checkpoint_save_id(path))
+    parked = str(tmp_path / "parked.npz")
+    os.replace(out, parked)
+    cfg = Config(model="fm", order=3, factor_num=8, vocabulary_size=v, max_nnz=11,
+                 model_file=path, serve_flush_deadline_ms=0.0).validate()
+    return cfg, parked, out
+
+
+@pytest.mark.parametrize("layout", ["rows", "packed"])
+def test_a_flush_racing_a_delta_apply_scores_one_whole_checkpoint(cuda, tmp_path, layout):
+    """A flush loop on the card while reload_once applies a 400K-row delta
+    to a 2^20-row table: every flush's scores equal, bitwise, the base's or
+    the delta head's (never a mix), both are seen, and the table served
+    before the swap is unchanged."""
+    import dataclasses
+    import threading
+    import time
+
+    from fast_tffm_tpu_torch.serving import ServingEngine
+
+    cfg, parked, landed = _serving_chain(tmp_path, 1 << 20, 400_000)
+    cfg = dataclasses.replace(cfg, table_layout=layout).validate()
+    rng = np.random.default_rng(44)
+    ids = rng.integers(0, 1 << 20, size=(64, 11)).astype(np.int32)
+    vals = rng.uniform(0.05, 1.0, size=(64, 11)).astype(np.float32)
+    quiet = lambda *_: None  # noqa: E731
+
+    def scores(eng):
+        st, sc = eng.submit_block(ids, vals).result(timeout=60)
+        assert not st.any()
+        return np.asarray(sc)
+
+    with ServingEngine(cfg, log=quiet, device="cuda") as eng:
+        base = scores(eng)
+        live = eng._state.table
+        live_copy = live.clone()
+        seen, stop = [], threading.Event()
+
+        def loop():
+            while not stop.is_set():
+                seen.append(scores(eng))
+
+        t = threading.Thread(target=loop)
+        t.start()
+        try:
+            os.replace(parked, landed)
+            assert eng.reload_once()["status"] == "staged_delta"
+            deadline = time.monotonic() + 60
+            while eng.step != 2 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            n = len(seen)
+            while len(seen) < n + 5 and time.monotonic() < deadline:
+                time.sleep(0.001)
+        finally:
+            stop.set()
+            t.join(timeout=60)
+        assert not t.is_alive() and eng.step == 2
+        assert torch.equal(live, live_copy)
+    with ServingEngine(cfg, log=quiet, device="cuda") as fresh:
+        head = scores(fresh)
+    assert not np.array_equal(base, head)
+    kinds = [0 if np.array_equal(s, base) else 1 if np.array_equal(s, head) else -1
+             for s in seen]
+    assert -1 not in kinds, "a flush scored a mix of two checkpoints"
+    assert 0 in kinds and 1 in kinds
+    assert kinds == sorted(kinds)  # once swapped, never back
+
+
+def test_a_replica_without_a_card_refuses_to_start(tmp_path, monkeypatch):
+    """With no CUDA device visible, a replica started without --device cpu
+    raises before REPLICA_READY, and a router over such replicas fails its
+    bring-up typed (Unavailable); --device cpu starts and announces."""
+    import subprocess
+    import sys
+
+    from fast_tffm_tpu_torch.serving.protocol import REPLICA_READY_PREFIX, Unavailable
+    from fast_tffm_tpu_torch.serving.router import Router, spawn_replica
+
+    cfg, _, _ = _serving_chain(tmp_path, 1024, 10)
+    cfg_path = tmp_path / "run.cfg"
+    cfg_path.write_text(
+        f"[General]\nmodel = fm\norder = 3\nfactor_num = 8\nvocabulary_size = 1024\n"
+        f"model_file = {cfg.model_file}\n[Train]\nmax_nnz = 11\n"
+        "[Serving]\nbuckets = 1 8\nreplicas = 2\n[Resilience]\nrestart_max = 0\n"
+    )
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmd = [sys.executable, "-m", "fast_tffm_tpu_torch.serving.replica", str(cfg_path),
+           "--port", "0"]
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode != 0 and REPLICA_READY_PREFIX not in out.stdout
+    assert "no CUDA device" in out.stderr
+    with pytest.raises(Unavailable):
+        Router(cfg, config_path=str(cfg_path), log=lambda *a: None)
+    handle = spawn_replica(str(cfg_path), 0, device="cpu", log=lambda *a: None,
+                           ready_timeout_s=120)
+    try:
+        assert handle.port > 0 and handle.alive()
+    finally:
+        handle.kill()
+        handle.wait(timeout=30)

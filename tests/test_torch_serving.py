@@ -386,10 +386,18 @@ def test_expired_requests_are_shed_before_padding(tmp_path):
 
 
 def test_hot_reload_is_refused_until_ported(tmp_path):
-    _, cfg = _cfgs(tmp_path, serve_reload_interval_s=1.0)
+    """Hot reload is ported; what stays refused, as in the JAX engine, is
+    reloading into an injected fused-packed state (a reload restores
+    plain-packed, which the fused gather cannot read)."""
+    from fast_tffm_tpu_torch.trainer import pack_state
+
+    _, cfg = _cfgs(tmp_path, serve_reload_interval_s=1.0, table_layout="packed",
+                   adagrad_accumulator="fused")
     _npz(cfg.model_file)
+    fused = pack_state(restore_checkpoint(cfg.model_file, CPU, accum_width=1), fused=True)
     with pytest.raises(ValueError, match="reload"):
-        _engine(cfg)
+        _engine(cfg, state=fused)
+    _engine(cfg).close()  # a restored (plain-packed) state reloads
 
 
 def test_serve_writes_its_records_to_metrics_path(tmp_path):
