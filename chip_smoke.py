@@ -203,6 +203,39 @@ last line:
             mode the median of the runs, and per round its time relative to
             the round's plain run: whether all rounds agree in sign, and the
             smallest relative difference they resolve
+  rollback  on_nan = rollback on FMB input, 2 epochs of 24 steps, a save
+            each epoch, log_every 4, fault plan nan@30:31 (the host-side loss
+            of step 30 poisoned): the log point at 32 raises with the cursor
+            (epoch 1, batch 8), the step-24 save is restored into the live
+            tensors and batches 8-23 of epoch 1 train (48 steps run, step 40
+            at the end): bitwise the run that resumes that save at that
+            cursor, within TABLE_ATOL of the CPU's same rollback; again on
+            the device cache at K = 8 (nan@30:33) with one graph capture;
+            max_rollbacks = 1 and a second window (nan@34:35) raises at 36.
+            restore_ms (npz read and copy to the card) and rollback_wall_ms
+            (from the failing call to the first call after the rollback)
+  supervised cli train --supervised --resume on FMB input, a save every 4
+            steps (a full save at 4, then deltas), plan kill@18,torn_delta@2,
+            io_error@3: one crash record (SIGKILL), one restart record with
+            mttr_s, the torn delta 2 quarantined, an io_retry record, the
+            relaunch resumed at delta 1 (step 8), the final checkpoint
+            bitwise the clean cli run of the same config (and that the
+            in-process run, whose launches are counted); then
+            kill_publish@2 (SIGKILL between delta 1's tmp file and its
+            rename): resumed at the chain head (step 4), bitwise
+  follow    [Online] follow over the 393,216 train rows as an FMS stream
+            (max_batches 24, idle timeout 5 s) at K = 1 and K = 8: over the
+            file written whole, and over a file a writer thread appends in
+            bursts while the run trains (a torn third append, a 1 s stall
+            halfway): each live run bitwise its whole-file run, every run
+            within TABLE_ATOL of the CPU's, the stall in the live runs'
+            kind=input records, ex/s and the card's idle share (traced);
+            cli train SIGTERMed while its reader polls an idle stream exits
+            0 with the cursor at batch 12 and resumes bitwise
+  accum_restart accum_restart_steps = 16 on the device cache, 24 steps, at
+            K = 1 and K = 8 (graphed): one reset after step 16 in each,
+            every accumulator at the init value right after it, the runs
+            bitwise equal; the reset's ms and each run's step time
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
             launches_by_run adds the graphed train_cached runs' replays, and
@@ -210,9 +243,10 @@ last line:
             the fused resume runs), error and times at the training shapes
             (B4's `shapes` adds baseline1's and baseline3's, its `packed`
             the packed address); launches_by_run adds the telemetry_* and
-            ckpt_* runs (K-step runs: the replays in their traces), and for
-            B1 serve_reload's engine and each replica process's launches
-            during serve_socket's traffic (serve_socket_r0, _r1)
+            ckpt_* runs (K-step runs: the replays in their traces), the
+            rollback, supervised reference, follow and accum_restart runs,
+            and for B1 serve_reload's engine and each replica process's
+            launches during serve_socket's traffic (serve_socket_r0, _r1)
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -2580,33 +2614,37 @@ def _model_files(cfg) -> list:
     return sorted(glob.glob(glob.escape(cfg.model_file) + "*"))
 
 
-def _run(what: str, cfg, hook=None, expect_abort: bool = False) -> dict:
+def _run(what: str, cfg, hook=None, expect_abort: bool = False, make_hook=None,
+         trace: bool = False) -> dict:
     """One card run of ``training.train`` of an order-3 FM (or, eager, any
     model), every kernel counter zeroed just before and read just after.
-    ``hook`` is its step hook; ``expect_abort`` a run the hook ends by
-    raising ``_Abort`` (no final save).  Its ``launches`` are those its
-    train steps made: an eager run's are the wrappers' counts; a K-step
-    run's are counted in a profiler trace of the run (``_counted_run``,
-    replays = trace less wrappers, ``_step_launches``), each retry from the
-    model files (base and deltas) and metrics the run started with.
-    Returns the state (None when aborted), the log, the wall time and the
-    counts."""
+    ``hook`` is its step hook, or ``make_hook()`` makes a fresh one for
+    each attempt (it may arm a fault plan or start a stream writer);
+    ``expect_abort`` a run the hook ends by raising ``_Abort`` (no final
+    save).  Its ``launches`` are those its train steps made: an eager run's
+    are the wrappers' counts; a K-step run's (or with ``trace`` an eager
+    run's too) are counted in a profiler trace of the run
+    (``_counted_run``, replays = trace less wrappers, ``_step_launches``),
+    each retry from the model files (base and deltas) and metrics the run
+    started with.  Returns the state (None when aborted), the log, the wall
+    time, the counts and, traced, the card's busy time and idle share."""
     import shutil
 
     import torch
 
     graphed = cfg.steps_per_call > 1
+    traced = graphed or trace
     head, name = os.path.split(cfg.model_file)
     keep = os.path.join(head, f".keep.{name}")
     start = _model_files(cfg)
-    if graphed:
+    if traced:
         os.makedirs(keep, exist_ok=True)
         for path in start:
             shutil.copy(path, os.path.join(keep, os.path.basename(path)))
     result = {}
 
     def run_once():
-        if graphed:  # a retry starts from the files the first attempt had
+        if traced:  # a retry starts from the files the first attempt had
             for path in _model_files(cfg):
                 os.remove(path)
             for path in start:
@@ -2614,8 +2652,9 @@ def _run(what: str, cfg, hook=None, expect_abort: bool = False) -> dict:
         if cfg.metrics_path and os.path.exists(cfg.metrics_path):
             os.remove(cfg.metrics_path)
         lines, state = [], None
+        step_hook = make_hook() if make_hook is not None else hook
         try:
-            state, _ = _train_once(cfg, "cuda", lines, step_hook=hook)
+            state, _ = _train_once(cfg, "cuda", lines, step_hook=step_hook)
             if expect_abort:
                 fail(f"{what}: the run was to be aborted by its step hook and ended")
         except _Abort:
@@ -2624,12 +2663,14 @@ def _run(what: str, cfg, hook=None, expect_abort: bool = False) -> dict:
         result.update(state=state, log=lines)
 
     out = {"cfg": cfg}
-    if graphed:
-        window, wrappers = _counted_run(run_once, what, lambda: True)
-        out["launches"] = _step_launches(window, wrappers, True, what)
+    if traced:
+        window, wrappers = _counted_run(run_once, what, lambda: graphed)
+        out["launches"] = _step_launches(window, wrappers, graphed, what)
         out.update(wall_ms=window["wall_ms"], wrappers=wrappers,
                    trace_attempts=window["trace_attempts"],
-                   trace_lost_events=window.get("trace_lost_events"))
+                   trace_lost_events=window.get("trace_lost_events"),
+                   device_busy_ms=window["device_busy_ms"],
+                   device_idle_share=window["device_idle_share"])
         shutil.rmtree(keep)
     else:
         _zero_counters()
@@ -3752,6 +3793,579 @@ def phase_serve_socket(rng, tmp: str, reload_out: dict) -> dict:
                 pass
 
 
+# --- fault-tolerant and online training ----------------------------------------
+
+ROLLBACK_PLANS = {1: "nan@30:31", 8: "nan@30:33"}  # the K = 8 grid's call ends at 32
+SUPERVISED_PLANS = ("kill@18,torn_delta@2,io_error@3", "kill_publish@2")
+FOLLOW_PLAN = "stream_stall@1,append_torn@3"  # executed by the stream's writer
+ACCUM_RESTART_STEPS = 16
+
+
+def _armed(plan: str, model_file: str, keep: str, after: int, stamps: list):
+    """Arms the fault plan ``plan`` in this process and returns a step hook
+    that stamps (step, host clock) after every call and, at the first call
+    past step ``after``, copies ``model_file`` (the epoch-0 save) to
+    ``keep``; then the plan's own hook."""
+    import shutil
+
+    from fast_tffm_tpu_torch.resilience import FaultPlan, install_faults
+
+    inj = install_faults(FaultPlan.parse(plan))
+    if os.path.exists(keep):
+        os.remove(keep)
+    stamps.clear()
+
+    def hook(step):
+        stamps.append((step, time.perf_counter()))
+        if step > after and not os.path.exists(keep):
+            shutil.copy(model_file, keep)
+        inj.step_hook(step)
+
+    return hook
+
+
+def _rollback_gap_ms(stamps: list) -> float | None:
+    """Host ms from the call after which the non-finite loss was found to
+    the first call of the run that re-entered (the stamp whose step does
+    not grow): the check, the failed run's close, the restore, the seek
+    and one call."""
+    for (s0, t0), (s1, t1) in zip(stamps, stamps[1:]):
+        if s1 <= s0:
+            return 1e3 * (t1 - t0)
+    return None
+
+
+def _skip_reference(what: str, cfg, keep: str, epoch: int, batch: int, width: int):
+    """The kept epoch-0 checkpoint with its cursor moved to (``epoch``,
+    ``batch``), resumed by ``cfg`` with no fault plan and no rollback: the
+    run a rollback to that checkpoint and skip must equal bitwise."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor, save_checkpoint
+
+    ref_file = keep + ".ref"
+    cursor = dict(read_input_cursor(keep), epoch=epoch, batch_in_epoch=batch)
+    save_checkpoint(ref_file, _restored(keep, width), cursor=cursor)
+    ref_cfg = dataclasses.replace(cfg, model_file=ref_file, metrics_path="", on_nan="abort")
+    return _run(what, ref_cfg)
+
+
+def phase_rollback(rng, tmp: str, train_path: str, valid_path: str) -> dict:
+    """``on_nan = rollback`` on FMB input (the resume phases' caches), 2
+    epochs of 24 steps, a save every epoch, log_every 4, from a seeded npz:
+    the plan nan@30:31 poisons the host-side loss of step 30, the log point
+    at 32 raises with the cursor (1, 8), the run restores the step-24 save
+    into its live tensors and trains batches 8-23 of epoch 1.  Bitwise the
+    reference that resumes the same checkpoint at that cursor, within
+    TABLE_ATOL of the same rollback on the CPU; the same on the device
+    cache at K = 8 (nan@30:33: the call ending at 32) with one graph
+    capture; with max_rollbacks = 1 and a second window the run raises."""
+    import torch
+
+    from fast_tffm_tpu_torch import training
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.resilience import NonFiniteLossError, clear_faults
+    from fast_tffm_tpu_torch.trainer import unpack_state
+
+    name = "rollback"
+    train_path, valid_path = _own_files(tmp, "resume", train_path, valid_path)
+    base = _b5(binary_cache=True, on_nan="rollback", save_every_epochs=1, epoch_num=2,
+               log_every=4)
+    model = build_model(base)
+    width = model.row_dim
+    _, _, init = _seeded_init(rng, tmp, name, base, model, False)
+    files = dict(train_files=(train_path,), validation_files=(valid_path,))
+    restore_ms = []
+    real_restore = training.restore_checkpoint
+
+    def timed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_restore(*a, **kw)
+        if out.table.is_cuda:
+            torch.cuda.synchronize()
+        restore_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    training.restore_checkpoint = timed_restore
+    out, launches, states = {}, {}, {}
+    try:
+        for k in (1, 8):
+            key = f"k{k}"
+            extra = {"device_cache": True, "steps_per_call": 8} if k == 8 else {}
+            cfg = _phase_cfg(base, tmp, f"{name}_{key}", "cuda", init, **files, **extra,
+                             metrics_path=os.path.join(tmp, f"{name}_{key}.jsonl"))
+            keep, stamps = cfg.model_file + ".epoch0", []
+            with _captures() as caps:
+                def make_hook(cfg=cfg, keep=keep, stamps=stamps, caps=caps, k=k):
+                    caps["n"] = 0
+                    restore_ms.clear()
+                    return _armed(ROLLBACK_PLANS[k], cfg.model_file, keep, TRAIN_BATCHES,
+                                  stamps)
+
+                run = _run(f"{name} {key}", cfg, make_hook=make_hook)
+            clear_faults()
+            line = (f"on_nan = rollback: non-finite loss at step 32; restored {cfg.model_file} "
+                    "(step 24), skipping input to epoch 1 batch 8 (rollback 1/2)")
+            if line not in run["log"]:
+                fail(f"{name} {key}: no rollback line {line!r} in {run['log'][-6:]}")
+            recs = [r for r in _records(cfg.metrics_path) if r["kind"] == "anomaly"]
+            if [r["event"] for r in recs] != ["nonfinite_loss", "rollback"]:
+                fail(f"{name} {key}: anomaly records {recs}")
+            note = {f: recs[1][f] for f in ("restored_step", "skip_to_epoch", "skip_to_batch")}
+            if note != {"restored_step": 24, "skip_to_epoch": 1, "skip_to_batch": 8}:
+                fail(f"{name} {key}: the rollback record is {recs[1]}")
+            state = unpack_state(run["state"], model)
+            if state.step != 40:
+                fail(f"{name} {key}: ended at step {state.step}, not 24 + 16 = 40")
+            _expect_steps(f"{name} {key}", run["launches"], 48)  # 32 steps, then 16
+            if k == 8 and caps["n"] != 1:
+                fail(f"{name} {key}: {caps['n']} graph captures; the rollback must make none")
+            ref = _skip_reference(f"{name} {key} reference", cfg, keep, 1, 8, width)
+            _expect_steps(f"{name} {key} reference", ref["launches"], 16)
+            if not _logical_equal(state, unpack_state(ref["state"], model)):
+                fail(f"{name} {key}: the rolled-back run is not bitwise the run that resumes "
+                     "the step-24 save at the skip cursor")
+            states[key] = state
+            launches[f"{name}_{key}"] = run["launches"]
+            launches[f"{name}_{key}_reference"] = ref["launches"]
+            out[key] = {
+                "plan": ROLLBACK_PLANS[k], "restored_step": 24,
+                "skip_cursor": {"epoch": 1, "batch_in_epoch": 8}, "final_step": state.step,
+                "bitwise_reference": True, "launches": run["launches"],
+                "reference_launches": ref["launches"],
+                "graph_captures": caps["n"] if k == 8 else None,
+                "restore_ms": restore_ms[-1] if restore_ms else None,
+                "rollback_wall_ms": _rollback_gap_ms(stamps), "wall_ms": run["wall_ms"],
+                "trace_lost_events": run.get("trace_lost_events"),
+            }
+        # The same rollback on the CPU.
+        cpu_cfg = _phase_cfg(base, tmp, f"{name}_k1", "cpu", init, **files)
+        cpu_stamps = []
+        hook = _armed(ROLLBACK_PLANS[1], cpu_cfg.model_file, cpu_cfg.model_file + ".epoch0",
+                      TRAIN_BATCHES, cpu_stamps)
+        cpu_state, cpu_s = _train_once(cpu_cfg, "cpu", [], step_hook=hook)
+        clear_faults()
+        card, cpu = states["k1"], unpack_state(cpu_state, model)
+        table_err = float((card.table.cpu() - cpu.table).abs().max())
+        accum_err = float((card.table_accum.cpu() - cpu.table_accum).abs().max())
+        if cpu.step != 40 or not (table_err <= TABLE_ATOL and accum_err <= TABLE_ATOL):
+            fail(f"{name}: the card's rollback run differs from the CPU's by {table_err} "
+                 f"and {accum_err} (CPU step {cpu.step})")
+        # The budget: one rollback, two windows.
+        budget_cfg = _phase_cfg(base, tmp, f"{name}_budget", "cuda", init, **files,
+                                max_rollbacks=1)
+        _zero_counters()
+        hook = _armed("nan@30:31,nan@34:35", budget_cfg.model_file,
+                      budget_cfg.model_file + ".epoch0", TRAIN_BATCHES, [])
+        try:
+            _train_once(budget_cfg, "cuda", [], step_hook=hook)
+            fail(f"{name}: max_rollbacks = 1 and two nan windows: the run did not raise")
+        except NonFiniteLossError as e:
+            raised_at = e.step
+        clear_faults()
+        launches[f"{name}_budget"] = _wrapper_counts()
+        _expect_steps(f"{name} budget", launches[f"{name}_budget"], 32 + 12)
+        if raised_at != 36:
+            fail(f"{name}: the second window raised at step {raised_at}, not 36")
+    finally:
+        training.restore_checkpoint = real_restore
+    emit({
+        "phase": name, "config": CONFIG + ' + {"binary_cache": true, "on_nan": "rollback", '
+        '"save_every_epochs": 1, "epoch_num": 2, "log_every": 4}', **out,
+        "bitwise_k8_k1": _logical_equal(states["k1"], states["k8"]),
+        "cpu": {"max_abs_table_diff": table_err, "max_abs_accum_diff": accum_err,
+                "seconds": cpu_s},
+        "budget": {"max_rollbacks": 1, "plan": "nan@30:31,nan@34:35", "raised_at": raised_at,
+                   "launches": launches[f"{name}_budget"]},
+    })
+    return launches
+
+
+def _cli_records(path: str, kind: str) -> list:
+    return [r for r in _records(path) if r["kind"] == kind] if os.path.exists(path) else []
+
+
+def phase_supervised(rng, tmp: str, train_path: str, valid_path: str) -> dict:
+    """``cli train --supervised --resume`` from a seeded npz on FMB input (the
+    resume phases' caches), 24 steps, a save every 4 (the first boundary a
+    full save, then deltas): the plan tears delta 2 (step 12; the writer
+    thread has published it before the boundary at 16 starts delta 3),
+    injects an IO error into the FMB reader's third read and kills the
+    child at step 18 (SIGKILL from its step hook); the supervisor
+    quarantines the chain from the torn delta on and relaunches with
+    --resume, which restores delta 1 (step 8) and ends bitwise the clean
+    cli run of the same config (itself bitwise the in-process run, whose
+    launches the wrappers count).  Then kill_publish@2: SIGKILL between delta 1's tmp file and its rename (the
+    second publish, step 8); the relaunch restores the chain head, the full
+    save at step 4, and ends bitwise.  The crash and restart records (MTTR)
+    from the metrics."""
+    import shutil
+
+    from fast_tffm_tpu_torch.config import build_model, load_config
+
+    name = "supervised"
+    train_path, _ = _own_files(tmp, "resume", train_path, valid_path)
+    base = _b5()
+    model = build_model(base)
+    _, _, init = _seeded_init(rng, tmp, name, base, model, False)
+
+    def ini(tag: str) -> str:
+        model_file = os.path.join(tmp, f"{name}_{tag}.ckpt")
+        shutil.copy(init, model_file)
+        return _write_ini(
+            os.path.join(tmp, f"{name}_{tag}.cfg"),
+            General={"model_file": model_file},
+            Train={"train_files": train_path, "validation_files": "", "binary_cache": "true",
+                   "log_every": 4, "metrics_path": model_file + ".jsonl"},
+            Checkpoint={"delta_every_steps": 4},
+            Resilience={"restart_backoff_s": 0.5},
+        )
+
+    ref_cfg = load_config(ini("reference"))
+    ref = _run(f"{name} reference", ref_cfg)
+    _expect_steps(f"{name} reference", ref["launches"], TRAIN_BATCHES)
+    clean_path = ini("clean")
+    r = _cli(["train", clean_path, "--resume"])
+    if r.returncode != 0:
+        fail(f"{name}: the clean cli train exited {r.returncode}: {r.stderr[-2000:]}")
+    clean_file = load_config(clean_path).model_file
+    _same_files(f"{name} clean cli run", clean_file, ref_cfg.model_file, model.row_dim)
+    out = {}
+    for n, plan in enumerate(SUPERVISED_PLANS):
+        cfg_path = ini(f"plan{n}")
+        cfg = load_config(cfg_path)
+        t0 = time.perf_counter()
+        r = _cli(["train", cfg_path, "--resume", "--supervised", "--fault-plan", plan],
+                 timeout=600)
+        wall_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"{name} {plan}: cli train --supervised exited {r.returncode}: "
+                 f"{r.stderr[-2000:]} {r.stdout[-2000:]}")
+        crashes = [x for x in _cli_records(cfg.metrics_path, "fault") if x["event"] == "crash"]
+        restarts = _cli_records(cfg.metrics_path, "restart")
+        if ([(c["signal"], c["exit_code"]) for c in crashes] != [(9, -9)]
+                or len(restarts) != 1 or not restarts[0]["mttr_s"]):
+            fail(f"{name} {plan}: crash records {crashes}, restart records {restarts}")
+        quarantined = sum(int(q) for q in re.findall(r"resilience: quarantined (\d+) delta",
+                                                     r.stderr))
+        io_retries = [x for x in _cli_records(cfg.metrics_path, "fault")
+                      if x["event"] == "io_retry"]
+        resumed = re.findall(r"resumed from \S+ at step (\d+)", r.stdout)
+        if n == 0 and (quarantined < 1 or not io_retries or resumed[-1:] != ["8"]):
+            fail(f"{name} {plan}: quarantined {quarantined}, io retries {io_retries}, "
+                 f"resumed at {resumed}")
+        if n == 1 and resumed[-1:] != ["4"]:
+            fail(f"{name} {plan}: the relaunch restored {resumed}, not the chain head at 4")
+        _same_files(f"{name} {plan}", cfg.model_file, clean_file, model.row_dim)
+        out[plan] = {
+            "crash": {k: crashes[0][k] for k in ("step", "signal", "exit_code")},
+            "restart": {k: restarts[0][k] for k in ("attempt", "backoff_s", "mttr_s")},
+            "chain_repair_quarantined": quarantined, "io_retry": len(io_retries),
+            "resumed_at_step": int(resumed[-1]), "bitwise_clean_run": True,
+            "wall_s": wall_s,
+        }
+    emit({"phase": name, "config": CONFIG + ' + {"binary_cache": true, "delta_every_steps": 4}',
+          "runs": out, "reference_launches": ref["launches"]})
+    return {f"{name}_reference": ref["launches"]}
+
+
+def _host_batches(path: str, vocab: int) -> list:
+    """The train file's batches, parsed on the host (the follow phase's rows)."""
+    from fast_tffm_tpu_torch.data.native import best_parser
+    from fast_tffm_tpu_torch.data.pipeline import batch_stream
+
+    return [p for p, _ in batch_stream([path], batch_size=BATCH, vocabulary_size=vocab,
+                                       max_nnz=NNZ, parser=best_parser(8))]
+
+
+def _append(writer, batches, torn: bool = False) -> None:
+    import numpy as np
+
+    cat = lambda f: np.concatenate([getattr(p, f) for p in batches])  # noqa: E731
+    (writer.append_torn if torn else writer.append)(
+        cat("labels"), cat("ids"), cat("vals"), nnz=cat("nnz"))
+
+
+def _write_fms(path: str, batches, vocab: int) -> str:
+    from fast_tffm_tpu_torch.data.stream import StreamWriter
+
+    with StreamWriter(path, width=NNZ, vocabulary_size=vocab) as w:
+        _append(w, batches)
+    return path
+
+
+def _stream_writer(path: str, batches, vocab: int, plan: str, started, first: int,
+                   burst: int = 2, gap_s: float = 0.05):
+    """A thread that appends ``batches`` to the FMS file ``path``: the first
+    ``first`` (one call's worth), then, once ``started`` is set (the
+    trainer's first call: the run consumes the stream live, not a
+    backlog), bursts of ``burst`` batches every ``gap_s`` seconds; it runs the plan's stream faults itself:
+    ``append_torn@K`` leaves the Kth append's last record half written
+    until the next append, ``stream_stall@N`` pauses N seconds after half
+    the bursts.  Returns (thread, errors, stall seconds)."""
+    import threading
+
+    from fast_tffm_tpu_torch.data.stream import StreamWriter
+    from fast_tffm_tpu_torch.resilience import FaultPlan
+
+    events = FaultPlan.parse(plan).stream_events()
+    torn = {e["at"] for e in events if e["kind"] == "append_torn"}
+    stall = sum(e["at"] for e in events if e["kind"] == "stream_stall")
+    w = StreamWriter(path, width=NNZ, vocabulary_size=vocab)
+    errors = []
+
+    def run():
+        try:
+            groups = [batches[:first]] + [batches[i:i + burst]
+                                          for i in range(first, len(batches), burst)]
+            for n, group in enumerate(groups, 1):
+                _append(w, group, torn=n in torn)
+                if n == 1 and not started.wait(300):
+                    raise TimeoutError("the trainer made no first call in 300 s")
+                time.sleep(gap_s)
+                if n == len(groups) // 2 and stall:
+                    time.sleep(stall)
+            w.close()
+        except Exception as e:  # surfaced by the phase after the join
+            errors.append(e)
+
+    return threading.Thread(target=run, name="fms-writer", daemon=True), errors, stall
+
+
+def phase_follow(tmp: str, train_path: str, valid_path: str) -> dict:
+    """``[Online] follow`` at full width: the 24 x 16384 train rows as an FMS
+    stream (11 slots a row), followed with max_batches 24, poll 0.02 s and
+    an idle timeout of 5 s, at K = 1 (eager) and K = 8 (CUDA graphs): each
+    over the file written whole before the start, and over a file a writer
+    thread appends in bursts of 2 batches every 0.05 s while it trains,
+    with a 1 s stall halfway and a torn third append (FOLLOW_PLAN).  Each
+    live run bitwise its whole-file run, every run within TABLE_ATOL of
+    the CPU's whole-file run, the stall seen in the live runs' kind=input
+    records, ex/s and the card's idle share of each run (traced).  Then
+    cli train on a half-written stream (12 batches, no idle timeout) gets
+    SIGTERM while it polls: it saves the cursor and exits 0; the rest lands
+    and cli train --resume ends bitwise the whole-file K = 1 run."""
+    import shutil
+    import threading
+
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.trainer import unpack_state
+
+    name = "follow"
+    base = _b5(online_follow=True, online_max_batches=TRAIN_BATCHES, online_idle_timeout_s=5.0,
+               online_poll_s=0.02, log_every=8)
+    model = build_model(base)
+    vocab = base.vocabulary_size
+    batches = _host_batches(train_path, vocab)
+    init = os.path.join(tmp, f"{name}.init.ckpt")
+    shutil.copy(os.path.join(tmp, "train.init.ckpt"), init)  # the train phase's seeded npz
+    whole = _write_fms(os.path.join(tmp, f"{name}_whole.fms"), batches, vocab)
+    runs, launches, out = {}, {}, {}
+    for k in (1, 8):
+        for mode in ("whole", "live"):
+            key = f"{mode}_k{k}"
+            fms = whole if mode == "whole" else os.path.join(tmp, f"{name}_{key}.fms")
+            cfg = _phase_cfg(base, tmp, f"{name}_{key}", "cuda", init, train_files=(fms,),
+                             validation_files=(valid_path,), steps_per_call=k,
+                             metrics_path=os.path.join(tmp, f"{name}_{key}.jsonl"))
+            box = {}
+
+            def make_hook(fms=fms, box=box, mode=mode):
+                if mode != "live":
+                    return None
+                if os.path.exists(fms):
+                    os.remove(fms)
+                started = threading.Event()
+                box["thread"], box["errors"], box["stall_s"] = _stream_writer(
+                    fms, batches, vocab, FOLLOW_PLAN, started, first=k)
+                box["thread"].start()
+                return lambda step: started.set()
+
+            run = _run(f"{name} {key}", cfg, make_hook=make_hook, trace=True)
+            if mode == "live":
+                box["thread"].join(60)
+                if box["thread"].is_alive() or box["errors"]:
+                    fail(f"{name} {key}: the stream writer {box['errors'] or 'hung'}")
+            state = unpack_state(run["state"], model)
+            _expect_steps(f"{name} {key}", run["launches"], TRAIN_BATCHES)
+            cursor = read_input_cursor(cfg.model_file)
+            if state.step != TRAIN_BATCHES or not (cursor["follow"] is True
+                                                   and cursor["batch_in_epoch"] == TRAIN_BATCHES):
+                fail(f"{name} {key}: step {state.step}, cursor {cursor}")
+            inputs = [r for r in _records(cfg.metrics_path) if r["kind"] == "input"]
+            produce_ms = sum(r["parse_ms"] * r["input_items"] for r in inputs)
+            runs[key] = state
+            launches[f"{name}_{key}"] = run["launches"]
+            out[key] = {
+                "launches": run["launches"], "wall_ms": run["wall_ms"],
+                "examples_per_s_run": TRAIN_BATCHES * BATCH / (run["wall_ms"] / 1e3),
+                "examples_per_s_logged": _logged(run["log"], "examples/sec"),
+                "device_busy_ms": run["device_busy_ms"],
+                "device_idle_share": run["device_idle_share"],
+                "input_produce_ms": produce_ms, "input_records": len(inputs),
+                "trace_lost_events": run.get("trace_lost_events"),
+            }
+            if mode == "live":
+                stall_ms = 1e3 * box["stall_s"]
+                if produce_ms < 0.8 * stall_ms:
+                    fail(f"{name} {key}: the input records hold {produce_ms} ms of production "
+                         f"for a {stall_ms} ms stall of the writer")
+                if not _logical_equal(state, runs[f"whole_k{k}"]):
+                    fail(f"{name} {key}: the live stream's run is not bitwise the whole file's")
+                out[key]["bitwise_whole"] = True
+    cpu_cfg = _phase_cfg(base, tmp, f"{name}_whole_k1", "cpu", init, train_files=(whole,),
+                         validation_files=(valid_path,))
+    cpu_state, cpu_s = _train_once(cpu_cfg, "cpu", [])
+    cpu = unpack_state(cpu_state, model)
+    for key, state in runs.items():
+        t = float((state.table.cpu() - cpu.table).abs().max())
+        a = float((state.table_accum.cpu() - cpu.table_accum).abs().max())
+        if not (t <= TABLE_ATOL and a <= TABLE_ATOL):
+            fail(f"{name} {key}: the card's run differs from the CPU's by {t} and {a}")
+        out[key].update(max_abs_table_diff=t, max_abs_accum_diff=a)
+    out["bitwise_k8_k1"] = _logical_equal(runs["whole_k1"], runs["whole_k8"])
+    out["cli_sigterm"] = _follow_cli_sigterm(tmp, batches, vocab, init, runs["whole_k1"])
+    emit({"phase": name, "config": CONFIG + " + " + json.dumps(
+        {"follow": True, "max_batches": TRAIN_BATCHES, "idle_timeout_s": 5.0, "poll_s": 0.02}),
+        "writer_plan": FOLLOW_PLAN, "rows": TRAIN_BATCHES * BATCH, "cpu_seconds": cpu_s, **out})
+    return launches
+
+
+def _follow_cli_sigterm(tmp: str, batches, vocab: int, init: str, reference) -> dict:
+    """cli train on a stream of 12 batches with no idle timeout, SIGTERM
+    after its step-12 log line while the reader polls the idle file: exit
+    0, the stop logged, the cursor at batch 12; the other 12 land and cli
+    train --resume ends bitwise ``reference``."""
+    import shutil
+
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor
+    from fast_tffm_tpu_torch.data.stream import StreamWriter
+
+    fms = _write_fms(os.path.join(tmp, "follow_cli.fms"), batches[:12], vocab)
+    model_file = os.path.join(tmp, "follow_cli.ckpt")
+    shutil.copy(init, model_file)
+    ini = _write_ini(
+        os.path.join(tmp, "follow_cli.cfg"),
+        General={"model_file": model_file},
+        Train={"train_files": fms, "validation_files": "", "log_every": 4},
+        Online={"follow": "true", "poll_s": 0.05, "max_batches": TRAIN_BATCHES},
+    )
+    proc = subprocess.Popen([sys.executable, "-m", "fast_tffm_tpu_torch.cli", "train", ini,
+                             "--resume"], cwd=HERE, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines, t_signal = [], None
+    try:
+        for line in proc.stderr:
+            lines.append(line.rstrip("\n"))
+            if t_signal is None and line.startswith("step 12 "):
+                time.sleep(1.0)  # the reader turns idle and polls
+                t_signal = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stop_s = None if t_signal is None else time.perf_counter() - t_signal
+    cursor = read_input_cursor(model_file)
+    if (rc != 0 or "stopped on signal at step 12" not in "\n".join(lines)
+            or cursor.get("batch_in_epoch") != 12 or cursor.get("follow") is not True):
+        fail(f"follow: cli train sent SIGTERM on an idle stream exited {rc}, cursor {cursor}: "
+             f"{lines[-5:]}")
+    with StreamWriter(fms, width=NNZ, vocabulary_size=vocab) as w:
+        _append(w, batches[12:])
+    r = _cli(["train", ini, "--resume"])
+    if r.returncode != 0 or "resuming input at epoch 0, batch 12" not in r.stderr:
+        fail(f"follow: cli train --resume after the stop exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    if not _logical_equal(_restored(model_file, reference.table.shape[1]), reference):
+        fail("follow: the stopped and resumed cli run is not bitwise the whole-file run")
+    return {"exit_code": rc, "stop_after_signal_s": stop_s, "cursor_batch": 12,
+            "bitwise_whole_k1": True}
+
+
+def phase_accum_restart(rng, tmp: str, train_path: str, valid_path: str) -> dict:
+    """``accum_restart_steps`` = 16 on the device cache (the resume phases'
+    FMB caches), 24 steps from a seeded npz, at K = 1 (eager) and K = 8
+    (CUDA graphs, traced): one reset after step 16 in both (the K = 8
+    call that ends there), every accumulator equal to the init value right
+    after it (checked on the card), the two runs bitwise equal; the reset's
+    time (CUDA events) and each run's step time."""
+    import dataclasses
+
+    import torch
+
+    from fast_tffm_tpu_torch import training
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.trainer import unpack_state
+
+    name = "accum_restart"
+    train_path, valid_path = _own_files(tmp, "resume", train_path, valid_path)
+    base = _b5(binary_cache=True, device_cache=True,
+               online_accum_restart_steps=ACCUM_RESTART_STEPS, log_every=8)
+    model = build_model(base)
+    _, _, init = _seeded_init(rng, tmp, name, base, model, False)
+    resets = []
+    real = training.make_accum_restart
+
+    def checked(value):
+        reset = real(value)
+
+        def run(state):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state = reset(state)
+            end.record()
+            end.synchronize()
+            at_init = bool((state.table_accum == value).all()) and all(
+                bool((a == value).all()) for a in state.dense_accum)
+            resets.append({"step": state.step, "at_init": at_init,
+                           "ms": start.elapsed_time(end)})
+            return state
+
+        return run
+
+    training.make_accum_restart = checked
+    out, states, launches = {}, {}, {}
+    try:
+        for k in (1, 8):
+            key = f"k{k}"
+            cfg = _phase_cfg(base, tmp, f"{name}_{key}", "cuda", init, steps_per_call=k,
+                             train_files=(train_path,), validation_files=(valid_path,))
+            hook, p50 = _step_clock()
+
+            def make_hook(hook=hook):
+                resets.clear()
+                return hook
+
+            run = _run(f"{name} {key}", cfg, make_hook=make_hook)
+            _expect_steps(f"{name} {key}", run["launches"], TRAIN_BATCHES)
+            if [(r["step"], r["at_init"]) for r in resets] != [(ACCUM_RESTART_STEPS, True)]:
+                fail(f"{name} {key}: resets {resets}, one at step {ACCUM_RESTART_STEPS} to the "
+                     "init value expected")
+            states[key] = unpack_state(run["state"], model)
+            launches[f"{name}_{key}"] = run["launches"]
+            rates = sorted(_logged(run["log"], "examples/sec"))
+            out[key] = {"launches": run["launches"], "resets": list(resets),
+                        "call_ms_p50": p50(), "step_ms_p50": None if p50() is None
+                        else p50() / k,
+                        "step_ms_logged_median": 1e3 * BATCH / rates[len(rates) // 2]
+                        if rates else None,
+                        "wall_ms": run["wall_ms"],
+                        "trace_lost_events": run.get("trace_lost_events")}
+    finally:
+        training.make_accum_restart = real
+    if not _logical_equal(states["k1"], states["k8"]):
+        fail(f"{name}: the K = 8 run is not bitwise the K = 1 run")
+    if bool((states["k1"].table_accum == base.init_accumulator_value).all()):
+        fail(f"{name}: the accumulators end at the init value: steps after the reset ran none")
+    emit({"phase": name, "config": CONFIG + " + " + json.dumps(
+        {"device_cache": True, "binary_cache": True,
+         "accum_restart_steps": ACCUM_RESTART_STEPS}), **out, "bitwise_k8_k1": True})
+    return launches
+
+
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
                    shapes=None, packed=None) -> dict:
     rec = {
@@ -3848,6 +4462,14 @@ def main() -> int:
                                         fused_cfg)
         served = {"serve_reload": reload_out["anova_launches"],
                   **phase_serve_socket(np.random.default_rng(SEED + 10), tmp, reload_out)}
+        # This slice's phases: rollback, the supervisor, follow, accumulator restarts.
+        observed.update(phase_rollback(np.random.default_rng(SEED + 11), tmp, train_path,
+                                       valid_path))
+        observed.update(phase_supervised(np.random.default_rng(SEED + 12), tmp, train_path,
+                                         valid_path))
+        observed.update(phase_follow(tmp, train_path, valid_path))
+        observed.update(phase_accum_restart(np.random.default_rng(SEED + 13), tmp, train_path,
+                                            valid_path))
         phase_throughput(tmp, big_path)
         phase_telemetry_cost(tmp, big_path)
     src = "fast_tffm_tpu_torch/csrc/"
@@ -3875,7 +4497,8 @@ def main() -> int:
     b3_runs = by_run("fused_tail_adagrad", fused_launches, graphed_fused)
     for run, counts in resumed["resume_cached_fused"].items():
         b3_runs[f"resume_cached_fused_{run}"] = counts["fused_tail_adagrad"]
-    # The telemetry and checkpoint runs (K-step runs: the replays in their traces),
+    # The telemetry, checkpoint, rollback, supervised reference, follow and
+    # accumulator-restart runs (K-step runs: the replays in their traces),
     # under each kernel that ran in them.
     fwd_runs, bwd_runs = by_run("anova_fwd", launches, graphed), by_run("anova_bwd", launches,
                                                                           graphed)

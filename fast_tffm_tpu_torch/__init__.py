@@ -12,6 +12,9 @@ layout with an element, row or fused accumulator (``training.py``), on
 every input path, resumable at the exact batch after a stop (SIGTERM) or a
 crash, with async and delta checkpoints (``checkpoint_async.py``) and the
 JAX package's telemetry records (``telemetry.py``, ``profiling.py``);
+rollback on a non-finite loss, fault plans and the supervised trainer
+(``resilience.py``); online training on an appended FMS stream
+(``data/stream.py``) with accumulator restarts;
 offline prediction; the FMB ``convert`` verb; and serving through
 the micro-batched ``ServingEngine`` (``serving/engine.py``: hot reload of
 full saves and delta chains, block submission), in process or behind the

@@ -39,6 +39,7 @@ import zipfile
 import numpy as np
 import torch
 
+from fast_tffm_tpu_torch.resilience import maybe_publish_fault
 from fast_tffm_tpu_torch.trainer import TrainState
 from fast_tffm_tpu_torch.weights import from_jax_arrays
 
@@ -235,6 +236,9 @@ def save_checkpoint(
             os.remove(dp)
         except OSError:
             pass
+    # The kill_publish@K injection point: a crash between the finished tmp
+    # file and the rename leaves the previous checkpoint whole.
+    maybe_publish_fault(path)
     os.replace(tmp, path)
     return nbytes
 
@@ -343,6 +347,7 @@ def save_delta(
     tmp = out + ".tmp"
     with open(tmp, "wb") as f:
         nbytes = _write_npz_streaming(f, entries, chunk_bytes, timings, staging)
+    maybe_publish_fault(out)
     os.replace(tmp, out)
     return out, sid, nbytes
 

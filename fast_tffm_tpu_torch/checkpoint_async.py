@@ -46,6 +46,7 @@ from fast_tffm_tpu_torch.checkpoint import (
     save_checkpoint,
     save_delta,
 )
+from fast_tffm_tpu_torch.resilience import maybe_torn_delta
 from fast_tffm_tpu_torch.telemetry import log_quietly
 
 __all__ = ["AsyncCheckpointer", "device_snapshot", "gather_rows"]
@@ -357,6 +358,10 @@ class AsyncCheckpointer:
                     parent_sig=parent, chunk_bytes=self._chunk, timings=timings,
                     cursor=cursor, staging=self._staging,
                 )
+                # The torn_delta@K injection point: truncates the file just
+                # published, the torn write a crash leaves on a non-atomic
+                # filesystem (the chain repair's case).
+                maybe_torn_delta(out)
             with self._lock:
                 self._parent_sig = sid
                 self._next_seq = seq + 1

@@ -6,7 +6,20 @@ package's CLI (``fast_tffm_tpu/cli.py``):
   train <cfg> [--resume]   train on [Train] train_files, validate, save model_file
                            (with the input cursor); --resume restores it and
                            reopens the input at the saved batch.  SIGTERM or
-                           SIGINT: finish the current call, save, exit 0
+                           SIGINT: finish the current call, save, exit 0.
+                           --supervised: run the trainer as a child process
+                           (this CLI, same config, --device, --metrics-path
+                           and one --run-id) and relaunch it with --resume
+                           after a crash ([Resilience] restart_max, or
+                           --max-restarts; restart_backoff_s, _max_s),
+                           repairing a torn delta chain first; kind=fault and
+                           kind=restart records (MTTR) to metrics_path.
+                           --fault-plan SPEC arms a fault plan
+                           (resilience.FaultPlan: 'kill@120,io_error@45,
+                           nan@200:210,torn_delta@1,kill_publish@2', or
+                           'random:kill=2' from --fault-seed and
+                           --fault-horizon); supervised, it arms the first
+                           launch only
   predict <cfg>            write one %.6f score per [Predict] predict_files line
                            to score_path
   serve <cfg>              pipe mode: libsvm lines on stdin, one %.6f score
@@ -26,12 +39,14 @@ no CPU fallback; ``convert`` touches no device but keeps the rule).
 ``[Train] metrics_path``, ``[Telemetry] run_id`` and ``[Telemetry]
 profile_steps`` (the JAX CLI's flags): a run is instrumented, and rendered
 with ``tools/report.py``, without editing its config.  The distributed
-verbs are a later slice of the port.
+verbs, and the pod supervision and ``--fault-process`` of multi-process
+training, are a later slice of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from fast_tffm_tpu_torch.config import load_config
@@ -58,9 +73,32 @@ def main(argv=None) -> int:
                     help="a torch.profiler trace over steps [A, B) into "
                     "<model_file>.profile (trace_dir overrides); overrides "
                     "[Telemetry] profile_steps")
+    ap.add_argument("--supervised", action="store_true",
+                    help="train: run the trainer as a supervised child process, relaunched "
+                    "with --resume after a crash (bounded restarts, exponential backoff; "
+                    "[Resilience] restart_* keys); kind=fault and kind=restart records "
+                    "(MTTR) go to metrics_path")
+    ap.add_argument("--max-restarts", type=int, default=None, metavar="N",
+                    help="override [Resilience] restart_max for --supervised")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="train: arm a fault plan, 'kill@120,io_error@45,nan@200:210,"
+                    "torn_delta@1' or 'random:kill=2,io_error=3' drawn from --fault-seed; "
+                    "under --supervised it arms the first launch only")
+    ap.add_argument("--fault-seed", type=int, default=0, metavar="N",
+                    help="seed of random: fault plans (same seed, same schedule)")
+    ap.add_argument("--fault-horizon", type=int, default=1000, metavar="STEPS",
+                    help="step horizon random: fault plans draw positions from")
+    ap.add_argument("--fault-process", type=int, default=None, metavar="P",
+                    help="not ported: multi-process training's fault placement")
     args = ap.parse_args(argv)
     if args.resume and args.mode != "train":
         ap.error("--resume applies to the train verb")
+    if (args.supervised or args.fault_plan) and args.mode != "train":
+        ap.error("--supervised and --fault-plan apply to the train verb")
+    if args.fault_process is not None:
+        ap.error("--fault-process places faults on the processes of a multi-process run "
+                 "(dist_train), which fast_tffm_tpu_torch has not ported yet (item 10 of "
+                 "ROADMAP.md); use fast_tffm_tpu")
     if args.port is not None and args.mode != "serve":
         ap.error("--port applies to the serve verb")
     cfg = load_config(args.config)
@@ -78,10 +116,20 @@ def main(argv=None) -> int:
     if cfg.telemetry_compilation_cache_dir:
         enable_compilation_cache(cfg.telemetry_compilation_cache_dir, log)
 
+    if args.mode == "train" and args.supervised:
+        return _supervise(cfg, args, log)
     if args.mode == "train":
         from fast_tffm_tpu_torch.training import train
 
-        train(cfg, resume=args.resume, log=log, device=args.device)
+        step_hook = None
+        if args.fault_plan:
+            from fast_tffm_tpu_torch.resilience import FaultPlan, install_faults
+
+            inj = install_faults(FaultPlan.parse(args.fault_plan, seed=args.fault_seed,
+                                                 horizon=args.fault_horizon))
+            log(f"fault plan armed: {inj.plan.to_json()}")
+            step_hook = inj.step_hook
+        train(cfg, resume=args.resume, log=log, device=args.device, step_hook=step_hook)
         return 0
     if args.mode == "predict":
         from fast_tffm_tpu_torch.prediction import predict
@@ -103,6 +151,56 @@ def main(argv=None) -> int:
 
     serve_lines(cfg, log=log, device=args.device)
     return 0
+
+
+def _supervise(cfg, args, log) -> int:
+    """``train --supervised``: this process stays off the device (it
+    imports no torch) and runs ``python -m fast_tffm_tpu_torch.cli train``
+    as its child under ``resilience.Supervisor``, relaunching it with
+    ``--resume`` after a crash.  The supervisor's records and every child's
+    share one run id."""
+    from fast_tffm_tpu_torch.resilience import Supervisor
+    from fast_tffm_tpu_torch.telemetry import new_run_id
+
+    if not cfg.telemetry_run_id:
+        cfg.telemetry_run_id = new_run_id()
+    base = [sys.executable, "-m", "fast_tffm_tpu_torch.cli", "train", args.config,
+            "--device", args.device]
+    if args.metrics_path is not None:
+        base += ["--metrics-path", args.metrics_path]
+    if args.profile_steps is not None:
+        base += ["--profile-steps", args.profile_steps]
+    base += ["--run-id", cfg.telemetry_run_id]
+    # The child finds the package where this process found it.
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (pkg_root + os.pathsep + env["PYTHONPATH"]
+                         if env.get("PYTHONPATH") else pkg_root)
+
+    def build_cmd(attempt: int, resume: bool) -> list[str]:
+        cmd = list(base)
+        if resume:
+            cmd += ["--resume"]
+        if args.fault_plan and attempt == 0:
+            # The plan arms the first launch only: a kill armed again on
+            # every relaunch would crash for ever.
+            cmd += ["--fault-plan", args.fault_plan, "--fault-seed", str(args.fault_seed),
+                    "--fault-horizon", str(args.fault_horizon)]
+        return cmd
+
+    sup = Supervisor(
+        build_cmd,
+        model_file=cfg.model_file,
+        max_restarts=args.max_restarts if args.max_restarts is not None else cfg.restart_max,
+        backoff_s=cfg.restart_backoff_s,
+        backoff_max_s=cfg.restart_backoff_max_s,
+        metrics_path=cfg.metrics_path or None,
+        run_id=cfg.telemetry_run_id,
+        log=log,
+        child_log=print,
+        env=env,
+    )
+    return sup.run(resume=args.resume)
 
 
 def _convert(cfg) -> int:

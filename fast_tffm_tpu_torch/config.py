@@ -152,13 +152,23 @@ class Config:
     serve_affinity: bool = True  # hello hands the client a healthy replica's
     #   port; the replica answers its frames directly
     # [Online]
-    online_follow: bool = False  # read to be refused (a later slice)
+    online_follow: bool = False  # follow the one FMS train file: at EOF the
+    #   reader polls for growth instead of ending the epoch (data/stream.py;
+    #   train only, epoch_num = 1)
+    online_poll_s: float = 0.2  # the EOF poll interval (seconds)
+    online_idle_timeout_s: float = 0.0  # > 0: end the stream after this much
+    #   continuous writer silence; 0 = follow until the process is stopped
+    online_max_batches: int = 0  # > 0: end the stream once the batch index,
+    #   resume-skipped batches included, reaches N; 0 = unbounded
     online_adagrad_decay: float = 1.0  # γ: lazy touched-row accumulator decay
-    online_accum_restart_steps: int = 0  # read to be refused (a later slice)
+    online_accum_restart_steps: int = 0  # every N steps (K-aligned, absolute
+    #   multiples) reset every accumulator to init_accumulator_value; 0 = off
     # [ParamStore]
     paramstore: bool = False  # read to be refused (a later slice)
     # [Resilience]
-    on_nan: str = "abort"  # abort (rollback: a later slice)
+    on_nan: str = "abort"  # abort (raise before the next save) | rollback
+    #   (restore the last checkpoint, skip the diverged window's input)
+    max_rollbacks: int = 2  # rollback budget per run; exhausted -> abort
     io_retries: int = 3  # FMB reader: transient-OSError retries per read op
     io_retry_backoff_s: float = 0.05  # first retry backoff (doubles per try)
     restart_max: int = 5  # the serving router's replica restarts (bounded)
@@ -281,6 +291,12 @@ class Config:
             )
         if self.tail not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown tail {self.tail!r} (auto | xla | pallas)")
+        if self.online_poll_s <= 0:
+            raise ValueError(f"[Online] poll_s must be > 0, got {self.online_poll_s}")
+        if self.online_idle_timeout_s < 0 or self.online_max_batches < 0:
+            raise ValueError(
+                "[Online] idle_timeout_s and max_batches must be >= 0 (0 = off)"
+            )
         if not (0.0 < self.online_adagrad_decay <= 1.0):
             raise ValueError(
                 f"[Online] adagrad_decay must be in (0, 1], got {self.online_adagrad_decay}"
@@ -300,6 +316,12 @@ class Config:
                 "= element or row (the fused layout has no separate "
                 "accumulator array to reset)"
             )
+        if self.online_accum_restart_steps > 0 and self.online_adagrad_decay != 1.0:
+            # Two forgetting mechanisms at once make every A/B ambiguous.
+            raise ValueError(
+                "[Online] adagrad_decay < 1 and accum_restart_steps > 0 are "
+                "exclusive — choose one forgetting mechanism"
+            )
         if self.online_follow and self.shuffle:
             raise ValueError(
                 "[Online] follow = true cannot shuffle: an append-only "
@@ -309,6 +331,11 @@ class Config:
             raise ValueError(
                 "[Online] follow = true is a streamed input mode — "
                 "device_cache loads a FIXED dataset to HBM once"
+            )
+        if self.online_follow and self.epoch_num != 1:
+            raise ValueError(
+                "[Online] follow = true runs ONE endless epoch — set "
+                f"epoch_num = 1 (got {self.epoch_num})"
             )
         if self.dedup_gather_rows < 0:
             raise ValueError(
@@ -321,6 +348,13 @@ class Config:
             raise ValueError(
                 "dedup_gather_rows applies to the STREAMED path; "
                 "device_cache slices resident batches (drop one)"
+            )
+        if self.dedup_gather_rows > 0 and self.online_follow:
+            # The follow stream runs no per-batch cap check.
+            raise ValueError(
+                "dedup_gather_rows with [Online] follow is not "
+                "supported: the tail-following stream has no "
+                "per-batch cap verification yet"
             )
         if self.paramstore and self.device_cache:
             raise ValueError(
@@ -374,6 +408,8 @@ class Config:
             )
         if self.on_nan not in ("abort", "rollback"):
             raise ValueError(f"unknown on_nan {self.on_nan!r} (abort | rollback)")
+        if self.max_rollbacks < 0:
+            raise ValueError(f"max_rollbacks must be >= 0, got {self.max_rollbacks}")
         if self.io_retries < 0:
             raise ValueError(f"io_retries must be >= 0, got {self.io_retries}")
         if self.io_retry_backoff_s < 0:
@@ -612,6 +648,9 @@ def load_config(path: str) -> Config:
 
     o = "Online"
     cfg.online_follow = get(o, "follow", boolean, cfg.online_follow)
+    cfg.online_poll_s = get(o, "poll_s", float, cfg.online_poll_s)
+    cfg.online_idle_timeout_s = get(o, "idle_timeout_s", float, cfg.online_idle_timeout_s)
+    cfg.online_max_batches = get(o, "max_batches", int, cfg.online_max_batches)
     cfg.online_adagrad_decay = get(o, "adagrad_decay", float, cfg.online_adagrad_decay)
     cfg.online_accum_restart_steps = get(
         o, "accum_restart_steps", int, cfg.online_accum_restart_steps
@@ -619,6 +658,7 @@ def load_config(path: str) -> Config:
     cfg.paramstore = get("ParamStore", "enabled", boolean, cfg.paramstore)
     r = "Resilience"
     cfg.on_nan = get(r, "on_nan", str, cfg.on_nan).lower()
+    cfg.max_rollbacks = get(r, "max_rollbacks", int, cfg.max_rollbacks)
     cfg.io_retries = get(r, "io_retries", int, cfg.io_retries)
     cfg.io_retry_backoff_s = get(r, "io_retry_backoff_s", float, cfg.io_retry_backoff_s)
     cfg.restart_max = get(r, "restart_max", int, cfg.restart_max)

@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from fast_tffm_tpu_torch import resilience
 from fast_tffm_tpu_torch.data.libsvm import ParsedBatch
 
 __all__ = [
@@ -260,14 +261,19 @@ def _io_retry(fn, *, what: str, attempts: int, backoff_s: float, log):
     """Run ``fn``, retrying a transient OSError with a doubling backoff; the
     copies it wraps are idempotent (each overwrites the same destination
     slice), so a retry never loses or duplicates a row.  Each absorbed
-    retry is a log line; the last failure re-raises."""
+    retry is a log line and a ``resilience.note_io_retry`` event (the run's
+    kind=fault records); the last failure re-raises.
+    ``resilience.maybe_io_fault`` inside the try is the ``io_error@N``
+    injection point: an injected fault is absorbed like a real one."""
     delay = max(0.0, float(backoff_s))
     for attempt in range(max(0, int(attempts)) + 1):
         try:
+            resilience.maybe_io_fault(what)
             return fn()
         except OSError as e:
             if attempt >= attempts:
                 raise
+            resilience.note_io_retry(what, e, attempt=attempt + 1)
             log(f"io retry {attempt + 1}/{attempts} on {what}: {e!r}")
             if delay:
                 time.sleep(delay)

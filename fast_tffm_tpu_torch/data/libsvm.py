@@ -133,10 +133,13 @@ def scan_max_nnz(cfg) -> int:
     """The static feature width: ``cfg.max_nnz``, or the widest row of the
     configured data files (``fast_tffm_tpu/training.py::scan_max_nnz``'s
     contract): one C++ pass per text file, the header of an FMB file
-    (``data/native.scan_files``).  (FMS stream files are a later slice.)"""
+    (``data/native.scan_files``), and the header width of an FMS stream
+    (``data/stream.py``: an append-only file's widest future row is
+    unknowable, so the writer's declared width is the bound)."""
     if cfg.max_nnz > 0:
         return cfg.max_nnz
     from fast_tffm_tpu_torch.data.native import scan_files
+    from fast_tffm_tpu_torch.data.stream import is_fms, read_fms_header
 
     paths = (*cfg.train_files, *cfg.validation_files, *cfg.predict_files)
     if not paths:
@@ -144,4 +147,7 @@ def scan_max_nnz(cfg) -> int:
             "serving needs a static feature width: set max_nnz in [Train], "
             "or configure data files for the width scan"
         )
-    return max(1, scan_files(paths)[1])
+    fms_widths = [read_fms_header(p)["width"] for p in paths if is_fms(p)]
+    rest = tuple(p for p in paths if not is_fms(p))
+    widest = scan_files(rest)[1] if rest else 0
+    return max(1, widest, *fms_widths)

@@ -443,6 +443,7 @@ class RunMonitor:
         self._stall_timeout = float(stall_timeout_s)
         self._queue_depth_fn = queue_depth_fn
         self._producer_alive_fn = None
+        self._stream_idle_fn = None
         # Armed by the first heartbeat: the first call pays the builds and
         # captures, far beyond any stall deadline.
         self._last_beat = None
@@ -470,6 +471,12 @@ class RunMonitor:
     def set_producer_alive_fn(self, fn) -> None:
         """Point the stall classifier at the current producer's liveness."""
         self._producer_alive_fn = fn
+
+    def set_stream_idle_fn(self, fn) -> None:
+        """Point the stall classifier at the current stream's idle probe (a
+        followed FMS stream polling a quiet file): a starved loop then
+        classifies as input-starved (stream-idle), wait for the writer."""
+        self._stream_idle_fn = fn
 
     # -- emission ---------------------------------------------------------
 
@@ -622,7 +629,8 @@ class RunMonitor:
             self.stalls += 1
         depth = self._probe(self._queue_depth_fn)
         alive = self._probe(self._producer_alive_fn)
-        cls = "compiling" if compiling else classify_stall(depth, stacks, alive)
+        idle = self._probe(self._stream_idle_fn)
+        cls = "compiling" if compiling else classify_stall(depth, stacks, alive, idle)
         try:
             self.emit(
                 "stall",

@@ -49,6 +49,7 @@ __all__ = [
     "make_scanned_train_step",
     "make_decayed_body",
     "make_pallas_tail_body",
+    "make_accum_restart",
     "make_predict_step",
     "pack_state",
     "unpack_state",
@@ -225,6 +226,30 @@ def make_decayed_body(decay: float = 1.0):
 # The JAX package's name for the body whose tail is its Pallas rows kernel;
 # here every body's tail is the rows kernel already.
 make_pallas_tail_body = make_decayed_body
+
+
+def make_accum_restart(init_accumulator_value: float):
+    """``reset(state) -> state``: every Adagrad accumulator filled with the
+    init value, in place (``fill_`` on the live tensors) — ``[Online]
+    accum_restart_steps``, the window restart that re-opens every row's
+    step size at once on a moving distribution.  Exact for the rows layout
+    and the packed element and row accumulators alike (packing pads them
+    with the init value, so a full fill is the packed init state).  The
+    fused layout keeps its accumulator inside the table (config.validate
+    refuses the pair).  The tensors keep their storage, so a CUDA graph of
+    K steps replays on the reset state: the fill writes the graph's own
+    static state."""
+
+    @torch.no_grad()
+    def reset(state: TrainState) -> TrainState:
+        if state.table_accum is None:
+            raise ValueError(f"a {state.layout} state has no accumulator array to reset")
+        state.table_accum.fill_(init_accumulator_value)
+        for a in state.dense_accum:
+            a.fill_(init_accumulator_value)
+        return state
+
+    return reset
 
 
 def make_predict_step(model):

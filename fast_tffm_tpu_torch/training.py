@@ -19,12 +19,32 @@ the card one replay of a CUDA graph of the K steps, on the CPU a loop,
 bitwise K single steps either way; the epoch's last group is shorter.
 K = 1 is the eager step.
 
+``[Online] follow = true``: the one train file is an FMS stream that
+another process appends to (``data/stream.py``); at EOF the reader polls
+for growth instead of ending the epoch, until ``idle_timeout_s`` of
+silence, ``max_batches`` or a stop signal, and the run's cursor names the
+batch offset in the stream (``follow``: true, ``files``: the stream's prefix
+fingerprint).  ``accum_restart_steps`` N resets every Adagrad accumulator
+to its init value after the call that crosses each absolute multiple of N.
+
 A log line every ``log_every`` steps (mean loss, examples/sec, in the JAX
-package's wording; K-step aligned), a non-finite loss check on every
-K-step group (one group late, so the host does not wait on the group it
-just launched) and at every log point before any save, the validation AUC
-over ``validation_files`` and a save every ``save_every_epochs`` epochs;
-the final state is saved and returned.  ``device`` None means the card.
+package's wording; K-step aligned), a non-finite loss check at every log
+point and epoch end before any save (under ``on_nan = abort`` also on every
+K-step group, one group late, so the host does not wait on the group it
+just launched), the validation AUC over ``validation_files`` and a save
+every ``save_every_epochs`` epochs; the final state is saved and returned.
+``device`` None means the card.
+
+``on_nan = rollback``: a non-finite loss at a log point or epoch end
+restores the last checkpoint (its delta chain included) into the live
+tensors and runs again from the detection point's cursor, so the window
+that diverged is skipped, not replayed (at most ``max_rollbacks`` times; a
+run with no checkpoint yet raises).  An armed fault plan
+(``resilience.install_faults``) poisons the host-side loss of its ``nan``
+steps, kills at its ``kill`` steps through ``step_hook`` and fires its IO
+and checkpoint faults in the reader and the writer; fault events drain
+into kind=fault records at every log point and ``fault_*`` counters on the
+summary.
 
 Exact-position resume: the loop tracks the input cursor (epoch, batch in
 the epoch, and the input's identity: batch size, shuffle and seed, the
@@ -74,9 +94,9 @@ kind=ckpt and the closing kind=summary.  ``trace_dir`` adds a
 host-only: no device sync is added.  Every save goes through
 ``checkpoint_async.AsyncCheckpointer``: ``async_save`` takes the epoch
 saves off the loop, ``delta_every_steps`` writes delta files of the touched
-rows between them; the stop and final saves stay synchronous.  Rollback,
-the tiered store, online learning and the supervisor are later slices;
-``train`` refuses their config keys before it touches a device.
+rows between them; the stop and final saves stay synchronous.  The tiered
+store is a later slice; ``train`` refuses ``[ParamStore]`` before it
+touches a device.
 """
 
 from __future__ import annotations
@@ -90,13 +110,19 @@ import threading
 import numpy as np
 import torch
 
-from fast_tffm_tpu_torch.checkpoint import read_input_cursor, restore_checkpoint
+from fast_tffm_tpu_torch.checkpoint import latest_step, read_input_cursor, restore_checkpoint
 from fast_tffm_tpu_torch.checkpoint_async import AsyncCheckpointer
 from fast_tffm_tpu_torch.config import Config, build_model, refuse_later_slices
 from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, fold_epoch_seed, is_fmb
 from fast_tffm_tpu_torch.data.libsvm import scan_max_nnz
 from fast_tffm_tpu_torch.data.native import best_parser
 from fast_tffm_tpu_torch.data.pipeline import batch_stream
+from fast_tffm_tpu_torch.data.stream import (
+    fms_follow_stream,
+    is_fms,
+    stream_prefix_fingerprint,
+    stream_prefix_matches,
+)
 from fast_tffm_tpu_torch.device import resolve_device
 from fast_tffm_tpu_torch.metrics import StreamingAUC, Throughput
 from fast_tffm_tpu_torch.models.base import Batch
@@ -106,10 +132,17 @@ from fast_tffm_tpu_torch.profiling import (
     StepProfiler,
     modeled_step_bytes,
 )
+from fast_tffm_tpu_torch.resilience import (
+    NonFiniteLossError,
+    active_faults,
+    drain_fault_counters,
+    drain_fault_events,
+)
 from fast_tffm_tpu_torch.telemetry import RunMonitor
 from fast_tffm_tpu_torch.trainer import (
     init_packed_state,
     init_state,
+    make_accum_restart,
     make_decayed_body,
     make_packed_predict_step,
     make_predict_step,
@@ -126,19 +159,12 @@ from fast_tffm_tpu_torch.utils.tracing import WindowTracer, step_trace
 __all__ = ["train", "binary_input", "NonFiniteLossError"]
 
 
-class NonFiniteLossError(RuntimeError):
-    """The training loss went non-finite; raised before any save."""
-
-    def __init__(self, msg: str, *, step: int, loss: float):
-        super().__init__(msg)
-        self.step = step
-        self.loss = loss
-
-
-def _check_finite(loss: float, step: int, anomaly=None) -> None:
-    """Abort on a non-finite loss instead of training on (and eventually
-    checkpointing) poisoned state (``on_nan = abort``).  ``anomaly(step,
-    loss)`` records the divergence (a kind=anomaly record) before the raise."""
+def _check_finite(loss: float, step: int, anomaly=None, cursor=None) -> None:
+    """Raise on a non-finite loss instead of training on (and eventually
+    checkpointing) poisoned state.  ``anomaly(step, loss)`` records the
+    divergence (a kind=anomaly record) before the raise; the error carries
+    the input ``cursor`` at detection, where ``on_nan = rollback`` resumes
+    the input."""
     if not np.isfinite(loss):
         if anomaly is not None:
             anomaly(step, loss)
@@ -148,6 +174,7 @@ def _check_finite(loss: float, step: int, anomaly=None) -> None:
             "the last good state.",
             step=int(step),
             loss=float(loss),
+            cursor=cursor,
         )
 
 
@@ -159,16 +186,19 @@ class _GroupCheck:
     it just launched, so it builds the next while the card runs.  The
     check is never inside a captured graph.  ``drain`` checks the last
     group (at log points and before a save).  A K = 1 step's 0-d loss is
-    left to the log-point check, as in the JAX package."""
+    left to the log-point check, as in the JAX package.  Disabled
+    (``on_nan = rollback``) it checks nothing: the log point and the epoch
+    end decide, with their cursors, the JAX package's skip positions."""
 
-    def __init__(self, device, anomaly=None):
+    def __init__(self, device, anomaly=None, enabled: bool = True):
         self._cuda = device.type == "cuda"
         self._anomaly = anomaly
+        self._enabled = enabled
         self._last = None  # (host losses, copy event or None, step after the group)
 
     def push(self, loss: torch.Tensor, step: int) -> None:
         last, self._last = self._last, None
-        if loss.dim():
+        if loss.dim() and self._enabled:
             if self._cuda:
                 host = torch.empty(loss.shape, dtype=loss.dtype, pin_memory=True)
                 host.copy_(loss, non_blocking=True)
@@ -216,8 +246,12 @@ def _resolve_cursor(cfg: Config, cursor, log) -> tuple[int, int]:
     ``_resolve_cursor`` for one process.
 
     A cursor that does not describe this run's input (batch size, shuffle
-    and its seed, a follow cursor, the train files' fingerprint), or one of
-    a newer version, starts at (0, 0) with a warning.  A cursor at or past
+    and its seed, follow or not, the train files' fingerprint), or one of
+    a newer version, starts at (0, 0) with a warning.  Under ``[Online]
+    follow`` a follow cursor's ``files`` is the stream's prefix
+    fingerprint: a stream whose prefix changed since the save (replaced,
+    rewritten, truncated) raises, since starting again would retrain the
+    whole stream; a batch run's cursor starts at (0, 0) with the warning.  A cursor at or past
     ``epoch_num`` is a completed run: resume then trains ``epoch_num``
     more epochs from (0, 0), unless it is ``_exact`` (a literal position:
     ``(epoch_num, 0)``, no input left).  A ``hosts`` vector of one entry
@@ -249,16 +283,32 @@ def _resolve_cursor(cfg: Config, cursor, log) -> tuple[int, int]:
         if mine.get("epoch") is not None:
             cursor["epoch"] = int(mine["epoch"])
             cursor["batch_in_epoch"] = int(mine.get("batch_in_epoch") or 0)
+    follow = bool(cfg.online_follow)
+    if follow and cursor.get("follow"):
+        if cursor.get("files") is not None and not stream_prefix_matches(
+            cfg.train_files, cursor["files"]
+        ):
+            raise ValueError(
+                "online resume: the train stream's PREFIX changed since "
+                "this cursor was saved (file replaced/rewritten/truncated, "
+                "not appended?) — the saved batch offset no longer names "
+                "the same data.  Start fresh (drop --resume) or restore "
+                "the original stream file."
+            )
+        # The re-hash is the check: a grown stream's fingerprint differs.
+        want_files = cursor.get("files")
+    elif follow:
+        want_files = object()  # a batch run's cursor never matches a stream
+    else:
+        want_files = _files_fingerprint(cfg.train_files)
     mismatched = [
         f"{key} {cursor.get(key)!r} != {want!r}"
         for key, want in (
             ("batch_size", int(cfg.batch_size)),
             ("shuffle", bool(cfg.shuffle)),
             ("shuffle_seed", int(cfg.shuffle_seed) if cfg.shuffle else cursor.get("shuffle_seed")),
-            # This run does not follow a stream (online learning is a later
-            # slice), so a follow cursor never matches.
-            ("follow", False if "follow" in cursor else None),
-            ("files", _files_fingerprint(cfg.train_files)),
+            ("follow", follow if "follow" in cursor else follow or None),
+            ("files", want_files),
         )
         if cursor.get(key) != want
     ]
@@ -336,13 +386,48 @@ def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
     )
     if dedup_cap > 0:
         raw = _dedup_cap_guard(raw, dedup_cap)
+    return _prefetched(cfg, raw, steps_per_call)
+
+
+def _prefetched(cfg: Config, raw, steps_per_call: int, idle=None):
+    """``raw`` grouped into K-lists when ``steps_per_call`` > 1 and run in
+    the prefetch thread, as an ``InputStream``; ``idle`` (a followed
+    stream's Event) feeds the stall watchdog's stream-idle probe."""
     if steps_per_call > 1:
         raw = grouped_pairs(raw, steps_per_call)
+    stats = InputStats()
+    if idle is not None:
+        stats.bind_stream_idle(idle)
     # An item holds K batches: scale the depth down to keep the host memory
     # in flight at the K = 1 level.
-    stats = InputStats()
     depth = max(1, cfg.queue_size // max(1, steps_per_call))
     return InputStream(prefetch(stats.timed(raw), depth=depth, stats=stats), stats)
+
+
+def _follow_stream(cfg: Config, files, max_nnz: int, skip_batches: int = 0, stop=None):
+    """The input of ``[Online] follow = true``: ``fms_follow_stream`` over
+    the one FMS train file in the prefetch thread, grouped into K-lists when
+    ``steps_per_call`` > 1 (a group the stream's end cuts short comes out
+    short, as ``grouped_pairs`` makes it).  The stream's idle Event feeds the
+    stall watchdog (input-starved (stream-idle)); ``skip_batches`` is the
+    resume seek, one file seek; ``stop`` ends the stream at its next poll
+    (the signal handler sets it, so an idle, unbounded stream still takes
+    the stop-and-save path)."""
+    idle = threading.Event()
+    raw = fms_follow_stream(
+        files[0],
+        batch_size=cfg.batch_size,
+        vocabulary_size=cfg.vocabulary_size,
+        hash_feature_id=cfg.hash_feature_id,
+        max_nnz=max_nnz,
+        poll_s=cfg.online_poll_s,
+        idle_timeout_s=cfg.online_idle_timeout_s,
+        max_batches=cfg.online_max_batches,
+        skip_batches=skip_batches,
+        idle_flag=idle,
+        stop=stop,
+    )
+    return _prefetched(cfg, raw, cfg.steps_per_call, idle=idle)
 
 
 def _evaluate(cfg: Config, model, predict_step, state, files, max_nnz: int, device, log) -> float:
@@ -364,9 +449,6 @@ def _refuse_later_slices(cfg: Config) -> None:
     """The training settings whose paths are later slices of the port."""
     refuse_later_slices("train", [
         (cfg.paramstore, "[ParamStore] (the tiered parameter store)"),
-        (cfg.online_follow, "[Online] follow (online learning)"),
-        (cfg.online_accum_restart_steps > 0, "[Online] accum_restart_steps"),
-        (cfg.on_nan == "rollback", "on_nan = rollback (resilience)"),
     ])
 
 
@@ -433,17 +515,20 @@ def _device_cached_input(cfg: Config, model, max_nnz: int, log, body, device):
     return (step_shuffled if cfg.shuffle else step), train_stream, ids_of
 
 
-def _signal_stop(log):
+def _signal_stop(log, on_stop=None):
     """(stop event, restore) for the first-signal stop: SIGTERM and SIGINT
-    set the event and put back their previous handler, so a second signal
-    takes it.  Installed on the main thread only (``signal.signal`` works
-    nowhere else); ``restore()`` reinstates the previous handlers."""
+    set the event, call ``on_stop()`` (a followed stream's end) and put
+    back their previous handler, so a second signal takes it.  Installed on
+    the main thread only (``signal.signal`` works nowhere else);
+    ``restore()`` reinstates the previous handlers."""
     stop = threading.Event()
     previous = {}
 
     def on_signal(signum, frame):
         log(f"received signal {signum}: checkpointing after current step")
         stop.set()
+        if on_stop is not None:
+            on_stop()
         signal.signal(signum, previous[signum])
 
     if threading.current_thread() is threading.main_thread():
@@ -472,6 +557,37 @@ def _modeled_bytes(ids: torch.Tensor, row_dim: int, accum_cols: int) -> int:
     return sum(modeled_step_bytes(p, row_dim, accum_cols)[0] for p in parts)
 
 
+def _to_batches(src: InputStream, model, device) -> InputStream:
+    """A (ParsedBatch or K-list, weights) stream as (Batch, examples): a
+    K-list stacks into one host superbatch (the K-step call copies it to
+    the card), a batch goes to ``device``."""
+
+    def batches():
+        for parsed, w in src:
+            if isinstance(parsed, list):
+                yield (Batch.stack_parsed(parsed, w, with_fields=model.uses_fields),
+                       sum(p.batch_size for p in parsed))
+            else:
+                yield (Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields),
+                       parsed.batch_size)
+
+    return InputStream(batches(), src.stats)
+
+
+def _restore_into(state, restored) -> None:
+    """Copy a restored state into the live one's tensors (``copy_``): their
+    storage stays, so a captured CUDA graph of K steps replays on the
+    restored values and no second capture is made."""
+    with torch.no_grad():
+        for live, new in ((state.table, restored.table),
+                          (state.table_accum, restored.table_accum),
+                          *zip(state.dense, restored.dense),
+                          *zip(state.dense_accum, restored.dense_accum)):
+            if live is not None:
+                live.copy_(new)
+    state.step = restored.step
+
+
 def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hook=None):
     """Local (single-device) training — the reference's ``train`` mode.
 
@@ -479,9 +595,13 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
     delta chain replayed) and reopens the input at its cursor; otherwise
     the state is a fresh init from a seeded generator.  ``step_hook(step)``
     runs after every call, before the stop check (a test raises SIGTERM
-    from it at an exact step).  Returns the final state in the layout it
-    trained in (a packed or fused state for ``table_layout = packed``); its
-    logical arrays are saved to ``cfg.model_file`` with the cursor."""
+    from it at an exact step; an armed fault plan's kills ride it).
+    Returns the final state in the layout it trained in (a packed or fused
+    state for ``table_layout = packed``); its logical arrays are saved to
+    ``cfg.model_file`` with the cursor.  Under ``on_nan = rollback`` a
+    non-finite loss restores the last checkpoint into the live state and
+    runs again from the detection point's cursor (see the module
+    docstring)."""
     _refuse_later_slices(cfg)
     if not cfg.train_files:
         raise ValueError("no train_files configured")
@@ -490,26 +610,44 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
             f"weight_files has {len(cfg.weight_files)} entries for "
             f"{len(cfg.train_files)} train_files (they align per-file)"
         )
+    if cfg.online_follow:
+        if len(cfg.train_files) != 1:
+            raise ValueError(
+                "[Online] follow = true takes exactly ONE train file (an "
+                f"append-only FMS stream), got {len(cfg.train_files)}"
+            )
+        if not is_fms(cfg.train_files[0]):
+            raise ValueError(
+                f"[Online] follow = true needs an FMS stream file; "
+                f"{cfg.train_files[0]!r} is not one (create and append "
+                "with fast_tffm_tpu_torch.data.stream.StreamWriter)"
+            )
     device = resolve_device(device)
     model = build_model(cfg)
     max_nnz = scan_max_nnz(cfg)
     cfg.check_width(max_nnz)
     packed = cfg.table_layout == "packed"
     fused = packed and cfg.adagrad_accumulator == "fused"
-    start_cursor = None
-    if resume:
-        # The logical arrays first, packed after (never a fresh packed state
-        # beside them).
-        accum_width = model.row_dim if cfg.adagrad_accumulator == "element" else 1
-        state = restore_checkpoint(cfg.model_file, device, n_dense=len(model.dense_names),
-                                   accum_width=accum_width)
-        if state.table.shape != (model.vocabulary_size, model.row_dim):
+    accum_width = model.row_dim if cfg.adagrad_accumulator == "element" else 1
+
+    def restore_state():
+        """``model_file`` in this run's layout: the logical arrays first,
+        packed after (never a fresh packed state beside them).  Shared by
+        ``resume`` and the rollback."""
+        restored = restore_checkpoint(cfg.model_file, device, n_dense=len(model.dense_names),
+                                      accum_width=accum_width)
+        if restored.table.shape != (model.vocabulary_size, model.row_dim):
             raise ValueError(
-                f"checkpoint {cfg.model_file!r} holds a {tuple(state.table.shape)} table; "
+                f"checkpoint {cfg.model_file!r} holds a {tuple(restored.table.shape)} table; "
                 f"this config trains [{model.vocabulary_size}, {model.row_dim}]"
             )
         if packed:
-            state = pack_state(state, cfg.init_accumulator_value, fused=fused)
+            restored = pack_state(restored, cfg.init_accumulator_value, fused=fused)
+        return restored
+
+    start_cursor = None
+    if resume:
+        state = restore_state()
         log(f"resumed from {cfg.model_file} at step {state.step}" + (" (packed)" if packed else ""))
         start_cursor = read_input_cursor(cfg.model_file)
         if start_cursor is None:
@@ -551,6 +689,10 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
         body = make_decayed_body(cfg.online_adagrad_decay)
         predict_step = make_predict_step(model)
     k = cfg.steps_per_call
+    # One stop Event per followed stream, in a one-slot holder: the signal
+    # handler sets the live stream's, and a stream a rollback abandoned
+    # keeps its own (set) one.
+    stream_stop = [threading.Event()] if cfg.online_follow else None
     if cfg.device_cache:
         step_fn, train_stream, ids_of = _device_cached_input(cfg, model, max_nnz, log, body,
                                                              device)
@@ -561,34 +703,86 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
         weights = cfg.weight_files or None
 
         def train_stream(epoch, skip_batches=0):
-            src = _stream(cfg, cfg.train_files, max_nnz, weights, shuffle_epoch=epoch,
-                          steps_per_call=k, log=log, skip_batches=skip_batches,
-                          dedup_cap=cfg.dedup_gather_rows)
-
-            def batches():
-                for parsed, w in src:
-                    if isinstance(parsed, list):
-                        yield (Batch.stack_parsed(parsed, w, with_fields=model.uses_fields),
-                               sum(p.batch_size for p in parsed))
-                    else:
-                        yield (Batch.from_parsed(parsed, w, device,
-                                                 with_fields=model.uses_fields),
-                               parsed.batch_size)
-
-            return InputStream(batches(), src.stats)
+            if cfg.online_follow:
+                stream_stop[0] = threading.Event()
+                src = _follow_stream(cfg, cfg.train_files, max_nnz, skip_batches,
+                                     stop=stream_stop[0])
+            else:
+                src = _stream(cfg, cfg.train_files, max_nnz, weights, shuffle_epoch=epoch,
+                              steps_per_call=k, log=log, skip_batches=skip_batches,
+                              dedup_cap=cfg.dedup_gather_rows)
+            return _to_batches(src, model, device)
 
         def ids_of(batch):
             # A K-step call's superbatch is on the host; its graph's static
             # buffers hold the same ids on the card.
             return step_fn.last_batch().ids if k > 1 else batch.ids
 
+    accum_restart = (make_accum_restart(cfg.init_accumulator_value)
+                     if cfg.online_accum_restart_steps > 0 else None)
+    run = dict(model=model, device=device, step_fn=step_fn, train_stream=train_stream,
+               ids_of=ids_of, predict_step=predict_step, max_nnz=max_nnz, log=log,
+               step_hook=step_hook, accum_restart=accum_restart, stream_stop=stream_stop)
+    # on_nan = rollback: restore the last checkpoint and resume the input at
+    # the detection cursor, skipping the window that diverged (at most
+    # max_rollbacks times; abort, or no checkpoint yet, raises).
+    rollbacks = 0
+    rollback_note = None
+    while True:
+        try:
+            return _run_training(cfg, state, start_cursor=start_cursor, rollback=rollback_note,
+                                 **run)
+        except NonFiniteLossError as e:
+            if (
+                cfg.on_nan != "rollback"
+                or rollbacks >= cfg.max_rollbacks
+                or e.cursor is None
+                or latest_step(cfg.model_file) is None
+            ):
+                raise
+            rollbacks += 1
+            # The failed run's finally joined its in-flight async save, so the
+            # chain head read here is the newest one published.
+            _restore_into(state, restore_state())
+            start_cursor = dict(e.cursor, _exact=True)
+            rollback_note = {
+                "step": e.step,
+                "loss": e.loss,
+                "rollback_n": rollbacks,
+                "restored_step": int(state.step),
+                "skip_to_epoch": int(e.cursor.get("epoch", 0)),
+                "skip_to_batch": int(e.cursor.get("batch_in_epoch", 0)),
+            }
+            log(
+                f"on_nan = rollback: non-finite loss at step {e.step}; "
+                f"restored {cfg.model_file} (step {int(state.step)}), "
+                f"skipping input to epoch {rollback_note['skip_to_epoch']} "
+                f"batch {rollback_note['skip_to_batch']} "
+                f"(rollback {rollbacks}/{cfg.max_rollbacks})"
+            )
+
+
+def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, ids_of,
+                  predict_step, max_nnz: int, log, step_hook, accum_restart, stream_stop,
+                  start_cursor=None, rollback=None):
+    """The step loop of one run over ``state`` (the JAX ``_run_training``):
+    entered once, and again after each rollback with the restored state,
+    ``start_cursor`` the detection point's (``_exact``) and ``rollback``
+    the note the new run records as kind=anomaly event=rollback.
+    ``train_stream(epoch, skip_batches)`` opens an epoch's input at a
+    batch; ``ids_of(batch)`` gives a call's ids; ``accum_restart`` (or
+    None) resets the accumulators; ``stream_stop`` is a followed stream's
+    stop holder (or None)."""
+    k = cfg.steps_per_call
     # The input cursor, tracked per call: every save embeds it.
     start_epoch, start_batch = _resolve_cursor(cfg, start_cursor, log)
     cur = {"epoch": start_epoch, "batch": start_batch}
-    files_fp = _files_fingerprint(cfg.train_files)
+    # A followed stream grows: its identity is its prefix, not its size.
+    files_fp = (stream_prefix_fingerprint(cfg.train_files) if cfg.online_follow
+                else _files_fingerprint(cfg.train_files))
 
     def input_cursor() -> dict:
-        return {
+        c = {
             "version": 1,
             "epoch": cur["epoch"],
             "batch_in_epoch": cur["batch"],
@@ -598,6 +792,9 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
             "steps_per_call": int(k),
             "files": files_fp,
         }
+        if cfg.online_follow:
+            c["follow"] = True
+        return c
 
     cuda = device.type == "cuda"
     monitor = RunMonitor(
@@ -633,13 +830,32 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
     def anomaly(step, loss):
         monitor.emit_anomaly(step, loss, state=state)
 
+    if rollback is not None:
+        # The failed run recorded the non-finite loss; this records the
+        # recovery (restored step, skip position, rollback ordinal).
+        monitor.emit_anomaly(
+            int(rollback.get("step", 0)), rollback.get("loss"), event="rollback",
+            **{key: v for key, v in rollback.items() if key not in ("step", "loss")},
+        )
+    faults = active_faults()  # None unless a fault plan is armed
+    start_step = state.step
+    # The accumulator restarts sit on absolute multiples of N, so a resumed
+    # run resets at the steps the uninterrupted one does; K-aligned: after
+    # the first call that reaches a multiple.
+    restart_n = max(1, int(cfg.online_accum_restart_steps))
+    next_restart = (start_step // restart_n + 1) * restart_n if accum_restart else None
     meter = Throughput()
     losses: list[torch.Tensor] = []  # device values; synced at log points
-    groups = _GroupCheck(device, anomaly)
+    groups = _GroupCheck(device, anomaly, enabled=cfg.on_nan == "abort")
     pending = 0  # steps since the last log point
     counted = 0  # examples the meter holds
-    start_step = state.step
-    stop, restore_handlers = _signal_stop(log)
+
+    def emit_faults():
+        for ev in drain_fault_events():
+            monitor.emit("fault", step=state.step, **ev)
+
+    stop, restore_handlers = _signal_stop(
+        log, on_stop=(lambda: stream_stop[0].set()) if stream_stop else None)
     try:
         for epoch in range(start_epoch, cfg.epoch_num):
             if stop.is_set():
@@ -649,6 +865,7 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
             input_stats = getattr(epoch_stream, "stats", None)
             monitor.set_queue_depth_fn(getattr(epoch_stream, "queue_depth", None))
             monitor.set_producer_alive_fn(getattr(epoch_stream, "producer_alive", None))
+            monitor.set_stream_idle_fn(getattr(epoch_stream, "stream_idle", None))
             for batch, examples in epoch_stream:
                 first_call = state.step == start_step
                 tracer.on_step()
@@ -686,12 +903,19 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
                     ledger.flush(state.step)
                 if datastats is not None:
                     datastats.note(state.step, batch=batch)
+                if next_restart is not None and state.step >= next_restart:
+                    next_restart = (state.step // restart_n + 1) * restart_n
+                    state = accum_restart(state)
                 if ckpt.delta_enabled:
                     ckpt.note_batch(ids_of(batch))
                     if ckpt.delta_due(state.step) and not stop.is_set():
                         with monitor.suspended():
                             ckpt.delta_boundary(state, saveable, state.step)
                 losses.append(loss)
+                if faults is not None and faults.nan_due(state.step):
+                    # The fault plan poisons the loss the check reads, never
+                    # the state.
+                    losses[-1] = torch.full_like(loss, float("nan"))
                 pending += loss.numel()
                 if step_hook is not None:
                     step_hook(state.step)  # before the stop check: a raised signal stops here
@@ -704,7 +928,8 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
                     # Read after the sync above, so the window's examples are
                     # trained, not only launched.
                     rate = meter.rate()
-                    _check_finite(mean_loss, state.step, anomaly)
+                    _check_finite(mean_loss, state.step, anomaly, cursor=input_cursor())
+                    emit_faults()
                     # A window that holds only the first call (K >= log_every)
                     # has no examples to rate: its line gives the loss alone.
                     log(
@@ -723,14 +948,20 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
                     counted = 0
             if stop.is_set():
                 break
+            # The epoch is done: the cursor names the next epoch's start, the
+            # position the save below embeds.  A followed stream's one epoch
+            # never completes (the stream went quiet or hit its bound): its
+            # cursor keeps the batch offset, where the next resume goes on.
+            if not cfg.online_follow:
+                cur["epoch"], cur["batch"] = epoch + 1, 0
             if input_stats is not None and (rec := input_stats.drain()):
                 monitor.emit("input", step=state.step, epoch=epoch, **rec)
-            # A poisoned state must abort BEFORE the cursor moves and the save
-            # below replaces the last good checkpoint.
+            # A poisoned state must stop here, BEFORE the save below replaces
+            # the last good checkpoint.  The whole unlogged window counts: an
+            # injected nan poisons one entry of it.
             groups.drain()
             if losses:
-                _check_finite(_mean(losses), state.step, anomaly)
-            cur["epoch"], cur["batch"] = epoch + 1, 0  # the next epoch's start
+                _check_finite(_mean(losses), state.step, anomaly, cursor=input_cursor())
             if cfg.validation_files:
                 with monitor.suspended():  # no train call completes here
                     val_auc = _evaluate(cfg, model, predict_step, state, cfg.validation_files,
@@ -746,13 +977,20 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
         # The stop save too: never a poisoned state.
         groups.drain()
         if losses:
-            _check_finite(_mean(losses), state.step, anomaly)
+            _check_finite(_mean(losses), state.step, anomaly, cursor=input_cursor())
     finally:
         restore_handlers()
-        # Join the in-flight async write BEFORE the final save below: an
-        # older publish must never land after a newer one.
+        if stream_stop is not None:
+            # A followed stream's producer stops on every way out.
+            stream_stop[0].set()
+        # Join the in-flight async write BEFORE the final save below (an
+        # older publish must never land after a newer one) and before a
+        # rollback reads the chain head.
         ckpt.finalize()
         summary = ckpt.summary()
+        # The last window's fault events and the run's counters.
+        emit_faults()
+        summary.update({f"fault_{key}": v for key, v in drain_fault_counters().items() if v})
         if ledger is not None:
             summary.update(ledger.summary())
         if datastats is not None:

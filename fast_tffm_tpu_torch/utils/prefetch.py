@@ -6,7 +6,8 @@ queue, so host parsing of the next batches overlaps the card's step.
 K-long lists for ``steps_per_call``.  ``InputStats`` times the producer and
 samples the queue for ``kind=input`` records, and ``InputStream`` carries
 a stream with its stats and the live probes the stall watchdog reads
-(``queue_depth``, ``producer_alive``).  Threading only.
+(``queue_depth``, ``producer_alive``, and for a followed FMS stream
+``stream_idle``).  Threading only.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ class InputStats:
         self._lock = threading.Lock()
         self._queue = None  # bound by prefetch(): the live-depth probe
         self._producer = None  # bound by prefetch(): the liveness probe
+        self._stream_idle = None  # bound by follow streams: the idle probe
         self.last_depth = None
         self._reset()
 
@@ -64,6 +66,16 @@ class InputStats:
 
     def bind_producer(self, thread) -> None:
         self._producer = thread
+
+    def bind_stream_idle(self, event) -> None:
+        """A followed FMS stream (``data/stream.py``) hands over its idle
+        Event, so a starved loop can classify as input-starved
+        (stream-idle): the producer is alive and the writer quiet."""
+        self._stream_idle = event
+
+    def stream_idle(self) -> bool | None:
+        e = self._stream_idle
+        return e.is_set() if e is not None else None
 
     def queue_depth(self) -> int | None:
         q = self._queue
@@ -116,9 +128,9 @@ class InputStats:
 
 class InputStream:
     """An input iterator with its ``InputStats``: the training loop iterates it,
-    drains ``.stats`` into kind=input records and hands ``queue_depth`` and
-    ``producer_alive`` to the stall watchdog (readable while the consumer
-    is frozen)."""
+    drains ``.stats`` into kind=input records and hands ``queue_depth``,
+    ``producer_alive`` and ``stream_idle`` to the stall watchdog (readable
+    while the consumer is frozen)."""
 
     def __init__(self, it: Iterable, stats: InputStats | None):
         self._it = it
@@ -132,6 +144,9 @@ class InputStream:
 
     def producer_alive(self) -> bool | None:
         return self.stats.producer_alive() if self.stats is not None else None
+
+    def stream_idle(self) -> bool | None:
+        return self.stats.stream_idle() if self.stats is not None else None
 
 
 def prefetch(it: Iterable, depth: int = 8, stats: InputStats | None = None) -> Iterator:

@@ -15,7 +15,9 @@ K = 8 graph.  An async save's snapshot holds the boundary's bits though the
 next in-place step and K = 8 replay are launched right behind it; the
 touched-row bitmap after a K = 8 replay is its batches' unique ids; a delta
 chain written on the card replays bitwise; ``device_live_bytes`` makes no
-device sync.
+device sync.  A rollback at K = 8 restores into the graph's own state (one
+capture) and ends bitwise its reference; accumulator restarts inside a
+K = 8 graph are bitwise the eager run's.
 """
 
 import os
@@ -1038,3 +1040,122 @@ def test_a_replica_without_a_card_refuses_to_start(tmp_path, monkeypatch):
     finally:
         handle.kill()
         handle.wait(timeout=30)
+
+
+def _rollback_cfg(tmp_path, name, **kw):
+    """The resume tests' model on data/train.libsvm's FMB cache at 25 rows a
+    batch (16 batches an epoch, two K = 8 calls), 2 epochs, a save every
+    epoch, the device cache at K = 8."""
+    from fast_tffm_tpu_torch.config import Config
+
+    base = dict(
+        model="fm", order=3, factor_num=8, vocabulary_size=256, max_nnz=8, batch_size=25,
+        epoch_num=2, learning_rate=0.05, factor_lambda=1e-4, bias_lambda=1e-4, log_every=8,
+        model_file=str(tmp_path / name), train_files=(str(tmp_path / "train.libsvm"),),
+        binary_cache=True, device_cache=True, steps_per_call=8, save_every_epochs=1,
+        metrics_path=str(tmp_path / (name + ".jsonl")),
+    )
+    base.update(kw)
+    return Config(**base).validate()
+
+
+def _seeded_npz(tmp_path):
+    from fast_tffm_tpu_torch.checkpoint import save_checkpoint
+    from fast_tffm_tpu_torch.trainer import TrainState
+
+    rng = np.random.default_rng(29)
+    save_checkpoint(str(tmp_path / "init.ckpt"), TrainState(
+        table=torch.from_numpy(rng.uniform(-0.3, 0.3, (256, 9)).astype(np.float32)), dense=[],
+        step=0, table_accum=torch.full((256, 9), 0.1)))
+
+
+def test_a_k8_rollback_keeps_one_capture_and_is_bitwise_its_reference(cuda, tmp_path,
+                                                                      monkeypatch):
+    """on_nan = rollback at K = 8 on the device cache: nan@20:25 poisons the
+    call that ends at step 24; the log point raises with the cursor (1, 8),
+    the step-16 save is copied into the live tensors and the run trains
+    batches 8-15 of epoch 1.  The rollback makes no second CUDA-graph
+    capture, and the run ends bitwise the run that resumes the step-16
+    save at (1, 8)."""
+    import shutil
+
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor, save_checkpoint
+    from fast_tffm_tpu_torch.resilience import FaultPlan, clear_faults, install_faults
+    from fast_tffm_tpu_torch.training import train
+    from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
+
+    for f in ("train.libsvm", "test.libsvm"):
+        shutil.copy(os.path.join(REPO, "data", f), tmp_path)
+    _seeded_npz(tmp_path)
+    captures = []
+    real = StepGraphs._capture
+    monkeypatch.setattr(StepGraphs, "_capture",
+                        lambda self, *a: captures.append(1) or real(self, *a))
+    cfg = _rollback_cfg(tmp_path, "rb.ckpt", on_nan="rollback")
+    shutil.copy(tmp_path / "init.ckpt", cfg.model_file)
+    inj = install_faults(FaultPlan.parse("nan@20:25"))
+    kept = []
+
+    def hook(step):
+        if step > 16 and not kept:
+            kept.append(shutil.copy(cfg.model_file, str(tmp_path / "epoch0.ckpt")))
+        inj.step_hook(step)
+
+    quiet = lambda *_: None  # noqa: E731
+    try:
+        got = train(cfg, resume=True, log=quiet, device="cuda", step_hook=hook)
+    finally:
+        clear_faults()
+    assert len(captures) == 1
+    (rec,) = [r for r in map(__import__("json").loads, open(cfg.metrics_path))
+              if r["kind"] == "anomaly" and r["event"] == "rollback"]
+    assert (rec["restored_step"], rec["skip_to_epoch"], rec["skip_to_batch"]) == (16, 1, 8)
+    ref_cfg = _rollback_cfg(tmp_path, "ref.ckpt")
+    cursor = dict(read_input_cursor(kept[0]), epoch=1, batch_in_epoch=8)
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+
+    save_checkpoint(ref_cfg.model_file, restore_checkpoint(kept[0], torch.device("cpu"),
+                                                           accum_width=9), cursor=cursor)
+    want = train(ref_cfg, resume=True, log=quiet, device="cuda")
+    torch.cuda.synchronize()
+    assert got.step == want.step == 24
+    assert torch.equal(got.table, want.table) and torch.equal(got.table_accum, want.table_accum)
+
+
+def test_accum_restart_in_a_k8_graph_is_bitwise_the_eager_run(cuda, tmp_path, monkeypatch):
+    """accum_restart_steps = 8 on the device cache, 2 epochs of 16 steps: the
+    K = 8 run (the fill writes the graph's own state tensors between
+    replays) ends bitwise the eager K = 1 run, and each reset leaves every
+    accumulator at the init value."""
+    import shutil
+
+    from fast_tffm_tpu_torch import training
+
+    for f in ("train.libsvm", "test.libsvm"):
+        shutil.copy(os.path.join(REPO, "data", f), tmp_path)
+    _seeded_npz(tmp_path)
+    resets = []
+    real = training.make_accum_restart
+
+    def checked(value):
+        reset = real(value)
+
+        def run(state):
+            state = reset(state)
+            resets.append((state.step, bool((state.table_accum == value).all())))
+            return state
+
+        return run
+
+    monkeypatch.setattr(training, "make_accum_restart", checked)
+    states = {}
+    for k in (1, 8):
+        cfg = _rollback_cfg(tmp_path, f"k{k}.ckpt", online_accum_restart_steps=8,
+                            steps_per_call=k)
+        shutil.copy(tmp_path / "init.ckpt", cfg.model_file)
+        resets.clear()
+        states[k] = training.train(cfg, resume=True, log=lambda *_: None, device="cuda")
+        assert resets == [(8, True), (16, True), (24, True), (32, True)]
+    torch.cuda.synchronize()
+    assert torch.equal(states[1].table, states[8].table)
+    assert torch.equal(states[1].table_accum, states[8].table_accum)
