@@ -193,9 +193,9 @@ last line:
             200 ms x 4 under 50 ms row deadlines answers typed deadlines
   throughput the config's 1,048,576-row epoch on the card only, streamed
             through the native parser, from FMB (converted first, timed
-            apart), from FMB with steps_per_call = 8 and device-cached with
-            steps_per_call = 8: logged and whole-run ex/s and the card's
-            idle share of each run
+            apart) as configured and on arrays, the same with
+            steps_per_call = 8, and device-cached with steps_per_call = 8:
+            logged and whole-run ex/s and the card's idle share of each run
   telemetry_cost the same streamed native epoch in turns plain, with the
             monitor (metrics_path, watchdog, memory, a profile window at
             steps 56:60) and with datastats every 4 steps as well, 8 rounds:
@@ -236,6 +236,36 @@ last line:
             K = 1 and K = 8 (graphed): one reset after step 16 in each,
             every accumulator at the init value right after it, the runs
             bitwise equal; the reset's ms and each run's step time
+  wire      FMB input (binary_cache) with wire_format = packed (at K = 8
+            each K-group packed into one pinned buffer, one H2D, unpacked on
+            the card on a side stream; at K = 1 the loop converts) against
+            arrays, from one seeded npz, at K = 1 (24 steps) and K = 8 (48):
+            losses and final tables bitwise, the H2D bytes per batch from
+            kind=input against the spec's (from the FMB flags; none at
+            K = 1), ex/s, step p50 and the card's idle share
+  tiered    [ParamStore] at baseline5's full width: hot_rows 262,144 of 2^20
+            by the sample policy (8 batches), materialize auto (the store
+            holds init_state's host draw), a delta every 8 steps and a full
+            save at the epoch end; against resident runs from an npz of the
+            same draw: K = 1 streamed text and K = 8 FMB (48 steps), losses,
+            validation AUCs and the logical table and accumulator (store +
+            hot tier) bitwise; the row accumulator, bitwise; the K = 1 run on
+            the CPU within TABLE_ATOL; a run aborted at step 20 and resumed
+            from its chain head, and a cli train --fault-plan
+            kill_writeback@1 child (SIGKILL inside the first store apply)
+            resumed, each bitwise the uninterrupted run.  Per run: ex/s over
+            the run and per window, step p50, idle share, the kind=tiering
+            counters (hit rate, miss rows, wire bytes, resolve, writeback,
+            restages, pending rows) and the kernels' launches
+  tiered_big baseline5's widths at vocabulary 2^31 - 1 (a resident table and
+            element accumulator would need 154.6 GB): 8 x 16,384 rows of
+            gen_synthetic over that vocabulary, a lazy store, hot_rows 2^20,
+            the disk the written rows need reckoned from the data first;
+            finite losses, peak device memory, the store files' apparent
+            size against the pages the store's written rows occupy (at most
+            the reckoning; the filesystem's used bytes during the run beside
+            them as a second witness), the rows the final save applied read
+            back from the store, and a resume at that save
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
             launches_by_run adds the graphed train_cached runs' replays, and
@@ -246,7 +276,8 @@ last line:
             ckpt_* runs (K-step runs: the replays in their traces), the
             rollback, supervised reference, follow and accum_restart runs,
             and for B1 serve_reload's engine and each replica process's
-            launches during serve_socket's traffic (serve_socket_r0, _r1)
+            launches during serve_socket's traffic (serve_socket_r0, _r1); the
+            wire, tiered and tiered_big runs
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -1506,10 +1537,11 @@ def phase_train_cached(rng, tmp: str, train_path: str, valid_path: str, fused: b
 
 def phase_throughput(tmp: str, big_path: str):
     """The config's 1,048,576-row epoch on the card only: streamed through
-    the native parser, from FMB (the cache built first, its time apart),
-    from FMB with steps_per_call = 8 (the streamed K-step graph) and
-    device-cached with steps_per_call = 8; ex/s (the logged windows and
-    the whole run) and the card's idle share of each run."""
+    the native parser, from FMB (the cache built first, its time apart) as
+    configured and on arrays, the same with steps_per_call = 8 (the
+    streamed K-step graph), and device-cached with steps_per_call = 8; ex/s
+    (the logged windows and the whole run) and the card's idle share of
+    each run."""
     import dataclasses
 
     from fast_tffm_tpu_torch.config import load_config
@@ -1526,8 +1558,14 @@ def phase_throughput(tmp: str, big_path: str):
     convert_s = time.perf_counter() - t0
     rec = {"phase": "throughput", "rows": THROUGHPUT_BATCHES * BATCH, "config": CONFIG,
            "fmb_convert_seconds": convert_s}
+    # fmb_k8 ships on the packed wire (the default at K > 1), fmb_k8_arrays
+    # is its twin in the same call; fmb and fmb_arrays both convert in the
+    # loop (K = 1), so their gap is the call's run-to-run spread.
     for mode, kw in (("streamed_native", {}), ("fmb", {"binary_cache": True}),
+                     ("fmb_arrays", {"binary_cache": True, "wire_format": "arrays"}),
                      ("fmb_k8", {"binary_cache": True, "steps_per_call": 8}),
+                     ("fmb_k8_arrays", {"binary_cache": True, "steps_per_call": 8,
+                                        "wire_format": "arrays"}),
                      ("device_cached_k8", {"binary_cache": True, "device_cache": True,
                                            "steps_per_call": 8})):
         cfg = dataclasses.replace(base, model_file=os.path.join(tmp, f"tp.{mode}.ckpt"),
@@ -2615,7 +2653,7 @@ def _model_files(cfg) -> list:
 
 
 def _run(what: str, cfg, hook=None, expect_abort: bool = False, make_hook=None,
-         trace: bool = False) -> dict:
+         trace: bool = False, resume: bool = True) -> dict:
     """One card run of ``training.train`` of an order-3 FM (or, eager, any
     model), every kernel counter zeroed just before and read just after.
     ``hook`` is its step hook, or ``make_hook()`` makes a fresh one for
@@ -2625,8 +2663,9 @@ def _run(what: str, cfg, hook=None, expect_abort: bool = False, make_hook=None,
     are the wrappers' counts; a K-step run's (or with ``trace`` an eager
     run's too) are counted in a profiler trace of the run
     (``_counted_run``, replays = trace less wrappers, ``_step_launches``),
-    each retry from the model files (base and deltas) and metrics the run
-    started with.  Returns the state (None when aborted), the log, the wall
+    each retry from the model files (base, deltas and a tiered run's
+    ``.store`` directory) and metrics the run started with; ``resume``
+    False starts from a fresh init.  Returns the state (None when aborted), the log, the wall
     time, the counts and, traced, the card's busy time and idle share."""
     import shutil
 
@@ -2637,24 +2676,27 @@ def _run(what: str, cfg, hook=None, expect_abort: bool = False, make_hook=None,
     head, name = os.path.split(cfg.model_file)
     keep = os.path.join(head, f".keep.{name}")
     start = _model_files(cfg)
+    def copy(src, dst):
+        (shutil.copytree if os.path.isdir(src) else shutil.copy)(src, dst)
+
     if traced:
         os.makedirs(keep, exist_ok=True)
         for path in start:
-            shutil.copy(path, os.path.join(keep, os.path.basename(path)))
+            copy(path, os.path.join(keep, os.path.basename(path)))
     result = {}
 
     def run_once():
         if traced:  # a retry starts from the files the first attempt had
             for path in _model_files(cfg):
-                os.remove(path)
+                (shutil.rmtree if os.path.isdir(path) else os.remove)(path)
             for path in start:
-                shutil.copy(os.path.join(keep, os.path.basename(path)), path)
+                copy(os.path.join(keep, os.path.basename(path)), path)
         if cfg.metrics_path and os.path.exists(cfg.metrics_path):
             os.remove(cfg.metrics_path)
         lines, state = [], None
         step_hook = make_hook() if make_hook is not None else hook
         try:
-            state, _ = _train_once(cfg, "cuda", lines, step_hook=step_hook)
+            state, _ = _train_once(cfg, "cuda", lines, resume=resume, step_hook=step_hook)
             if expect_abort:
                 fail(f"{what}: the run was to be aborted by its step hook and ended")
         except _Abort:
@@ -4366,6 +4408,433 @@ def phase_accum_restart(rng, tmp: str, train_path: str, valid_path: str) -> dict
     return launches
 
 
+# -- slice 11: the packed wire and the tiered parameter store --------------
+
+TIERED_HOT_ROWS = 262144  # the tiered phase's hot tier: a quarter of 2^20
+TIERED_BIG_VOCAB = 2**31 - 1  # the port's largest vocabulary (config.py)
+TIERED_BIG_HOT = 1 << 20
+TIERED_BIG_BATCHES = 8
+
+
+def _timed_run(what: str, cfg, *, resume: bool = True, abort_at: int | None = None,
+               trace: bool = True) -> dict:
+    """``_run`` with the loop's step clock as its step hook (``abort_at``:
+    the run is ended there by ``_Abort``, no final save): adds the step p50,
+    the examples per second over the run's wall time and per log window."""
+    box = {}
+
+    def make_hook():
+        clock, p50 = _step_clock()
+        box["p50"] = p50
+        abort = _abort_at(abort_at) if abort_at else None
+
+        def hook(step):
+            clock(step)
+            if abort is not None:
+                abort(step)
+
+        return hook
+
+    out = _run(what, cfg, make_hook=make_hook, trace=trace, resume=resume,
+               expect_abort=abort_at is not None)
+    steps = out["launches"]["anova_bwd"]
+    out["speed"] = {
+        "steps": steps,
+        # the gaps between calls, per step (a K-step call's over K)
+        "step_ms_p50": (lambda p: p / cfg.steps_per_call if p is not None else None)(
+            box["p50"]()),
+        "examples_per_s_run": steps * cfg.batch_size / (out["wall_ms"] / 1e3),
+        "examples_per_s_logged": _logged(out["log"], "examples/sec"),
+        "device_idle_share": out.get("device_idle_share"),
+        "wall_ms": out["wall_ms"],
+    }
+    return out
+
+
+def _input_records(path: str) -> list:
+    return [r for r in _records(path) if r["kind"] == "input"]
+
+
+def _tiering(what: str, path: str) -> dict:
+    """A tiered run's kind=tiering records, summed or averaged over the run."""
+    recs = [r for r in _records(path) if r["kind"] == "tiering"]
+    if not recs:
+        fail(f"{what}: no kind=tiering record in {path}")
+    miss = sum(r["miss_rows"] for r in recs)
+    steps = sum(r["miss_rows"] / r["miss_rows_per_step"] for r in recs
+                if r["miss_rows_per_step"])
+    return {
+        "records": len(recs),
+        "hit_rate": [r["hit_rate"] for r in recs],
+        "miss_rows": miss,
+        "miss_rows_per_step": miss / steps if steps else None,
+        "wire_bytes_per_step": [r["wire_bytes_per_step"] for r in recs],
+        "resolve_ms": sum(r["resolve_ms"] for r in recs),
+        "writeback_ms": sum(r["writeback_ms"] for r in recs),
+        "writeback_rows": sum(r["writeback_rows"] for r in recs),
+        "apply_ms": sum(r["apply_ms"] for r in recs),
+        "restages": sum(r["restages"] for r in recs),
+        "pending_rows_max": max(r["pending_rows"] for r in recs),
+    }
+
+
+def _tiered_logical(model_file: str, vocab: int):
+    """The full logical (table, accumulator) of a finished tiered run: the
+    cold store, the npz's pending rows over it, its hot tier over both."""
+    import numpy as np
+
+    from fast_tffm_tpu_torch.paramstore import ColdStore
+
+    with np.load(model_file) as z:
+        store = ColdStore.open(model_file + ".store")
+        t, a = store.read_rows(np.arange(vocab))
+        ci = np.asarray(z["tier_cold_idx"], np.int64)
+        t[ci], a[ci] = z["tier_cold_rows"], z["tier_cold_accum"]
+        hi = np.asarray(z["tier_hot_ids"], np.int64)
+        t[hi], a[hi] = z["table"], z["table_accum"]
+    return t, a
+
+
+def _same_logical(what: str, got, want) -> None:
+    import numpy as np
+
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        diff = float(np.abs(got[0] - want[0]).max())
+        fail(f"{what}: the logical table or accumulator differs (max abs table diff {diff})")
+
+
+def _state_logical(state):
+    return state.table.cpu().numpy(), state.table_accum.cpu().numpy()
+
+
+def _run_launches(what: str, out: dict) -> dict:
+    """A run's step launches with its wrappers' counts beside them (equal
+    for an eager run; a graphed run's replays are its trace's)."""
+    return {"launches": out["launches"], "wrappers": out["wrappers"],
+            "trace_attempts": out.get("trace_attempts"),
+            "trace_lost_events": out.get("trace_lost_events")}
+
+
+def phase_wire(rng, tmp: str, train_path: str) -> dict:
+    """FMB input (binary_cache) at K = 1 and K = 8: ``wire_format = packed``
+    against ``arrays``, from one seeded npz, 24 steps each, traced: losses
+    and final tables bitwise; the H2D bytes per batch from kind=input: at
+    K = 8 the wire spec's (computed beforehand from the FMB flags; one
+    pinned H2D per call, unpacked on the card on a side stream), at K = 1
+    none measured (the eager loop converts under either setting); ex/s and
+    the card's idle share."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, fmb_wire_flags
+    from fast_tffm_tpu_torch.data.wire import arrays_nbytes, make_spec
+
+    base = _b5(validation_files=())
+    model = build_model(base)
+    _, _, init = _seeded_init(rng, tmp, "wire", base, model, False)
+    (src,) = _own_files(tmp, "wire", train_path)
+    fmb = ensure_fmb_cache([src], vocabulary_size=base.vocabulary_size, max_nnz=NNZ,
+                           log=log_stderr)
+    ones, _ = fmb_wire_flags(fmb)
+    spec = make_spec(base.vocabulary_size, NNZ, with_vals=not ones, with_fields=False,
+                     with_weights=False)
+    want = {"packed": spec.batch_nbytes(BATCH), "arrays": arrays_nbytes(BATCH, NNZ, False)}
+    rec, observed = {"phase": "wire", "vals_all_ones": ones, "spec": spec._asdict(),
+                     "bytes_per_batch_expected": want}, {}
+    for k in (1, 8):
+        outs = {}
+        for fmt in ("packed", "arrays"):
+            name = f"wire_{fmt}_k{k}"
+            # K = 8: 2 epochs, so the step clock sees 6 calls.
+            cfg = _phase_cfg(base, tmp, name, "cuda", init, train_files=(src,),
+                             binary_cache=True, steps_per_call=k, wire_format=fmt,
+                             log_every=8, epoch_num=1 if k == 1 else 2,
+                             metrics_path=os.path.join(tmp, name + ".jsonl"))
+            outs[fmt] = out = _timed_run(name, cfg)
+            _expect_steps(name, out["wrappers"] if k == 1 else out["launches"],
+                          cfg.epoch_num * TRAIN_BATCHES)
+            observed[name] = out["launches"]
+            inputs = _input_records(cfg.metrics_path)
+            shipped = {r["wire_bytes_per_step"] for r in inputs}
+            # The prefetch thread's time per item: producing the batches and
+            # (packed) the pack + H2D + unpack dispatch; the queue's depth.
+            rec[name] = {**out["speed"], **_run_launches(name, out),
+                         "wire_bytes_per_step": sorted(shipped, key=str),
+                         **{key: [r[key] for r in inputs]
+                            for key in ("parse_ms", "h2d_ms", "prefetch_queue_depth")}}
+        p, a = outs["packed"], outs["arrays"]
+        if _logged(p["log"], "loss") != _logged(a["log"], "loss") or not _logical_equal(
+                p["state"], a["state"]):
+            fail(f"wire k{k}: the packed run differs from the arrays run")
+        # K = 1 converts in the loop (no bytes measured); K = 8 ships the spec's.
+        expect = [want["packed"] if k > 1 else None]
+        if rec[f"wire_packed_k{k}"]["wire_bytes_per_step"] != expect:
+            fail(f"wire k{k}: shipped {rec[f'wire_packed_k{k}']['wire_bytes_per_step']} bytes "
+                 f"a step, expected {expect}")
+        rec[f"bitwise_k{k}"] = True
+    emit(rec)
+    return observed
+
+
+def phase_tiered(tmp: str, train_path: str, valid_path: str) -> dict:
+    """baseline5 with ``[ParamStore]`` (hot_rows 262,144 of 2^20 by the
+    sample policy over 8 batches, materialize auto: the store holds
+    ``init_state``'s host draw), every run against a resident run from an
+    npz of that draw, traced, one epoch (24 steps) each: K = 1 streamed
+    text (a delta every 8 steps, a full save at the epoch end; validation)
+    and K = 8 FMB (2 epochs: 6 calls), losses, AUCs and the logical table and accumulator
+    (store + hot tier) bitwise; the row accumulator; the K = 1 run on the
+    CPU (tables within TABLE_ATOL); a run aborted at step 20 and resumed
+    from its chain head (base 8 + delta 16), and a ``cli train --fault-plan
+    kill_writeback@1`` child (SIGKILL inside the first store apply, at
+    step 8) and its resume, each bitwise the uninterrupted run.  Per run:
+    ex/s, step p50, idle share and the kind=tiering counters."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import save_checkpoint
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.trainer import init_state
+
+    t_phase = time.perf_counter()
+    base = _b5(log_every=8, train_files=(train_path,), validation_files=(valid_path,))
+    model = build_model(base)
+    vocab = base.vocabulary_size
+    tier = dict(paramstore=True, paramstore_hot_rows=TIERED_HOT_ROWS,
+                paramstore_residency="sample", paramstore_sample_batches=8,
+                paramstore_materialize="auto", delta_every_steps=DELTA_EVERY)
+    inits = {}
+    for acc in ("element", "row"):
+        inits[acc] = os.path.join(tmp, f"tiered.init.{acc}.ckpt")
+        save_checkpoint(inits[acc], init_state(model, torch.Generator().manual_seed(0),
+                                               base.init_accumulator_value, acc))
+    (fmb_src,) = _own_files(tmp, "tiered_fmb", train_path)
+    rec, observed, runs = {"phase": "tiered", "hot_rows": TIERED_HOT_ROWS}, {}, {}
+
+    def cfg_of(name, device="cuda", resident=False, **kw):
+        metrics = os.path.join(tmp, f"{name}.{device}.jsonl")
+        if resident:
+            return _phase_cfg(base, tmp, name, device, inits[kw.pop("acc", "element")],
+                              metrics_path=metrics, **kw)
+        return dataclasses.replace(base, model_file=os.path.join(tmp, f"{name}.{device}.ckpt"),
+                                   metrics_path=metrics, **tier, **kw).validate()
+
+    def card(name, cfg, **kw):
+        runs[name] = out = _timed_run(name, cfg, **kw)
+        observed[name] = out["launches"]
+        rec[name] = {**out["speed"], **_run_launches(name, out)}
+        if cfg.paramstore:
+            rec[name]["tiering"] = _tiering(name, cfg.metrics_path)
+        return out
+
+    def pair(label, res_name, tier_name, check_auc=True):
+        r, t = runs[res_name], runs[tier_name]
+        if _logged(r["log"], "loss") != _logged(t["log"], "loss") or not _logged(r["log"], "loss"):
+            fail(f"tiered {label}: the losses differ from the resident run's")
+        auc = [[x for x in o["log"] if "validation auc" in x] for o in (r, t)]
+        if check_auc and (auc[0] != auc[1] or not auc[0]):
+            fail(f"tiered {label}: validation {auc[1]} against the resident run's {auc[0]}")
+        _same_logical(f"tiered {label}", _tiered_logical(t["cfg"].model_file, vocab),
+                      _state_logical(r["state"]))
+        rec[f"bitwise_resident_{label}"] = True
+
+    card("tiered_res_k1", cfg_of("tiered_res_k1", resident=True))
+    k1 = card("tiered_k1", cfg_of("tiered_k1"), resume=False)
+    pair("k1", "tiered_res_k1", "tiered_k1")
+    _expect_steps("tiered_k1", k1["wrappers"], TRAIN_BATCHES)
+    whole = _tiered_logical(k1["cfg"].model_file, vocab)
+    # The same run on the CPU.
+    cpu_cfg, lines = cfg_of("tiered_k1", device="cpu"), []
+    t0 = time.perf_counter()
+    _train_once(cpu_cfg, "cpu", lines, resume=False)
+    cpu = _tiered_logical(cpu_cfg.model_file, vocab)
+    diffs = [float(np.abs(c - g).max()) for c, g in zip(cpu, whole)]
+    rec["cpu_k1"] = {"seconds": time.perf_counter() - t0, "max_abs_table_diff": diffs[0],
+                     "max_abs_accum_diff": diffs[1],
+                     "losses_cuda": _logged(k1["log"], "loss")[-3:],
+                     "losses_cpu": _logged(lines, "loss")[-3:]}
+    if max(diffs) > TABLE_ATOL:
+        fail(f"tiered: the card run differs from the CPU run by {diffs}")
+    # Aborted after the delta at 16 (base 8), resumed from the chain head.
+    cut = cfg_of("tiered_cut")
+    card("tiered_cut", cut, resume=False, abort_at=20)
+    card("tiered_cut_resumed", cut)
+    _same_logical("tiered resume", _tiered_logical(cut.model_file, vocab), whole)
+    rec["bitwise_resumed"] = True
+    # kill_writeback@1: the child dies inside the first boundary's store apply.
+    kill = cfg_of("tiered_kill")
+    ini = _write_ini(
+        os.path.join(tmp, "tiered_kill.cfg"),
+        General={"model_file": kill.model_file},
+        Train={"train_files": train_path, "validation_files": valid_path, "log_every": 8},
+        Checkpoint={"delta_every_steps": DELTA_EVERY},
+        ParamStore={"enabled": "true", "hot_rows": TIERED_HOT_ROWS, "residency": "sample",
+                    "sample_batches": 8, "materialize": "auto"},
+    )
+    t0 = time.perf_counter()
+    child = _cli(["train", ini, "--fault-plan", "kill_writeback@1"])
+    if child.returncode != -signal.SIGKILL:
+        fail(f"tiered: the kill_writeback@1 child exited {child.returncode}: "
+             f"{child.stderr[-2000:]}")
+    rec["kill_child"] = {"returncode": child.returncode, "seconds": time.perf_counter() - t0,
+                         "log_tail": child.stderr.strip().splitlines()[-2:]}
+    card("tiered_kill_resumed", kill)
+    _same_logical("tiered kill_writeback", _tiered_logical(kill.model_file, vocab), whole)
+    rec["bitwise_kill_writeback"] = True
+    # K = 8 on FMB input: one CUDA graph over the compact table.
+    fmb = dict(train_files=(fmb_src,), binary_cache=True, steps_per_call=8, epoch_num=2)
+    card("tiered_res_k8", cfg_of("tiered_res_k8", resident=True, **fmb))
+    card("tiered_k8", cfg_of("tiered_k8", **fmb), resume=False)
+    pair("k8", "tiered_res_k8", "tiered_k8")
+    # The row accumulator, one epoch without validation.
+    row = dict(adagrad_accumulator="row", validation_files=())
+    card("tiered_res_row", cfg_of("tiered_res_row", resident=True, acc="row", **row))
+    card("tiered_row", cfg_of("tiered_row", **row), resume=False)
+    pair("row", "tiered_res_row", "tiered_row", check_auc=False)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return observed
+
+
+def _store_pages(ids, row_dim: int) -> int:
+    """Bytes of the 4 KiB pages that rows ``ids`` of a store span: in the
+    table and the element accumulator (``row_dim`` float32 each) and in
+    the written bitmap (a bit a row)."""
+    import numpy as np
+
+    row = 4 * row_dim
+    spans = np.unique(np.concatenate([ids * row // 4096, ((ids + 1) * row - 1) // 4096]))
+    return 4096 * (2 * int(spans.size) + int(np.unique((ids >> 3) // 4096).size))
+
+
+def _written_ids(path: str, chunk: int = 64 << 20):
+    """The row ids a store's written bitmap marks, read a chunk at a time."""
+    import numpy as np
+
+    out, off = [], 0
+    with open(path, "rb") as f:
+        while buf := f.read(chunk):
+            b = np.frombuffer(buf, np.uint8)
+            nz = np.flatnonzero(b)
+            bits = np.unpackbits(b[nz, None], axis=1, bitorder="little")
+            r, c = np.nonzero(bits)
+            out.append((off + nz[r]) * 8 + c)
+            off += b.size
+    return np.sort(np.concatenate(out)).astype(np.int64) if out else np.zeros(0, np.int64)
+
+
+def phase_tiered_big(tmp: str) -> dict:
+    """baseline5's widths at vocabulary 2^31 - 1, whose resident table and
+    element accumulator would need 154.6 GB: a lazy store (materialize auto
+    goes lazy past 2^21 rows), hot_rows 2^20 by the sample policy, 8 x
+    16,384 rows of gen_synthetic over that vocabulary, one epoch with the
+    final save, then a resume at that save.  The disk the store can take
+    (the 4 KiB pages the data's ids span in the table, accumulator and
+    bitmap files) is reckoned before the run.  Prints the losses, peak
+    device memory, the store files' apparent size against the pages of the
+    rows its bitmap marks written (gated: at most the reckoning, a tenth
+    of the apparent size at most) and the bytes the filesystem used during
+    the run (a witness; st_blocks as it reports them), the tiering
+    counters, ex/s, and the rows the store holds after the save."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.data.native import best_parser
+    from fast_tffm_tpu_torch.data.pipeline import batch_stream
+    from fast_tffm_tpu_torch.paramstore import ColdStore
+
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "tiered_big.train.libsvm")
+    _generate([(data, TIERED_BIG_BATCHES * BATCH,
+                ["--fields", str(NNZ), "--seed", "11", "--vocab", str(TIERED_BIG_VOCAB)])])
+    ids = np.concatenate([p.ids.reshape(-1) for p, _ in batch_stream(
+        [data], batch_size=BATCH, vocabulary_size=TIERED_BIG_VOCAB, max_nnz=NNZ,
+        parser=best_parser(8))])
+    uniq = np.unique(ids).astype(np.int64)
+    unique = int(uniq.size)
+    # The rows the saves apply to the store are among the data's ids: the
+    # 4 KiB pages those span in the table, accumulator and bitmap files
+    # bound the disk the store can take.
+    need = _store_pages(uniq, 1 + 8)  # baseline5's rows: bias + factor_num 8
+    free = shutil.disk_usage(tmp).free
+    rec = {"phase": "tiered_big", "vocabulary_size": TIERED_BIG_VOCAB,
+           "resident_bytes_needed": TIERED_BIG_VOCAB * (1 + 8) * 4 * 2,
+           "unique_ids": unique, "disk_needed_bytes": need, "disk_free_bytes": free}
+    if need * 2 > free:
+        fail(f"tiered_big: the store would write ~{need} bytes of pages; {free} free")
+    cfg = _b5(vocabulary_size=TIERED_BIG_VOCAB, train_files=(data,), validation_files=(),
+              model_file=os.path.join(tmp, "tiered_big.ckpt"), log_every=2,
+              save_every_epochs=0,  # one save, the final one: it carries every pending row
+              metrics_path=os.path.join(tmp, "tiered_big.jsonl"), paramstore=True,
+              paramstore_hot_rows=TIERED_BIG_HOT, paramstore_residency="sample",
+              paramstore_materialize="auto")
+    used0 = shutil.disk_usage(tmp).used
+    torch.cuda.reset_peak_memory_stats()
+    out = _timed_run("tiered_big", cfg, resume=False, trace=False)
+    torch.cuda.synchronize()
+    losses = _logged(out["log"], "loss")
+    if len(losses) != TIERED_BIG_BATCHES // 2 or not all(np.isfinite(losses)):
+        fail(f"tiered_big: losses {losses}")
+    if not any("lazy cold store" in x for x in out["log"]):
+        fail("tiered_big: the store was not lazy")
+    _expect_steps("tiered_big", out["wrappers"], TIERED_BIG_BATCHES)
+    store_dir = cfg.model_file + ".store"
+    used = shutil.disk_usage(tmp).used - used0
+    with np.load(cfg.model_file) as z:
+        ci = np.asarray(z["tier_cold_idx"], np.int64)
+        cold = (np.asarray(z["tier_cold_rows"]), np.asarray(z["tier_cold_accum"]))
+    store = ColdStore.open(store_dir)
+    got = store.read_rows(ci)
+    if not (np.array_equal(got[0], cold[0]) and np.array_equal(got[1], cold[1])):
+        fail("tiered_big: the store does not hold the rows the final save applied")
+    # Sparse, by the store's own count: its bitmap marks exactly the rows
+    # the one save applied (``ci``, read back above), and the 4 KiB pages
+    # those rows span in each file are all a sparse file allocates.  That
+    # must be within the reckoning made from the data and far under the
+    # files' apparent size.
+    # The filesystem's used bytes over the run are a second witness, kept
+    # but not gated: other writers on the host move them.  A 9p mount (the
+    # card host's) reports every block of a file as allocated, holes
+    # included, so st_blocks is recorded as the filesystem reports it.
+    marked = _written_ids(os.path.join(store_dir, "written.dat"))
+    if not np.array_equal(marked, np.unique(ci)):
+        fail(f"tiered_big: the store marks {marked.size} rows written, the save applied "
+             f"{np.unique(ci).size}")
+    files = {name: {"apparent_bytes": os.stat(os.path.join(store_dir, name)).st_size,
+                    "st_blocks_bytes": os.stat(os.path.join(store_dir, name)).st_blocks * 512}
+             for name in ("table.dat", "accum.dat", "written.dat")}
+    apparent = sum(f["apparent_bytes"] for f in files.values())
+    written = _store_pages(marked, store.row_dim)
+    files["written_page_bytes"] = written
+    files["filesystem_used_bytes_during_run"] = used
+    files["filesystem_witness_sparse"] = used * 10 <= apparent
+    files["st_blocks_note"] = "a 9p mount reports holes as allocated"
+    if written > need or written * 10 > apparent:
+        fail(f"tiered_big: the store is not sparse: {files} (reckoned {need})")
+    rec.update({
+        "losses": losses, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "store_files": files, "applied_rows_read_back": int(ci.size),
+        "tiering": _tiering("tiered_big", cfg.metrics_path), **out["speed"],
+        **_run_launches("tiered_big", out),
+    })
+    # The resume restores both tiers and trains on for 5 steps (every missed
+    # row now a written one, read from the store's files).
+    resumed = _timed_run("tiered_big_resumed", cfg, trace=False,
+                         abort_at=TIERED_BIG_BATCHES + 5)
+    r_losses = _logged(resumed["log"], "loss")
+    if (not any("resumed tiered run" in x for x in resumed["log"])
+            or len(r_losses) != 2 or not all(np.isfinite(r_losses))):
+        fail(f"tiered_big: the resume at the save did not train on: {resumed['log'][-3:]}")
+    rec["resumed"] = {"losses": r_losses, **resumed["speed"]}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return {"tiered_big": out["launches"], "tiered_big_resumed": resumed["launches"]}
+
+
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
                    shapes=None, packed=None) -> dict:
     rec = {
@@ -4470,6 +4939,10 @@ def main() -> int:
         observed.update(phase_follow(tmp, train_path, valid_path))
         observed.update(phase_accum_restart(np.random.default_rng(SEED + 13), tmp, train_path,
                                             valid_path))
+        # This slice's phases: the packed wire, the tiered store, a 2^31 - 1 vocabulary.
+        observed.update(phase_wire(np.random.default_rng(SEED + 14), tmp, train_path))
+        observed.update(phase_tiered(tmp, train_path, valid_path))
+        observed.update(phase_tiered_big(tmp))
         phase_throughput(tmp, big_path)
         phase_telemetry_cost(tmp, big_path)
     src = "fast_tffm_tpu_torch/csrc/"

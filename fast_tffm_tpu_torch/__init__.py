@@ -14,8 +14,9 @@ crash, with async and delta checkpoints (``checkpoint_async.py``) and the
 JAX package's telemetry records (``telemetry.py``, ``profiling.py``);
 rollback on a non-finite loss, fault plans and the supervised trainer
 (``resilience.py``); online training on an appended FMS stream
-(``data/stream.py``) with accumulator restarts;
-offline prediction; the FMB ``convert`` verb; and serving through
+(``data/stream.py``) with accumulator restarts; the packed wire
+(``data/wire.py``) and tables beyond the card's memory on the tiered
+parameter store (``paramstore/``); offline prediction; the FMB ``convert`` verb; and serving through
 the micro-batched ``ServingEngine`` (``serving/engine.py``: hot reload of
 full saves and delta chains, block submission), in process or behind the
 socket tier (``serving/``: front end, router, replica processes), with the

@@ -278,9 +278,13 @@ def _load_npz(path: str, n_dense: int, with_accum: bool) -> dict:
     """The members as host arrays; the accumulators only ``with_accum``."""
     with _open_npz(path) as z:
         if "tier_hot_ids" in getattr(z, "files", ()):
+            # Its ``table`` member is only the hot tier: loading it as the full
+            # table would score or train on a sliver of the model.
             raise ValueError(
-                f"{path!r} is a TIERED parameter-store checkpoint (its 'table' "
-                "member holds only the device-resident hot rows) — serving needs "
+                f"{path!r} is a TIERED parameter-store checkpoint (its "
+                "'table' member holds only the device-resident hot rows; "
+                "the cold tier lives in the run's .store directory) — "
+                "resume it with [ParamStore] enabled; predict/serve need "
                 "a resident export"
             )
         try:

@@ -22,10 +22,20 @@
     (``checkpoint.save_delta``).  The chain is compacted into a full save
     by ``delta_chain_max``, ``full_every_s`` and ``chain_max_bytes``.
 
+  * **Tiered runs** (``paramstore``, a ``TieredParamServer``): every
+    boundary is synchronous and spans both tiers.  A full save flushes the
+    writeback, publishes one npz with the hot tier, the residency and every
+    pending row (``paramstore.ckpt.write_tiered_full``), then applies
+    pending to the cold store; a delta save gathers the window's touched
+    hot slots off the device (the bitmap is over the compact capacity's
+    slots), translates them to logical ids, adds the pending rows and
+    publishes them through ``save_delta``, then applies.  Publish before
+    apply is crash-consistency invariant 7.
+
 Every save emits a ``kind=ckpt`` record (``mode`` full / delta / sync, its
 snapshot, convert, D2H and write times, bytes, rows and the train loop's
-stall) through the RunMonitor.  The JAX module's tiered-store and
-multi-process single-writer paths are later slices of the port.
+stall) through the RunMonitor.  The JAX module's multi-process
+single-writer path is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import threading
 import time
 import uuid
 
+import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.checkpoint import (
@@ -118,13 +129,17 @@ class AsyncCheckpointer:
         row_dim: int = 0,
         start_step: int = 0,
         cursor_fn=None,
+        paramstore=None,
     ):
         self._path = path
         self._device = torch.device(device)
         self._monitor = monitor
         self._log = log
         self._chunk = int(chunk_bytes)
-        self._async = bool(async_save)
+        # A tiered run's saves are synchronous: the store apply must follow
+        # the npz publish (config.validate refuses async_save with it).
+        self._ps = paramstore
+        self._async = bool(async_save) and paramstore is None
         self._delta_every = int(delta_every_steps)
         self._chain_max = max(1, int(delta_chain_max))
         self._full_every_s = float(full_every_s)
@@ -140,7 +155,9 @@ class AsyncCheckpointer:
         # The writer's stream and its pinned staging buffer (the host-side
         # bound of every save's device-to-host copies), made here on the
         # loop's thread.
-        self._side = torch.cuda.Stream(self._device) if cuda else None
+        # High priority: never a graph's default capture stream (a pooled
+        # default-priority stream can be; data/wire.py says why it matters).
+        self._side = torch.cuda.Stream(self._device, priority=-1) if cuda else None
         self._staging = (torch.empty(self._chunk, dtype=torch.uint8, pin_memory=True)
                          if cuda else None)
         self._bitmap = None
@@ -221,6 +238,8 @@ class AsyncCheckpointer:
             self._bitmap = self._fresh_bitmap() if self._bitmap is not None else None
             self._last_boundary_step = int(step)
         cursor = self._cursor()
+        if self._ps is not None:
+            return self._tiered_full(state, step, cursor, t0, emit)
         sid = uuid.uuid4().hex
         if sync or not self._async:
             logical = saveable(state)
@@ -261,6 +280,8 @@ class AsyncCheckpointer:
             or (self._chain_bytes_max > 0 and chain_bytes >= self._chain_bytes_max)
         ):
             return self.save_boundary(state, saveable, step)
+        if self._ps is not None:
+            return self._tiered_delta(state, step, t0)
         if self._bitmap is not None:
             idx_dev = torch.nonzero(self._bitmap).reshape(-1)  # sorted, one sync
         else:
@@ -278,6 +299,93 @@ class AsyncCheckpointer:
         stall_ms = (time.perf_counter() - t0) * 1e3
         self._spawn(self._write_delta, (seq, parent, idx, trows, arows, dense, dacc, ready,
                                         int(state.step), int(step), stall_ms, cursor))
+
+    # -- tiered boundaries (paramstore; synchronous) -----------------------
+
+    def _tiered_full(self, state, step, cursor, t0, emit) -> None:
+        """Full save over both tiers: flush the writeback, publish one npz
+        (``write_tiered_full``), then apply pending to the store."""
+        from fast_tffm_tpu_torch.paramstore.ckpt import write_tiered_full
+
+        sid = uuid.uuid4().hex
+        self._ps.flush_writeback(state)
+        pending_rows = self._ps.pending_rows
+        t1 = time.perf_counter()
+        try:
+            nbytes = write_tiered_full(self._path, self._ps, state, int(step), save_id=sid,
+                                       cursor=cursor, chunk_bytes=self._chunk,
+                                       staging=self._staging)
+        except Exception:
+            with self._lock:
+                self.write_failures += 1
+            raise  # tiered saves are synchronous: a failure must surface
+        self._on_full_published(sid)
+        self._apply_tiered(sid)
+        self.sync_saves += 1
+        if emit:
+            self._emit("sync", step, {}, nbytes=nbytes, rows=self._ps.hot_rows + pending_rows,
+                       snapshot_ms=0.0, convert_ms=(t1 - t0) * 1e3,
+                       train_stall_ms=(time.perf_counter() - t0) * 1e3)
+
+    def _tiered_delta(self, state, step, t0) -> None:
+        """Delta save over both tiers: the window's touched hot slots
+        gathered off the device and translated to logical ids, plus the
+        pending rows (after the flush, so the last call's staged rows are
+        in it), through ``save_delta``; then the apply.  Hot and pending
+        rows are disjoint (a resident row never misses)."""
+        cursor = self._cursor()
+        self._ps.flush_writeback(state)
+        if self._bitmap is not None:
+            slots = torch.nonzero(self._bitmap).reshape(-1)
+        else:
+            slots = torch.zeros(0, dtype=torch.int64, device=self._device)
+        self._bitmap = self._fresh_bitmap()
+        self._last_boundary_step = int(step)
+        hot_slots = slots[slots < self._ps.hot_rows]
+        trows = state.table[hot_slots].cpu().numpy()
+        arows = state.table_accum[hot_slots].cpu().numpy()
+        hot_ids = self._ps.hot_logical_ids(hot_slots.cpu().numpy())
+        pend_ids, pend_t, pend_a = self._ps.pending_snapshot()
+        idx = np.concatenate([hot_ids, pend_ids]).astype(np.int64)
+        with self._lock:
+            seq, parent = self._next_seq, self._parent_sig
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        timings: dict = {}
+        try:
+            out, sid, nbytes = save_delta(
+                self._path, seq, idx=idx, table_rows=np.concatenate([trows, pend_t]),
+                accum_rows=np.concatenate([arows, pend_a]),
+                dense_leaves=list(state.dense), dense_accum_leaves=list(state.dense_accum),
+                step=int(state.step), parent_sig=parent, chunk_bytes=self._chunk,
+                timings=timings, cursor=cursor, staging=self._staging,
+            )
+            maybe_torn_delta(out)
+        # analysis: ok exception-hygiene the writer's boundary, as the async writer's: counted, logged, the chain intact and the next boundary promoted to full
+        except Exception as e:
+            self._on_write_failed()
+            log_quietly(self._log, f"tiered delta write failed (chain intact): {e!r}")
+            return
+        with self._lock:
+            self._parent_sig = sid
+            self._next_seq = seq + 1
+            self._chain_len += 1
+            self._chain_bytes += int(nbytes)
+            self.delta_saves += 1
+        self._apply_tiered(sid)
+        self._emit("delta", step, timings, nbytes=nbytes, rows=int(idx.size),
+                   snapshot_ms=stall_ms, convert_ms=0.0, train_stall_ms=stall_ms)
+
+    def _apply_tiered(self, sid: str) -> None:
+        """The post-publish store apply.  A failure never unpublishes:
+        pending stays and rides (and applies after) the next boundary."""
+        try:
+            self._ps.apply_pending(sid)
+        # analysis: ok exception-hygiene the apply's boundary: the publish stands, pending is kept for the next boundary, counted and logged
+        except Exception as e:
+            with self._lock:
+                self.write_failures += 1
+            log_quietly(self._log, "paramstore apply failed after publish (pending rows "
+                        f"retained; chain intact): {e!r}")
 
     # -- writer thread ----------------------------------------------------
 

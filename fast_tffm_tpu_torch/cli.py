@@ -33,8 +33,10 @@ package's CLI (``fast_tffm_tpu/cli.py``):
                            file into its <file>.fmb cache (one file at a time;
                            rc 1 when any file failed)
 
-Logs go to stderr.  ``--device`` picks the device (default cuda; there is
-no CPU fallback; ``convert`` touches no device but keeps the rule).
+The reference's trailing ``job_name task_index`` arguments are taken and
+ignored with a note on stderr, as the JAX CLI does.  Logs go to stderr.
+``--device`` picks the device (default cuda; there is no CPU fallback;
+``convert`` touches no device but keeps the rule).
 ``--metrics-path``, ``--run-id`` and ``--profile-steps`` override
 ``[Train] metrics_path``, ``[Telemetry] run_id`` and ``[Telemetry]
 profile_steps`` (the JAX CLI's flags): a run is instrumented, and rendered
@@ -60,6 +62,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="fast_tffm_tpu_torch.cli")
     ap.add_argument("mode", choices=["train", "predict", "serve", "convert"])
     ap.add_argument("config")
+    ap.add_argument("legacy", nargs="*",
+                    help="ignored job_name/task_index (the reference's cluster arguments)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--resume", action="store_true", help="train: restore model_file first")
     ap.add_argument("--port", type=int, default=None, metavar="P",
@@ -112,6 +116,12 @@ def main(argv=None) -> int:
 
     def log(*a):
         print(*a, file=sys.stderr, flush=True)
+
+    if args.legacy:
+        # The JAX CLI's note; a supervised run's children are launched
+        # without them.
+        log(f"note: ignoring legacy cluster args {args.legacy!r} — the SPMD mesh "
+            "replaces ps/worker tasks (one launch drives all devices)")
 
     if cfg.telemetry_compilation_cache_dir:
         enable_compilation_cache(cfg.telemetry_compilation_cache_dir, log)

@@ -5,10 +5,8 @@ A copy of ``fast_tffm_tpu/config.py`` reduced to what those paths read.
 It parses the same files (``sample.cfg``, ``configs/*.cfg``) with the same
 sections, keys and defaults; keys it does not model are ignored, as they
 are by ``ConfigParser`` reads of absent options.  Configurations this port
-cannot run yet are refused with a ``ValueError`` that names the later
-slice, never run differently: by ``Config.validate`` where no verb could
-run them, else by the entry point that would read the setting
-(``refuse_later_slices``).
+cannot run yet (orbax checkpoints) are refused by ``Config.validate`` with a
+``ValueError`` that names the later slice, never run differently.
 """
 
 from __future__ import annotations
@@ -22,7 +20,6 @@ __all__ = [
     "load_config",
     "validate_buckets",
     "validate_classes",
-    "refuse_later_slices",
     "build_model",
     "check_deepfm_width",
 ]
@@ -99,9 +96,14 @@ class Config:
     dedup_gather_rows: int = 0  # > 0 (streamed rows layout): each batch's
     #   unique ids checked against the cap before it ships; the step gathers
     #   directly (the JAX package's dedup gather gives the same values)
-    wire_format: str = "packed"  # read for parity; the port always stages
-    #   one pinned host->device buffer per flush (serving/buckets.py), and
-    #   the packed wire (data/wire.py) changes no value
+    wire_format: str = "packed"  # streamed FMB input at steps_per_call > 1:
+    #   packed (each K-group in ONE byte buffer, data/wire.py: one pinned
+    #   host->device copy and an unpack on the device, in a second prefetch
+    #   thread) | arrays (one copy per tensor, in the loop); the values are
+    #   the same either way.  At K = 1 the port ships arrays under either:
+    #   the eager step's loop is Python-bound and a converting thread takes
+    #   its interpreter time (PERF.md).  The tiered store always
+    #   ships on the packed wire.
     queue_size: int = 8  # prefetch depth
     log_every: int = 100
     save_every_epochs: int = 1
@@ -163,8 +165,27 @@ class Config:
     online_adagrad_decay: float = 1.0  # γ: lazy touched-row accumulator decay
     online_accum_restart_steps: int = 0  # every N steps (K-aligned, absolute
     #   multiples) reset every accumulator to init_accumulator_value; 0 = off
-    # [ParamStore]
-    paramstore: bool = False  # read to be refused (a later slice)
+    # [ParamStore] (paramstore/): a table beyond the card's memory — a compact
+    # [hot_rows + miss_rows, D] table on the device, the full logical table
+    # in memmap files on the host; the prefetch thread resolves each batch's
+    # ids and its missed rows ride the batch's one host->device buffer
+    paramstore: bool = False  # enable the tiered store (train only;
+    #   table_layout = rows, npz checkpoints)
+    paramstore_hot_rows: int = 4096  # device-resident hot rows
+    paramstore_miss_rows: int = 0  # staging rows for one call's unique
+    #   non-resident ids; 0 = auto (batch_size * max_nnz * steps_per_call,
+    #   which no call can overflow); a smaller cap fails loudly when a call
+    #   needs more
+    paramstore_dir: str = ""  # cold-store directory; "" = <model_file>.store
+    paramstore_residency: str = "sample"  # hot-set policy: sample (exact
+    #   frequency count over the first sample_batches train batches, top
+    #   hot_rows) | first (ids [0, hot_rows)) | file:PATH (.npy or one id a
+    #   line; the first hot_rows distinct ids)
+    paramstore_sample_batches: int = 8  # batches the sample policy counts
+    paramstore_materialize: str = "auto"  # cold-store init: auto (this
+    #   package's init draw written into the store up to 2^21 rows, so a
+    #   tiered run is bitwise the resident run; hashed per-row init beyond)
+    #   | always | never
     # [Resilience]
     on_nan: str = "abort"  # abort (raise before the next save) | rollback
     #   (restore the last checkpoint, skip the diverged window's input)
@@ -245,6 +266,78 @@ class Config:
             raise ValueError(f"unknown serve_wire {self.serve_wire!r} (binary | jsonl)")
         return self
 
+    def _validate_paramstore(self) -> None:
+        """The JAX checks of ``[ParamStore]``, in its order and words."""
+        if self.table_layout != "rows":
+            raise ValueError(
+                "[ParamStore] requires table_layout = rows (the "
+                "compact device tier is a plain [C, D] table)"
+            )
+        if self.checkpoint_format != "npz":
+            raise ValueError(
+                "[ParamStore] requires checkpoint_format = npz (both "
+                "tiers publish through the npz chain)"
+            )
+        if self.device_cache:
+            raise ValueError(
+                "[ParamStore] and device_cache are exclusive: the "
+                "tiered store IS the residency decision"
+            )
+        if self.online_follow:
+            raise ValueError(
+                "[ParamStore] with [Online] follow is not supported "
+                "yet (ROADMAP item 4 composes them)"
+            )
+        if self.async_save:
+            raise ValueError(
+                "[ParamStore] saves are synchronous (the post-publish "
+                "store apply must order after the npz publish) — drop "
+                "async_save"
+            )
+        if self.adagrad_accumulator == "fused":
+            raise ValueError(
+                "[ParamStore] supports adagrad_accumulator = element "
+                "or row (fused is a packed-layout storage choice)"
+            )
+        if self.on_nan == "rollback":
+            raise ValueError(
+                "[ParamStore] with on_nan = rollback is not supported "
+                "yet — use abort (the tiered restore path does not "
+                "plug into the in-process rollback loop)"
+            )
+        if self.online_accum_restart_steps > 0:
+            raise ValueError(
+                "[ParamStore] cannot combine with accum_restart_steps: "
+                "a global accumulator reset cannot reach the cold "
+                "tier's rows — use adagrad_decay"
+            )
+        if self.paramstore_hot_rows < 1:
+            raise ValueError(
+                f"[ParamStore] hot_rows must be >= 1, got {self.paramstore_hot_rows}"
+            )
+        if self.paramstore_miss_rows < 0:
+            raise ValueError(
+                "[ParamStore] miss_rows must be >= 0 (0 = auto), got "
+                f"{self.paramstore_miss_rows}"
+            )
+        if self.paramstore_sample_batches < 1:
+            raise ValueError(
+                "[ParamStore] sample_batches must be >= 1, got "
+                f"{self.paramstore_sample_batches}"
+            )
+        if self.paramstore_residency not in ("sample", "first") and not (
+            self.paramstore_residency.startswith("file:") and len(self.paramstore_residency) > 5
+        ):
+            raise ValueError(
+                f"unknown [ParamStore] residency {self.paramstore_residency!r} "
+                "(sample | first | file:PATH)"
+            )
+        if self.paramstore_materialize not in ("auto", "always", "never"):
+            raise ValueError(
+                f"unknown [ParamStore] materialize {self.paramstore_materialize!r} "
+                "(auto | always | never)"
+            )
+
     def check_width(self, max_nnz: int) -> None:
         """Refuse a slot width the model cannot take (DeepFM: max_nnz must
         be num_fields).  The entry points call it again with the width they
@@ -253,11 +346,8 @@ class Config:
             check_deepfm_width(self.num_fields, max_nnz)
 
     def _validate_train(self) -> None:
-        """The JAX checks of the [Train]/[Online]/[Resilience] keys, for
-        every verb as in the JAX package.  The settings whose paths are
-        later slices are refused by the entry points that would read them
-        (``training.train``, ``prediction.predict``), so serving still
-        takes a config written for training."""
+        """The JAX checks of the [Train]/[Online]/[ParamStore]/[Resilience]
+        keys, for every verb as in the JAX package."""
         if self.batch_size <= 0:
             raise ValueError("vocabulary_size and batch_size must be positive")
         if self.steps_per_call < 1:
@@ -349,6 +439,12 @@ class Config:
                 "dedup_gather_rows applies to the STREAMED path; "
                 "device_cache slices resident batches (drop one)"
             )
+        if self.dedup_gather_rows > 0 and self.paramstore:
+            raise ValueError(
+                "dedup_gather_rows is redundant under [ParamStore] "
+                "(tiered resolution already dedups before the gather) "
+                "— drop one"
+            )
         if self.dedup_gather_rows > 0 and self.online_follow:
             # The follow stream runs no per-batch cap check.
             raise ValueError(
@@ -356,11 +452,8 @@ class Config:
                 "supported: the tail-following stream has no "
                 "per-batch cap verification yet"
             )
-        if self.paramstore and self.device_cache:
-            raise ValueError(
-                "[ParamStore] and device_cache are exclusive: the "
-                "tiered store IS the residency decision"
-            )
+        if self.paramstore:
+            self._validate_paramstore()
         if self.delta_every_steps < 0:
             raise ValueError(
                 f"delta_every_steps must be >= 0 (0 = off), got {self.delta_every_steps}"
@@ -447,6 +540,11 @@ class Config:
                 "adagrad_accumulator = fused (the kernel updates the merged "
                 "fused layout's D+1-lane slots in one pass)"
             )
+        if self.tail == "pallas" and self.dedup_gather_rows > 0:
+            raise ValueError(
+                "tail = pallas is incompatible with dedup_gather_rows > 0 "
+                "(the kernel dedups internally — pick one)"
+            )
 
 
 def check_deepfm_width(num_fields: int, max_nnz: int) -> None:
@@ -460,18 +558,6 @@ def check_deepfm_width(num_fields: int, max_nnz: int) -> None:
             f"input is num_fields·factor_num wide); got max_nnz {max_nnz} and "
             f"num_fields {num_fields}"
         )
-
-
-def refuse_later_slices(verb: str, refusals) -> None:
-    """Raise for the first ``(refused, what)`` pair that holds: a setting
-    whose path the port's ``verb`` does not run yet.  Each entry point
-    lists the settings it would read; the others never reach it."""
-    for refused, what in refusals:
-        if refused:
-            raise ValueError(
-                f"{what} is not ported yet for {verb} (a later slice of "
-                "fast_tffm_tpu_torch); use fast_tffm_tpu"
-            )
 
 
 def validate_buckets(buckets) -> tuple[int, ...]:
@@ -655,7 +741,16 @@ def load_config(path: str) -> Config:
     cfg.online_accum_restart_steps = get(
         o, "accum_restart_steps", int, cfg.online_accum_restart_steps
     )
-    cfg.paramstore = get("ParamStore", "enabled", boolean, cfg.paramstore)
+    ps = "ParamStore"
+    cfg.paramstore = get(ps, "enabled", boolean, cfg.paramstore)
+    cfg.paramstore_hot_rows = get(ps, "hot_rows", int, cfg.paramstore_hot_rows)
+    cfg.paramstore_miss_rows = get(ps, "miss_rows", int, cfg.paramstore_miss_rows)
+    cfg.paramstore_dir = get(ps, "store_dir", str, cfg.paramstore_dir)
+    cfg.paramstore_residency = get(ps, "residency", str, cfg.paramstore_residency)
+    cfg.paramstore_sample_batches = get(
+        ps, "sample_batches", int, cfg.paramstore_sample_batches
+    )
+    cfg.paramstore_materialize = get(ps, "materialize", str, cfg.paramstore_materialize).lower()
     r = "Resilience"
     cfg.on_nan = get(r, "on_nan", str, cfg.on_nan).lower()
     cfg.max_rollbacks = get(r, "max_rollbacks", int, cfg.max_rollbacks)

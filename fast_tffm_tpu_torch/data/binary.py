@@ -51,6 +51,7 @@ __all__ = [
     "FmbFile",
     "is_fmb",
     "read_header",
+    "fmb_wire_flags",
     "open_fmb",
     "write_fmb",
     "fmb_batch_stream",
@@ -142,6 +143,24 @@ def read_header(path) -> FmbHeader:
         raise ValueError(f"{path}: unsupported ids itemsize {isz} (int32 only)")
     return FmbHeader(n_rows, width, vocab, bool(hashed), isz, src_size, src_mtime, widest,
                      flags if version >= 2 else 0, version)
+
+
+def fmb_wire_flags(files) -> tuple[bool, bool]:
+    """(vals_all_ones, fields_all_zero) of a stream over ``files``: the AND
+    of every file's v2 header flags (the JAX function).  A non-FMB or v1
+    file makes both False: the packed wire leaves a section out only where
+    every row was checked at convert time (and the packer checks again)."""
+    ones = zero = True
+    for path in files:
+        try:
+            if not is_fmb(path):
+                return False, False
+            flags = read_header(os.fspath(path)).flags
+        except (OSError, ValueError):
+            return False, False
+        ones = ones and bool(flags & FLAG_VALS_ALL_ONES)
+        zero = zero and bool(flags & FLAG_FIELDS_ALL_ZERO)
+    return ones, zero
 
 
 def _views(mm, n_rows: int, width: int):

@@ -144,7 +144,7 @@ FAULT_KINDS = (
 # io_error the Nth FMB read operation; torn_delta the Kth delta-file write;
 # kill_publish the Kth npz publish (full or delta) — SIGKILL between the
 # finished tmp file and the rename; kill_writeback the Kth tiered-store
-# writeback apply (no caller until the tiered store is ported).  The
+# writeback apply (paramstore/tiered.py, mid-apply).  The
 # serving kinds' ``@N`` is a replica index (0-based): replica_kill,
 # replica_slow@N:MS (MS ms of latency a flush), reload_corrupt.
 SERVING_FAULT_KINDS = ("replica_kill", "replica_slow", "reload_corrupt")
@@ -367,8 +367,9 @@ class FaultInjector:
             os.kill(os.getpid(), signal.SIGKILL)
 
     def on_writeback_apply(self, ordinal: int) -> None:
-        """The tiered store's writeback-apply point: SIGKILLs on the Kth
-        apply.  The port has no tiered store yet, so nothing calls it."""
+        """The tiered store's writeback-apply point
+        (``TieredParamServer.apply_pending``, after the first chunk's store
+        write, before the boundary is stamped): SIGKILLs on the Kth apply."""
         with self._lock:
             due = ordinal in self._kill_writeback
             if due:

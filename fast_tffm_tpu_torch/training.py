@@ -94,9 +94,25 @@ kind=ckpt and the closing kind=summary.  ``trace_dir`` adds a
 host-only: no device sync is added.  Every save goes through
 ``checkpoint_async.AsyncCheckpointer``: ``async_save`` takes the epoch
 saves off the loop, ``delta_every_steps`` writes delta files of the touched
-rows between them; the stop and final saves stay synchronous.  The tiered
-store is a later slice; ``train`` refuses ``[ParamStore]`` before it
-touches a device.
+rows between them; the stop and final saves stay synchronous.
+
+The packed wire (``[Train] wire_format = packed``, the default) on streamed
+FMB input at ``steps_per_call`` > 1 (at K = 1 the loop converts: see
+``_wire_converter``): a second prefetch thread, behind the one that reads,
+packs each
+batch or K-group into one pinned buffer (``data/wire.py``), copies it to
+the card and unpacks it there on a side stream; the loop's stream waits on
+that work before the step.  The values are the arrays path's bit for bit;
+``arrays`` copies each tensor.
+
+``[ParamStore] enabled = true`` (``_tiered_train``): the table lives in a
+host cold store (``paramstore/``) and the device holds a compact table of
+``hot_rows`` resident rows plus ``miss_rows`` staging rows.  The prefetch
+thread resolves each call's ids and ships its missed rows in the batch's
+one buffer; the step stages them, runs the unchanged train step over the
+compact table and writes them back; every save spans both tiers
+(``checkpoint_async``); validation scores hot rows off the live table and
+missed rows from a side tensor; kind=tiering records at every log point.
 """
 
 from __future__ import annotations
@@ -112,8 +128,13 @@ import torch
 
 from fast_tffm_tpu_torch.checkpoint import latest_step, read_input_cursor, restore_checkpoint
 from fast_tffm_tpu_torch.checkpoint_async import AsyncCheckpointer
-from fast_tffm_tpu_torch.config import Config, build_model, refuse_later_slices
-from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, fold_epoch_seed, is_fmb
+from fast_tffm_tpu_torch.config import Config, build_model
+from fast_tffm_tpu_torch.data.binary import (
+    ensure_fmb_cache,
+    fmb_wire_flags,
+    fold_epoch_seed,
+    is_fmb,
+)
 from fast_tffm_tpu_torch.data.libsvm import scan_max_nnz
 from fast_tffm_tpu_torch.data.native import best_parser
 from fast_tffm_tpu_torch.data.pipeline import batch_stream
@@ -123,6 +144,7 @@ from fast_tffm_tpu_torch.data.stream import (
     stream_prefix_fingerprint,
     stream_prefix_matches,
 )
+from fast_tffm_tpu_torch.data.wire import WireConverter, make_spec
 from fast_tffm_tpu_torch.device import resolve_device
 from fast_tffm_tpu_torch.metrics import StreamingAUC, Throughput
 from fast_tffm_tpu_torch.models.base import Batch
@@ -344,7 +366,8 @@ def _dedup_cap_guard(raw, cap: int):
 
 
 def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
-            steps_per_call: int = 1, log=print, skip_batches: int = 0, dedup_cap: int = 0):
+            steps_per_call: int = 1, log=print, skip_batches: int = 0, dedup_cap: int = 0,
+            convert=None):
     """One prefetched pass over ``files`` (an ``InputStream``: its stats feed
     kind=input records): (ParsedBatch, weights) pairs, or K-long lists of
     them when ``steps_per_call`` > 1.  Text parses through
@@ -353,7 +376,10 @@ def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
     fallback is dropped with a log line); ``shuffle_epoch`` (train streams)
     folds the epoch into ``shuffle_seed``.  ``skip_batches`` opens the
     pass at that batch (the resume seek); ``dedup_cap`` > 0 checks each
-    batch's unique ids against it before the batch ships."""
+    batch's unique ids against it before the batch ships.
+    ``convert(files, depth)`` (given the resolved files and the queue depth)
+    returns a converter for the prefetch threads, or None; with one, the
+    items are ``(value, examples)`` (``_prefetched``)."""
     files = tuple(files)
     parser = best_parser(cfg.thread_num)
     if cfg.binary_cache:
@@ -386,22 +412,62 @@ def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
     )
     if dedup_cap > 0:
         raw = _dedup_cap_guard(raw, dedup_cap)
-    return _prefetched(cfg, raw, steps_per_call)
+    depth = _depth(cfg, steps_per_call)
+    return _prefetched(cfg, raw, steps_per_call,
+                       convert=convert(files, depth) if convert is not None else None)
 
 
-def _prefetched(cfg: Config, raw, steps_per_call: int, idle=None):
+def _depth(cfg: Config, steps_per_call: int) -> int:
+    """The prefetch queue's depth: an item holds K batches, so the depth is
+    scaled down to keep the memory in flight at the K = 1 level."""
+    return max(1, cfg.queue_size // max(1, steps_per_call))
+
+
+def _prefetched(cfg: Config, raw, steps_per_call: int, idle=None, convert=None):
     """``raw`` grouped into K-lists when ``steps_per_call`` > 1 and run in
     the prefetch thread, as an ``InputStream``; ``idle`` (a followed
-    stream's Event) feeds the stall watchdog's stream-idle probe."""
+    stream's Event) feeds the stall watchdog's stream-idle probe.  With
+    ``convert`` a second thread converts each item (pack, H2D and unpack
+    on a side stream), so reading and converting overlap; the stream then
+    yields ``(value, examples)``, the loop's stream waiting for each
+    value's device work as it is taken (``Staged.ready``)."""
     if steps_per_call > 1:
         raw = grouped_pairs(raw, steps_per_call)
     stats = InputStats()
     if idle is not None:
         stats.bind_stream_idle(idle)
-    # An item holds K batches: scale the depth down to keep the host memory
-    # in flight at the K = 1 level.
-    depth = max(1, cfg.queue_size // max(1, steps_per_call))
-    return InputStream(prefetch(stats.timed(raw), depth=depth, stats=stats), stats)
+    depth = _depth(cfg, steps_per_call)
+    if convert is None:
+        return InputStream(prefetch(stats.timed(raw), depth=depth, stats=stats), stats)
+    made = prefetch(stats.produced(raw), depth=depth)
+    staged = prefetch(stats.converting(made, convert), depth=depth, stats=stats,
+                      name="input-convert")
+    return InputStream(((s.ready(), ex) for s, ex in staged), stats, converted=True)
+
+
+def _wire_converter(cfg: Config, model, max_nnz: int, device, weights):
+    """``convert`` of ``_stream`` for the train stream: under ``wire_format =
+    packed`` an FMB stream at ``steps_per_call`` > 1 ships on the packed wire
+    (``WireConverter``, its pinned ring one buffer deeper than the queue).
+    What is left out is decided per stream from facts about its files:
+    all-ones vals from the FMB v2 header flags (checked again per batch by
+    the packer), fields by the model's ``uses_fields``, weights when every
+    file weight is 1.0.  Text input, ``arrays`` and K = 1 convert in the
+    loop: the eager K = 1 loop is bound by its own Python, which a
+    converting thread slows more than its one H2D saves; a K-step graph
+    leaves the loop thread waiting, and there the wire wins."""
+
+    def make(files, depth):
+        if (cfg.wire_format != "packed" or cfg.steps_per_call == 1
+                or not binary_input(files) or not max_nnz):
+            return None
+        all_ones, _ = fmb_wire_flags(files)
+        uniform = weights is None or all(float(x) == 1.0 for x in weights)
+        spec = make_spec(cfg.vocabulary_size, max_nnz, with_vals=not all_ones,
+                         with_fields=model.uses_fields, with_weights=not uniform)
+        return WireConverter(spec, device, slots=depth + 1)
+
+    return make
 
 
 def _follow_stream(cfg: Config, files, max_nnz: int, skip_batches: int = 0, stop=None):
@@ -445,11 +511,56 @@ def _mean(losses) -> float:
     return float(torch.cat([l.reshape(-1) for l in losses]).mean())
 
 
-def _refuse_later_slices(cfg: Config) -> None:
-    """The training settings whose paths are later slices of the port."""
-    refuse_later_slices("train", [
-        (cfg.paramstore, "[ParamStore] (the tiered parameter store)"),
-    ])
+def _tiered_train(cfg: Config, *, resume: bool, log, device, step_hook):
+    """``[ParamStore]``: local training over the two-tier parameter store
+    (the JAX ``_tiered_train``).  The step is the UNCHANGED train step over
+    the compact [C, D] table (its tail kernel B4 on the card, over slot
+    ids); around it the prefetch thread resolves each call
+    (``paramstore.TieredConverter``: the remap, the missed rows read through
+    the pending overlay, one buffer on the packed wire spec'd at the
+    capacity C), the step stages and writes back the missed rows
+    (``TieredParamServer.wrap_step``), and every save spans both tiers.  The
+    prefetch thread converts text input too (the JAX package converts text
+    in the loop thread), so its resolution always runs ahead."""
+    from fast_tffm_tpu_torch.paramstore import TieredConverter, open_tiered_run
+
+    model = build_model(cfg)
+    max_nnz = scan_max_nnz(cfg)
+    cfg.check_width(max_nnz)
+    server, state, start_cursor = open_tiered_run(cfg, model, max_nnz, resume=resume,
+                                                  device=device, log=log)
+    body = make_decayed_body(cfg.online_adagrad_decay)
+    k = cfg.steps_per_call
+    step_fn = server.wrap_step(
+        (make_scanned_train_step if k > 1 else make_train_step)(model, cfg.learning_rate,
+                                                                 body=body))
+    # The wire is spec'd at the compact capacity: ids narrow to the slot range.
+    spec = make_spec(server.capacity, max_nnz, with_vals=True, with_fields=model.uses_fields,
+                     with_weights=True)
+    weights = cfg.weight_files or None
+
+    def convert(_files, depth):
+        return TieredConverter(server, spec, device, slots=depth + 1)
+
+    def train_stream(epoch, skip_batches=0):
+        return _stream(cfg, cfg.train_files, max_nnz, weights, shuffle_epoch=epoch,
+                       steps_per_call=k, log=log, skip_batches=skip_batches, convert=convert)
+
+    def evaluate(st):
+        # Hot rows off the live compact table, missed rows from a side
+        # tensor: the train state is not touched.
+        server.flush_writeback(st)
+        meter = StreamingAUC()
+        for parsed, w in _stream(cfg, cfg.validation_files, max_nnz, log=log):
+            meter.add(parsed.labels, server.predict(st, parsed, w).cpu().numpy(), w)
+        return meter.value()
+
+    return _run_training(
+        cfg, state, model=model, device=device, step_fn=step_fn, train_stream=train_stream,
+        ids_of=lambda tb: tb.ids, predict_step=None, max_nnz=max_nnz, log=log,
+        step_hook=step_hook, accum_restart=None, stream_stop=None, start_cursor=start_cursor,
+        paramstore=server, evaluate=evaluate,
+    )
 
 
 def _device_cached_input(cfg: Config, model, max_nnz: int, log, body, device):
@@ -560,7 +671,10 @@ def _modeled_bytes(ids: torch.Tensor, row_dim: int, accum_cols: int) -> int:
 def _to_batches(src: InputStream, model, device) -> InputStream:
     """A (ParsedBatch or K-list, weights) stream as (Batch, examples): a
     K-list stacks into one host superbatch (the K-step call copies it to
-    the card), a batch goes to ``device``."""
+    the card), a batch goes to ``device``.  A stream converted in the
+    prefetch threads (``_prefetched``) is that already."""
+    if src.converted:
+        return src
 
     def batches():
         for parsed, w in src:
@@ -602,7 +716,6 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
     non-finite loss restores the last checkpoint into the live state and
     runs again from the detection point's cursor (see the module
     docstring)."""
-    _refuse_later_slices(cfg)
     if not cfg.train_files:
         raise ValueError("no train_files configured")
     if cfg.weight_files and len(cfg.weight_files) != len(cfg.train_files):
@@ -623,6 +736,10 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
                 "with fast_tffm_tpu_torch.data.stream.StreamWriter)"
             )
     device = resolve_device(device)
+    if cfg.paramstore:
+        # Tables beyond the card's memory: a branch of its own, since the
+        # input path, the step, validation and every save are residency-aware.
+        return _tiered_train(cfg, resume=resume, log=log, device=device, step_hook=step_hook)
     model = build_model(cfg)
     max_nnz = scan_max_nnz(cfg)
     cfg.check_width(max_nnz)
@@ -710,7 +827,8 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
             else:
                 src = _stream(cfg, cfg.train_files, max_nnz, weights, shuffle_epoch=epoch,
                               steps_per_call=k, log=log, skip_batches=skip_batches,
-                              dedup_cap=cfg.dedup_gather_rows)
+                              dedup_cap=cfg.dedup_gather_rows,
+                              convert=_wire_converter(cfg, model, max_nnz, device, weights))
             return _to_batches(src, model, device)
 
         def ids_of(batch):
@@ -764,7 +882,7 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
 
 def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, ids_of,
                   predict_step, max_nnz: int, log, step_hook, accum_restart, stream_stop,
-                  start_cursor=None, rollback=None):
+                  start_cursor=None, rollback=None, paramstore=None, evaluate=None):
     """The step loop of one run over ``state`` (the JAX ``_run_training``):
     entered once, and again after each rollback with the restored state,
     ``start_cursor`` the detection point's (``_exact``) and ``rollback``
@@ -772,7 +890,9 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
     ``train_stream(epoch, skip_batches)`` opens an epoch's input at a
     batch; ``ids_of(batch)`` gives a call's ids; ``accum_restart`` (or
     None) resets the accumulators; ``stream_stop`` is a followed stream's
-    stop holder (or None)."""
+    stop holder (or None).  A tiered run passes its ``paramstore`` (the
+    saves span both tiers, kind=tiering records) and ``evaluate(state)``,
+    its validation AUC."""
     k = cfg.steps_per_call
     # The input cursor, tracked per call: every save embeds it.
     start_epoch, start_batch = _resolve_cursor(cfg, start_cursor, log)
@@ -823,9 +943,20 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
         chunk_bytes=cfg.checkpoint_chunk_mb << 20, async_save=cfg.async_save,
         delta_every_steps=cfg.delta_every_steps, delta_chain_max=cfg.delta_chain_max,
         full_every_s=cfg.delta_full_every_s, chain_max_bytes=cfg.delta_chain_max_bytes,
-        vocab=cfg.vocabulary_size, row_dim=model.row_dim,
-        start_step=state.step, cursor_fn=input_cursor,
+        # A tiered run's touched-row bitmap is over the compact table's slots.
+        vocab=paramstore.capacity if paramstore is not None else cfg.vocabulary_size,
+        row_dim=model.row_dim, start_step=state.step, cursor_fn=input_cursor,
+        paramstore=paramstore,
     )
+    if evaluate is None:
+        def evaluate(st):
+            return _evaluate(cfg, model, predict_step, st, cfg.validation_files, max_nnz,
+                             device, log)
+
+    def emit_tiering(epoch):
+        if paramstore is not None and (
+                rec := paramstore.stats.drain(paramstore.pending_rows, paramstore.hot_rows)):
+            monitor.emit("tiering", step=state.step, epoch=epoch, **rec)
 
     def anomaly(step, loss):
         monitor.emit_anomaly(step, loss, state=state)
@@ -943,6 +1074,7 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
                     )
                     if input_stats is not None and (rec := input_stats.drain()):
                         monitor.emit("input", step=state.step, epoch=epoch, **rec)
+                    emit_tiering(epoch)
                     losses.clear()
                     meter.reset()
                     counted = 0
@@ -956,6 +1088,7 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
                 cur["epoch"], cur["batch"] = epoch + 1, 0
             if input_stats is not None and (rec := input_stats.drain()):
                 monitor.emit("input", step=state.step, epoch=epoch, **rec)
+            emit_tiering(epoch)  # the epoch tail's window, as the input record's
             # A poisoned state must stop here, BEFORE the save below replaces
             # the last good checkpoint.  The whole unlogged window counts: an
             # injected nan poisons one entry of it.
@@ -964,8 +1097,7 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
                 _check_finite(_mean(losses), state.step, anomaly, cursor=input_cursor())
             if cfg.validation_files:
                 with monitor.suspended():  # no train call completes here
-                    val_auc = _evaluate(cfg, model, predict_step, state, cfg.validation_files,
-                                        max_nnz, device, log)
+                    val_auc = evaluate(state)
                 log(f"epoch {epoch} validation auc {val_auc:.5f}")
                 monitor.emit("validation", step=state.step, epoch=epoch,
                              validation_auc=round(val_auc, 6))
@@ -995,6 +1127,8 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
             summary.update(ledger.summary())
         if datastats is not None:
             summary.update(datastats.summary())
+        if paramstore is not None:
+            summary.update(paramstore.summary())
         profiler.close(state.step)
         tracer.close()
         monitor.close(**summary)

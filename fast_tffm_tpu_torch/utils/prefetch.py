@@ -39,11 +39,12 @@ def grouped_pairs(pairs: Iterable, k: int) -> Iterator[tuple[list, list]]:
 
 class InputStats:
     """Per-stream input accounting (the JAX package's ``data/wire.py``
-    ``InputStats``, without the wire): production time in the prefetch
-    thread and the queue depth at each consumer pop, drained into a
-    ``kind=input`` record at every log point.  The port converts batches in
-    the consumer, so ``h2d_ms`` and ``wire_bytes_per_step`` are None (not
-    measured here), as the JAX package writes them for text input."""
+    ``InputStats``): production and conversion time in the prefetch thread,
+    wire bytes and the queue depth at each consumer pop, drained into a
+    ``kind=input`` record at every log point.  A stream whose batches are
+    converted in the consumer (``timed``, not ``converting``) writes
+    ``h2d_ms`` and ``wire_bytes_per_step`` as None (not measured here), as
+    the JAX package does for text input."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -58,6 +59,9 @@ class InputStats:
         self.steps = 0  # batches covered
         self.examples = 0
         self.parse_s = 0.0
+        self.converted = 0  # items converted in the producer
+        self.convert_s = 0.0  # pack + H2D + unpack dispatch time
+        self.wire_bytes = 0
         self.q_depth_sum = 0
         self.q_samples = 0
 
@@ -85,20 +89,47 @@ class InputStats:
         t = self._producer
         return t.is_alive() if t is not None else None
 
+    @staticmethod
+    def produced(raw: Iterable) -> Iterator:
+        """``(parsed, weights)`` pairs → ``(parsed, weights, seconds)``, the
+        seconds it took to produce each (the first stage of a converted
+        stream; ``timed`` and ``converting`` account them)."""
+        t0 = time.perf_counter()
+        for p, w in raw:
+            yield p, w, time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+    def _count(self, p, produce_s: float, convert_s: float | None = None,
+               nbytes: int = 0) -> int:
+        group = p if isinstance(p, list) else [p]
+        examples = sum(q.batch_size for q in group)
+        with self._lock:
+            self.items += 1
+            self.steps += len(group)
+            self.examples += examples
+            self.parse_s += produce_s
+            if convert_s is not None:
+                self.converted += 1
+                self.convert_s += convert_s
+                self.wire_bytes += int(nbytes)
+        return examples
+
     def timed(self, raw: Iterable) -> Iterator:
         """Wrap a ``(parsed, weights)`` stream (``parsed`` a ParsedBatch or a
         K-list of them), timing each item's production."""
-        t0 = time.perf_counter()
-        for p, w in raw:
-            t1 = time.perf_counter()
-            group = p if isinstance(p, list) else [p]
-            with self._lock:
-                self.items += 1
-                self.steps += len(group)
-                self.examples += sum(q.batch_size for q in group)
-                self.parse_s += t1 - t0
+        for p, w, s in self.produced(raw):
+            self._count(p, s)
             yield p, w
+
+    def converting(self, produced: Iterable, convert) -> Iterator:
+        """The second stage of a converted stream: each ``produced`` item
+        through ``convert(parsed, weights)`` (a wire or tiered converter,
+        its ``last_nbytes`` the bytes it shipped), timed and accounted with
+        its production time, as ``(converted, examples)``."""
+        for p, w, s in produced:
             t0 = time.perf_counter()
+            value = convert(p, w)
+            yield value, self._count(p, s, time.perf_counter() - t0, convert.last_nbytes)
 
     def on_queue_depth(self, depth: int) -> None:
         with self._lock:
@@ -111,13 +142,15 @@ class InputStats:
         with self._lock:
             if not self.items:
                 return {}
+            measured = self.converted > 0
             out = {
                 "input_items": self.items,
                 "input_steps": self.steps,
                 "input_examples": self.examples,
                 "parse_ms": round(1e3 * self.parse_s / self.items, 3),
-                "h2d_ms": None,
-                "wire_bytes_per_step": None,
+                "h2d_ms": round(1e3 * self.convert_s / self.items, 3) if measured else None,
+                "wire_bytes_per_step": (int(self.wire_bytes / self.steps)
+                                        if measured and self.steps else None),
                 "prefetch_queue_depth": (
                     round(self.q_depth_sum / self.q_samples, 2) if self.q_samples else None
                 ),
@@ -132,9 +165,10 @@ class InputStream:
     ``producer_alive`` and ``stream_idle`` to the stall watchdog (readable
     while the consumer is frozen)."""
 
-    def __init__(self, it: Iterable, stats: InputStats | None):
+    def __init__(self, it: Iterable, stats: InputStats | None, converted: bool = False):
         self._it = it
         self.stats = stats
+        self.converted = converted  # items are (device value, examples) already
 
     def __iter__(self) -> Iterator:
         return iter(self._it)
@@ -149,14 +183,17 @@ class InputStream:
         return self.stats.stream_idle() if self.stats is not None else None
 
 
-def prefetch(it: Iterable, depth: int = 8, stats: InputStats | None = None) -> Iterator:
+def prefetch(it: Iterable, depth: int = 8, stats: InputStats | None = None,
+             name: str = "input-prefetch") -> Iterator:
     """Iterate ``it`` in a background thread, keeping ``depth`` items ready.
 
     A producer exception surfaces in the consumer as a ``PrefetchError``.
     The consumer polls with a timeout, so a producer that dies without
     reaching its sentinel is detected within ~1 s instead of blocking
     forever.  ``stats`` gets the queue and the producer thread bound (the
-    watchdog's probes) and one depth sample per consumer pop."""
+    watchdog's probes) and one depth sample per consumer pop.  Stages
+    chain: a ``prefetch`` over another's output raises the inner stage's
+    ``PrefetchError`` as it was."""
     q: queue.Queue = queue.Queue(maxsize=max(1, depth))
     err: list[BaseException] = []
     if stats is not None:
@@ -171,12 +208,14 @@ def prefetch(it: Iterable, depth: int = 8, stats: InputStats | None = None) -> I
         finally:
             q.put(_SENTINEL)
 
-    t = threading.Thread(target=worker, name="input-prefetch", daemon=True)
+    t = threading.Thread(target=worker, name=name, daemon=True)
     if stats is not None:
         stats.bind_producer(t)
     t.start()
 
     def fail(reason: str) -> PrefetchError:
+        if err and isinstance(err[0], PrefetchError):
+            return err[0]
         e = PrefetchError(f"input pipeline failed: prefetch producer thread {t.name!r} {reason}")
         e.__cause__ = err[0] if err else None
         return e

@@ -17,7 +17,11 @@ touched-row bitmap after a K = 8 replay is its batches' unique ids; a delta
 chain written on the card replays bitwise; ``device_live_bytes`` makes no
 device sync.  A rollback at K = 8 restores into the graph's own state (one
 capture) and ends bitwise its reference; accumulator restarts inside a
-K = 8 graph are bitwise the eager run's.
+K = 8 graph are bitwise the eager run's.  A ``[ParamStore]`` card run is
+bitwise the resident run at K = 1 and 8; the packed wire's side-stream copy
+and unpack give the arrays path's batch, a ring of two pinned buffers under
+a queue of twelve never refills one under its copy, and packed training is
+bitwise arrays at K = 1 and 8.
 """
 
 import os
@@ -1159,3 +1163,162 @@ def test_accum_restart_in_a_k8_graph_is_bitwise_the_eager_run(cuda, tmp_path, mo
     torch.cuda.synchronize()
     assert torch.equal(states[1].table, states[8].table)
     assert torch.equal(states[1].table_accum, states[8].table_accum)
+
+
+def _logged_losses(lines):
+    return [x.split(" loss ")[1].split()[0] for x in lines if " loss " in x]
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_tiered_card_run_is_bitwise_the_resident_run(cuda, tmp_path, k):
+    """``[ParamStore]`` on the card (hot 48 of 256 rows, the store holding
+    ``init_state``'s host draw): losses, validation AUC and the logical table
+    and accumulator rebuilt from both tiers are bitwise those of the
+    resident card run from the same init; K = 8 on FMB input in a CUDA graph
+    over the compact table."""
+    import shutil
+
+    from fast_tffm_tpu_torch.checkpoint import save_checkpoint
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.paramstore import ColdStore
+    from fast_tffm_tpu_torch.training import train
+
+    for f in ("train.libsvm", "test.libsvm"):
+        shutil.copy(os.path.join(REPO, "data", f), tmp_path)
+    mode = dict(steps_per_call=8, binary_cache=True) if k > 1 else {}
+    logs = {"res": [], "tier": []}
+    res_cfg = _resume_cfg(tmp_path, "res.ckpt", **mode)
+    save_checkpoint(res_cfg.model_file,
+                    init_state(build_model(res_cfg), torch.Generator().manual_seed(0)))
+    res = train(res_cfg, resume=True, log=logs["res"].append, device="cuda")
+    tier_cfg = _resume_cfg(tmp_path, "tier.ckpt", paramstore=True, paramstore_hot_rows=48,
+                           delta_every_steps=5, **mode)
+    train(tier_cfg, log=logs["tier"].append, device="cuda")
+    torch.cuda.synchronize()
+    assert _logged_losses(logs["res"]) == _logged_losses(logs["tier"])
+    auc = [[x for x in logs[r] if "validation auc" in x] for r in ("res", "tier")]
+    assert auc[0] == auc[1] and auc[0]
+    z = np.load(tier_cfg.model_file)
+    t, a = ColdStore.open(tier_cfg.model_file + ".store").read_rows(np.arange(256))
+    ci = z["tier_cold_idx"]
+    t[ci], a[ci] = z["tier_cold_rows"], z["tier_cold_accum"]
+    t[z["tier_hot_ids"]], a[z["tier_hot_ids"]] = z["table"], z["table_accum"]
+    assert np.array_equal(t, res.table.cpu().numpy())
+    assert np.array_equal(a, res.table_accum.cpu().numpy())
+
+
+def _wire_case(rng, k: int):
+    from fast_tffm_tpu_torch.data import wire
+    from fast_tffm_tpu_torch.data.libsvm import ParsedBatch
+
+    b, n = 64, 11
+    spec = wire.make_spec(1 << 20, n, with_vals=True, with_fields=False, with_weights=False)
+    seq = []
+    for _ in range(k):
+        nnz = rng.integers(1, n + 1, size=b).astype(np.int32)
+        mask = np.arange(n) < nnz[:, None]
+        seq.append(ParsedBatch(
+            labels=rng.integers(0, 2, size=b).astype(np.float32),
+            ids=np.where(mask, rng.integers(0, 1 << 20, size=(b, n)), 0).astype(np.int32),
+            vals=np.where(mask, rng.uniform(0.1, 2, size=(b, n)), 0).astype(np.float32),
+            fields=np.zeros((b, n), np.int32), nnz=nnz))
+    ws = [(np.arange(b) < b - 3).astype(np.float32) for _ in range(k)]
+    return spec, (seq if k > 1 else seq[0]), (ws if k > 1 else ws[0])
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_side_stream_h2d_and_unpack_equal_the_loop_thread_path(cuda, k):
+    """The WireConverter's pinned copy and unpack on its side stream, made
+    in another thread, give the batch the arrays path puts on the card, bit
+    for bit, once the loop's stream waited on it."""
+    import dataclasses
+    import threading
+
+    from fast_tffm_tpu_torch.data import wire
+    from fast_tffm_tpu_torch.models.base import Batch
+
+    spec, parsed, w = _wire_case(np.random.default_rng(k), k)
+    conv = wire.WireConverter(spec, cuda, slots=2)
+    out = []
+    t = threading.Thread(target=lambda: out.append(conv(parsed, w)))
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    got = out[0].ready()
+    want = (Batch.stack_parsed(parsed, w) if k > 1 else Batch.from_parsed(parsed, w)).to(cuda)
+    for f in dataclasses.fields(got):
+        g, e = getattr(got, f.name), getattr(want, f.name)
+        assert g.device.type == "cuda" and g.dtype == e.dtype and torch.equal(g, e), f.name
+    assert conv.last_nbytes == k * spec.batch_nbytes(64)
+
+
+def test_a_full_queue_never_refills_a_pinned_buffer_under_its_copy(cuda):
+    """Twelve batches converted ahead of the loop through a ring of two
+    pinned buffers (a queue far deeper than the ring): every batch, read
+    only after all were converted, is its own, not a later one packed into
+    the same buffer while its copy was in flight."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.data import wire
+    from fast_tffm_tpu_torch.models.base import Batch
+
+    rng = np.random.default_rng(12)
+    cases = [_wire_case(rng, 1) for _ in range(12)]
+    conv = wire.WireConverter(cases[0][0], cuda, slots=2)
+    with torch.cuda.stream(conv._stager.stream):
+        torch.cuda._sleep(50_000_000)  # the first copies queue behind ~tens of ms
+    staged = [conv(p, w) for _, p, w in cases]
+    for s, (_, p, w) in zip(staged, cases):
+        got, want = s.ready(), Batch.from_parsed(p, w).to(cuda)
+        for f in dataclasses.fields(got):
+            assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_packed_wire_card_run_is_bitwise_the_arrays_run(cuda, tmp_path, k):
+    """FMB input on the card: ``wire_format = packed`` (at K = 8 one pinned
+    H2D a call, the unpack on a side stream; at K = 1 the loop converts)
+    trains bitwise as ``arrays``."""
+    import shutil
+
+    from fast_tffm_tpu_torch.checkpoint import save_checkpoint
+    from fast_tffm_tpu_torch.trainer import TrainState
+    from fast_tffm_tpu_torch.training import train
+
+    for f in ("train.libsvm", "test.libsvm"):
+        shutil.copy(os.path.join(REPO, "data", f), tmp_path)
+    rng = np.random.default_rng(5)
+    save_checkpoint(str(tmp_path / "init.ckpt"), TrainState(
+        table=torch.from_numpy(rng.uniform(-0.3, 0.3, (256, 9)).astype(np.float32)), dense=[],
+        step=0, table_accum=torch.full((256, 9), 0.1)))
+    out, logs = {}, {}
+    for fmt in ("packed", "arrays"):
+        cfg = _resume_cfg(tmp_path, f"{fmt}.ckpt", binary_cache=True, steps_per_call=k,
+                          wire_format=fmt)
+        shutil.copy(tmp_path / "init.ckpt", cfg.model_file)
+        logs[fmt] = []
+        out[fmt] = train(cfg, resume=True, log=logs[fmt].append, device="cuda")
+    torch.cuda.synchronize()
+    assert _logged_losses(logs["packed"]) == _logged_losses(logs["arrays"])
+    assert torch.equal(out["packed"].table, out["arrays"].table)
+    assert torch.equal(out["packed"].table_accum, out["arrays"].table_accum)
+
+
+def test_side_streams_are_never_the_graph_capture_stream(cuda):
+    """The wire's copy stream and the checkpoint writer's stream are drawn
+    from the high-priority pool: however many are made, none is the stream
+    a K-step CUDA graph captures on (PyTorch's pooled default capture
+    stream), whose capture would otherwise take in their work."""
+    from fast_tffm_tpu_torch.checkpoint_async import AsyncCheckpointer
+    from fast_tffm_tpu_torch.data import wire
+
+    g = torch.cuda.CUDAGraph()
+    x = torch.zeros(4, device=cuda)
+    with torch.cuda.graph(g):
+        x.add_(1)
+    capture = torch.cuda.graph.default_capture_stream.cuda_stream
+    spec = wire.make_spec(256, 4, with_vals=True, with_fields=False)
+    for _ in range(80):  # more than a stream pool holds
+        assert wire.WireConverter(spec, cuda)._stager.stream.cuda_stream != capture
+        writer = AsyncCheckpointer("unused.ckpt", device=cuda, chunk_bytes=4096)
+        assert writer._side.cuda_stream != capture

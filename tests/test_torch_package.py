@@ -52,7 +52,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "assert len(mods) >= 35, mods\n"
         "new = {'data.native', 'data.binary', 'data.device_cache', 'utils.step_graph',"
-        " 'data.stream', 'resilience'}\n"
+        " 'data.stream', 'resilience', 'data.wire', 'paramstore', 'paramstore.store',"
+        " 'paramstore.residency', 'paramstore.tiered', 'paramstore.ckpt'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
@@ -238,6 +239,7 @@ def test_reads_every_repo_config_like_jax_or_refuses_it(path):
         (dict(table_layout="packed", adagrad_accumulator="fused", packed_update="sorted"),
          "packed_update = auto, dense or compact"),
         (dict(table_layout="packed", tail="pallas"), "requires adagrad_accumulator = fused"),
+        (dict(tail="pallas", dedup_gather_rows=64), "incompatible with dedup_gather_rows"),
         (dict(table_layout="packed", adagrad_accumulator="fused",
               online_accum_restart_steps=10), "no separate accumulator"),
     ],
@@ -253,26 +255,24 @@ TRAIN_ONLY = [
     dict(online_accum_restart_steps=100),
     dict(on_nan="rollback"),
 ]
-# The settings train once refused and takes since online learning and
-# resilience were ported (tests/test_torch_online.py and
-# tests/test_torch_resilience.py train with them).
-PORTED = ("online_follow", "online_accum_restart_steps", "on_nan")
+# The settings train once refused and takes since the tiered store, online
+# learning and resilience were ported (tests/test_torch_paramstore.py,
+# tests/test_torch_online.py and tests/test_torch_resilience.py train with
+# them): train refuses none of them any more.
+PORTED = ("paramstore", "online_follow", "online_accum_restart_steps", "on_nan")
 
 
 @pytest.mark.parametrize("kw", TRAIN_ONLY, ids=lambda kw: next(iter(kw)))
 def test_train_refuses_later_slice_settings(kw, tmp_path):
-    """[ParamStore] is refused before any read or write; the settings the
-    port took since get past the refusal to the missing train file."""
+    """Each setting train once refused as a later slice gets past the
+    refusal to the missing train file, before any read or write."""
+    assert next(iter(kw)) in PORTED
     cfg = Config(order=3, vocabulary_size=8, max_nnz=2, train_files=(str(tmp_path / "t"),),
                  model_file=str(tmp_path / "m.ckpt"), **kw).validate()
-    if next(iter(kw)) in PORTED:
-        with pytest.raises((ValueError, OSError, RuntimeError)) as err:
-            train(cfg, device="cpu", log=lambda *_: None)
-        assert "later slice" not in str(err.value)
-    else:
-        with pytest.raises(ValueError, match="later slice"):
-            train(cfg, device="cpu", log=lambda *_: None)
-    assert not os.listdir(tmp_path)  # nothing written either way
+    with pytest.raises((ValueError, OSError, RuntimeError)) as err:
+        train(cfg, device="cpu", log=lambda *_: None)
+    assert "later slice" not in str(err.value)
+    assert not os.listdir(tmp_path)  # nothing written
 
 
 # The telemetry and checkpoint settings the port once refused, and what each
@@ -390,6 +390,23 @@ def test_cli_trains_and_predicts_on_the_cpu(tmp_path):
     assert len(scores) == 120 and all(0.0 < s < 1.0 for s in scores)
     r = _run(["-m", "fast_tffm_tpu_torch.cli", "predict", str(cfg), "--resume"], cwd=REPO)
     assert r.returncode != 0 and "--resume" in r.stderr
+
+
+def test_cli_train_takes_the_legacy_cluster_args(tmp_path):
+    """``train <cfg> worker 0`` trains and notes the ignored arguments, as
+    the JAX CLI does (tests/test_e2e.py)."""
+    cfg = tmp_path / "c.cfg"
+    cfg.write_text(
+        f"[General]\norder = 3\nfactor_num = 4\nvocabulary_size = 256\n"
+        f"model_file = {tmp_path / 'm.ckpt'}\n"
+        f"[Train]\ntrain_files = {os.path.join(REPO, 'data', 'train.libsvm')}\n"
+        "batch_size = 100\nlog_every = 2\n"
+    )
+    r = _run(["-m", "fast_tffm_tpu_torch.cli", "train", str(cfg), "worker", "0", "--device",
+              "cpu"], cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    assert "ignoring legacy cluster args ['worker', '0']" in r.stderr
+    assert "training done: steps 0->4" in r.stderr
 
 
 def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
