@@ -266,6 +266,34 @@ last line:
             the reckoning; the filesystem's used bytes during the run beside
             them as a second witness), the rows the final save applied read
             back from the store, and a resume at that save
+  dist_b2   configs/baseline2_fm_sharded.cfg at full width (order 2, k 16,
+            V 2^24, max_nnz 39, batch 16,384; checkpoint_format npz for its
+            orbax, log_every 4) on 24 x 16,384 rows of gen_synthetic (--seed
+            3; started in the background at the run's start) and 32,768
+            validation rows: cli dist_train and cli dist_predict at world
+            size 1, in this process, against cli train and cli predict from
+            the same fresh init: logged losses, the saved 2^24 x 17 table
+            and accumulator, and the score files bitwise; B4 once per step
+            and nothing else; step p50, ex/s, the card's idle share (the
+            dist run traced), peak device memory, the epoch save's stall
+  dist_b5   baseline5 through training.dist_train at world size 1 against
+            training.train from one seeded npz, 24 steps each: rows,
+            packed, fused, steps_per_call = 8 (traced) and lookup =
+            alltoall, each bitwise (losses, logical table and accumulator),
+            B1, B2 and the layout's tail once per step
+  shard_update  the sharded update's shard apply on the card at R = 2 and
+            4 with no process group: one seeded [2^20, 9] table in R
+            shards, the world-gathered (uids, gsum) of R synthetic ranks
+            from the first batch (unowned ids, sentinels); each shard's B4
+            apply bitwise its plain twin and the R = 1 update's rows; B4
+            packed and B3 fused on each shard bitwise the rows result;
+            the routing buckets and send buffers equal to the CPU's; the
+            applies' times
+  nccl_world1  an NCCL group of world size 1: the general (R > 1-shaped)
+            branches of sharded_gather, sharded_sparse_adagrad_update,
+            routed_gather and routed_update against the fast path, then the
+            sharded step (allgather and alltoall) eager and as a captured
+            4-step CUDA graph against the single-device step, all bitwise
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
             launches_by_run adds the graphed train_cached runs' replays, and
@@ -277,7 +305,7 @@ last line:
             rollback, supervised reference, follow and accum_restart runs,
             and for B1 serve_reload's engine and each replica process's
             launches during serve_socket's traffic (serve_socket_r0, _r1); the
-            wire, tiered and tiered_big runs
+            wire, tiered and tiered_big runs; dist_b2 and the dist_b5 runs
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -287,6 +315,8 @@ wrappers' counts and records trace_lost_events.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
+``--only dist`` runs the device, build and data phases and the four phases
+of dist_train alone, and prints no result line (a development run).
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -994,18 +1024,21 @@ def _write_checkpoint(path: str, table, accum_width: int, dense=()) -> None:
         )
 
 
-def _train_once(cfg, device: str, log_to: list, resume: bool = True, step_hook=None):
-    """``training.train`` on ``device``, resumed from ``cfg.model_file`` (or
-    from its seeded init), its log lines kept; returns (state, seconds)."""
-    from fast_tffm_tpu_torch.training import train
+def _train_once(cfg, device: str, log_to: list, resume: bool = True, step_hook=None,
+                entry: str = "train"):
+    """``training.train`` (``entry = "dist_train"``: ``training.dist_train``)
+    on ``device``, resumed from ``cfg.model_file`` (or from its seeded
+    init), its log lines kept; returns (state, seconds)."""
+    from fast_tffm_tpu_torch import training
 
     def log(*a):
         msg = " ".join(str(x) for x in a)
         log_to.append(msg)
-        log_stderr(f"[train {device}] {msg}")
+        log_stderr(f"[{entry} {device}] {msg}")
 
     t0 = time.perf_counter()
-    state = train(cfg, resume=resume, log=log, device=device, step_hook=step_hook)
+    state = getattr(training, entry)(cfg, resume=resume, log=log, device=device,
+                                      step_hook=step_hook)
     return state, time.perf_counter() - t0
 
 
@@ -2210,13 +2243,13 @@ def _stop_and_resume(name: str, base, tmp: str, init: str, model, files: dict, s
     }
 
 
-def _write_ini(path: str, **sections) -> str:
-    """configs/baseline5_fm_order3_kdd.cfg with the given keys set, per
-    section, written to ``path``."""
+def _write_ini(path: str, config: str = CONFIG, **sections) -> str:
+    """``config`` (configs/baseline5_fm_order3_kdd.cfg) with the given keys
+    set, per section, written to ``path``."""
     import configparser
 
     ini = configparser.ConfigParser(inline_comment_prefixes=(";", "#"))
-    with open(os.path.join(HERE, CONFIG)) as f:
+    with open(os.path.join(HERE, config)) as f:
         ini.read_file(f)
     for section, keys in sections.items():
         if not ini.has_section(section):
@@ -2653,7 +2686,7 @@ def _model_files(cfg) -> list:
 
 
 def _run(what: str, cfg, hook=None, expect_abort: bool = False, make_hook=None,
-         trace: bool = False, resume: bool = True) -> dict:
+         trace: bool = False, resume: bool = True, entry: str = "train") -> dict:
     """One card run of ``training.train`` of an order-3 FM (or, eager, any
     model), every kernel counter zeroed just before and read just after.
     ``hook`` is its step hook, or ``make_hook()`` makes a fresh one for
@@ -2665,7 +2698,8 @@ def _run(what: str, cfg, hook=None, expect_abort: bool = False, make_hook=None,
     (``_counted_run``, replays = trace less wrappers, ``_step_launches``),
     each retry from the model files (base, deltas and a tiered run's
     ``.store`` directory) and metrics the run started with; ``resume``
-    False starts from a fresh init.  Returns the state (None when aborted), the log, the wall
+    False starts from a fresh init; ``entry`` names the training entry
+    (``train`` or ``dist_train``).  Returns the state (None when aborted), the log, the wall
     time, the counts and, traced, the card's busy time and idle share."""
     import shutil
 
@@ -2696,7 +2730,8 @@ def _run(what: str, cfg, hook=None, expect_abort: bool = False, make_hook=None,
         lines, state = [], None
         step_hook = make_hook() if make_hook is not None else hook
         try:
-            state, _ = _train_once(cfg, "cuda", lines, resume=resume, step_hook=step_hook)
+            state, _ = _train_once(cfg, "cuda", lines, resume=resume, step_hook=step_hook,
+                                   entry=entry)
             if expect_abort:
                 fail(f"{what}: the run was to be aborted by its step hook and ended")
         except _Abort:
@@ -4835,6 +4870,438 @@ def phase_tiered_big(tmp: str) -> dict:
     return {"tiered_big": out["launches"], "tiered_big_resumed": resumed["launches"]}
 
 
+# --- slice 12: dist_train / dist_predict over the mesh of ranks -------------
+
+B2_CONFIG = os.path.join("configs", "baseline2_fm_sharded.cfg")
+B2_VOCAB, B2_FIELDS = 1 << 24, 39
+B2_TRAIN_BATCHES, B2_VALID_ROWS = 24, 32768
+
+
+def _start_b2_data(tmp: str):
+    """baseline2's data, started in the background at the run's start (it
+    is read only by dist_b2): 24 x 16,384 rows of gen_synthetic --fields 39
+    --vocab 16777216 --seed 3, and 32,768 validation rows (--seed 4)."""
+    gen = os.path.join(HERE, "tools", "gen_synthetic.py")
+    out = {}
+    for part, rows, seed in (("train", B2_TRAIN_BATCHES * BATCH, 3),
+                             ("valid", B2_VALID_ROWS, 4)):
+        path = os.path.join(tmp, f"baseline2.{part}.libsvm")
+        cmd = [sys.executable, gen, "--rows", str(rows), "--fields", str(B2_FIELDS),
+               "--vocab", str(B2_VOCAB), "--seed", str(seed), "--out", path]
+        out[part] = (path, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                            stderr=subprocess.PIPE, text=True),
+                     time.perf_counter())
+    return out
+
+
+def _wait_b2_data(jobs) -> dict:
+    paths = {}
+    for part, (path, proc, t0) in jobs.items():
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"gen_synthetic ({path}) did not finish in 300 s")
+        if proc.returncode != 0:
+            fail(f"gen_synthetic ({path}) failed with exit {proc.returncode}: {err}")
+        paths[part] = path
+    return paths
+
+
+@contextlib.contextmanager
+def _clocked(name: str):
+    """``training.<name>`` wrapped for the time of the block so that its
+    callers (the CLI) run it with the loop's step clock as the step hook;
+    yields the clock's p50."""
+    from fast_tffm_tpu_torch import training
+
+    real = getattr(training, name)
+    box = {}
+
+    def wrapped(*a, **kw):
+        clock, box["p50"] = _step_clock()
+        return real(*a, **{**kw, "step_hook": clock})
+
+    setattr(training, name, wrapped)
+    try:
+        yield lambda: box["p50"]() if "p50" in box else None
+    finally:
+        setattr(training, name, real)
+
+
+def _cli_in_process(args: list, what: str) -> list:
+    """``fast_tffm_tpu_torch.cli.main(args)`` in this process (the wrappers'
+    counters see its launches), its stderr log kept and echoed."""
+    from fast_tffm_tpu_torch import cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    lines = err.getvalue().splitlines()
+    for line in lines:
+        log_stderr(f"[{what}] {line}")
+    if rc != 0:
+        fail(f"{what}: cli {' '.join(args)} exited {rc}")
+    return lines
+
+
+def phase_dist_b2(tmp: str, jobs) -> dict:
+    """configs/baseline2_fm_sharded.cfg at full width (order 2, k 16, V 2^24,
+    max_nnz 39, batch 16,384), its checkpoint_format = orbax replaced by npz
+    (the port reads no orbax directory yet) and log_every 4 (six logged
+    losses to compare), through ``cli dist_train`` at world size 1 (no process group) and
+    ``cli dist_predict``, against ``cli train`` and ``cli predict`` of the
+    same config, every run in this process from the same fresh init: the
+    logged losses, the saved table and accumulator and the score files
+    bitwise; B4 once per step and no other kernel; step p50, ex/s, the
+    card's idle share (the dist run traced), peak device memory, the epoch
+    save's stall."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    paths = _wait_b2_data(jobs)
+    data_s = time.perf_counter() - t0
+    rec = {"phase": "dist_b2",
+           "config": B2_CONFIG + " + checkpoint_format = npz, log_every = 4",
+           "data_wait_s": data_s}
+    runs = {}
+    for verb in ("train", "dist_train"):
+        name = f"b2_{verb}"
+        ini = _write_ini(os.path.join(tmp, name + ".cfg"), B2_CONFIG,
+                              General={"model_file": os.path.join(tmp, name + ".ckpt"),
+                                       "checkpoint_format": "npz"},
+                              Train={"train_files": paths["train"],
+                                     "validation_files": paths["valid"], "log_every": 4,
+                                     "metrics_path": os.path.join(tmp, name + ".jsonl")},
+                              Predict={"predict_files": paths["valid"],
+                                       "score_path": os.path.join(tmp, name + ".scores")})
+        run = {"ini": ini}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        with _clocked(verb) as p50:
+            if verb == "dist_train":
+                window = traced_window(
+                    lambda: run.update(log=_cli_in_process([verb, ini], name)))
+                run["device_idle_share"] = window["device_idle_share"]
+                run["device_busy_ms"] = window["device_busy_ms"]
+                run["wall_ms"] = window["wall_ms"]
+                run["launches_traced"] = window["launches_traced"]
+            else:
+                t1 = time.perf_counter()
+                run["log"] = _cli_in_process([verb, ini], name)
+                torch.cuda.synchronize()
+                run["wall_ms"] = 1e3 * (time.perf_counter() - t1)
+            run["step_ms_p50"] = p50()
+        run["launches"] = _wrapper_counts()
+        run["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        want = {"anova_fwd": 0, "anova_bwd": 0, "rows_tail_adagrad": B2_TRAIN_BATCHES,
+                "fused_tail_adagrad": 0}
+        if run["launches"] != want:
+            fail(f"{name}: kernel launches {run['launches']}, expected {want}")
+        run["losses"] = _logged(run["log"], "loss")
+        run["examples_per_s_logged"] = _logged(run["log"], "examples/sec")
+        ckpts = _ckpt_records(name, os.path.join(tmp, name + ".jsonl"), "sync")
+        run["epoch_save"] = _stall(ckpts)
+        pred = "predict" if verb == "train" else "dist_predict"
+        _zero_counters()
+        t1 = time.perf_counter()
+        _cli_in_process([pred, ini], f"b2_{pred}")
+        run["predict_ms"] = 1e3 * (time.perf_counter() - t1)
+        run["predict_launches"] = _wrapper_counts()
+        runs[verb] = run
+    a, b = runs["train"], runs["dist_train"]
+    if not a["losses"] or a["losses"] != b["losses"]:
+        fail(f"dist_b2: logged losses {b['losses']} against train's {a['losses']}")
+    with np.load(os.path.join(tmp, "b2_train.ckpt")) as za, \
+            np.load(os.path.join(tmp, "b2_dist_train.ckpt")) as zb:
+        for key in ("table", "table_accum", "step"):
+            if not np.array_equal(za[key], zb[key]):
+                fail(f"dist_b2: the saved {key} is not bitwise train's")
+        shape = list(za["table"].shape)
+    with open(os.path.join(tmp, "b2_train.scores")) as fa, \
+            open(os.path.join(tmp, "b2_dist_train.scores")) as fb:
+        sa, sb = fa.read(), fb.read()
+    if sa != sb or len(sa.splitlines()) != B2_VALID_ROWS:
+        fail("dist_b2: dist_predict's scores are not predict's")
+    scores = np.loadtxt(io.StringIO(sb))
+    if not np.isfinite(scores).all():
+        fail("dist_b2: non-finite scores")
+    for verb, run in runs.items():
+        rec[verb] = {k: run[k] for k in ("launches", "losses", "step_ms_p50", "wall_ms",
+                                         "examples_per_s_logged", "peak_device_bytes",
+                                         "epoch_save", "predict_ms", "predict_launches")}
+        rec[verb]["examples_per_s_run"] = (B2_TRAIN_BATCHES * BATCH) / (run["wall_ms"] / 1e3)
+    for k in ("device_idle_share", "device_busy_ms", "launches_traced"):
+        rec["dist_train"][k] = b[k]
+    rec.update(table_shape=shape, bitwise_losses=True, bitwise_table=True,
+               bitwise_scores=True, scores=int(scores.size),
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return {"dist_b2": b["launches"]}
+
+
+def phase_dist_b5(rng, tmp: str, train_path: str, valid_path: str) -> dict:
+    """baseline5 (order 3) through ``training.dist_train`` at world size 1
+    against ``training.train`` from one seeded npz, 24 steps each, on the
+    rows layout, packed (B4 at the packed address), fused (B3),
+    steps_per_call = 8 (a CUDA-graph replay; traced) and lookup = alltoall:
+    the logged losses and the logical table and accumulator bitwise; B1,
+    B2 and the layout's tail once per step in each run."""
+    import dataclasses
+
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.parallel import gather_logical_state, make_mesh
+    from fast_tffm_tpu_torch.trainer import unpack_state
+
+    cases = {
+        "rows": {},
+        "packed": {"table_layout": "packed"},
+        "fused": {"table_layout": "packed", "adagrad_accumulator": "fused"},
+        "k8": {"steps_per_call": 8},
+        "alltoall": {"lookup": "alltoall"},
+    }
+    t0 = time.perf_counter()
+    files = dict(train_files=(train_path,), validation_files=(valid_path,), log_every=4)
+    rec, observed = {"phase": "dist_b5", "config": CONFIG, "steps": TRAIN_BATCHES}, {}
+    for case, kw in cases.items():
+        base = _b5(**kw)
+        model = build_model(base)
+        fused = kw.get("adagrad_accumulator") == "fused"
+        _, _, init = _seeded_init(rng, tmp, f"dist_b5_{case}", base, model, fused)
+        outs = {}
+        for entry in ("train", "dist_train"):
+            cfg = _phase_cfg(base, tmp, f"dist_b5_{case}_{entry}", "cuda", init, **files)
+            outs[entry] = _run(f"dist_b5 {case} {entry}", cfg, entry=entry,
+                                trace=base.steps_per_call > 1)
+            tail = "fused_tail_adagrad" if fused else "rows_tail_adagrad"
+            _expect_steps(f"dist_b5 {case} {entry}", outs[entry]["launches"],
+                          TRAIN_BATCHES, tail)
+        a = unpack_state(outs["train"]["state"], model)
+        b = gather_logical_state(outs["dist_train"]["state"], model, make_mesh())
+        v = base.vocabulary_size
+        b = dataclasses.replace(b, table=b.table[:v], table_accum=b.table_accum[:v])
+        if _logged(outs["train"]["log"], "loss") != _logged(outs["dist_train"]["log"], "loss") \
+                or not _logical_equal(a, b):
+            fail(f"dist_b5 {case}: dist_train is not bitwise train")
+        observed[f"dist_b5_{case}"] = outs["dist_train"]["launches"]
+        rec[case] = {"bitwise": True, "launches": outs["dist_train"]["launches"],
+                     "train_launches": outs["train"]["launches"],
+                     "wall_ms": {d: o["wall_ms"] for d, o in outs.items()},
+                     "device_idle_share": outs["dist_train"].get("device_idle_share")}
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return observed
+
+
+def _gathered_world(rng, ids, d: int, ranks: int, vocab: int):
+    """The world-gathered ``(uids, gsum)`` of ``ranks`` synthetic ranks: the
+    batch's ids split into their B / P slices, random gradients, each
+    slice deduped and padded to M with the sentinel ``vocab``
+    (``dedup_rows_padded``), concatenated in rank order."""
+    import torch
+
+    from fast_tffm_tpu_torch.parallel.embedding import dedup_rows_padded
+
+    parts = torch.chunk(torch.from_numpy(ids), ranks)
+    u, g = [], []
+    for p in parts:
+        grads = torch.from_numpy(rng.standard_normal((p.numel(), d)).astype("float32"))
+        uids, gsum = dedup_rows_padded(p.reshape(-1), grads, vocab)
+        u.append(uids)
+        g.append(gsum)
+    return torch.cat(u), torch.cat(g)
+
+
+def phase_shard_update(rng, train_path: str) -> dict:
+    """The sharded update's apply on the card, at R = 2 and R = 4 with no
+    process group: one seeded [2^20, 9] table cut into R shards, the
+    world-gathered (uids, gsum) of R synthetic ranks from the first batch
+    (unowned ids and sentinels included); each shard's apply (B4 at base >
+    0: ``apply_shard_adagrad``) bitwise its plain twin on the CPU and the
+    R = 1 update's rows; B4 at the packed address and B3 on each shard's
+    packed and fused forms bitwise the rows kernel's logical result (element
+    and row accumulators); ``_bucketize`` and the routed send buffers on the
+    card equal to the CPU's.  The shard applies' times by CUDA events."""
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.ops.packed_table import (
+        fused_rows_per_tile,
+        pack_accum_any,
+        pack_fused,
+        pack_table,
+        rows_per_tile,
+        unpack_accum_any,
+        unpack_fused,
+        unpack_table,
+    )
+    from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
+    from fast_tffm_tpu_torch.parallel.alltoall import _bucketize, _send
+    from fast_tffm_tpu_torch.parallel.embedding import apply_shard_adagrad, owned_local_ids
+
+    t0 = time.perf_counter()
+    v, d, lr = 1 << 20, 9, 0.05
+    ids = _first_batch_ids(train_path, v)
+    table = torch.from_numpy(rng.uniform(-0.01, 0.01, (v, d)).astype(np.float32))
+    rec = {"phase": "shard_update", "V": v, "D": d, "M": int(ids.size)}
+    for ranks in (2, 4):
+        uids, gsum = _gathered_world(rng, ids, d, ranks, v)
+        out = {"Q": int(uids.numel()), "sentinels": int((uids >= v).sum())}
+        for acc_w in (d, 1):
+            accum = torch.full((v, acc_w), 0.1)
+            whole_t, whole_a = table.clone().cuda(), accum.clone().cuda()
+            apply_shard_adagrad(whole_t, whole_a, uids.cuda(), gsum.cuda(), lr, 0)
+            shard = v // ranks
+            times = []
+            for r in range(ranks):
+                lo = r * shard
+                got_t, got_a = table[lo:lo + shard].clone().cuda(), accum[lo:lo + shard].clone().cuda()
+                twin_t, twin_a = table[lo:lo + shard].clone(), accum[lo:lo + shard].clone()
+                apply_shard_adagrad(got_t, got_a, uids.cuda(), gsum.cuda(), lr, lo)
+                apply_shard_adagrad(twin_t, twin_a, uids, gsum, lr, lo)
+                if not (torch.equal(got_t.cpu(), twin_t) and torch.equal(got_a.cpu(), twin_a)
+                        and torch.equal(got_t, whole_t[lo:lo + shard])
+                        and torch.equal(got_a, whole_a[lo:lo + shard])):
+                    fail(f"shard_update R={ranks} shard {r} (accum width {acc_w}): the card's "
+                         "apply is not bitwise its twin and the R = 1 update")
+                p = rows_per_tile(d)
+                past = -(-shard // p) * p
+                loc32, _ = owned_local_ids(uids.long().cuda(), shard, r, past)
+                loc32 = loc32.to(torch.int32)
+                pt = pack_table(table[lo:lo + shard].clone().cuda())
+                pa = pack_accum_any(accum[lo:lo + shard].clone().cuda(), d, 0.1)
+                rows_tail_adagrad_update(pt, pa, loc32, gsum.cuda(), lr, packed=True)
+                if not (torch.equal(unpack_table(pt, shard, d), got_t)
+                        and torch.equal(unpack_accum_any(pa, shard, d), got_a)):
+                    fail(f"shard_update R={ranks} shard {r}: B4 packed is not the rows result")
+                if acc_w == 1:
+                    pf = fused_rows_per_tile(d)
+                    fpast = -(-shard // pf) * pf
+                    floc, _ = owned_local_ids(uids.long().cuda(), shard, r, fpast)
+                    fz = pack_fused(table[lo:lo + shard].clone().cuda(),
+                                    accum[lo:lo + shard].clone().cuda(), 0.1)
+                    fused_tail_adagrad_update(fz, floc.to(torch.int32), gsum.cuda(), lr)
+                    ft, fa = unpack_fused(fz, shard, d)
+                    if not (torch.equal(ft, got_t) and torch.equal(fa, got_a)):
+                        fail(f"shard_update R={ranks} shard {r}: B3 is not the rows result")
+                t_, a_ = table[lo:lo + shard].clone().cuda(), accum[lo:lo + shard].clone().cuda()
+                u_, g_ = uids.cuda(), gsum.cuda()
+                times.append(time_ms(lambda: apply_shard_adagrad(t_, a_, u_, g_, lr, lo), 5))
+            out[f"accum_{'element' if acc_w == d else 'row'}"] = {
+                "bitwise": True, "apply_ms_per_shard": times}
+        owner = (uids.long() // (v // ranks)).clamp(max=ranks)
+        cap = max(8, int(owner.numel() // ranks))
+        b_cpu = _bucketize(owner, ranks, cap)
+        b_gpu = _bucketize(owner.cuda(), ranks, cap)
+        same = all(torch.equal(x, y.cpu()) for x, y in zip(b_cpu, b_gpu))
+        s_cpu = _send(uids[b_cpu[0]], v, b_cpu[1], b_cpu[2], ranks, cap)
+        s_gpu = _send(uids.cuda()[b_gpu[0]], v, b_gpu[1], b_gpu[2], ranks, cap)
+        if not (same and torch.equal(s_cpu, s_gpu.cpu())):
+            fail(f"shard_update R={ranks}: the card's routing buffers differ from the CPU's")
+        out["routing_equal"] = True
+        out["routing_overflow"] = bool(b_cpu[4])
+        rec[f"R{ranks}"] = out
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+
+
+def phase_nccl_world1(rng, train_path: str) -> dict:
+    """An NCCL process group of world size 1 on the card (tcp store on
+    localhost).  The general (R > 1-shaped) branches, through a mesh with
+    its fast paths off, against the fast path, bitwise: ``sharded_gather``,
+    ``sharded_sparse_adagrad_update``, ``routed_gather`` / ``routed_update``
+    directly; then the sharded train step (baseline5, order 3) eagerly and
+    as a captured 4-step CUDA graph, allgather and alltoall, against the
+    single-device step on the same batches.  The only NCCL run a one-card
+    host allows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.data.pipeline import batch_stream
+    from fast_tffm_tpu_torch.distributed import free_port
+    from fast_tffm_tpu_torch.models.base import Batch
+    from fast_tffm_tpu_torch.ops.tail import rows_tail_adagrad_update
+    from fast_tffm_tpu_torch.parallel import Mesh, make_sharded_train_step
+    from fast_tffm_tpu_torch.parallel.alltoall import capacity_for, routed_gather, routed_update
+    from fast_tffm_tpu_torch.parallel.embedding import sharded_gather, sharded_sparse_adagrad_update
+    from fast_tffm_tpu_torch.trainer import init_state
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    rec = {"phase": "nccl_world1", "backend": dist.get_backend()}
+    try:
+        general, fast = Mesh(fast_paths=False), Mesh()
+        v, d, lr = 1 << 20, 9, 0.05
+        ids = torch.from_numpy(_first_batch_ids(train_path, v)).cuda()
+        table = torch.from_numpy(rng.uniform(-0.01, 0.01, (v, d)).astype(np.float32)).cuda()
+        grads = torch.from_numpy(rng.standard_normal((*ids.shape, d)).astype(np.float32)).cuda()
+        if not torch.equal(sharded_gather(table, ids, general), table[ids]):
+            fail("nccl_world1: the general sharded_gather is not table[ids]")
+        cap = capacity_for(ids.numel(), 1, 2.0)
+        if not torch.equal(routed_gather(table, ids, cap, general), table[ids]):
+            fail("nccl_world1: routed_gather is not table[ids]")
+        ref_t, ref_a = table.clone(), torch.full_like(table, 0.1)
+        rows_tail_adagrad_update(ref_t, ref_a, ids, grads, lr)
+        for name, update in (
+                ("sharded_sparse_adagrad_update",
+                 lambda t, a: sharded_sparse_adagrad_update(t, a, ids, grads, lr, v, general)),
+                ("routed_update",
+                 lambda t, a: routed_update(t, a, ids, grads, lr, v, cap, general))):
+            t, a = table.clone(), torch.full_like(table, 0.1)
+            update(t, a)
+            if not (torch.equal(t, ref_t) and torch.equal(a, ref_a)):
+                fail(f"nccl_world1: the general {name} is not the fast path's update")
+        rec["direct"] = {"gather": True, "routed_gather": True, "update": True,
+                         "routed_update": True}
+        base = _b5()
+        model = build_model(base)
+        stream = batch_stream([train_path], batch_size=BATCH, vocabulary_size=v, max_nnz=NNZ)
+        batches = [Batch.from_parsed(*next(stream)) for _ in range(4)]
+        superbatch = Batch(*(torch.stack([getattr(b, f.name) for b in batches])
+                             for f in dataclasses.fields(Batch)))
+        init = init_state(model, torch.Generator(device="cuda").manual_seed(0))
+        for lookup in ("allgather", "alltoall"):
+            for k in (1, 4):
+                states, losses = {}, {}
+                for label, mesh in (("fast", fast), ("general", general)):
+                    st = dataclasses.replace(
+                        init, table=init.table.clone(), table_accum=init.table_accum.clone())
+                    step = make_sharded_train_step(model, base.learning_rate, mesh,
+                                                   lookup=lookup, steps_per_call=k,
+                                                   overflow_mode="fallback")
+                    if k == 1:
+                        out = []
+                        for b in batches:
+                            st, loss = step(st, b.to("cuda"))
+                            out.append(loss)
+                        losses[label] = torch.stack(out)
+                    else:
+                        st, losses[label] = step(st, superbatch)
+                        if step.graphs.captures != 1:
+                            fail(f"nccl_world1: {lookup} k{k} {label} made "
+                                 f"{step.graphs.captures} graph captures")
+                    states[label] = st
+                if not (torch.equal(losses["fast"], losses["general"])
+                        and torch.equal(states["fast"].table, states["general"].table)
+                        and torch.equal(states["fast"].table_accum,
+                                        states["general"].table_accum)):
+                    fail(f"nccl_world1: the general {lookup} step (k{k}) is not the fast path's")
+                rec[f"{lookup}_k{k}"] = {"bitwise": True,
+                                         "losses": losses["general"].cpu().tolist()}
+    finally:
+        dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+
+
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
                    shapes=None, packed=None) -> dict:
     rec = {
@@ -4879,8 +5346,17 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     fwd = phase_anova(rng)
     bwd = phase_anova_bwd(rng)
+    only_dist = sys.argv[1:] == ["--only", "dist"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train_path, valid_path, big_path = phase_data(tmp)
+        b2_jobs = _start_b2_data(tmp)
+        if only_dist:
+            # A short run of this slice's phases alone (no result line).
+            phase_dist_b2(tmp, b2_jobs)
+            phase_dist_b5(np.random.default_rng(SEED + 15), tmp, train_path, valid_path)
+            phase_shard_update(np.random.default_rng(SEED + 16), train_path)
+            phase_nccl_world1(np.random.default_rng(SEED + 17), train_path)
+            return 0
         zoo_paths = phase_data_zoo(tmp)
         phase_parse(train_path)
         tail = phase_rows_tail(rng, train_path)
@@ -4943,6 +5419,13 @@ def main() -> int:
         observed.update(phase_wire(np.random.default_rng(SEED + 14), tmp, train_path))
         observed.update(phase_tiered(tmp, train_path, valid_path))
         observed.update(phase_tiered_big(tmp))
+        # This slice's phases: dist_train / dist_predict at full width, the
+        # shard apply at R = 2 and 4, NCCL at world size 1.
+        observed.update(phase_dist_b2(tmp, b2_jobs))
+        observed.update(phase_dist_b5(np.random.default_rng(SEED + 15), tmp, train_path,
+                                      valid_path))
+        phase_shard_update(np.random.default_rng(SEED + 16), train_path)
+        phase_nccl_world1(np.random.default_rng(SEED + 17), train_path)
         phase_throughput(tmp, big_path)
         phase_telemetry_cost(tmp, big_path)
     src = "fast_tffm_tpu_torch/csrc/"

@@ -32,10 +32,19 @@
     publishes them through ``save_delta``, then applies.  Publish before
     apply is crash-consistency invariant 7.
 
+  * **Multi-process runs** (``runtime``, an active
+    ``distributed.DistributedRuntime``): the single-writer npz protocol.
+    Every rank posts its input cursor and joins ``saveable`` (the
+    collective gather of the logical state onto rank 0); rank 0 alone
+    writes, embedding the per-rank cursor vector (``hosts``), and posts the
+    content signature; every other rank waits on that signature before it
+    goes on (the save barrier).  These saves are synchronous: async and
+    delta saves across processes are a later slice (``dist_train`` refuses
+    them).
+
 Every save emits a ``kind=ckpt`` record (``mode`` full / delta / sync, its
 snapshot, convert, D2H and write times, bytes, rows and the train loop's
-stall) through the RunMonitor.  The JAX module's multi-process
-single-writer path is a later slice of the port.
+stall) through the RunMonitor.
 """
 
 from __future__ import annotations
@@ -130,6 +139,7 @@ class AsyncCheckpointer:
         start_step: int = 0,
         cursor_fn=None,
         paramstore=None,
+        runtime=None,
     ):
         self._path = path
         self._device = torch.device(device)
@@ -139,7 +149,9 @@ class AsyncCheckpointer:
         # A tiered run's saves are synchronous: the store apply must follow
         # the npz publish (config.validate refuses async_save with it).
         self._ps = paramstore
-        self._async = bool(async_save) and paramstore is None
+        self._rt = runtime if (runtime is not None and runtime.active) else None
+        self._seq = 0  # save boundaries so far: the same on every rank
+        self._async = bool(async_save) and paramstore is None and self._rt is None
         self._delta_every = int(delta_every_steps)
         self._chain_max = max(1, int(delta_chain_max))
         self._full_every_s = float(full_every_s)
@@ -225,6 +237,47 @@ class AsyncCheckpointer:
             log_quietly(self._log, f"cursor capture failed (saving without one): {e!r}")
             return None
 
+    def _merged_cursor(self, seq: int) -> dict | None:
+        """Multi-process: every rank posts its cursor; the lead embeds the
+        vector (``hosts[p]``: rank p's position), the JAX member layout."""
+        cursor = self._cursor()
+        vec = self._rt.share_cursor(seq, cursor)
+        if vec is None:  # a non-lead rank posted its own
+            return cursor
+        merged = dict(cursor or {})
+        merged["process_count"] = self._rt.process_count
+        merged["hosts"] = [{"process": p, "epoch": (c or {}).get("epoch"),
+                            "batch_in_epoch": (c or {}).get("batch_in_epoch")}
+                           for p, c in enumerate(vec)]
+        return merged
+
+    def _single_writer_save(self, state, saveable, step: int, t0: float, emit: bool) -> None:
+        """The multi-process full save (see the module docstring)."""
+        self._seq += 1
+        cursor = self._merged_cursor(self._seq)
+        logical = saveable(state)  # collective: every rank, the state on rank 0
+        if not self._rt.is_lead:
+            self._rt.await_signature(self._seq)
+            return
+        sid = uuid.uuid4().hex
+        t1 = time.perf_counter()
+        timings: dict = {}
+        try:
+            nbytes = save_checkpoint(self._path, logical, chunk_bytes=self._chunk, save_id=sid,
+                                     cursor=cursor, timings=timings, staging=self._staging)
+        except Exception:
+            with self._lock:
+                self.write_failures += 1
+            self._rt.publish_signature(self._seq, None, "failed")
+            raise
+        self._rt.publish_signature(self._seq, sid, "full")
+        self._on_full_published(sid)
+        self.sync_saves += 1
+        if emit:
+            self._emit("sync", step, timings, nbytes=nbytes, rows=logical.table.shape[0],
+                       snapshot_ms=0.0, convert_ms=(t1 - t0) * 1e3,
+                       train_stall_ms=(time.perf_counter() - t0) * 1e3)
+
     # -- boundaries -------------------------------------------------------
 
     def save_boundary(self, state, saveable, step: int, *, sync: bool = False,
@@ -237,6 +290,8 @@ class AsyncCheckpointer:
             # A full save supersedes the accumulated window either way.
             self._bitmap = self._fresh_bitmap() if self._bitmap is not None else None
             self._last_boundary_step = int(step)
+        if self._rt is not None:
+            return self._single_writer_save(state, saveable, step, t0, emit)
         cursor = self._cursor()
         if self._ps is not None:
             return self._tiered_full(state, step, cursor, t0, emit)

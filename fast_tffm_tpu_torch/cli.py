@@ -32,6 +32,17 @@ package's CLI (``fast_tffm_tpu/cli.py``):
   convert <cfg>            pack every configured train, validation and predict
                            file into its <file>.fmb cache (one file at a time;
                            rc 1 when any file failed)
+  dist_train <cfg>         train over the [data, row] mesh of ranks on
+                           torch.distributed: one process per rank and
+                           device, [Distributed] num_processes, process_id
+                           and coordinator_address (host:port of rank 0) or
+                           a launcher's WORLD_SIZE / RANK / MASTER_ADDR /
+                           MASTER_PORT; the table row-sharded, each rank
+                           parsing its rows of every batch; rank 0 writes
+                           the checkpoints.  --resume, --fault-plan and (one
+                           process) --supervised as for train
+  dist_predict <cfg>       predict over the same mesh; rank 0 writes
+                           score_path
 
 The reference's trailing ``job_name task_index`` arguments are taken and
 ignored with a note on stderr, as the JAX CLI does.  Logs go to stderr.
@@ -40,9 +51,9 @@ ignored with a note on stderr, as the JAX CLI does.  Logs go to stderr.
 ``--metrics-path``, ``--run-id`` and ``--profile-steps`` override
 ``[Train] metrics_path``, ``[Telemetry] run_id`` and ``[Telemetry]
 profile_steps`` (the JAX CLI's flags): a run is instrumented, and rendered
-with ``tools/report.py``, without editing its config.  The distributed
-verbs, and the pod supervision and ``--fault-process`` of multi-process
-training, are a later slice of the port.
+with ``tools/report.py``, without editing its config.  The pod supervision
+of multi-process training (``dist_train --supervised`` with
+``num_processes`` > 1, ``--fault-process``) is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -55,17 +66,22 @@ from fast_tffm_tpu_torch.config import load_config
 from fast_tffm_tpu_torch.profiling import parse_profile_steps
 from fast_tffm_tpu_torch.telemetry import enable_compilation_cache
 
-__all__ = ["main"]
+__all__ = ["main", "MODES"]
+
+MODES = ("train", "predict", "dist_train", "dist_predict", "convert", "serve")
+_POD = ("the pod supervision of multi-process training (item 10 of ROADMAP.md §A), "
+        "which fast_tffm_tpu_torch has not ported yet; use fast_tffm_tpu")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="fast_tffm_tpu_torch.cli")
-    ap.add_argument("mode", choices=["train", "predict", "serve", "convert"])
+    ap.add_argument("mode", choices=MODES)
     ap.add_argument("config")
     ap.add_argument("legacy", nargs="*",
                     help="ignored job_name/task_index (the reference's cluster arguments)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    ap.add_argument("--resume", action="store_true", help="train: restore model_file first")
+    ap.add_argument("--resume", action="store_true",
+                    help="train, dist_train: restore model_file first")
     ap.add_argument("--port", type=int, default=None, metavar="P",
                     help="serve: run the socket front end on port P (0 = ephemeral); "
                     "overrides [Serving] port")
@@ -93,16 +109,16 @@ def main(argv=None) -> int:
     ap.add_argument("--fault-horizon", type=int, default=1000, metavar="STEPS",
                     help="step horizon random: fault plans draw positions from")
     ap.add_argument("--fault-process", type=int, default=None, metavar="P",
-                    help="not ported: multi-process training's fault placement")
+                    help="not ported: the pod-supervised dist_train's fault placement")
     args = ap.parse_args(argv)
-    if args.resume and args.mode != "train":
-        ap.error("--resume applies to the train verb")
-    if (args.supervised or args.fault_plan) and args.mode != "train":
-        ap.error("--supervised and --fault-plan apply to the train verb")
+    training = args.mode in ("train", "dist_train")
+    if args.resume and not training:
+        ap.error("--resume applies to the train and dist_train verbs")
+    if (args.supervised or args.fault_plan) and not training:
+        ap.error("--supervised and --fault-plan apply to the train verb (and dist_train)")
     if args.fault_process is not None:
-        ap.error("--fault-process places faults on the processes of a multi-process run "
-                 "(dist_train), which fast_tffm_tpu_torch has not ported yet (item 10 of "
-                 "ROADMAP.md); use fast_tffm_tpu")
+        ap.error(f"--fault-process places faults on the processes of a pod-supervised "
+                 f"dist_train: {_POD}")
     if args.port is not None and args.mode != "serve":
         ap.error("--port applies to the serve verb")
     cfg = load_config(args.config)
@@ -126,10 +142,12 @@ def main(argv=None) -> int:
     if cfg.telemetry_compilation_cache_dir:
         enable_compilation_cache(cfg.telemetry_compilation_cache_dir, log)
 
-    if args.mode == "train" and args.supervised:
+    if training and args.supervised:
+        if args.mode == "dist_train" and cfg.num_processes > 1:
+            ap.error(f"dist_train --supervised with num_processes = {cfg.num_processes} is {_POD}")
         return _supervise(cfg, args, log)
-    if args.mode == "train":
-        from fast_tffm_tpu_torch.training import train
+    if training:
+        from fast_tffm_tpu_torch.training import dist_train, train
 
         step_hook = None
         if args.fault_plan:
@@ -139,12 +157,13 @@ def main(argv=None) -> int:
                                                  horizon=args.fault_horizon))
             log(f"fault plan armed: {inj.plan.to_json()}")
             step_hook = inj.step_hook
-        train(cfg, resume=args.resume, log=log, device=args.device, step_hook=step_hook)
+        run = train if args.mode == "train" else dist_train
+        run(cfg, resume=args.resume, log=log, device=args.device, step_hook=step_hook)
         return 0
-    if args.mode == "predict":
-        from fast_tffm_tpu_torch.prediction import predict
+    if args.mode in ("predict", "dist_predict"):
+        from fast_tffm_tpu_torch.prediction import dist_predict, predict
 
-        predict(cfg, log=log, device=args.device)
+        (predict if args.mode == "predict" else dist_predict)(cfg, log=log, device=args.device)
         return 0
     if args.mode == "convert":
         from fast_tffm_tpu_torch.device import resolve_device
@@ -164,17 +183,17 @@ def main(argv=None) -> int:
 
 
 def _supervise(cfg, args, log) -> int:
-    """``train --supervised``: this process stays off the device (it
-    imports no torch) and runs ``python -m fast_tffm_tpu_torch.cli train``
-    as its child under ``resilience.Supervisor``, relaunching it with
-    ``--resume`` after a crash.  The supervisor's records and every child's
-    share one run id."""
+    """``train --supervised`` (and one-process ``dist_train --supervised``):
+    this process stays off the device (it imports no torch) and runs
+    ``python -m fast_tffm_tpu_torch.cli <verb>`` as its child under
+    ``resilience.Supervisor``, relaunching it with ``--resume`` after a
+    crash.  The supervisor's records and every child's share one run id."""
     from fast_tffm_tpu_torch.resilience import Supervisor
     from fast_tffm_tpu_torch.telemetry import new_run_id
 
     if not cfg.telemetry_run_id:
         cfg.telemetry_run_id = new_run_id()
-    base = [sys.executable, "-m", "fast_tffm_tpu_torch.cli", "train", args.config,
+    base = [sys.executable, "-m", "fast_tffm_tpu_torch.cli", args.mode, args.config,
             "--device", args.device]
     if args.metrics_path is not None:
         base += ["--metrics-path", args.metrics_path]

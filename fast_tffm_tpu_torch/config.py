@@ -1,12 +1,11 @@
-"""INI config for the port: the JAX package's key vocabulary, cut to the
-ported paths (training, offline prediction, serving of FM, FFM and DeepFM).
+"""INI config for the port: the JAX package's key vocabulary.
 
-A copy of ``fast_tffm_tpu/config.py`` reduced to what those paths read.
-It parses the same files (``sample.cfg``, ``configs/*.cfg``) with the same
-sections, keys and defaults; keys it does not model are ignored, as they
-are by ``ConfigParser`` reads of absent options.  Configurations this port
-cannot run yet (orbax checkpoints) are refused by ``Config.validate`` with a
-``ValueError`` that names the later slice, never run differently.
+A copy of ``fast_tffm_tpu/config.py``: it parses the same files
+(``sample.cfg``, ``configs/*.cfg``) with the same sections, keys, defaults
+and checks, ``[Distributed]`` included, and reads every key the JAX
+package reads.  Configurations this port cannot run yet (orbax
+checkpoints) are refused by ``Config.validate`` with a ``ValueError`` that
+names the later slice, never run differently.
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ class Config:
     #   einsums: float32 | bfloat16 (operands rounded to bfloat16, products
     #   accumulated in float32, float32 master weights)
     vocabulary_size: int = 1 << 20
+    vocabulary_block_num: int = 1  # the reference's key; row_parallel's default
     hash_feature_id: bool = False
     table_layout: str = "rows"  # rows ([V, D]) | packed (lane-packed tile
     #   rows, ops/packed_table.py; with any adagrad_accumulator)
@@ -87,6 +87,8 @@ class Config:
     #   0 = all usable cores): every text stream of train, validation and
     #   predict parses through it
     binary_cache: bool = False  # parse text once into <file>.fmb, stream that
+    binary_cache_wait: float = 600.0  # multi-process: how long a non-lead rank
+    #   waits for the lead's cache build before building its own (s)
     shuffle: bool = False  # per-epoch global shuffle of train rows (FMB input only)
     shuffle_seed: int = 0
     device_cache: bool = False  # the (FMB) train set resident on the device,
@@ -195,6 +197,27 @@ class Config:
     restart_max: int = 5  # the serving router's replica restarts (bounded)
     restart_backoff_s: float = 1.0  # restart backoff base (doubles)
     restart_backoff_max_s: float = 30.0  # restart backoff cap
+    # [Distributed] (dist_train / dist_predict: one rank per process and
+    # device, parallel/mesh.py)
+    data_parallel: int = 0  # 0 = the ranks left after row_parallel
+    row_parallel: int = 0  # 0 = vocabulary_block_num
+    lookup: str = "allgather"  # the embedding lookup's collective (| alltoall)
+    lookup_capacity_factor: float = 2.0  # alltoall per-destination slack
+    lookup_overflow: str = "fallback"  # fallback (the step through allgather)
+    #   | abort (the loss goes NaN before any save)
+    coordinator_address: str = ""  # host:port of rank 0's store (tcp://)
+    num_processes: int = 0  # ranks in the run (world size); <= 1: no group
+    process_id: int = -1  # this process's rank
+    input_assignment: str = "rows"  # streamed input split: rows (block-cyclic
+    #   line sharding of every file) | files (rank p streams files [p::P]
+    #   whole; short ranks pad the epoch tail with weight-0 batches)
+    runtime_dir: str = ""  # shared coordination dir (the file KV; heartbeats
+    #   and the generation file belong to pod supervision, a later slice)
+    heartbeat_s: float = 2.0  # per-host heartbeat cadence (pod supervision)
+    host_stall_timeout_s: float = 0.0  # peer-heartbeat staleness (pod
+    #   supervision; > 0 is refused by dist_train in this port)
+    barrier_timeout_s: float = 120.0  # cross-process barrier / signature /
+    #   cursor-gather wait budget; a timeout means a peer is gone
 
     def validate(self) -> "Config":
         if self.model not in ("fm", "ffm", "deepfm"):
@@ -221,14 +244,16 @@ class Config:
             raise ValueError(f"unknown checkpoint_format {self.checkpoint_format!r}")
         if self.checkpoint_format == "orbax":
             raise ValueError(
-                "checkpoint_format = orbax is not ported yet (sharded "
-                "checkpoints are a later slice of fast_tffm_tpu_torch); use npz"
+                "checkpoint_format = orbax is not ported yet (reading and writing "
+                "the JAX package's orbax directories is a later slice of "
+                "fast_tffm_tpu_torch, ROADMAP.md §A); use npz"
             )
         if self.max_nnz < 0:
             raise ValueError(f"max_nnz must be >= 0, got {self.max_nnz}")
         if self.wire_format not in ("packed", "arrays"):
             raise ValueError(f"unknown wire_format {self.wire_format!r} (packed | arrays)")
         self._validate_train()
+        self._validate_distributed()
         self.serve_buckets = validate_buckets(self.serve_buckets)
         if self.serve_max_batch < 0:
             raise ValueError(
@@ -337,6 +362,28 @@ class Config:
                 f"unknown [ParamStore] materialize {self.paramstore_materialize!r} "
                 "(auto | always | never)"
             )
+
+    def _validate_distributed(self) -> None:
+        """The JAX checks of the ``[Distributed]`` keys, in its words."""
+        if self.lookup not in ("allgather", "alltoall"):
+            raise ValueError(f"unknown lookup {self.lookup!r} (allgather | alltoall)")
+        if self.lookup_overflow not in ("fallback", "abort"):
+            raise ValueError(
+                f"unknown lookup_overflow {self.lookup_overflow!r} (fallback | abort)"
+            )
+        if self.input_assignment not in ("rows", "files"):
+            raise ValueError(
+                f"unknown input_assignment {self.input_assignment!r} (rows | files)"
+            )
+        if self.heartbeat_s <= 0:
+            raise ValueError(f"heartbeat_s must be > 0, got {self.heartbeat_s}")
+        if self.host_stall_timeout_s < 0:
+            raise ValueError(
+                f"host_stall_timeout_s must be >= 0 (0 = off), got "
+                f"{self.host_stall_timeout_s}"
+            )
+        if self.barrier_timeout_s <= 0:
+            raise ValueError(f"barrier_timeout_s must be > 0, got {self.barrier_timeout_s}")
 
     def check_width(self, max_nnz: int) -> None:
         """Refuse a slot width the model cannot take (DeepFM: max_nnz must
@@ -641,6 +688,7 @@ def load_config(path: str) -> Config:
     )
     cfg.compute_dtype = get(g, "compute_dtype", str, cfg.compute_dtype).lower()
     cfg.vocabulary_size = get(g, "vocabulary_size", int, cfg.vocabulary_size)
+    cfg.vocabulary_block_num = get(g, "vocabulary_block_num", int, cfg.vocabulary_block_num)
     cfg.hash_feature_id = get(g, "hash_feature_id", boolean, cfg.hash_feature_id)
     cfg.table_layout = get(g, "table_layout", str, cfg.table_layout).lower()
     cfg.model_file = get(g, "model_file", str, cfg.model_file)
@@ -668,6 +716,7 @@ def load_config(path: str) -> Config:
     cfg.tail = get(t, "tail", str, cfg.tail).lower()
     cfg.thread_num = get(t, "thread_num", int, cfg.thread_num)
     cfg.binary_cache = get(t, "binary_cache", boolean, cfg.binary_cache)
+    cfg.binary_cache_wait = get(t, "binary_cache_wait", float, cfg.binary_cache_wait)
     cfg.shuffle = get(t, "shuffle", boolean, cfg.shuffle)
     cfg.shuffle_seed = get(t, "shuffle_seed", int, cfg.shuffle_seed)
     cfg.device_cache = get(t, "device_cache", boolean, cfg.device_cache)
@@ -761,6 +810,24 @@ def load_config(path: str) -> Config:
     cfg.restart_backoff_max_s = get(
         r, "restart_backoff_max_s", float, cfg.restart_backoff_max_s
     )
+    d = "Distributed"
+    cfg.data_parallel = get(d, "data_parallel", int, cfg.data_parallel)
+    cfg.row_parallel = get(d, "row_parallel", int, cfg.row_parallel)
+    cfg.lookup = get(d, "lookup", str, cfg.lookup).lower()
+    cfg.lookup_overflow = get(d, "lookup_overflow", str, cfg.lookup_overflow).lower()
+    cfg.lookup_capacity_factor = get(
+        d, "lookup_capacity_factor", float, cfg.lookup_capacity_factor
+    )
+    cfg.coordinator_address = get(d, "coordinator_address", str, cfg.coordinator_address)
+    cfg.num_processes = get(d, "num_processes", int, cfg.num_processes)
+    cfg.process_id = get(d, "process_id", int, cfg.process_id)
+    cfg.input_assignment = get(d, "input_assignment", str, cfg.input_assignment).lower()
+    cfg.runtime_dir = get(d, "runtime_dir", str, cfg.runtime_dir)
+    cfg.heartbeat_s = get(d, "heartbeat_s", float, cfg.heartbeat_s)
+    cfg.host_stall_timeout_s = get(
+        d, "host_stall_timeout_s", float, cfg.host_stall_timeout_s
+    )
+    cfg.barrier_timeout_s = get(d, "barrier_timeout_s", float, cfg.barrier_timeout_s)
     return cfg.validate()
 
 

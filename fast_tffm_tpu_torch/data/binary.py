@@ -313,6 +313,31 @@ def draw_permutation(seed: int, epoch: int, n: int) -> np.ndarray:
     return np.random.default_rng((seed, epoch)).permutation(n)
 
 
+def _shard_runs(counter: int, n: int, shard_index: int, shard_count: int,
+                block: int) -> Iterator[tuple[int, int]]:
+    """The contiguous local ``[start, stop)`` row runs of this shard's
+    selection in a file whose row 0 has global index ``counter``: global
+    row g is ours iff ``(g // block) % shard_count == shard_index``, so the
+    owned rows are runs of ``block`` every ``shard_count · block`` rows
+    (each copy stays a memcpy)."""
+    if shard_count == 1:
+        if n > 0:
+            yield 0, n
+        return
+    block = max(1, block)
+    period = shard_count * block
+    lo, hi = counter, counter + n
+    m = (lo - shard_index * block) // period  # the first run touching lo
+    while True:
+        start = m * period + shard_index * block
+        if start >= hi:
+            return
+        s, e = max(start, lo), min(start + block, hi)
+        if s < e:
+            yield s - counter, e - counter
+        m += 1
+
+
 def fmb_batch_stream(
     files: Sequence[str],
     *,
@@ -321,6 +346,9 @@ def fmb_batch_stream(
     hash_feature_id: bool = False,
     max_nnz: int | None = None,
     epochs: int = 1,
+    shard_index: int = 0,
+    shard_count: int = 1,
+    shard_block: int = 1,
     weights: Sequence[float] | None = None,
     drop_remainder: bool = False,
     pad_to_batches: int | None = None,
@@ -346,10 +374,16 @@ def fmb_batch_stream(
     from the seed as without a seek) are passed over without a copy, and
     count as emitted for ``pad_to_batches``.  Reads retry a transient
     OSError ``io_retries`` times (backoff doubling from
-    ``io_retry_backoff_s``), each retry a line to ``log``.  (The JAX
-    stream's multi-host sharding is a later slice of the port.)"""
-    from fast_tffm_tpu_torch.data.pipeline import emit_assembled_tail
+    ``io_retry_backoff_s``), each retry a line to ``log``.
 
+    ``shard_*`` select this shard's rows by ``pipeline``'s block-cyclic
+    rule on the global row index (across files); shuffled, the rule picks
+    output SLOTS of the epoch's permutation, so the shards assemble the
+    same global batches from disjoint slot ranges.  ``skip_rows`` counts
+    rows of this shard's selection."""
+    from fast_tffm_tpu_torch.data.pipeline import check_shard_block, emit_assembled_tail
+
+    check_shard_block(shard_block, epochs)
     if weights is not None and len(weights) != len(files):
         raise ValueError(f"weights has {len(weights)} entries for {len(files)} files")
     if skip_rows < 0 or skip_rows % batch_size:
@@ -437,8 +471,14 @@ def fmb_batch_stream(
     if shuffle_seed is not None:
         bounds = np.cumsum([0] + [f.n_rows for f in fs])
         total = int(bounds[-1])
+        slot_base = 0  # the global slot counter across epochs (the cyclic rule's)
+        block = max(1, shard_block)
         for e in range(max(0, epochs)):
             rows = draw_permutation(shuffle_seed, e, total)  # source row per slot
+            if shard_count > 1:
+                slots = np.arange(total, dtype=np.int64)
+                rows = rows[((slot_base + slots) // block) % shard_count == shard_index]
+            slot_base += total
             # A seek drops the consumed prefix of the redrawn permutation:
             # slot j of a resumed epoch is slot j of the original.
             adv = min(skip_left, len(rows))
@@ -459,21 +499,42 @@ def fmb_batch_stream(
                     if done():
                         return
     else:
+        counter = 0  # the global row index, across files and epochs
         for _ in range(max(0, epochs)):
             for fi, f in enumerate(fs):
-                lo = min(skip_left, f.n_rows)  # the seek: no copy of skipped rows
-                skip_left -= lo
-                while lo < f.n_rows:
-                    take = min(f.n_rows - lo, batch_size - filled)
-                    copy_rows(fi, slice(lo, lo + take), slice(filled, filled + take))
-                    filled += take
-                    lo += take
-                    if filled == batch_size:
-                        yield cycle_buffers()
-                        if done():
-                            return
+                for lo, hi in _shard_runs(counter, f.n_rows, shard_index, shard_count,
+                                          shard_block):
+                    adv = min(skip_left, hi - lo)  # the seek: no copy of skipped rows
+                    skip_left -= adv
+                    lo += adv
+                    while lo < hi:
+                        take = min(hi - lo, batch_size - filled)
+                        copy_rows(fi, slice(lo, lo + take), slice(filled, filled + take))
+                        filled += take
+                        lo += take
+                        if filled == batch_size:
+                            yield cycle_buffers()
+                            if done():
+                                return
+                counter += f.n_rows
     yield from emit_assembled_tail(alloc, tuple(bufs), filled, emitted, drop_remainder,
                                    pad_to_batches)
+
+
+def _writable(cache_path: str) -> bool:
+    """Can a file be created beside ``cache_path``?  (A unique probe file;
+    the cache itself is never touched non-atomically.)"""
+    probe = f"{cache_path}.{socket.gethostname()}.{os.getpid()}.{uuid.uuid4().hex[:8]}.probe"
+    try:
+        with open(probe, "wb"):
+            pass
+    except OSError:
+        return False
+    try:
+        os.remove(probe)
+    except OSError:
+        pass
+    return True
 
 
 # Cache paths whose build failed in this process (ENOSPC, quota, …): later
@@ -489,6 +550,7 @@ def ensure_fmb_cache(
     max_nnz: int | None = None,
     parser=None,
     log=print,
+    wait_for_peer: float = 0.0,
 ) -> tuple[str, ...]:
     """Map text files to fresh ``<file>.fmb`` caches, converting as needed.
 
@@ -501,8 +563,12 @@ def ensure_fmb_cache(
     as the text files, with a log line that says so, and the stream parses
     them; the batches are the same either way.  When the list mixes in
     FMB files that have no text form, that is an OSError naming them.
-    (The JAX function's multi-host ``wait_for_peer`` is a later slice of
-    the port.)"""
+
+    ``wait_for_peer`` > 0 (a non-lead rank of a multi-process run,
+    ``[Train] binary_cache_wait``) polls up to that many seconds, one
+    budget for the whole list, for another process to finish a stale
+    cache before building it here: on a shared filesystem the lead builds
+    once.  It waits only where a cache can be written at all."""
 
     def check_fresh(cache, st):
         try:
@@ -541,13 +607,20 @@ def ensure_fmb_cache(
         return tuple(os.fspath(p) for p in files)
 
     out: list[str] = []
+    deadline = time.monotonic() + wait_for_peer if wait_for_peer > 0 else 0.0
     for path in files:
         path = os.fspath(path)
         if is_fmb(path):
             out.append(path)
             continue
         cache = path + ".fmb"
-        if not check_fresh(cache, os.stat(path)):
+        st = os.stat(path)
+        fresh = check_fresh(cache, st)
+        if not fresh and wait_for_peer > 0 and cache not in _BUILD_FAILED and _writable(cache):
+            while not fresh and time.monotonic() < deadline:
+                time.sleep(min(1.0, wait_for_peer))
+                fresh = check_fresh(cache, st)
+        if not fresh:
             if cache in _BUILD_FAILED:
                 return fall_back_to_text(path, cache, "previous build failed")
             log(f"building binary cache {cache}")

@@ -153,6 +153,9 @@ def native_batch_stream(
     hash_feature_id: bool = False,
     max_nnz: int,
     epochs: int = 1,
+    shard_index: int = 0,
+    shard_count: int = 1,
+    shard_block: int = 1,
     weights=None,
     drop_remainder: bool = False,
     pad_to_batches: int | None = None,
@@ -166,10 +169,11 @@ def native_batch_stream(
     ``fm_reader_next``: Python only schedules files and yields the filled
     buffers (fresh ones per batch).  Batches span file and epoch boundaries
     as the Python stream's do.  Ids are int32 whenever the vocabulary fits
-    (the device batch's dtype).  (The JAX stream's multi-host line sharding
-    is a later slice of the port.)"""
-    from fast_tffm_tpu_torch.data.pipeline import emit_assembled_tail
+    (the device batch's dtype).  ``shard_*`` shard the lines block-cyclically
+    by global non-blank line index, inside C++ (``pipeline``'s rule)."""
+    from fast_tffm_tpu_torch.data.pipeline import check_shard_block, emit_assembled_tail
 
+    check_shard_block(shard_block, epochs)
     if weights is not None and len(weights) != len(files):
         raise ValueError(f"weights has {len(weights)} entries for {len(files)} files")
     lib = parser._lib
@@ -193,7 +197,8 @@ def native_batch_stream(
     for _ in range(max(0, epochs)):
         for fi, path in enumerate(files):
             fw = 1.0 if weights is None else float(weights[fi])
-            handle = lib.fm_reader_open2(os.fspath(path).encode(), 0, 1, 1, counter)
+            handle = lib.fm_reader_open2(os.fspath(path).encode(), shard_index, shard_count,
+                                         max(1, shard_block), counter)
             if not handle:
                 raise FileNotFoundError(path)
             try:

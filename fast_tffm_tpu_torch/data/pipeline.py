@@ -13,7 +13,12 @@ weight-0 rows, so the loss and the AUC ignore them.  It routes by input:
   ``libsvm.parse_lines``).
 
 ``skip_rows`` (a whole number of batches) is the exact-position resume's
-seek on every route.  Multi-host sharding is a later slice of the port.
+seek on every route.  ``shard_index`` / ``shard_count`` / ``shard_block``
+shard every route block-cyclically by global line index (line i goes to
+shard ``(i // shard_block) % shard_count``): with the block at the local
+batch size, rank p of P parses exactly rows ``[p·B/P, (p+1)·B/P)`` of every
+global batch (``dist_train``); ``pad_to_batches`` pads a short shard with
+weight-0 batches, so every rank runs the same number of steps.
 """
 
 from __future__ import annotations
@@ -46,24 +51,41 @@ def emit_assembled_tail(alloc, buffers, filled, emitted, drop_remainder, pad_to_
             emitted += 1
 
 
+def check_shard_block(shard_block: int, epochs: int) -> None:
+    """``shard_block > 1`` needs one pass: the line counter runs across
+    epoch repeats, so a second pass would start mid-block."""
+    if shard_block > 1 and epochs != 1:
+        raise ValueError(
+            "shard_block > 1 requires epochs == 1 (batch-aligned sharding "
+            "does not survive epoch boundaries); create one stream per epoch"
+        )
+
+
 def line_stream(
     files: Sequence[str],
     *,
     epochs: int = 1,
+    shard_index: int = 0,
+    shard_count: int = 1,
+    shard_block: int = 1,
     weights: Sequence[float] | None = None,
 ) -> Iterator[tuple[str, float]]:
     """Yield (line, example_weight) over ``files`` for ``epochs`` passes,
     skipping blank lines; ``weights`` is a per-file example weight
-    (default 1.0)."""
+    (default 1.0).  Sharded block-cyclically by global non-blank line index
+    (see the module docstring)."""
     if weights is not None and len(weights) != len(files):
         raise ValueError(f"weights has {len(weights)} entries for {len(files)} files")
+    check_shard_block(shard_block, epochs)
+    counter = itertools.count()
+    block = max(1, shard_block)
     for _ in range(epochs):
         for fi, path in enumerate(files):
             w = 1.0 if weights is None else float(weights[fi])
             with open(path) as f:
                 for line in f:
                     line = line.strip()
-                    if line:
+                    if line and (next(counter) // block) % shard_count == shard_index:
                         yield line, w
 
 
@@ -75,6 +97,9 @@ def batch_stream(
     hash_feature_id: bool = False,
     max_nnz: int | None = None,
     epochs: int = 1,
+    shard_index: int = 0,
+    shard_count: int = 1,
+    shard_block: int = 1,
     weights: Sequence[float] | None = None,
     drop_remainder: bool = False,
     pad_to_batches: int | None = None,
@@ -107,7 +132,9 @@ def batch_stream(
     lines before parsing, and the native path drops the first
     ``skip_rows / batch_size`` parsed batches (it has no random access).
     Skipped batches count as emitted for ``pad_to_batches``, so a resumed
-    stream emits exactly the remaining batches."""
+    stream emits exactly the remaining batches.  ``shard_*``: this shard's
+    lines only (the module docstring); ``skip_rows`` counts rows of the
+    shard."""
     from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache, fmb_batch_stream, is_fmb
     from fast_tffm_tpu_torch.data.native import NativeParser, native_batch_stream
 
@@ -117,6 +144,7 @@ def batch_stream(
             f"(batch_size {batch_size}), got {skip_rows}"
         )
     skip_batches = skip_rows // batch_size
+    shard = dict(shard_index=shard_index, shard_count=shard_count, shard_block=shard_block)
     if pad_to_batches is not None and max_nnz is None:
         raise ValueError(
             "pad_to_batches requires max_nnz (pad batches must share the "
@@ -136,7 +164,7 @@ def batch_stream(
             )
         yield from fmb_batch_stream(
             files, batch_size=batch_size, vocabulary_size=vocabulary_size,
-            hash_feature_id=hash_feature_id, max_nnz=max_nnz, epochs=epochs,
+            hash_feature_id=hash_feature_id, max_nnz=max_nnz, epochs=epochs, **shard,
             weights=weights, drop_remainder=drop_remainder, pad_to_batches=pad_to_batches,
             shuffle_seed=shuffle_seed, skip_rows=skip_rows, io_retries=io_retries,
             io_retry_backoff_s=io_retry_backoff_s, log=log,
@@ -157,7 +185,7 @@ def batch_stream(
     if isinstance(parser, NativeParser) and max_nnz is not None:
         gen = native_batch_stream(
             parser, files, batch_size=batch_size, vocabulary_size=vocabulary_size,
-            hash_feature_id=hash_feature_id, max_nnz=max_nnz, epochs=epochs,
+            hash_feature_id=hash_feature_id, max_nnz=max_nnz, epochs=epochs, **shard,
             weights=weights, drop_remainder=drop_remainder, pad_to_batches=pad_to_batches,
         )
         # pad_to_batches counts the dropped batches: N emitted underneath,
@@ -166,7 +194,8 @@ def batch_stream(
         return
 
     parse = parser if parser is not None else parse_lines
-    stream = itertools.islice(line_stream(files, epochs=epochs, weights=weights), skip_rows, None)
+    stream = itertools.islice(line_stream(files, epochs=epochs, weights=weights, **shard),
+                              skip_rows, None)
     emitted = skip_batches
     while True:
         chunk = list(itertools.islice(stream, batch_size))

@@ -1,7 +1,7 @@
 """Load a model for inference, build its scoring function and run the
 offline predict driver — the counterpart of ``fast_tffm_tpu/prediction.py``
 ``load_scoring_state`` / ``make_score_fn`` / ``predict`` (rows and packed
-layouts, single process; ``dist_predict`` is a later slice).  ``predict``
+layouts) and ``dist_predict`` (the mesh of ranks, ``parallel/``).  ``predict``
 reads text through the native parser (``thread_num``), FMB
 ``predict_files`` by memmap, and with ``binary_cache`` converts text once.
 Its telemetry (``metrics_path``) is the JAX package's: kind=input, one
@@ -11,10 +11,12 @@ kind=anomaly before a non-finite abort, kind=predict and the summary.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
+import torch
 
 from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
 from fast_tffm_tpu_torch.config import Config, build_model
@@ -28,7 +30,7 @@ from fast_tffm_tpu_torch.telemetry import RunMonitor
 from fast_tffm_tpu_torch.trainer import make_packed_predict_step, make_predict_step, pack_state
 from fast_tffm_tpu_torch.utils.prefetch import InputStats, prefetch
 
-__all__ = ["ScoreFn", "load_scoring_state", "make_score_fn", "predict"]
+__all__ = ["ScoreFn", "load_scoring_state", "make_score_fn", "predict", "dist_predict"]
 
 
 class ScoreFn(NamedTuple):
@@ -93,32 +95,59 @@ def predict(cfg: Config, log=print, device=None) -> str:
     if not cfg.predict_files:
         raise ValueError("no predict_files configured")
     model, state = load_scoring_state(cfg, log, device)
-    device = state.table.device
     max_nnz = scan_max_nnz(cfg)
     cfg.check_width(max_nnz)
     score = make_score_fn(cfg, state, max_nnz, model=model)
+    return _run_predict(cfg, model, state, score, state.table.device, log)
+
+
+def _run_predict(cfg: Config, model, state, score, device, log, *, world: int = 1,
+                 rank: int = 0) -> str:
+    """The predict loop: ``score(state, batch)`` gives the scores of the
+    GLOBAL batch.  A rank of a multi-process run (``world`` > 1) streams
+    only its ``B / P`` rows of every global batch (block-cyclic, padded to
+    the global batch count) and rank 0 alone writes the score file and the
+    telemetry."""
     total = count_lines(cfg.predict_files)  # the rows to score; padding follows them
+    files, binary_cache, shard = cfg.predict_files, cfg.binary_cache, {}
+    batch_size = cfg.batch_size
+    if world > 1:
+        from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache
+
+        batch_size = cfg.batch_size // world
+        shard = dict(shard_index=rank, shard_count=world, shard_block=batch_size,
+                     pad_to_batches=-(-total // cfg.batch_size))
+        if binary_cache:
+            files = ensure_fmb_cache(
+                files, vocabulary_size=cfg.vocabulary_size, hash_feature_id=cfg.hash_feature_id,
+                max_nnz=score.max_nnz, parser=best_parser(cfg.thread_num), log=log,
+                wait_for_peer=cfg.binary_cache_wait if rank != 0 else 0.0)
+            binary_cache = False
+        if rank == 0:
+            log(f"predict input sharding: {total} rows over {world} processes")
     stats = InputStats()
     stream = prefetch(
         stats.timed(batch_stream(
-            cfg.predict_files,
-            batch_size=cfg.batch_size,
+            files,
+            batch_size=batch_size,
             vocabulary_size=cfg.vocabulary_size,
             hash_feature_id=cfg.hash_feature_id,
             max_nnz=score.max_nnz,
             parser=best_parser(cfg.thread_num),
-            binary_cache=cfg.binary_cache,
+            binary_cache=binary_cache,
             io_retries=cfg.io_retries,
             io_retry_backoff_s=cfg.io_retry_backoff_s,
             log=log,
+            **shard,
         )),
         depth=cfg.queue_size,
         stats=stats,
     )
+    lead = rank == 0
     monitor = RunMonitor(
-        cfg.metrics_path or None, run_id=cfg.telemetry_run_id, source="predict",
-        stall_timeout_s=cfg.telemetry_stall_timeout_s, mem_every_s=cfg.telemetry_mem_every_s,
-        device=device, log=log,
+        (cfg.metrics_path or None) if lead else None, run_id=cfg.telemetry_run_id,
+        source="predict", stall_timeout_s=cfg.telemetry_stall_timeout_s,
+        mem_every_s=cfg.telemetry_mem_every_s, device=device, log=log,
     )
     monitor.set_queue_depth_fn(stats.queue_depth)
     monitor.set_producer_alive_fn(stats.producer_alive)
@@ -126,14 +155,14 @@ def predict(cfg: Config, log=print, device=None) -> str:
     n = batches = 0
     t_start = time.perf_counter()
     try:
-        with open(cfg.score_path, "w") as out:
+        with open(cfg.score_path, "w") if lead else contextlib.nullcontext() as out:
             for parsed, w in stream:
                 batch = Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields)
                 scores = score(state, batch).cpu().numpy()
                 batches += 1
                 monitor.on_dispatch(batches, warmup=(batches == 1))
                 if ledger is not None and ledger.want("predict_step"):
-                    ledger.stage("predict_step", examples=int(parsed.batch_size))
+                    ledger.stage("predict_step", examples=int(parsed.batch_size) * world)
                     ledger.flush(batches)
                 if not np.isfinite(scores).all():
                     monitor.emit_anomaly(batches, None, event="nonfinite_scores", state=state)
@@ -142,8 +171,9 @@ def predict(cfg: Config, log=print, device=None) -> str:
                         f"refusing to write a poisoned score file to {cfg.score_path}"
                     )
                 take = min(total - n, len(scores))  # drop batch-size padding rows
-                for s in scores[:take]:
-                    out.write(f"{s:.6f}\n")
+                if out is not None:
+                    for sc in scores[:take]:
+                        out.write(f"{sc:.6f}\n")
                 n += take
         dt = time.perf_counter() - t_start
         if rec := stats.drain():
@@ -152,5 +182,57 @@ def predict(cfg: Config, log=print, device=None) -> str:
                      examples_per_sec=round(n / dt, 1) if dt > 0 else None)
     finally:
         monitor.close()
-    log(f"wrote {n} scores -> {cfg.score_path}")
+    if lead:
+        log(f"wrote {n} scores -> {cfg.score_path}")
     return cfg.score_path
+
+
+def dist_predict(cfg: Config, log=print, device=None, mesh=None) -> str:
+    """Mesh-sharded prediction — the reference's ``dist_predict`` mode on
+    ``torch.distributed``: every rank restores its row shard of
+    ``model_file`` (a packed config scores through the plain packed
+    gather, whatever accumulator trained it), parses its ``B / P`` rows of
+    every batch and scores them through the sharded lookup; the scores are
+    all-gathered and rank 0 writes ``score_path``.  At world size 1 this is
+    ``predict``.  Returns the score path."""
+    from fast_tffm_tpu_torch.distributed import initialize_runtime
+    from fast_tffm_tpu_torch.parallel import (
+        check_batch_divides,
+        make_mesh,
+        make_sharded_predict_step,
+        shard_state,
+    )
+    from fast_tffm_tpu_torch.parallel.multihost import local_device
+
+    if not cfg.predict_files:
+        raise ValueError("no predict_files configured")
+    device = resolve_device(device)
+    runtime = initialize_runtime(cfg, log=log, device=device)
+    device = local_device(device)
+    world, rank = runtime.process_count, runtime.process_index
+    model = build_model(cfg)
+    max_nnz = scan_max_nnz(cfg)
+    cfg.check_width(max_nnz)
+    if mesh is None:
+        mesh = make_mesh(cfg.data_parallel or None, cfg.row_parallel or cfg.vocabulary_block_num)
+    check_batch_divides(cfg.batch_size, mesh)
+    packed = cfg.table_layout == "packed"
+    logical = restore_checkpoint(cfg.model_file, device if world == 1 else torch.device("cpu"),
+                                 n_dense=len(model.dense_names))
+    if logical.table.shape[1] != model.row_dim:
+        raise ValueError(
+            f"checkpoint {cfg.model_file!r} holds a {tuple(logical.table.shape)} table; "
+            f"this config scores rows of width {model.row_dim}"
+        )
+    state = shard_state(logical, model, mesh, cfg.init_accumulator_value,
+                        "packed" if packed else "rows")
+    state.table = state.table.to(device)
+    state.dense = [p.to(device) for p in state.dense]
+    log(f"restored {cfg.model_file} at step {state.step} on {device} (mesh {mesh.shape})")
+    step = make_sharded_predict_step(
+        model, mesh, lookup=cfg.lookup, capacity_factor=cfg.lookup_capacity_factor,
+        overflow_mode=cfg.lookup_overflow, table_layout=cfg.table_layout,
+        accumulator="element",  # scoring reads the plain packed table
+    )
+    score = ScoreFn(fn=step, model=model, max_nnz=int(max_nnz))
+    return _run_predict(cfg, model, state, score, device, log, world=world, rank=rank)

@@ -600,9 +600,9 @@ class Supervisor:
     ):
         if int(processes) > 1:
             raise ValueError(
-                "Supervisor: pod mode (processes > 1) belongs to multi-process "
-                "training, item 10 of ROADMAP.md §A, which fast_tffm_tpu_torch "
-                "has not ported yet; use fast_tffm_tpu"
+                "Supervisor: pod mode (processes > 1) is the pod supervision of "
+                "multi-process training, item 10 of ROADMAP.md §A, which "
+                "fast_tffm_tpu_torch has not ported yet; use fast_tffm_tpu"
             )
         self._build_cmd = build_cmd
         self._model_file = model_file

@@ -420,8 +420,10 @@ class RunMonitor:
         self.run_id = run_id or new_run_id()
         self.source = source
         self.replica = replica
-        # One process, one device: the port has no multi-process runs yet.
-        self.process_index, self.process_count = 0, 1
+        # The emitting rank of a multi-process run (0 / 1 otherwise).
+        from fast_tffm_tpu_torch.distributed import process_identity
+
+        self.process_index, self.process_count = process_identity()
         self._log = log
         self._t0 = time.monotonic()
         self._lock = threading.Lock()

@@ -1,7 +1,9 @@
-"""The local training driver — the counterpart of ``fast_tffm_tpu/training.py``
-``train`` + ``_run_training`` (single device).
+"""The training entry points — the counterpart of ``fast_tffm_tpu/training.py``
+``train`` + ``_run_training`` (single device) and ``dist_train`` (the mesh
+of ranks on ``torch.distributed``, ``parallel/``; see its docstring).
 
   train(cfg, resume=False, log=print, device=None, step_hook=None) -> TrainState
+  dist_train(cfg, resume=False, log=print, device=None, mesh=None, step_hook=None)
 
 Input, as in the JAX package:
 
@@ -146,6 +148,7 @@ from fast_tffm_tpu_torch.data.stream import (
 )
 from fast_tffm_tpu_torch.data.wire import WireConverter, make_spec
 from fast_tffm_tpu_torch.device import resolve_device
+from fast_tffm_tpu_torch.distributed import host_metrics_path
 from fast_tffm_tpu_torch.metrics import StreamingAUC, Throughput
 from fast_tffm_tpu_torch.models.base import Batch
 from fast_tffm_tpu_torch.profiling import (
@@ -178,7 +181,7 @@ from fast_tffm_tpu_torch.utils.prefetch import InputStats, InputStream, grouped_
 from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
 from fast_tffm_tpu_torch.utils.tracing import WindowTracer, step_trace
 
-__all__ = ["train", "binary_input", "NonFiniteLossError"]
+__all__ = ["train", "dist_train", "binary_input", "NonFiniteLossError"]
 
 
 def _check_finite(loss: float, step: int, anomaly=None, cursor=None) -> None:
@@ -263,9 +266,10 @@ def _files_fingerprint(files) -> str:
     return h.hexdigest()[:16]
 
 
-def _resolve_cursor(cfg: Config, cursor, log) -> tuple[int, int]:
+def _resolve_cursor(cfg: Config, cursor, log, process_index: int = 0,
+                    process_count: int = 1) -> tuple[int, int]:
     """(start_epoch, start_batch) from a restored input cursor — the JAX
-    ``_resolve_cursor`` for one process.
+    ``_resolve_cursor``.
 
     A cursor that does not describe this run's input (batch size, shuffle
     and its seed, follow or not, the train files' fingerprint), or one of
@@ -276,10 +280,11 @@ def _resolve_cursor(cfg: Config, cursor, log) -> tuple[int, int]:
     whole stream; a batch run's cursor starts at (0, 0) with the warning.  A cursor at or past
     ``epoch_num`` is a completed run: resume then trains ``epoch_num``
     more epochs from (0, 0), unless it is ``_exact`` (a literal position:
-    ``(epoch_num, 0)``, no input left).  A ``hosts`` vector of one entry
-    resolves to that entry; any other vector was saved by another number
-    of processes and takes the warned start, as a topology change does in
-    the JAX package."""
+    ``(epoch_num, 0)``, no input left).  A ``hosts`` vector (a
+    multi-process save: one entry per rank) resolves to this rank's entry
+    (``process_index`` of ``process_count``); a vector saved by another
+    number of processes, or one whose entries disagree, takes the warned
+    start, as in the JAX package."""
     if not cursor:
         return 0, 0
     exact = bool(cursor.pop("_exact", False))
@@ -293,15 +298,23 @@ def _resolve_cursor(cfg: Config, cursor, log) -> tuple[int, int]:
     hosts = cursor.pop("hosts", None)
     saved_pcount = cursor.pop("process_count", None)
     if hosts is not None:
-        if (saved_pcount or len(hosts)) != 1 or not hosts:
+        if (saved_pcount or len(hosts)) != process_count or process_index >= len(hosts):
             log(
                 "warning: checkpoint cursor vector was saved by "
                 f"{saved_pcount or len(hosts)} host(s), this run has "
-                "1 — resuming at the start of the data (legacy "
+                f"{process_count} — resuming at the start of the data (legacy "
                 "behavior)"
             )
             return 0, 0
-        mine = hosts[0] or {}
+        entries = [((h or {}).get("epoch"), (h or {}).get("batch_in_epoch")) for h in hosts]
+        if any(e != entries[0] for e in entries[1:]):
+            log(
+                "warning: checkpoint cursor vector disagrees across hosts "
+                f"({entries}) — resuming at the start of the data (legacy "
+                "behavior)"
+            )
+            return 0, 0
+        mine = hosts[process_index] or {}
         if mine.get("epoch") is not None:
             cursor["epoch"] = int(mine["epoch"])
             cursor["batch_in_epoch"] = int(mine.get("batch_in_epoch") or 0)
@@ -367,7 +380,8 @@ def _dedup_cap_guard(raw, cap: int):
 
 def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
             steps_per_call: int = 1, log=print, skip_batches: int = 0, dedup_cap: int = 0,
-            convert=None):
+            convert=None, batch_size: int | None = None, shard: dict | None = None,
+            pad_to_batches: int | None = None, wait_for_peer: float = 0.0):
     """One prefetched pass over ``files`` (an ``InputStream``: its stats feed
     kind=input records): (ParsedBatch, weights) pairs, or K-long lists of
     them when ``steps_per_call`` > 1.  Text parses through
@@ -379,13 +393,17 @@ def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
     batch's unique ids against it before the batch ships.
     ``convert(files, depth)`` (given the resolved files and the queue depth)
     returns a converter for the prefetch threads, or None; with one, the
-    items are ``(value, examples)`` (``_prefetched``)."""
+    items are ``(value, examples)`` (``_prefetched``).  A rank of a
+    multi-process run passes its ``batch_size`` (B / P), its ``shard``
+    (``shard_index``, ``shard_count``, ``shard_block``), the epoch's
+    ``pad_to_batches`` and the cache build's ``wait_for_peer``."""
     files = tuple(files)
     parser = best_parser(cfg.thread_num)
+    bs = cfg.batch_size if batch_size is None else int(batch_size)
     if cfg.binary_cache:
         files = ensure_fmb_cache(
             files, vocabulary_size=cfg.vocabulary_size, hash_feature_id=cfg.hash_feature_id,
-            max_nnz=max_nnz, parser=parser, log=log,
+            max_nnz=max_nnz, parser=parser, log=log, wait_for_peer=wait_for_peer,
         )
     shuffle_seed = (
         fold_epoch_seed(cfg.shuffle_seed, shuffle_epoch)
@@ -393,22 +411,35 @@ def _stream(cfg: Config, files, max_nnz: int, weights=None, shuffle_epoch=None,
         else None
     )
     if shuffle_seed is not None and cfg.binary_cache and not binary_input(files):
+        if shard and shard.get("shard_count", 1) > 1:
+            # The fallback is per process: one rank streaming its shard in
+            # file order while its peers follow the permutation would
+            # assemble global batches from different row orders.
+            raise RuntimeError(
+                "shuffle with binary_cache on a multi-process run: this process could "
+                "not build/reach the binary cache (text fallback), and a per-host "
+                "shuffle fallback would silently misalign the global batches — fix the "
+                "cache location on every host (or pre-convert the files, or disable "
+                "shuffle)"
+            )
         log("shuffle disabled: the binary cache is unavailable (text fallback) and "
             "text streaming cannot reorder rows")
         shuffle_seed = None
     raw = batch_stream(
         files,
-        batch_size=cfg.batch_size,
+        batch_size=bs,
         vocabulary_size=cfg.vocabulary_size,
         hash_feature_id=cfg.hash_feature_id,
         max_nnz=max_nnz,
         weights=weights,
         parser=parser,
         shuffle_seed=shuffle_seed,
-        skip_rows=skip_batches * cfg.batch_size,
+        skip_rows=skip_batches * bs,
         io_retries=cfg.io_retries,
         io_retry_backoff_s=cfg.io_retry_backoff_s,
         log=log,
+        pad_to_batches=pad_to_batches,
+        **(shard or {}),
     )
     if dedup_cap > 0:
         raw = _dedup_cap_guard(raw, dedup_cap)
@@ -882,7 +913,8 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
 
 def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, ids_of,
                   predict_step, max_nnz: int, log, step_hook, accum_restart, stream_stop,
-                  start_cursor=None, rollback=None, paramstore=None, evaluate=None):
+                  start_cursor=None, rollback=None, paramstore=None, evaluate=None,
+                  saveable=None, runtime=None, chips: int = 1, extra_metrics=None):
     """The step loop of one run over ``state`` (the JAX ``_run_training``):
     entered once, and again after each rollback with the restored state,
     ``start_cursor`` the detection point's (``_exact``) and ``rollback``
@@ -892,10 +924,17 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
     None) resets the accumulators; ``stream_stop`` is a followed stream's
     stop holder (or None).  A tiered run passes its ``paramstore`` (the
     saves span both tiers, kind=tiering records) and ``evaluate(state)``,
-    its validation AUC."""
+    its validation AUC.  A distributed run (``dist_train``) passes its
+    ``saveable`` (the logical state gathered onto rank 0), its ``runtime``
+    (the checkpoints' single-writer protocol, one run id, the per-rank
+    metrics path and cursor entry), its ``chips`` (the world size, for the
+    per-chip rate) and ``extra_metrics()`` (the alltoall overflow count,
+    drained into every kind=train record and the summary)."""
     k = cfg.steps_per_call
+    rank, world = (runtime.process_index, runtime.process_count) if runtime else (0, 1)
+    is_lead = rank == 0
     # The input cursor, tracked per call: every save embeds it.
-    start_epoch, start_batch = _resolve_cursor(cfg, start_cursor, log)
+    start_epoch, start_batch = _resolve_cursor(cfg, start_cursor, log, rank, world)
     cur = {"epoch": start_epoch, "batch": start_batch}
     # A followed stream grows: its identity is its prefix, not its size.
     files_fp = (stream_prefix_fingerprint(cfg.train_files) if cfg.online_follow
@@ -917,13 +956,21 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
         return c
 
     cuda = device.type == "cuda"
+    run_id = cfg.telemetry_run_id
+    if runtime is not None and runtime.active and not run_id:
+        # One run identity across the ranks: the lead draws it.
+        from fast_tffm_tpu_torch.telemetry import new_run_id
+
+        run_id = runtime.broadcast("run_id", new_run_id() if runtime.is_lead else None)
+    # Each rank writes its own telemetry file (rank 0 the configured path).
     monitor = RunMonitor(
-        cfg.metrics_path or None, run_id=cfg.telemetry_run_id, source="train",
+        host_metrics_path(cfg.metrics_path, rank) or None, run_id=run_id, source="train",
         stall_timeout_s=cfg.telemetry_stall_timeout_s, mem_every_s=cfg.telemetry_mem_every_s,
         device=device, log=log,
     )
-    tracer = WindowTracer(cfg.trace_dir, count=cfg.trace_steps, cuda=cuda)
-    profiler = StepProfiler(cfg.telemetry_profile_steps,
+    # Rank 0 owns the traces.
+    tracer = WindowTracer(cfg.trace_dir if is_lead else "", count=cfg.trace_steps, cuda=cuda)
+    profiler = StepProfiler(cfg.telemetry_profile_steps if is_lead else "",
                             cfg.trace_dir or (cfg.model_file + ".profile"),
                             monitor=monitor, log=log, cuda=cuda)
     ledger = CostLedger(monitor) if cfg.telemetry_profile_costs else None
@@ -937,7 +984,8 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
     accum_cols = model.row_dim if cfg.adagrad_accumulator == "element" else 1
     graphs = _graphs_of(step_fn)
     captures = graphs.captures if graphs is not None else 0
-    saveable = lambda st: unpack_state(st, model)  # noqa: E731
+    if saveable is None:
+        saveable = lambda st: unpack_state(st, model)  # noqa: E731
     ckpt = AsyncCheckpointer(
         cfg.model_file, device=device, monitor=monitor, log=log,
         chunk_bytes=cfg.checkpoint_chunk_mb << 20, async_save=cfg.async_save,
@@ -946,7 +994,7 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
         # A tiered run's touched-row bitmap is over the compact table's slots.
         vocab=paramstore.capacity if paramstore is not None else cfg.vocabulary_size,
         row_dim=model.row_dim, start_step=state.step, cursor_fn=input_cursor,
-        paramstore=paramstore,
+        paramstore=paramstore, runtime=runtime,
     )
     if evaluate is None:
         def evaluate(st):
@@ -1061,16 +1109,20 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
                     rate = meter.rate()
                     _check_finite(mean_loss, state.step, anomaly, cursor=input_cursor())
                     emit_faults()
+                    extra = extra_metrics() if extra_metrics is not None else {}
                     # A window that holds only the first call (K >= log_every)
                     # has no examples to rate: its line gives the loss alone.
                     log(
                         f"step {state.step} epoch {epoch} loss {mean_loss:.5f}"
-                        + (f" examples/sec {rate:,.0f} (/chip {rate:,.0f})" if counted else "")
+                        + (f" examples/sec {rate:,.0f} (/chip {rate / chips:,.0f})"
+                           if counted else "")
+                        + "".join(f" {key} {v}" for key, v in extra.items() if v)
                     )
                     monitor.emit(
                         "train", step=state.step, epoch=epoch, loss=round(mean_loss, 6),
                         examples_per_sec=round(rate, 1) if counted else None,
-                        examples_per_sec_per_chip=round(rate, 1) if counted else None,
+                        examples_per_sec_per_chip=round(rate / chips, 1) if counted else None,
+                        **extra,
                     )
                     if input_stats is not None and (rec := input_stats.drain()):
                         monitor.emit("input", step=state.step, epoch=epoch, **rec)
@@ -1120,6 +1172,8 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
         # rollback reads the chain head.
         ckpt.finalize()
         summary = ckpt.summary()
+        if extra_metrics is not None:
+            summary.update({key: v for key, v in extra_metrics().items() if v})
         # The last window's fault events and the run's counters.
         emit_faults()
         summary.update({f"fault_{key}": v for key, v in drain_fault_counters().items() if v})
@@ -1143,3 +1197,311 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
     else:
         log(f"training done: steps {start_step}->{state.step}, model -> {cfg.model_file}")
     return state
+
+
+# ---------------------------------------------------------------------------
+# dist_train: the mesh of ranks
+# ---------------------------------------------------------------------------
+
+_ITEM_10 = "item 10 of ROADMAP.md §A, which fast_tffm_tpu_torch has not ported yet"
+
+
+def _dist_refusals(cfg: Config, world: int) -> None:
+    """What ``dist_train`` does not run: the JAX package's refusals in its
+    words, then the parts of multi-process training this port leaves to a
+    later slice."""
+    if cfg.paramstore:
+        raise ValueError(
+            "[ParamStore] is local-train only; dist_train shards the "
+            "table over the mesh instead (drop [ParamStore] enabled, or "
+            "run `train`)"
+        )
+    if cfg.dedup_gather_rows > 0:
+        raise ValueError(
+            "dedup_gather_rows is local-train only (the sharded lookup "
+            "collectives have their own dedup story)"
+        )
+    if cfg.online_follow:
+        raise ValueError(
+            "[Online] follow = true is single-process (train); dist_train "
+            "cannot shard an append-only stream"
+        )
+    if cfg.online_accum_restart_steps > 0:
+        raise ValueError(
+            "[Online] accum_restart_steps is single-process (train) for "
+            "now; use adagrad_decay on pods"
+        )
+    if cfg.device_cache and cfg.shuffle:
+        raise ValueError(
+            "device_cache with shuffle is local-train only; dist_train "
+            "slices the resident epoch sequentially (drop shuffle, or "
+            "pre-shuffle at convert time)"
+        )
+    if cfg.device_cache:
+        raise ValueError(
+            "device_cache = true under dist_train (the mesh-sharded resident epoch, "
+            f"its cached step, touched-row marker and ids slicer) is {_ITEM_10}; "
+            "run `train` for the resident epoch, or drop device_cache"
+        )
+    if world > 1 and (cfg.async_save or cfg.delta_every_steps > 0):
+        raise ValueError(
+            "async_save and delta_every_steps across processes (the single writer's "
+            f"async and delta boundaries) are {_ITEM_10}; multi-process saves are "
+            "synchronous full saves"
+        )
+
+
+def _scaled(src: InputStream, factor: int) -> InputStream:
+    """A rank's (batch, examples) stream counting the GLOBAL batch's
+    examples, the JAX ``examples_per_step``."""
+    if factor == 1:
+        return src
+    return InputStream(((b, ex * factor) for b, ex in src), src.stats, converted=True)
+
+
+def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mesh=None,
+               step_hook=None):
+    """Mesh-distributed training — the reference's ``dist_train`` mode, on
+    ``torch.distributed``: ``[Distributed] num_processes`` copies of this
+    program, one rank per process and device, over the ``[data, row]`` mesh
+    of ranks (``parallel/``).  Each rank holds its row shard of the table,
+    parses only its ``B / P`` rows of every global batch (block-cyclic line
+    sharding, or ``input_assignment = files``), and the global line count,
+    taken up front, fixes the steps of an epoch on every rank (a short
+    shard pads with weight-0 batches).  Saves gather the logical state
+    onto rank 0, which alone writes; ``resume`` gives every rank its rows
+    of ``model_file`` and its entry of the saved cursor vector;
+    ``on_nan = rollback`` restores after a barrier.  At world size 1 this is
+    ``train`` step for step (the same stream, step and saves).
+
+    ``device`` None means the card (rank r on ``cuda:<local index>``);
+    ``mesh`` overrides the configured shape.  Returns the rank's final
+    state (its shard)."""
+    from fast_tffm_tpu_torch.checkpoint import read_delta_chain
+    from fast_tffm_tpu_torch.data.native import count_lines
+    from fast_tffm_tpu_torch.distributed import initialize_runtime
+    from fast_tffm_tpu_torch.parallel import (
+        check_batch_divides,
+        gather_logical_state,
+        init_sharded_state,
+        make_mesh,
+        make_sharded_predict_step,
+        make_sharded_train_step,
+        shard_state,
+    )
+    from fast_tffm_tpu_torch.parallel.mesh import all_gather_cat
+    from fast_tffm_tpu_torch.parallel.multihost import local_device
+    from fast_tffm_tpu_torch.parallel.train_step import _layout
+
+    if not cfg.train_files:
+        raise ValueError("no train_files configured")
+    if cfg.tail == "pallas":
+        raise ValueError(
+            "tail = pallas is not supported by dist_train yet (the "
+            "sharded step keeps the XLA sparse tail); use tail = auto "
+            "or xla for distributed runs"
+        )
+    if cfg.weight_files and len(cfg.weight_files) != len(cfg.train_files):
+        raise ValueError(
+            f"weight_files has {len(cfg.weight_files)} entries for "
+            f"{len(cfg.train_files)} train_files (they align per-file)"
+        )
+    device = resolve_device(device)
+    runtime = initialize_runtime(cfg, log=log, device=device)
+    device = local_device(device)
+    world, rank = runtime.process_count, runtime.process_index
+    _dist_refusals(cfg, world)
+    model = build_model(cfg)
+    max_nnz = scan_max_nnz(cfg)
+    cfg.check_width(max_nnz)
+    if mesh is None:
+        mesh = make_mesh(cfg.data_parallel or None, cfg.row_parallel or cfg.vocabulary_block_num)
+    log(f"mesh: {mesh.shape} on {mesh.size} devices")
+    check_batch_divides(cfg.batch_size, mesh)
+    layout = _layout(cfg.table_layout, cfg.adagrad_accumulator)
+    accum_width = model.row_dim if cfg.adagrad_accumulator == "element" else 1
+    cpu = torch.device("cpu")
+
+    def restore_state():
+        """``model_file`` as this rank's shard in the run's layout: the
+        logical arrays (delta chain replayed), re-padded to the mesh's
+        vocabulary, cut to the shard, packed.  Shared by ``resume`` and the
+        rollback."""
+        logical = restore_checkpoint(cfg.model_file, device if world == 1 else cpu,
+                                     n_dense=len(model.dense_names), accum_width=accum_width)
+        if logical.table.shape[1] != model.row_dim:
+            raise ValueError(
+                f"checkpoint {cfg.model_file!r} holds a {tuple(logical.table.shape)} table; "
+                f"this config trains rows of width {model.row_dim}"
+            )
+        st = shard_state(logical, model, mesh, cfg.init_accumulator_value, layout)
+        if world > 1:
+            st.table = st.table.to(device)
+            st.table_accum = None if st.table_accum is None else st.table_accum.to(device)
+            st.dense = [p.to(device) for p in st.dense]
+            st.dense_accum = [a.to(device) for a in st.dense_accum]
+        return st
+
+    def chain_head():
+        try:
+            base_sig, chain = read_delta_chain(cfg.model_file)
+            return chain[-1]["save_id"] if chain else base_sig
+        except (ValueError, OSError):
+            return None
+
+    if resume and not os.path.isfile(cfg.model_file):
+        log(f"warning: --resume but no checkpoint at {cfg.model_file} — "
+            "starting fresh (crash before the first publish?)")
+        resume = False
+    start_cursor = None
+    if resume:
+        state = restore_state()
+        log(f"resumed from {cfg.model_file} at step {state.step}")
+        start_cursor = read_input_cursor(cfg.model_file)
+        if start_cursor is None:
+            log("note: checkpoint carries no input cursor (pre-resilience "
+                "format) — input restarts at the first file (legacy resume)")
+    else:
+        state = init_sharded_state(model, mesh, torch.Generator(device=device).manual_seed(0),
+                                   cfg.init_accumulator_value, cfg.adagrad_accumulator,
+                                   cfg.table_layout)
+    if runtime.active:
+        # No rank enters the collectives until every rank holds the same
+        # restored step, chain head and cursor.
+        runtime.agree("restore", {
+            "step": int(state.step), "head": chain_head() if resume else None,
+            "cursor": [(start_cursor or {}).get("epoch"),
+                       (start_cursor or {}).get("batch_in_epoch")],
+        })
+    step_fn = make_sharded_train_step(
+        model, cfg.learning_rate, mesh, lookup=cfg.lookup,
+        capacity_factor=cfg.lookup_capacity_factor, overflow_mode=cfg.lookup_overflow,
+        table_layout=cfg.table_layout, packed_update=cfg.packed_update,
+        accumulator=cfg.adagrad_accumulator, compact_cap=cfg.packed_compact_cap,
+        steps_per_call=cfg.steps_per_call, adagrad_decay=cfg.online_adagrad_decay,
+    )
+    predict_step = make_sharded_predict_step(
+        model, mesh, lookup=cfg.lookup, capacity_factor=cfg.lookup_capacity_factor,
+        overflow_mode=cfg.lookup_overflow, table_layout=cfg.table_layout,
+        accumulator=cfg.adagrad_accumulator,
+    )
+    if world > 1:
+        log("note: multi-process npz checkpoints — process 0 is the sole "
+            "writer; peers barrier on each publish's content signature")
+    k = cfg.steps_per_call
+    weights = cfg.weight_files or None
+    files = tuple(cfg.train_files)
+    local_bs = cfg.batch_size // world
+    shard = pad = None
+    wait = cfg.binary_cache_wait if rank != 0 and cfg.input_assignment != "files" else 0.0
+    if world > 1 and cfg.input_assignment == "files":
+        # Shard-disjoint files: rank p streams files [p::P] whole; the
+        # per-rank row counts meet through the runtime.
+        if len(files) < world:
+            raise ValueError(
+                f"input_assignment = files needs at least one train "
+                f"file per process ({len(files)} files, {world} "
+                "processes) — split the dataset or use "
+                "input_assignment = rows"
+            )
+        files = files[rank::world]
+        weights = tuple(cfg.weight_files)[rank::world] if cfg.weight_files else None
+        per_rank = [int(r) for r in runtime.allgather("files-rows", count_lines(files))]
+        pad = max(-(-r // local_bs) for r in per_rank)
+        log(f"input sharding: shard-disjoint files — host {rank} owns {len(files)} file(s) / "
+            f"{per_rank[rank]} rows, {pad} steps/epoch, {local_bs} rows/process/step")
+    elif world > 1:
+        total = count_lines(cfg.train_files)
+        pad = -(-total // cfg.batch_size)
+        shard = dict(shard_index=rank, shard_count=world, shard_block=local_bs)
+        log(f"input sharding: {total} rows over {world} processes, {pad} steps/epoch, "
+            f"{local_bs} rows/process/step")
+
+    def train_stream(epoch, skip_batches=0):
+        src = _stream(cfg, files, max_nnz, weights, shuffle_epoch=epoch, steps_per_call=k,
+                      log=log, skip_batches=skip_batches,
+                      convert=_wire_converter(cfg, model, max_nnz, device, weights),
+                      batch_size=local_bs, shard=shard, pad_to_batches=pad, wait_for_peer=wait)
+        return _scaled(_to_batches(src, model, device), world)
+
+    def ids_of(batch):
+        return step_fn.last_batch().ids if k > 1 else batch.ids
+
+    evaluate = None
+    if world > 1:
+        val_steps = (-(-count_lines(cfg.validation_files) // cfg.batch_size)
+                     if cfg.validation_files else 0)
+
+        def evaluate(st):
+            # Every rank scores its rows; the scores come back global, and
+            # the labels and weights are gathered beside them (weight-0
+            # padding drops out of the AUC).
+            meter = StreamingAUC()
+            for parsed, w in _stream(cfg, cfg.validation_files, max_nnz, log=log,
+                                     batch_size=local_bs, pad_to_batches=val_steps,
+                                     shard=dict(shard_index=rank, shard_count=world,
+                                                shard_block=local_bs), wait_for_peer=wait):
+                b = Batch.from_parsed(parsed, w, device, with_fields=model.uses_fields)
+                scores = predict_step(st, b)
+                labels = all_gather_cat(b.labels, None, world)
+                wts = all_gather_cat(b.weights, None, world)
+                meter.add(labels.cpu().numpy(), scores.cpu().numpy(), wts.cpu().numpy())
+            return meter.value()
+
+    extra_metrics = None
+    if cfg.lookup == "alltoall" and cfg.lookup_overflow == "fallback":
+        drained = [0]
+
+        def extra_metrics():
+            n, drained[0] = step_fn.overflow_steps - drained[0], step_fn.overflow_steps
+            return {"lookup_overflow_steps": n}
+
+    run = dict(model=model, device=device, step_fn=step_fn, train_stream=train_stream,
+               ids_of=ids_of, predict_step=predict_step, max_nnz=max_nnz, log=log,
+               step_hook=step_hook, accum_restart=None, stream_stop=None, evaluate=evaluate,
+               saveable=lambda st: gather_logical_state(st, model, mesh), runtime=runtime,
+               chips=mesh.size, extra_metrics=extra_metrics)
+    # on_nan = rollback: the loss every rank checks is all-reduced (the
+    # same), so every rank raises at the same step with the same cursor; a
+    # barrier and an agreement on the restored head come before training
+    # goes on.
+    rollbacks = 0
+    rollback_note = None
+    while True:
+        try:
+            return _run_training(cfg, state, start_cursor=start_cursor, rollback=rollback_note,
+                                 **run)
+        except NonFiniteLossError as e:
+            if (
+                cfg.on_nan != "rollback"
+                or rollbacks >= cfg.max_rollbacks
+                or e.cursor is None
+                or latest_step(cfg.model_file) is None
+            ):
+                raise
+            rollbacks += 1
+            runtime.barrier(f"rollback-{rollbacks}")
+            _restore_into(state, restore_state())
+            runtime.agree(f"rollback-head-{rollbacks}", {
+                "step": int(state.step), "head": chain_head(),
+                "cursor": [e.cursor.get("epoch"), e.cursor.get("batch_in_epoch")],
+            })
+            # A fresh KV namespace: the next attempt's save ordinals must not
+            # meet the aborted attempt's keys.
+            runtime.advance_namespace()
+            start_cursor = dict(e.cursor, _exact=True)
+            rollback_note = {
+                "step": e.step,
+                "loss": e.loss,
+                "rollback_n": rollbacks,
+                "restored_step": int(state.step),
+                "skip_to_epoch": int(e.cursor.get("epoch", 0)),
+                "skip_to_batch": int(e.cursor.get("batch_in_epoch", 0)),
+            }
+            log(
+                f"on_nan = rollback: non-finite loss at step {e.step}; "
+                f"restored {cfg.model_file} (step {int(state.step)}), "
+                f"skipping input to epoch {rollback_note['skip_to_epoch']} "
+                f"batch {rollback_note['skip_to_batch']} "
+                f"(rollback {rollbacks}/{cfg.max_rollbacks})"
+            )

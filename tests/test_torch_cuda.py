@@ -21,7 +21,10 @@ K = 8 graph are bitwise the eager run's.  A ``[ParamStore]`` card run is
 bitwise the resident run at K = 1 and 8; the packed wire's side-stream copy
 and unpack give the arrays path's batch, a ring of two pinned buffers under
 a queue of twelve never refills one under its copy, and packed training is
-bitwise arrays at K = 1 and 8.
+bitwise arrays at K = 1 and 8.  The sharded update's shard apply at base > 0
+(R = 2 and 4) is bitwise its twin and the whole-table update, and
+``dist_train`` at world size 1 is bitwise ``train`` on each layout, K = 8
+and alltoall.
 """
 
 import os
@@ -1322,3 +1325,66 @@ def test_side_streams_are_never_the_graph_capture_stream(cuda):
         assert wire.WireConverter(spec, cuda)._stager.stream.cuda_stream != capture
         writer = AsyncCheckpointer("unused.ckpt", device=cuda, chunk_bytes=4096)
         assert writer._side.cuda_stream != capture
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_shard_apply_at_base_above_zero_is_its_twin_and_the_whole_update(cuda, ranks):
+    """The sharded update's apply (B4 on the world-gathered ids mapped to one
+    shard's local rows, ``base`` > 0 for every shard but the first) is
+    bitwise its plain twin on the CPU and the rows of the R = 1 update."""
+    from fast_tffm_tpu_torch.parallel.embedding import apply_shard_adagrad, dedup_rows_padded
+
+    rng = np.random.default_rng(ranks)
+    v, d = 4096, 9
+    table = torch.from_numpy(rng.uniform(-0.3, 0.3, (v, d)).astype(np.float32))
+    parts = [dedup_rows_padded(torch.from_numpy(rng.integers(0, v, 600).astype(np.int32)),
+                               torch.from_numpy(rng.normal(size=(600, d)).astype(np.float32)),
+                               v) for _ in range(ranks)]
+    uids = torch.cat([u for u, _ in parts])
+    gsum = torch.cat([g for _, g in parts])
+    whole_t, whole_a = table.clone().to(cuda), torch.full((v, d), 0.1, device=cuda)
+    apply_shard_adagrad(whole_t, whole_a, uids.to(cuda), gsum.to(cuda), 0.05, 0)
+    shard = v // ranks
+    for r in range(ranks):
+        lo = r * shard
+        t, a = table[lo:lo + shard].clone(), torch.full((shard, d), 0.1)
+        ct, ca = t.to(cuda), a.to(cuda)
+        apply_shard_adagrad(ct, ca, uids.to(cuda), gsum.to(cuda), 0.05, lo)
+        apply_shard_adagrad(t, a, uids, gsum, 0.05, lo)
+        assert torch.equal(ct.cpu(), t) and torch.equal(ca.cpu(), a)
+        assert torch.equal(ct, whole_t[lo:lo + shard]) and torch.equal(ca, whole_a[lo:lo + shard])
+
+
+@pytest.mark.parametrize("over", [{}, {"table_layout": "packed"},
+                                  {"table_layout": "packed", "adagrad_accumulator": "fused"},
+                                  {"steps_per_call": 8}, {"lookup": "alltoall"}],
+                         ids=["rows", "packed", "fused", "k8", "alltoall"])
+def test_world_size_one_dist_train_is_train_on_the_card(cuda, tmp_path, over):
+    """``dist_train`` with no process group (a 1 x 1 mesh) is ``train`` on
+    the card: the same losses and the same logical table and accumulator,
+    bit for bit (the saved arrays; a packed run's padding rows beyond the
+    vocabulary aside)."""
+    import shutil
+
+    from fast_tffm_tpu_torch.checkpoint import save_checkpoint
+    from fast_tffm_tpu_torch.trainer import TrainState
+    from fast_tffm_tpu_torch.training import dist_train, train
+
+    for f in ("train.libsvm", "test.libsvm"):
+        shutil.copy(os.path.join(REPO, "data", f), tmp_path)
+    rng = np.random.default_rng(9)
+    width = 1 if over.get("adagrad_accumulator") == "fused" else 9
+    save_checkpoint(str(tmp_path / "init.ckpt"), TrainState(
+        table=torch.from_numpy(rng.uniform(-0.3, 0.3, (256, 9)).astype(np.float32)), dense=[],
+        step=0, table_accum=torch.full((256, width), 0.1)))
+    logs, files = {}, {}
+    for name, run in (("train", train), ("dist", dist_train)):
+        cfg = _resume_cfg(tmp_path, f"{name}.ckpt", **over)
+        shutil.copy(tmp_path / "init.ckpt", cfg.model_file)
+        logs[name] = []
+        run(cfg, resume=True, log=logs[name].append, device="cuda")
+        files[name] = np.load(cfg.model_file)
+    assert _logged_losses(logs["train"]) == _logged_losses(logs["dist"])
+    for key in ("table", "table_accum"):
+        a, b = files["train"][key], files["dist"][key]
+        assert np.array_equal(a, b[: a.shape[0]]), key
