@@ -294,6 +294,24 @@ last line:
             routed_gather and routed_update against the fast path, then the
             sharded step (allgather and alltoall) eager and as a captured
             4-step CUDA graph against the single-device step, all bitwise
+  dist_cached  baseline5 through dist_train with device_cache at world size
+            1 against train with device_cache: rows K = 1 (4 epochs of the
+            24-batch file, a fresh seeded init, a loss every step), rows and
+            fused K = 8 over the 1,048,576-row epoch (traced), rows K = 1
+            with a delta every 4 steps stopped by SIGTERM at step 10 and
+            resumed; losses, logical table, accumulator and cursor bitwise,
+            B1, B2 and the tail once per step; the cached sharded step's
+            general branches through an NCCL group of one (K = 1, and K = 8
+            in one graph) bitwise the fast path; step p50, idle share,
+            resident MiB
+  pod_card  a one-host pod: generation.json and the FM_DIST_* environment
+            written here, `cli dist_train` (cached, delta every 4 steps) as
+            the child on cuda, the file bumped to generation 1 after step
+            8; the child re-execs with the same PID, joins generation 1,
+            restores the chain head (a delta boundary >= 8, logged after
+            the join; its first new step the next) and ends bitwise
+            dist_cached's rows_k1
+            run, its heartbeat at the last step; the bump-to-step wall
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
             launches_by_run adds the graphed train_cached runs' replays, and
@@ -305,7 +323,8 @@ last line:
             rollback, supervised reference, follow and accum_restart runs,
             and for B1 serve_reload's engine and each replica process's
             launches during serve_socket's traffic (serve_socket_r0, _r1); the
-            wire, tiered and tiered_big runs; dist_b2 and the dist_b5 runs
+            wire, tiered and tiered_big runs; dist_b2 and the dist_b5 runs;
+            the dist_cached runs (K = 8: the replays in their traces)
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -316,7 +335,8 @@ wrappers' counts and records trace_lost_events.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 ``--only dist`` runs the device, build and data phases and the four phases
-of dist_train alone, and prints no result line (a development run).
+of dist_train alone, ``--only pod`` those and dist_cached and pod_card;
+neither prints the result line (development runs).
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -360,6 +380,8 @@ TRAIN_SHAPE = (16384, NNZ, 8, 3)  # baseline5's training batch
 BATCH = 16384  # baseline5's batch_size
 TRAIN_BATCHES, VALID_BATCHES = 24, 2
 THROUGHPUT_BATCHES = 64  # the config's epoch: 64 x 16384 = 1,048,576 rows
+POD_EPOCHS = 4  # dist_cached rows_k1 and pod_card: 4 epochs of the 24-batch file
+POD_DELTA_EVERY = 4  # pod_card's delta cadence: the child restores a multiple of it
 # The card's trained table and accumulators against the CPU run's.  24 steps
 # move a factor element by ~1e-7 or less, so 1e-5 would pass a run that
 # dropped them: the atol sits near the float32 spacing of the table's values
@@ -5302,6 +5324,323 @@ def phase_nccl_world1(rng, train_path: str) -> dict:
     emit(rec)
 
 
+def _resident_mib(lines: list) -> float | None:
+    """The resident epoch's size from the run's ``device cache: ...`` line."""
+    for line in lines:
+        m = re.search(r"device cache: .*\(([0-9.]+) MiB", line)
+        if m:
+            return float(m.group(1))
+    return None
+
+
+def phase_dist_cached(rng, tmp: str, train_path: str, valid_path: str, big_path: str) -> dict:
+    """baseline5 at full width through ``training.dist_train`` with
+    ``device_cache = true`` at world size 1 (FMB input, ``binary_cache``),
+    each run against ``training.train`` with ``device_cache`` on the same
+    config and init: rows K = 1 over the 393,216-row file (24 steps, a loss
+    logged every step, a fresh seeded init, traced: pod_card's reference), rows
+    K = 8 and fused K = 8 over the config's 1,048,576-row epoch (64 steps,
+    traced: the replays counted in the trace), and rows K = 1 with
+    delta_every_steps = 4 stopped by SIGTERM at step 10 and resumed.  Every
+    logged loss, the logical table and accumulator and the stopped run's
+    cursor bitwise; B1, B2 and the layout's tail once per step.  Then the
+    cached sharded step through an NCCL group of world size 1 with the mesh's
+    fast paths off (the general branches, the collectives inside the K = 8
+    graph) against the fast path, bitwise.  Step p50 eager and graphed, the
+    card's idle share, the resident bytes."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.data import device_cache
+    from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache
+    from fast_tffm_tpu_torch.data.native import best_parser
+    from fast_tffm_tpu_torch.distributed import free_port
+    from fast_tffm_tpu_torch.parallel import Mesh, gather_logical_state, make_mesh
+    from fast_tffm_tpu_torch.trainer import init_state, unpack_state
+
+    t0 = time.perf_counter()
+    train24, valid = _own_files(tmp, "dist_cached", train_path, valid_path)
+    (big,) = _own_files(tmp, "dist_cached", big_path)
+    cache = {"device_cache": True, "binary_cache": True}
+    # rows_k1 runs 4 epochs, so that pod_card's bump after step 8 leaves
+    # its child most of the run to notice it in.
+    cases = {
+        "rows_k1": dict(files=(train24,), steps=POD_EPOCHS * TRAIN_BATCHES,
+                        kw={"log_every": 1, "epoch_num": POD_EPOCHS}, fresh=True, trace=True),
+        "rows_k8": dict(files=(big,), steps=THROUGHPUT_BATCHES,
+                        kw={"steps_per_call": 8, "log_every": 8}),
+        "fused_k8": dict(files=(big,), steps=THROUGHPUT_BATCHES,
+                         kw={"steps_per_call": 8, "log_every": 8, **FUSED}),
+        "rows_k1_delta": dict(files=(train24,), steps=TRAIN_BATCHES,
+                              kw={"log_every": 4, "delta_every_steps": 4}, stop_at=10),
+    }
+    rec = {"phase": "dist_cached", "config": CONFIG + " + " + json.dumps(cache)}
+    observed, pod_ref = {}, {}
+    for path in (train24, big):  # the caches first: no run pays their build
+        ensure_fmb_cache((path,), vocabulary_size=1 << 20, max_nnz=NNZ,
+                         parser=best_parser(8), log=log_stderr)
+    for case, spec in cases.items():
+        base = _b5(**cache, **spec["kw"])
+        model = build_model(base)
+        fused = base.adagrad_accumulator == "fused"
+        tail = "fused_tail_adagrad" if fused else "rows_tail_adagrad"
+        _, _, init = _seeded_init(rng, tmp, f"dist_cached_{case}", base, model, fused)
+        files = dict(train_files=spec["files"], validation_files=(valid,))
+        outs, p50s, cursors = {}, {}, {}
+        for entry in ("train", "dist_train"):
+            name = f"dist_cached_{case}_{entry}"
+            cfg = _phase_cfg(base, tmp, name, "cuda", init, metrics_path=os.path.join(
+                tmp, name + ".jsonl"), **files)
+            clocks = {}
+
+            def make_clock(clocks=clocks):
+                hook, clocks["p50"] = _step_clock()
+                return hook
+
+            resume = not spec.get("fresh")
+            if spec.get("stop_at"):
+                fired = []
+                first = _run(f"{name} stop", cfg, hook=_stop_hook(spec["stop_at"], fired),
+                             resume=resume, entry=entry)
+                cursors[entry] = read_input_cursor(cfg.model_file)
+                if first["state"].step != spec["stop_at"]:
+                    fail(f"{name}: stopped at step {first['state'].step}")
+                _expect_steps(f"{name} stop", first["launches"], spec["stop_at"], tail)
+                out = _run(f"{name} resumed", cfg, make_hook=make_clock, resume=True,
+                           entry=entry)
+                _expect_steps(f"{name} resumed", out["launches"],
+                              spec["steps"] - spec["stop_at"], tail)
+                out["log"] = first["log"] + out["log"]
+                out["launches"] = {k: first["launches"][k] + out["launches"][k]
+                                   for k in KERNELS}
+            else:
+                out = _run(name, cfg, make_hook=make_clock, resume=resume, entry=entry,
+                           trace=base.steps_per_call > 1 or spec.get("trace", False))
+                _expect_steps(name, out["launches"], spec["steps"], tail)
+            outs[entry], p50s[entry] = out, clocks["p50"]()
+        a = unpack_state(outs["train"]["state"], model)
+        b = gather_logical_state(outs["dist_train"]["state"], model, make_mesh())
+        v = base.vocabulary_size
+        b = dataclasses.replace(b, table=b.table[:v], table_accum=b.table_accum[:v])
+        losses = [_records_losses(o["cfg"].metrics_path) for o in outs.values()]
+        if not losses[0] or losses[0] != losses[1] or not _logical_equal(a, b) \
+                or cursors.get("train") != cursors.get("dist_train"):
+            fail(f"dist_cached {case}: dist_train is not bitwise train "
+                 f"(cursors {cursors})")
+        dist_out = outs["dist_train"]
+        observed[f"dist_cached_{case}"] = dist_out["launches"]
+        per_call = base.steps_per_call
+        rec[case] = {
+            "bitwise": True, "steps": spec["steps"], "launches": dist_out["launches"],
+            "train_launches": outs["train"]["launches"],
+            "step_ms_p50": {e: None if p is None else p / per_call for e, p in p50s.items()},
+            "graphed": per_call > 1,
+            "wall_ms": {e: o["wall_ms"] for e, o in outs.items()},
+            "device_idle_share": dist_out.get("device_idle_share"),
+            "device_busy_ms": dist_out.get("device_busy_ms"),
+            "resident_mib": _resident_mib(dist_out["log"]),
+            "examples_per_s_run": spec["steps"] * BATCH / (dist_out["wall_ms"] / 1e3),
+        }
+        if spec.get("stop_at"):
+            rec[case]["cursor"] = cursors["dist_train"]
+        if case == "rows_k1":
+            pod_ref.update(model_file=dist_out["cfg"].model_file,
+                           metrics_path=dist_out["cfg"].metrics_path, **files)
+    # The general branches (R > 1-shaped) of the cached sharded step through
+    # a real NCCL group, eager and as one captured K = 8 graph.
+    base = _b5()
+    model = build_model(base)
+    fmb = ensure_fmb_cache((train24,), vocabulary_size=base.vocabulary_size, max_nnz=NNZ,
+                           log=log_stderr)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        init = init_state(model, torch.Generator(device="cuda").manual_seed(0))
+        for k in (1, 8):
+            states, losses = {}, {}
+            for label, mesh in (("fast", Mesh()), ("general", Mesh(fast_paths=False))):
+                data = device_cache.load_sharded_device_dataset(
+                    fmb, mesh=mesh, batch_size=BATCH, vocabulary_size=base.vocabulary_size,
+                    max_nnz=NNZ, device="cuda")
+                step = device_cache.make_cached_sharded_train_step(
+                    model, base.learning_rate, mesh, data, steps_per_call=k)
+                st = dataclasses.replace(init, table=init.table.clone(),
+                                         table_accum=init.table_accum.clone())
+                items = (device_cache.epoch_index_chunks(8, k, "cuda") if k > 1 else
+                         [torch.tensor(i, device="cuda") for i in range(8)])
+                out = []
+                for i in items:
+                    st, loss = step(st, i)
+                    out.append(loss.reshape(-1))
+                if k > 1 and step.graphs.captures != 1:
+                    fail(f"dist_cached nccl k{k} {label}: {step.graphs.captures} captures")
+                states[label], losses[label] = st, torch.cat(out)
+            if not (torch.equal(losses["fast"], losses["general"])
+                    and torch.equal(states["fast"].table, states["general"].table)
+                    and torch.equal(states["fast"].table_accum, states["general"].table_accum)):
+                fail(f"dist_cached: the general cached step (k{k}) is not the fast path's")
+            rec[f"nccl_general_k{k}"] = {"bitwise": True, "steps": 8}
+    finally:
+        dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return observed, pod_ref
+
+
+def _records_losses(path: str) -> dict:
+    """step -> the last logged loss of a run's kind=train records."""
+    return {r["step"]: r["loss"] for r in _records(path) if r["kind"] == "train"}
+
+
+def phase_pod_card(tmp: str, ref: dict, smi: str) -> dict:
+    """A one-host pod on the card, supervised by this script through the
+    port's own functions: generation 0 in ``generation.json`` (a free port,
+    num_processes 1) and the FM_DIST_* environment, then ``python -m
+    fast_tffm_tpu_torch.cli dist_train`` on cuda (baseline5, device_cache,
+    delta_every_steps 4, log_every 1, host_stall_timeout_s 5, runtime_dir
+    set; a fresh seeded init).  After the child logs step 8 the file goes to
+    generation 1: the child must re-exec in place (the same PID, its
+    environment the new generation's, ``--resume`` on its command line),
+    join generation 1, restore the chain head on the card (a "resumed
+    from" line after the join, at a delta boundary at or past step 8, and
+    the first new step line the step after it) and finish with exit 0, every step's last-logged loss and the final table and
+    accumulator bitwise dist_cached's rows K = 1 run, and ``hb-0.json`` at
+    the last step.  The wall from the bump to the first new step line.  The
+    child is a process of its own: its launches are not counted here."""
+    import threading
+
+    import numpy as np
+
+    from fast_tffm_tpu_torch.distributed import (
+        free_port,
+        read_generation,
+        read_heartbeat,
+        write_generation,
+    )
+
+    t0 = time.perf_counter()
+    rdir = os.path.join(tmp, "pod_card.dist")
+    model_file = os.path.join(tmp, "pod_card.ckpt")
+    metrics = os.path.join(tmp, "pod_card.jsonl")
+    ini = _write_ini(
+        os.path.join(tmp, "pod_card.cfg"),
+        General={"model_file": model_file},
+        Train={"train_files": ref["train_files"][0],
+               "validation_files": ref["validation_files"][0], "epoch_num": POD_EPOCHS,
+               "device_cache": "true", "binary_cache": "true", "log_every": 1,
+               "metrics_path": metrics},
+        Checkpoint={"delta_every_steps": POD_DELTA_EVERY},
+        Distributed={"host_stall_timeout_s": 5, "runtime_dir": rdir, "heartbeat_s": 0.5},
+    )
+    write_generation(rdir, {"generation": 0, "coordinator": f"127.0.0.1:{free_port()}",
+                            "num_processes": 1, "cause": "chip_smoke start"})
+    env = dict(os.environ, FM_DIST_RUNTIME_DIR=rdir, FM_DIST_PROCESS_ID="0",
+               FM_DIST_PROCESSES="1", FM_DIST_GENERATION="0")
+    proc = subprocess.Popen([sys.executable, "-m", "fast_tffm_tpu_torch.cli", "dist_train", ini,
+                             "--device", "cuda"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, marks = [], {}
+
+    def read():
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            lines.append(line)
+            log_stderr(f"[pod_card] {line}")
+            now = time.perf_counter()
+            if line.startswith("step 8 ") and "bump" not in marks:
+                write_generation(rdir, {"generation": 1,
+                                        "coordinator": f"127.0.0.1:{free_port()}",
+                                        "num_processes": 1, "cause": "chip_smoke bump"})
+                marks["bump"] = now
+            elif "re-exec'ing into the new pod generation" in line:
+                marks.setdefault("reexec_logged", now)
+            elif "joining pod generation 1" in line:
+                marks.setdefault("joined", now)
+                marks["environ"] = _proc_environ(proc.pid)
+                marks["cmdline"] = _proc_cmdline(proc.pid)
+            elif line.startswith("step ") and "joined" in marks:
+                marks.setdefault("first_new_step", now)
+                marks.setdefault("first_new_step_line", line)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("pod_card: the child did not finish in 600 s")
+    finally:
+        reader.join(timeout=30)
+    if rc != 0:
+        fail(f"pod_card: the child exited {rc}")
+    for key in ("bump", "reexec_logged", "joined", "first_new_step"):
+        if key not in marks:
+            fail(f"pod_card: no {key} seen in the child's output")
+    environ, cmdline = marks.get("environ") or {}, marks.get("cmdline") or []
+    if environ.get("FM_DIST_GENERATION") != "1" or cmdline[-1:] != ["--resume"]:
+        fail(f"pod_card: pid {proc.pid} after the bump: generation "
+             f"{environ.get('FM_DIST_GENERATION')}, command line {cmdline}")
+    if read_generation(rdir)["generation"] != 1:
+        fail("pod_card: generation.json is not at generation 1")
+    got, want = _records_losses(metrics), _records_losses(ref["metrics_path"])
+    if not want or any(got.get(s) != loss for s, loss in want.items()):
+        fail(f"pod_card: the losses are not dist_cached rows_k1's: {got} against {want}")
+    with np.load(model_file) as za, np.load(ref["model_file"]) as zb:
+        for key in ("table", "table_accum", "step"):
+            if not np.array_equal(za[key], zb[key]):
+                fail(f"pod_card: the final {key} is not dist_cached rows_k1's")
+        step = int(za["step"])
+    hb, _ = read_heartbeat(rdir, 0)
+    if not hb or hb.get("step") != step:
+        fail(f"pod_card: hb-0.json {hb}, the run ended at step {step}")
+    # The re-exec'd image restored the chain head: a "resumed from" line
+    # after the join, at a delta boundary at or past the bump's step 8,
+    # and the first new step the one after it.
+    joined_at = next(i for i, line in enumerate(lines) if "joining pod generation 1" in line)
+    restored = [line for line in lines[joined_at:] if line.startswith("resumed from")]
+    m = re.search(r" at step (\d+)", restored[0]) if restored else None
+    head = int(m.group(1)) if m else None
+    if head is None or head < 8 or head % POD_DELTA_EVERY or head >= step:
+        fail(f"pod_card: no restore of a delta boundary >= 8 after the join: {restored}")
+    if not marks["first_new_step_line"].startswith(f"step {head + 1} "):
+        fail(f"pod_card: restored step {head}, first new step line "
+             f"{marks['first_new_step_line']!r}")
+    rec = {"phase": "pod_card", "card": smi, "pid": proc.pid, "exit_code": rc,
+           "same_pid_reexec": True, "generation_environ": environ.get("FM_DIST_GENERATION"),
+           "cmdline_after": cmdline, "restored": restored, "restored_step": head,
+           "first_new_step_line": marks["first_new_step_line"],
+           "bump_to_reexec_log_s": marks["reexec_logged"] - marks["bump"],
+           "bump_to_join_s": marks["joined"] - marks["bump"],
+           "bump_to_first_new_step_s": marks["first_new_step"] - marks["bump"],
+           "bitwise_dist_cached_rows_k1": True, "heartbeat": hb, "steps": step,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+def _proc_environ(pid: int) -> dict:
+    try:
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            raw = f.read()
+    except OSError:
+        return {}
+    return dict(kv.decode(errors="replace").split("=", 1) for kv in raw.split(b"\0")
+                if b"=" in kv)
+
+
+def _proc_cmdline(pid: int) -> list:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return [a.decode(errors="replace") for a in f.read().split(b"\0") if a]
+    except OSError:
+        return []
+
+
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
                    shapes=None, packed=None) -> dict:
     rec = {
@@ -5346,11 +5685,17 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     fwd = phase_anova(rng)
     bwd = phase_anova_bwd(rng)
-    only_dist = sys.argv[1:] == ["--only", "dist"]
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train_path, valid_path, big_path = phase_data(tmp)
+        if only == "pod":
+            # A short run of this slice's phases alone (no result line).
+            _, pod_ref = phase_dist_cached(np.random.default_rng(SEED + 18), tmp, train_path,
+                                           valid_path, big_path)
+            phase_pod_card(tmp, pod_ref, dev["nvidia_smi"])
+            return 0
         b2_jobs = _start_b2_data(tmp)
-        if only_dist:
+        if only == "dist":
             # A short run of this slice's phases alone (no result line).
             phase_dist_b2(tmp, b2_jobs)
             phase_dist_b5(np.random.default_rng(SEED + 15), tmp, train_path, valid_path)
@@ -5426,6 +5771,12 @@ def main() -> int:
                                       valid_path))
         phase_shard_update(np.random.default_rng(SEED + 16), train_path)
         phase_nccl_world1(np.random.default_rng(SEED + 17), train_path)
+        # This slice's phases: the resident epoch under dist_train, a pod of
+        # one host re-exec'd into its next generation.
+        cached, pod_ref = phase_dist_cached(np.random.default_rng(SEED + 18), tmp, train_path,
+                                            valid_path, big_path)
+        observed.update(cached)
+        phase_pod_card(tmp, pod_ref, dev["nvidia_smi"])
         phase_throughput(tmp, big_path)
         phase_telemetry_cost(tmp, big_path)
     src = "fast_tffm_tpu_torch/csrc/"

@@ -34,13 +34,19 @@
 
   * **Multi-process runs** (``runtime``, an active
     ``distributed.DistributedRuntime``): the single-writer npz protocol.
-    Every rank posts its input cursor and joins ``saveable`` (the
-    collective gather of the logical state onto rank 0); rank 0 alone
-    writes, embedding the per-rank cursor vector (``hosts``), and posts the
-    content signature; every other rank waits on that signature before it
-    goes on (the save barrier).  These saves are synchronous: async and
-    delta saves across processes are a later slice (``dist_train`` refuses
-    them).
+    At every boundary every rank posts its input cursor and joins the
+    collectives (``saveable``, the gather of the logical state onto rank
+    0; a delta's ``touched_rows``, the ranks' bitmaps OR-ed and the
+    touched rows gathered onto rank 0), dispatched on the loop's side;
+    rank 0 alone writes, embedding the per-rank cursor vector (``hosts``),
+    and posts each publish's outcome (its content signature, or
+    ``failed``).  Every other rank waits on that outcome — at once for a
+    synchronous save, at its next boundary for an async or delta one (the
+    writer's own one-in-flight back-pressure) — and mirrors the chain
+    bookkeeping from it, so the promote-to-full decision is the same on
+    every rank.  The age and size compaction (``full_every_s``,
+    ``chain_max_bytes``) is off: a wall-clock threshold read on each rank
+    could disagree.
 
 Every save emits a ``kind=ckpt`` record (``mode`` full / delta / sync, its
 snapshot, convert, D2H and write times, bytes, rows and the train loop's
@@ -140,6 +146,7 @@ class AsyncCheckpointer:
         cursor_fn=None,
         paramstore=None,
         runtime=None,
+        touched_rows=None,
     ):
         self._path = path
         self._device = torch.device(device)
@@ -150,12 +157,14 @@ class AsyncCheckpointer:
         # the npz publish (config.validate refuses async_save with it).
         self._ps = paramstore
         self._rt = runtime if (runtime is not None and runtime.active) else None
+        self._is_writer = self._rt is None or self._rt.is_lead
         self._seq = 0  # save boundaries so far: the same on every rank
-        self._async = bool(async_save) and paramstore is None and self._rt is None
+        self._pending_await: int | None = None  # a non-writer's unawaited publish
+        self._async = bool(async_save) and paramstore is None
         self._delta_every = int(delta_every_steps)
         self._chain_max = max(1, int(delta_chain_max))
-        self._full_every_s = float(full_every_s)
-        self._chain_bytes_max = int(chain_max_bytes)
+        self._full_every_s = float(full_every_s) if self._rt is None else 0.0
+        self._chain_bytes_max = int(chain_max_bytes) if self._rt is None else 0
         self._last_full_t = time.monotonic()
         self._chain_bytes = 0
         self._vocab = int(vocab)
@@ -174,6 +183,10 @@ class AsyncCheckpointer:
                          if cuda else None)
         self._bitmap = None
         self._row_dim = int(row_dim)
+        # ``touched_rows(state, bitmap) -> (idx, table rows, accum rows)``
+        # is a delta's rows (the mesh's gather under dist_train; rows None
+        # on a rank that does not write).
+        self._touched_rows = touched_rows or self._local_touched_rows
         # A resumed run extends the chain it restored from (its head step
         # equals our start step; anything else is another history).  A
         # fresh run has no parent: its first delta boundary is a full save.
@@ -210,14 +223,18 @@ class AsyncCheckpointer:
     def delta_enabled(self) -> bool:
         return self._delta_every > 0
 
-    def note_batch(self, ids) -> None:
-        """OR one call's logical ids (a tensor on the run's device) into the
-        touched bitmap (delta mode only)."""
+    def note_batch(self, b) -> None:
+        """OR what one call touched into the bitmap (delta mode only): ``b``
+        its logical ids (a tensor on the run's device)."""
         if self._delta_every <= 0:
             return
         if self._bitmap is None:
             self._bitmap = self._fresh_bitmap()
-        self._bitmap.index_fill_(0, ids.reshape(-1).long(), True)
+        self._bitmap.index_fill_(0, b.reshape(-1).long(), True)
+
+    def _local_touched_rows(self, state, bitmap):
+        idx = torch.nonzero(bitmap).reshape(-1)  # sorted, one sync
+        return (idx, *gather_rows(state, idx, self._row_dim))
 
     def delta_due(self, step: int) -> bool:
         return self._delta_every > 0 and step - self._last_boundary_step >= self._delta_every
@@ -237,10 +254,15 @@ class AsyncCheckpointer:
             log_quietly(self._log, f"cursor capture failed (saving without one): {e!r}")
             return None
 
+    # -- the multi-process protocol -----------------------------------------
+
     def _merged_cursor(self, seq: int) -> dict | None:
-        """Multi-process: every rank posts its cursor; the lead embeds the
-        vector (``hosts[p]``: rank p's position), the JAX member layout."""
+        """The cursor boundary ``seq`` embeds.  Multi-process: every rank
+        posts its cursor; the lead embeds the vector (``hosts[p]``: rank
+        p's position), the JAX member layout."""
         cursor = self._cursor()
+        if self._rt is None:
+            return cursor
         vec = self._rt.share_cursor(seq, cursor)
         if vec is None:  # a non-lead rank posted its own
             return cursor
@@ -251,53 +273,74 @@ class AsyncCheckpointer:
                            for p, c in enumerate(vec)]
         return merged
 
-    def _single_writer_save(self, state, saveable, step: int, t0: float, emit: bool) -> None:
-        """The multi-process full save (see the module docstring)."""
-        self._seq += 1
-        cursor = self._merged_cursor(self._seq)
-        logical = saveable(state)  # collective: every rank, the state on rank 0
-        if not self._rt.is_lead:
-            self._rt.await_signature(self._seq)
+    def _publish_outcome(self, seq: int, sid: str | None, meta: str) -> None:
+        """The lead: post boundary ``seq``'s outcome (``sid`` durable, or
+        ``failed``), from whichever thread published."""
+        if self._rt is None or not self._is_writer:
             return
-        sid = uuid.uuid4().hex
-        t1 = time.perf_counter()
-        timings: dict = {}
         try:
-            nbytes = save_checkpoint(self._path, logical, chunk_bytes=self._chunk, save_id=sid,
-                                     cursor=cursor, timings=timings, staging=self._staging)
-        except Exception:
-            with self._lock:
-                self.write_failures += 1
-            self._rt.publish_signature(self._seq, None, "failed")
-            raise
-        self._rt.publish_signature(self._seq, sid, "full")
-        self._on_full_published(sid)
-        self.sync_saves += 1
-        if emit:
-            self._emit("sync", step, timings, nbytes=nbytes, rows=logical.table.shape[0],
-                       snapshot_ms=0.0, convert_ms=(t1 - t0) * 1e3,
-                       train_stall_ms=(time.perf_counter() - t0) * 1e3)
+            self._rt.publish_signature(seq, sid, meta)
+        # analysis: ok exception-hygiene a dead store means the pod is coming apart; the peers surface it as PeerLostError, the writer logs and goes on
+        except Exception as e:
+            log_quietly(self._log, f"checkpoint signature publish failed: {e!r}")
+
+    def _apply_outcome(self, out: dict | None) -> None:
+        """A non-writer's mirror of the lead's chain bookkeeping, from one
+        awaited outcome: the promote-to-full decision must be the same on
+        every rank."""
+        if out is None:
+            return
+        sid, meta = out.get("sig"), out.get("meta")
+        with self._lock:
+            if meta == "full" and sid:
+                self._parent_sig, self._next_seq, self._chain_len = sid, 1, 0
+            elif meta == "delta" and sid:
+                self._parent_sig = sid
+                self._next_seq += 1
+                self._chain_len += 1
+            else:  # a failed write: the lead's promote-to-full reset
+                self._parent_sig = None
+
+    def _await_pending(self, count: bool = False) -> None:
+        """A non-writer's back-pressure point: block until the previous
+        publish's outcome is posted (the save barrier of an async or delta
+        boundary), as the lead's own drain waits out its writer."""
+        if self._pending_await is None:
+            return
+        t0 = time.perf_counter()
+        seq, self._pending_await = self._pending_await, None
+        self._apply_outcome(self._rt.await_signature(seq))
+        blocked = (time.perf_counter() - t0) * 1e3
+        if count and blocked > 1.0:
+            self.blocked_boundaries += 1
+            self.blocked_ms += blocked
 
     # -- boundaries -------------------------------------------------------
 
     def save_boundary(self, state, saveable, step: int, *, sync: bool = False,
                       emit: bool = True) -> None:
         """Full save: async (snapshot + writer thread) unless ``sync`` or
-        ``async_save`` is off."""
+        ``async_save`` is off.  Multi-process: every rank dispatches the
+        collective ``saveable``; only rank 0 writes."""
         t0 = time.perf_counter()
         self._drain(count=True)
+        self._await_pending(count=True)
         if self._delta_every > 0:
             # A full save supersedes the accumulated window either way.
             self._bitmap = self._fresh_bitmap() if self._bitmap is not None else None
             self._last_boundary_step = int(step)
-        if self._rt is not None:
-            return self._single_writer_save(state, saveable, step, t0, emit)
-        cursor = self._cursor()
+        self._seq += 1
+        seq = self._seq
+        cursor = self._merged_cursor(seq)
         if self._ps is not None:
             return self._tiered_full(state, step, cursor, t0, emit)
         sid = uuid.uuid4().hex
         if sync or not self._async:
-            logical = saveable(state)
+            logical = saveable(state)  # multi-process: the gather onto rank 0
+            if not self._is_writer:
+                # The save barrier: on only once the lead's publish is durable.
+                self._apply_outcome(self._rt.await_signature(seq))
+                return
             t1 = time.perf_counter()
             timings: dict = {}
             try:
@@ -307,8 +350,10 @@ class AsyncCheckpointer:
             except Exception:
                 with self._lock:
                     self.write_failures += 1
+                self._publish_outcome(seq, None, "failed")
                 raise  # a synchronous save failing must surface: it is the last line
             self._on_full_published(sid)
+            self._publish_outcome(seq, sid, "full")
             self.sync_saves += 1
             if emit:
                 self._emit("sync", step, timings, nbytes=nbytes, rows=logical.table.shape[0],
@@ -316,15 +361,27 @@ class AsyncCheckpointer:
                            train_stall_ms=(time.perf_counter() - t0) * 1e3)
             return
         snap, ready = device_snapshot(state)
+        convert = saveable
+        if self._rt is not None:
+            # The gather is a collective every rank dispatches here, on the
+            # loop's side; the lead's writer thread only copies and writes.
+            snap, convert = saveable(snap), None
+            ready = _record(self._device)
+            if not self._is_writer:
+                self._pending_await = seq
+                return
         stall_ms = (time.perf_counter() - t0) * 1e3
-        self._spawn(self._write_full, (snap, ready, saveable, int(step), sid, stall_ms, emit,
-                                       cursor))
+        self._spawn(self._write_full, (snap, ready, convert, int(step), sid, stall_ms, emit,
+                                       cursor, seq))
 
     def delta_boundary(self, state, saveable, step: int) -> None:
         """Delta save of the touched window; promotes itself to a full save
-        when there is no signed base yet or the chain is long, old or fat."""
+        when there is no signed base yet or the chain is long, old or fat.
+        Multi-process: every rank ORs its bitmap into the union and joins
+        the rows' gather; only rank 0 writes."""
         t0 = time.perf_counter()
         self._drain(count=True)
+        self._await_pending(count=True)
         with self._lock:
             parent_sig, chain_len = self._parent_sig, self._chain_len
             chain_bytes, last_full_t = self._chain_bytes, self._last_full_t
@@ -337,23 +394,25 @@ class AsyncCheckpointer:
             return self.save_boundary(state, saveable, step)
         if self._ps is not None:
             return self._tiered_delta(state, step, t0)
-        if self._bitmap is not None:
-            idx_dev = torch.nonzero(self._bitmap).reshape(-1)  # sorted, one sync
-        else:
-            idx_dev = torch.zeros(0, dtype=torch.int64, device=self._device)
+        self._seq += 1
+        seq = self._seq
+        bitmap = self._bitmap if self._bitmap is not None else self._fresh_bitmap()
+        idx_dev, trows, arows = self._touched_rows(state, bitmap)
         self._bitmap = self._fresh_bitmap()
         self._last_boundary_step = int(step)
-        trows, arows = gather_rows(state, idx_dev, self._row_dim)
         dense = [p.clone() for p in state.dense]
         dacc = [a.clone() for a in state.dense_accum]
         ready = _record(self._device)
         idx = idx_dev.cpu().numpy()
         with self._lock:
-            seq, parent = self._next_seq, self._parent_sig
-        cursor = self._cursor()
+            link, parent = self._next_seq, self._parent_sig
+        cursor = self._merged_cursor(seq)
+        if not self._is_writer:
+            self._pending_await = seq  # the rows' gather was this rank's share
+            return
         stall_ms = (time.perf_counter() - t0) * 1e3
-        self._spawn(self._write_delta, (seq, parent, idx, trows, arows, dense, dacc, ready,
-                                        int(state.step), int(step), stall_ms, cursor))
+        self._spawn(self._write_delta, (link, parent, idx, trows, arows, dense, dacc, ready,
+                                        int(state.step), int(step), stall_ms, cursor, seq))
 
     # -- tiered boundaries (paramstore; synchronous) -----------------------
 
@@ -468,8 +527,10 @@ class AsyncCheckpointer:
 
     def finalize(self) -> None:
         """Join any in-flight write, so an older async publish can never
-        land after (and clobber) the final synchronous one."""
+        land after (and clobber) the final synchronous one; a non-writer
+        rank awaits its outstanding publish the same way."""
         self._drain()
+        self._await_pending()
 
     def _on_writer_stream(self, ready):
         """The writer's stream, waiting on ``ready`` (the snapshot's event);
@@ -483,11 +544,12 @@ class AsyncCheckpointer:
         if self._side is not None:
             self._side.synchronize()
 
-    def _write_full(self, snap, ready, saveable, step, sid, stall_ms, emit, cursor) -> None:
+    def _write_full(self, snap, ready, saveable, step, sid, stall_ms, emit, cursor,
+                    seq) -> None:
         try:
             with self._on_writer_stream(ready):
                 t0 = time.perf_counter()
-                logical = saveable(snap)
+                logical = saveable(snap) if saveable is not None else snap
                 self._sync_writer_stream()
                 convert_ms = (time.perf_counter() - t0) * 1e3
                 timings: dict = {}
@@ -495,6 +557,7 @@ class AsyncCheckpointer:
                                          save_id=sid, cursor=cursor, timings=timings,
                                          staging=self._staging)
             self._on_full_published(sid)
+            self._publish_outcome(seq, sid, "full")
             with self._lock:
                 self.full_saves += 1
             if emit:
@@ -504,11 +567,12 @@ class AsyncCheckpointer:
         # analysis: ok exception-hygiene the writer thread's boundary: counted, logged, the previous checkpoint stays the last good state
         except Exception as e:
             self._on_write_failed()
+            self._publish_outcome(seq, None, "failed")
             log_quietly(self._log,
                         f"async checkpoint write failed (previous checkpoint intact): {e!r}")
 
     def _write_delta(self, seq, parent, idx, trows, arows, dense, dacc, ready, state_step,
-                     step, stall_ms, cursor) -> None:
+                     step, stall_ms, cursor, bseq) -> None:
         try:
             with self._on_writer_stream(ready):
                 t0 = time.perf_counter()
@@ -531,11 +595,13 @@ class AsyncCheckpointer:
                 self._chain_len += 1
                 self._chain_bytes += int(nbytes)
                 self.delta_saves += 1
+            self._publish_outcome(bseq, sid, "delta")
             self._emit("delta", step, timings, nbytes=nbytes, rows=int(idx.size),
                        snapshot_ms=stall_ms, convert_ms=convert_ms, train_stall_ms=stall_ms)
         # analysis: ok exception-hygiene the writer thread's boundary: counted, logged, the chain stays intact and the next boundary promotes to full
         except Exception as e:
             self._on_write_failed()
+            self._publish_outcome(bseq, None, "failed")
             log_quietly(self._log, f"delta checkpoint write failed (chain intact): {e!r}")
 
     def _on_full_published(self, sid: str) -> None:

@@ -39,8 +39,14 @@ package's CLI (``fast_tffm_tpu/cli.py``):
                            a launcher's WORLD_SIZE / RANK / MASTER_ADDR /
                            MASTER_PORT; the table row-sharded, each rank
                            parsing its rows of every batch; rank 0 writes
-                           the checkpoints.  --resume, --fault-plan and (one
-                           process) --supervised as for train
+                           the checkpoints.  --resume and --fault-plan as for
+                           train; --supervised with num_processes > 1 runs a
+                           pod: one child per process under one supervisor
+                           (its generation file and heartbeats in [Distributed]
+                           runtime_dir, default <model_file>.dist), a dead
+                           host relaunched alone while the others re-exec in
+                           place and resume; --fault-process P arms the plan
+                           on host P's first launch (-1: every host)
   dist_predict <cfg>       predict over the same mesh; rank 0 writes
                            score_path
 
@@ -51,9 +57,7 @@ ignored with a note on stderr, as the JAX CLI does.  Logs go to stderr.
 ``--metrics-path``, ``--run-id`` and ``--profile-steps`` override
 ``[Train] metrics_path``, ``[Telemetry] run_id`` and ``[Telemetry]
 profile_steps`` (the JAX CLI's flags): a run is instrumented, and rendered
-with ``tools/report.py``, without editing its config.  The pod supervision
-of multi-process training (``dist_train --supervised`` with
-``num_processes`` > 1, ``--fault-process``) is a later slice of the port.
+with ``tools/report.py``, without editing its config.
 """
 
 from __future__ import annotations
@@ -69,8 +73,6 @@ from fast_tffm_tpu_torch.telemetry import enable_compilation_cache
 __all__ = ["main", "MODES"]
 
 MODES = ("train", "predict", "dist_train", "dist_predict", "convert", "serve")
-_POD = ("the pod supervision of multi-process training (item 10 of ROADMAP.md §A), "
-        "which fast_tffm_tpu_torch has not ported yet; use fast_tffm_tpu")
 
 
 def main(argv=None) -> int:
@@ -108,17 +110,15 @@ def main(argv=None) -> int:
                     help="seed of random: fault plans (same seed, same schedule)")
     ap.add_argument("--fault-horizon", type=int, default=1000, metavar="STEPS",
                     help="step horizon random: fault plans draw positions from")
-    ap.add_argument("--fault-process", type=int, default=None, metavar="P",
-                    help="not ported: the pod-supervised dist_train's fault placement")
+    ap.add_argument("--fault-process", type=int, default=0, metavar="P",
+                    help="pod-supervised dist_train only: arm --fault-plan on host P "
+                    "(default 0, the checkpoint writer; -1 = every host)")
     args = ap.parse_args(argv)
     training = args.mode in ("train", "dist_train")
     if args.resume and not training:
         ap.error("--resume applies to the train and dist_train verbs")
     if (args.supervised or args.fault_plan) and not training:
         ap.error("--supervised and --fault-plan apply to the train verb (and dist_train)")
-    if args.fault_process is not None:
-        ap.error(f"--fault-process places faults on the processes of a pod-supervised "
-                 f"dist_train: {_POD}")
     if args.port is not None and args.mode != "serve":
         ap.error("--port applies to the serve verb")
     cfg = load_config(args.config)
@@ -143,8 +143,6 @@ def main(argv=None) -> int:
         enable_compilation_cache(cfg.telemetry_compilation_cache_dir, log)
 
     if training and args.supervised:
-        if args.mode == "dist_train" and cfg.num_processes > 1:
-            ap.error(f"dist_train --supervised with num_processes = {cfg.num_processes} is {_POD}")
         return _supervise(cfg, args, log)
     if training:
         from fast_tffm_tpu_torch.training import dist_train, train
@@ -157,8 +155,14 @@ def main(argv=None) -> int:
                                                  horizon=args.fault_horizon))
             log(f"fault plan armed: {inj.plan.to_json()}")
             step_hook = inj.step_hook
-        run = train if args.mode == "train" else dist_train
-        run(cfg, resume=args.resume, log=log, device=args.device, step_hook=step_hook)
+        if args.mode == "train":
+            train(cfg, resume=args.resume, log=log, device=args.device, step_hook=step_hook)
+            return 0
+        try:
+            dist_train(cfg, resume=args.resume, log=log, device=args.device,
+                       step_hook=step_hook)
+        except Exception as e:
+            return _pod_child_failed(cfg, e, log)
         return 0
     if args.mode in ("predict", "dist_predict"):
         from fast_tffm_tpu_torch.prediction import dist_predict, predict
@@ -182,12 +186,51 @@ def main(argv=None) -> int:
     return 0
 
 
+def _pod_child_failed(cfg, e: Exception, log) -> int:
+    """A ``dist_train`` failure: outside a pod (or a non-finite loss, a
+    decision every rank shares) it is raised.  In a pod child an escaping
+    error is usually the collateral of a peer's death (a collective or the
+    store failing), and dying at once would turn one host's crash into N
+    relaunches: park, and let the supervisor's generation bump re-exec this
+    process from the watcher thread.  When the bump landed but the watcher
+    lost the race, exit ``PEER_LOST_EXIT`` (the supervisor relaunches this
+    host into the current generation); with no bump the failure was ours
+    alone and is raised."""
+    import time
+
+    from fast_tffm_tpu_torch.distributed import (
+        ENV_GENERATION,
+        ENV_RUNTIME_DIR,
+        PEER_LOST_EXIT,
+        read_generation,
+    )
+    from fast_tffm_tpu_torch.resilience import NonFiniteLossError
+
+    gen_env, rdir = os.environ.get(ENV_GENERATION), os.environ.get(ENV_RUNTIME_DIR)
+    if isinstance(e, NonFiniteLossError) or gen_env is None or not rdir:
+        raise e
+    log(f"dist_train failed ({e!r}); parking for a pod generation bump (peer crash?) "
+        "before giving up")
+    deadline = time.monotonic() + min(30.0, cfg.barrier_timeout_s)
+    while time.monotonic() < deadline:
+        time.sleep(0.25)
+    info = read_generation(rdir)
+    if info is not None and int(info.get("generation", -1)) > int(gen_env):
+        return PEER_LOST_EXIT
+    raise e
+
+
 def _supervise(cfg, args, log) -> int:
-    """``train --supervised`` (and one-process ``dist_train --supervised``):
-    this process stays off the device (it imports no torch) and runs
-    ``python -m fast_tffm_tpu_torch.cli <verb>`` as its child under
+    """``train --supervised`` and ``dist_train --supervised``: this process
+    stays off the device (it imports no torch) and runs ``python -m
+    fast_tffm_tpu_torch.cli <verb>`` as its child under
     ``resilience.Supervisor``, relaunching it with ``--resume`` after a
-    crash.  The supervisor's records and every child's share one run id."""
+    crash.  ``dist_train`` with ``num_processes`` > 1 is a pod: one child
+    per process, ``[Distributed] runtime_dir`` (default ``<model_file>.dist``)
+    for the generation file and the heartbeats, ``host_stall_timeout_s``
+    for the straggler kill, and the fault plan on ``--fault-process``'s
+    first launch.  The supervisor's records and every child's share one run
+    id."""
     from fast_tffm_tpu_torch.resilience import Supervisor
     from fast_tffm_tpu_torch.telemetry import new_run_id
 
@@ -206,17 +249,24 @@ def _supervise(cfg, args, log) -> int:
     env["PYTHONPATH"] = (pkg_root + os.pathsep + env["PYTHONPATH"]
                          if env.get("PYTHONPATH") else pkg_root)
 
-    def build_cmd(attempt: int, resume: bool) -> list[str]:
+    def build_cmd(attempt: int, resume: bool, proc: int | None = None) -> list[str]:
         cmd = list(base)
         if resume:
             cmd += ["--resume"]
-        if args.fault_plan and attempt == 0:
-            # The plan arms the first launch only: a kill armed again on
-            # every relaunch would crash for ever.
+        on_host = proc is None or args.fault_process < 0 or proc == args.fault_process
+        if args.fault_plan and attempt == 0 and on_host:
+            # The plan arms the first launch only (of --fault-process's host
+            # in a pod): a kill armed again on every relaunch would crash
+            # for ever.
             cmd += ["--fault-plan", args.fault_plan, "--fault-seed", str(args.fault_seed),
                     "--fault-horizon", str(args.fault_horizon)]
         return cmd
 
+    pod = {}
+    if args.mode == "dist_train" and cfg.num_processes > 1:
+        pod = dict(processes=cfg.num_processes,
+                   runtime_dir=cfg.runtime_dir or (cfg.model_file + ".dist"),
+                   straggler_timeout_s=cfg.host_stall_timeout_s)
     sup = Supervisor(
         build_cmd,
         model_file=cfg.model_file,
@@ -228,6 +278,7 @@ def _supervise(cfg, args, log) -> int:
         log=log,
         child_log=print,
         env=env,
+        **pod,
     )
     return sup.run(resume=args.resume)
 

@@ -211,11 +211,12 @@ class Config:
     input_assignment: str = "rows"  # streamed input split: rows (block-cyclic
     #   line sharding of every file) | files (rank p streams files [p::P]
     #   whole; short ranks pad the epoch tail with weight-0 batches)
-    runtime_dir: str = ""  # shared coordination dir (the file KV; heartbeats
-    #   and the generation file belong to pod supervision, a later slice)
+    runtime_dir: str = ""  # shared coordination dir (the file KV, the
+    #   heartbeats, a pod's generation file; dist_train --supervised
+    #   defaults it to <model_file>.dist)
     heartbeat_s: float = 2.0  # per-host heartbeat cadence (pod supervision)
-    host_stall_timeout_s: float = 0.0  # peer-heartbeat staleness (pod
-    #   supervision; > 0 is refused by dist_train in this port)
+    host_stall_timeout_s: float = 0.0  # peer-heartbeat staleness: > 0 arms
+    #   the peer monitor's kind=stall records and the supervisor's straggler kill
     barrier_timeout_s: float = 120.0  # cross-process barrier / signature /
     #   cursor-gather wait budget; a timeout means a peer is gone
 

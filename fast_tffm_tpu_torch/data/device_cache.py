@@ -1,5 +1,5 @@
 """The device-resident epoch (``device_cache = true``) — the counterpart of
-``fast_tffm_tpu/data/device_cache.py`` for one device.
+``fast_tffm_tpu/data/device_cache.py``.
 
 The FMB-backed train set is assembled ONCE by ``fmb_batch_stream`` itself
 (the same batches, padding, per-file weights and header checks as the
@@ -19,10 +19,16 @@ but a [K] index copy (``make_cached_scan_train_step``).
   epoch_index_chunks(batches, k, device, start) -> [K]-long batch-index vectors
   call_ids(data, i, shuffled) -> the ids a call's batches carry (on the card)
 
+Under ``dist_train`` (``load_sharded_device_dataset``) each rank holds only
+its block-cyclic ``B / P`` rows of every global batch, the rows its
+streamed input would read, on its own device; ``make_cached_sharded_train_step``
+runs the mesh-sharded step on batch ``i`` of them, sequentially (a shuffled
+epoch would move rows between ranks every step); ``call_ids(data, i,
+False)`` gives the delta checkpoint's bitmap and the id statistics the ids
+of a call there.
+
 The shuffled steps read ``data.perm``, a device buffer allocated once and
-filled per epoch by ``set_permutation``.  ``call_ids`` is the single-device
-touched-row marker's and ids slicer's source; the JAX module's
-mesh-sharded loaders are a later slice of the port.
+filled per epoch by ``set_permutation``.
 """
 
 from __future__ import annotations
@@ -46,13 +52,18 @@ __all__ = [
     "make_cached_scan_train_step",
     "epoch_index_chunks",
     "call_ids",
+    "load_sharded_device_dataset",
+    "make_cached_sharded_train_step",
 ]
 
 
 @dataclasses.dataclass
 class DeviceDataset:
     """Flat row-major resident arrays, leading dim [batches·B] (one copy
-    serves the sequential and the shuffled gather)."""
+    serves the sequential and the shuffled gather).  ``batch_size`` is the
+    rows of each batch held here: the global batch on one device, a rank's
+    ``B / P`` rows of it in a sharded dataset (whose flat arrays are the
+    batch-major ``[batches, B / P, ...]`` ones)."""
 
     labels: torch.Tensor  # f32 [batches·B]
     ids: torch.Tensor  # i32 [batches·B, N]
@@ -83,23 +94,35 @@ def _load_host_arrays(
     max_nnz: int | None = None,
     weights=None,
     with_fields: bool = False,
+    shard_index: int = 0,
+    shard_count: int = 1,
 ):
     """Flat host staging arrays filled batch by batch from
     ``fmb_batch_stream`` (preallocated: a list-then-concatenate would hold
     the dataset on the host twice); ``fields`` [rows, N] ``with_fields``,
-    else [rows, 0].  Returns (arrays, batches, n_rows)."""
+    else [rows, 0].  ``shard_count`` > 1 stages only shard ``shard_index``'s
+    block-cyclic rows of every global batch of ``batch_size`` (the streamed
+    dist_train input's rule), every shard the same number of batches.
+    Returns (arrays, batches, n_rows)."""
     from fast_tffm_tpu_torch.data.binary import fmb_batch_stream, open_fmb
 
     files = [str(f) for f in files]
     n_rows = sum(open_fmb(f).n_rows for f in files)
     if n_rows == 0:
         raise ValueError(f"device_cache: no rows in {files}")
+    if batch_size % shard_count:
+        raise ValueError(f"device_cache: global batch_size {batch_size} not divisible "
+                         f"by {shard_count} processes")
     batches = -(-n_rows // batch_size)  # ceil; the tail pads with weight-0 rows
-    flat = batches * batch_size
+    local_bs = batch_size // shard_count
+    flat = batches * local_bs
     host, lo = None, 0
     for parsed, w in fmb_batch_stream(
-        files, batch_size=batch_size, vocabulary_size=vocabulary_size,
+        files, batch_size=local_bs, vocabulary_size=vocabulary_size,
         hash_feature_id=hash_feature_id, max_nnz=max_nnz, weights=weights,
+        shard_index=shard_index, shard_count=shard_count,
+        shard_block=local_bs if shard_count > 1 else 1,
+        pad_to_batches=batches if shard_count > 1 else None,
     ):
         if host is None:
             width = parsed.ids.shape[1]
@@ -242,3 +265,54 @@ def epoch_index_chunks(batches: int, k: int, device="cpu", start: int = 0) -> li
         for lo in range(start // k * k, batches, k)
         if max(lo, start) < min(lo + k, batches)
     ]
+
+
+def load_sharded_device_dataset(
+    files,
+    *,
+    mesh,
+    batch_size: int,
+    vocabulary_size: int,
+    hash_feature_id: bool = False,
+    max_nnz: int | None = None,
+    weights=None,
+    with_fields: bool = False,
+    device="cpu",
+) -> DeviceDataset:
+    """The resident epoch of one rank of ``mesh`` (``dist_train``): its
+    block-cyclic ``B / P`` rows of every global batch of ``batch_size``
+    (rows ``[r·B/P, (r+1)·B/P)`` of each, the rows the streamed path's
+    ``shard_block`` rule gives it), staged on the host and copied once to
+    this rank's ``device``.  No rank ever reads another's rows into its
+    arrays.  The dataset's ``batch_size`` is the rank's ``B / P``;
+    ``batches`` is the global count, the same on every rank, padded with
+    weight-0 rows."""
+    host, batches, n_rows = _load_host_arrays(
+        files, batch_size=batch_size, vocabulary_size=vocabulary_size,
+        hash_feature_id=hash_feature_id, max_nnz=max_nnz, weights=weights,
+        with_fields=with_fields, shard_index=mesh.rank, shard_count=mesh.size,
+    )
+    local_bs = batch_size // mesh.size
+    put = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    return DeviceDataset(
+        **put, batches=batches, batch_size=local_bs, n_rows=n_rows,
+        offsets=torch.arange(local_bs, dtype=torch.int64, device=device),
+    )
+
+
+def make_cached_sharded_train_step(model, learning_rate: float, mesh, data: DeviceDataset, *,
+                                   steps_per_call: int = 1, **step_kw):
+    """The mesh-sharded train step (``parallel.make_sharded_train_step``,
+    ``step_kw`` its lookup, layout and overflow keys) on the rank's
+    resident batches, in order: ``step(state, i) -> (state, loss)`` for a
+    0-d device batch index, and at ``steps_per_call`` K > 1 ``step(state,
+    idxs [K]) -> (state, losses [K])`` for an ``epoch_index_chunks`` vector,
+    the K steps one CUDA graph on the card with their collectives and the
+    batch gathers inside.  ``step.overflow_steps`` counts the steps that
+    fell back to the all-gather lookup (``lookup_overflow = fallback``).
+    At world size 1 this is ``make_cached_train_step`` /
+    ``make_cached_scan_train_step``'s step."""
+    from fast_tffm_tpu_torch.parallel.train_step import make_sharded_train_step
+
+    return make_sharded_train_step(model, learning_rate, mesh, steps_per_call=steps_per_call,
+                                   source=lambda i: _batch(data, i, False), **step_kw)

@@ -1,11 +1,15 @@
 """Multi-process coordination for ``dist_train`` / ``dist_predict`` — the
-counterpart of the bring-up and coordination half of
-``fast_tffm_tpu/distributed.py``.
+counterpart of ``fast_tffm_tpu/distributed.py``.
 
   * **bring-up** — ``initialize_runtime`` joins the process into the
     default ``torch.distributed`` group (``parallel/multihost.py``: the
     ``[Distributed]`` keys, a launcher's environment, or a group the caller
-    already initialized) and returns a ``DistributedRuntime``.
+    already initialized) and returns a ``DistributedRuntime``.  Under the
+    pod supervisor (``FM_DIST_GENERATION`` set by ``resilience.Supervisor``
+    with ``processes`` > 1) it parks until the supervisor's generation file
+    names this process's generation, starts the ``GenerationWatcher``, then
+    joins the group at the generation's ``coordinator`` (rank 0's TCP
+    store) and starts this host's ``HeartbeatWriter``.
   * **DistributedRuntime** — barriers and a small cross-process KV store:
     the process group's own store (``StoreKV``) when a group is up, a
     shared-filesystem ``FileKV`` under ``runtime_dir`` as the fallback,
@@ -14,14 +18,28 @@ counterpart of the bring-up and coordination half of
     on the published content signature and posts its input cursor), resume
     to check that every rank restored the same step, chain head and cursor,
     and ``on_nan = rollback`` for its barrier.
+  * **heartbeats + HostMonitor** — every host writes ``hb-<p>.json`` under
+    the shared runtime dir; a monitor thread classifies a stale peer as a
+    host-level ``kind=stall`` (``host-heartbeat-lost``) long before a
+    collective's own timeout.
+  * **the generation protocol** — a process group cannot take a
+    relaunched rank back, and a dead rank 0 takes the store with it, so
+    recovery is generational: the pod supervisor owns ``generation.json``
+    ({generation, coordinator, num_processes, cause}).  When one host dies
+    the supervisor relaunches only that host and bumps the generation with
+    a fresh coordinator port; every survivor's ``GenerationWatcher`` thread
+    sees the bump and re-execs the process in place (``os.execv``: the same
+    PID, a fresh image, ``--resume`` forced), from a side thread because
+    the main thread is typically blocked in a collective whose peer is
+    gone.  The new generation meets at the new store, restores the same
+    chain head and resumes at the saved cursor vector.
 
-Pod supervision (heartbeats, the host monitor, the generation file and its
-watcher, re-exec into the next pod incarnation) is the next slice of the
-port (ROADMAP.md §A item 10); ``initialize_runtime`` refuses the settings
-that need it.
+The file formats are the JAX package's: either package reads the other's
+``generation.json`` and heartbeats.  There is no counterpart of the JAX
+``enable_cpu_collectives``: gloo is already the CPU backend.
 
-Like the JAX module, this one imports without torch; torch is imported
-where a process group is used.
+Like the JAX module, this one imports without torch (the pod supervisor
+imports it); torch is imported where a process group is used.
 """
 
 from __future__ import annotations
@@ -30,6 +48,7 @@ import json
 import os
 import socket
 import sys
+import threading
 import time
 
 from fast_tffm_tpu_torch.telemetry import log_quietly
@@ -43,11 +62,22 @@ __all__ = [
     "initialize_runtime",
     "host_metrics_path",
     "free_port",
+    "read_generation",
+    "write_generation",
+    "wait_for_generation",
+    "GENERATION_FILE",
+    "HeartbeatWriter",
+    "HostMonitor",
+    "GenerationWatcher",
+    "read_heartbeat",
+    "reexec_argv",
     "process_identity",
 ]
 
 # Exit code of a trainer that dies because a PEER was lost (the JAX value).
 PEER_LOST_EXIT = 17
+
+GENERATION_FILE = "generation.json"
 
 # The pod supervisor's environment contract (the JAX names).
 ENV_RUNTIME_DIR = "FM_DIST_RUNTIME_DIR"
@@ -55,16 +85,10 @@ ENV_PROCESS_ID = "FM_DIST_PROCESS_ID"
 ENV_PROCESSES = "FM_DIST_PROCESSES"
 ENV_GENERATION = "FM_DIST_GENERATION"
 
-POD_SUPERVISION = (
-    "pod supervision (heartbeats, the host monitor, the generation file and "
-    "re-exec, the pod Supervisor) is item 10 of ROADMAP.md §A, which "
-    "fast_tffm_tpu_torch has not ported yet; use fast_tffm_tpu"
-)
-
-
 class PeerLostError(RuntimeError):
     """A cross-process barrier or KV wait timed out: a peer is gone (or
-    wedged past the deadline)."""
+    wedged past the deadline).  Under the pod supervisor the caller exits
+    with ``PEER_LOST_EXIT``: the generation bump is on its way."""
 
 
 def free_port() -> int:
@@ -99,6 +123,51 @@ def host_metrics_path(path: str, process_index: int | None = None) -> str:
         return path
     root, ext = os.path.splitext(path)
     return f"{root}.p{p}{ext or ''}"
+
+
+# ---------------------------------------------------------------------------
+# the generation file (supervisor <-> children)
+# ---------------------------------------------------------------------------
+
+
+def write_generation(runtime_dir: str, info: dict) -> str:
+    """Publish a generation record ({generation, coordinator, num_processes,
+    cause}) atomically: the supervisor's one source of truth for which pod
+    incarnation is current."""
+    os.makedirs(runtime_dir, exist_ok=True)
+    path = os.path.join(runtime_dir, GENERATION_FILE)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(info, f, sort_keys=True)
+    os.replace(tmp, path)
+    return path
+
+
+def read_generation(runtime_dir: str) -> dict | None:
+    try:
+        with open(os.path.join(runtime_dir, GENERATION_FILE)) as f:
+            out = json.load(f)
+        return out if isinstance(out, dict) else None
+    except (OSError, ValueError):
+        return None
+
+
+def wait_for_generation(runtime_dir: str, at_least: int, timeout_s: float = 120.0,
+                        poll_s: float = 0.1) -> dict:
+    """Block until the generation file names a generation >= ``at_least``
+    (a relaunched or re-exec'd child parking until the supervisor has
+    published the incarnation it belongs to)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        info = read_generation(runtime_dir)
+        if info is not None and int(info.get("generation", -1)) >= at_least:
+            return info
+        if time.monotonic() > deadline:
+            raise PeerLostError(
+                f"no generation >= {at_least} appeared in {runtime_dir} "
+                f"within {timeout_s:.0f}s (supervisor gone?)"
+            )
+        time.sleep(poll_s)
 
 
 # ---------------------------------------------------------------------------
@@ -338,29 +407,256 @@ class DistributedRuntime:
         return vals
 
 
+# ---------------------------------------------------------------------------
+# heartbeats and the host monitor
+# ---------------------------------------------------------------------------
+
+
+def _hb_path(runtime_dir: str, process_index: int) -> str:
+    return os.path.join(runtime_dir, f"hb-{process_index}.json")
+
+
+class HeartbeatWriter:
+    """A daemon thread that publishes this host's liveness and training
+    position (``{process, step, wall}``) every ``interval_s`` under the
+    shared runtime dir.  Freshness is the file's mtime (hosts' wall clocks
+    need not agree); the step feeds straggler detection.  ``close`` stops
+    the thread and writes the last position once more."""
+
+    def __init__(self, runtime_dir: str, process_index: int, interval_s: float = 2.0):
+        self._path = _hb_path(runtime_dir, process_index)
+        self._process = int(process_index)
+        self._interval = float(interval_s)
+        self._step = 0
+        self._stop = threading.Event()
+        os.makedirs(runtime_dir, exist_ok=True)
+        self._thread = threading.Thread(target=self._run, name="dist-heartbeat", daemon=True)
+        self._thread.start()
+
+    def set_step(self, step: int) -> None:
+        self._step = int(step)
+
+    def _write(self) -> None:
+        tmp = f"{self._path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                json.dump({"process": self._process, "step": self._step, "wall": time.time()}, f)
+            os.replace(tmp, self._path)
+        except OSError:
+            pass  # a full or unwritable runtime dir must not kill training
+
+    def _run(self) -> None:
+        self._write()
+        while not self._stop.wait(self._interval):
+            self._write()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+        self._write()
+
+
+def read_heartbeat(runtime_dir: str, process_index: int) -> tuple[dict | None, float | None]:
+    """(payload, seconds since the last write) of one host's heartbeat file;
+    (None, None) when it does not exist or cannot be read."""
+    path = _hb_path(runtime_dir, process_index)
+    try:
+        age = time.time() - os.path.getmtime(path)
+        with open(path) as f:
+            payload = json.load(f)
+        return (payload if isinstance(payload, dict) else None), age
+    except (OSError, ValueError):
+        return None, None
+
+
+class HostMonitor:
+    """A daemon thread watching the PEERS' heartbeats: a peer whose file goes
+    stale past ``timeout_s`` calls ``on_event(peer, classification,
+    detail)`` once per episode (re-armed when the peer freshens).  The
+    classification is ``host-heartbeat-lost`` (no write: dead, or wedged
+    before entering a collective).  A slow peer that still writes is not
+    classified here: every step's collective holds the ranks in lock-step,
+    so it is never steps behind; the supervisor kills a peer whose
+    heartbeat ages past ``straggler_timeout_s``.  The trainers' events
+    become kind=stall records."""
+
+    def __init__(self, runtime_dir: str, process_index: int, process_count: int,
+                 timeout_s: float, on_event, *, poll_s: float = 1.0):
+        self._dir = runtime_dir
+        self._process = int(process_index)
+        self._count = int(process_count)
+        self._timeout = float(timeout_s)
+        self._on_event = on_event
+        self._poll = float(poll_s)
+        self._fired: dict[tuple[int, str], bool] = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="dist-hostmonitor", daemon=True)
+        self._thread.start()
+
+    def _emit_once(self, peer: int, classification: str, detail: dict) -> None:
+        key = (peer, classification)
+        if self._fired.get(key):
+            return
+        self._fired[key] = True
+        try:
+            self._on_event(peer, classification, detail)
+        # analysis: ok exception-hygiene the owner's event callback; the monitor thread outlives any bug in it (the episode already fired)
+        except Exception:
+            pass
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._poll):
+            for p in range(self._count):
+                if p == self._process:
+                    continue
+                payload, age = read_heartbeat(self._dir, p)
+                if age is None:
+                    continue  # never seen: the peer is still in bring-up
+                if age > self._timeout:
+                    self._emit_once(p, "host-heartbeat-lost",
+                                    {"age_s": round(age, 3),
+                                     "last_step": (payload or {}).get("step")})
+                    continue
+                self._fired.pop((p, "host-heartbeat-lost"), None)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+
+
+# ---------------------------------------------------------------------------
+# the generation watcher (a survivor's recovery)
+# ---------------------------------------------------------------------------
+
+
+def reexec_argv(argv: list[str]) -> list[str]:
+    """The argv a survivor re-execs with: ``--resume`` forced (the point is
+    restoring the shared chain head) and any armed fault plan stripped
+    (a plan fires on the first incarnation only: a kill armed again on
+    every re-exec would crash-loop the pod)."""
+    out: list[str] = []
+    skip = 0
+    for a in argv:
+        if skip:
+            skip -= 1
+            continue
+        if a in ("--fault-plan", "--fault-seed", "--fault-horizon", "--fault-process"):
+            skip = 1
+            continue
+        if a.startswith("--fault-"):
+            continue
+        if a == "--resume":
+            continue  # added once below
+        out.append(a)
+    out.append("--resume")
+    return out
+
+
+class GenerationWatcher:
+    """A daemon thread: when the supervisor bumps ``generation.json`` past
+    this process's generation, re-exec in place (the same PID, a fresh
+    image, ``reexec_argv``) so this host joins the new pod generation.  The
+    exec runs from the side thread on purpose: the main thread is typically
+    blocked in a collective whose peer just died, where no Python-level
+    signal or exception reaches it.
+
+    ``argv`` defaults to the interpreter's own command line after the
+    executable (``sys.orig_argv[1:]``, so ``-m fast_tffm_tpu_torch.cli ...``
+    re-execs as it was launched); ``exec_fn(generation, argv)`` replaces the
+    exec (tests)."""
+
+    def __init__(self, runtime_dir: str, generation: int, *, argv: list[str] | None = None,
+                 poll_s: float = 0.25, log=print, exec_fn=None):
+        self._dir = runtime_dir
+        self._generation = int(generation)
+        self._argv = list(argv if argv is not None else sys.orig_argv[1:])
+        self._poll = float(poll_s)
+        self._log = log
+        self._exec = exec_fn if exec_fn is not None else self._do_exec
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="dist-genwatcher", daemon=True)
+        self._thread.start()
+
+    def _do_exec(self, new_generation: int, argv: list[str]) -> None:
+        os.environ[ENV_GENERATION] = str(new_generation)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.execv(sys.executable, [sys.executable, *argv])
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._poll):
+            info = read_generation(self._dir)
+            if info is None:
+                continue
+            gen = int(info.get("generation", -1))
+            if gen > self._generation:
+                log_quietly(
+                    self._log,
+                    f"distributed: generation {self._generation} -> {gen} "
+                    f"(cause: {info.get('cause', '?')}) — re-exec'ing into "
+                    "the new pod generation with --resume",
+                )
+                self._exec(gen, reexec_argv(self._argv))
+                return  # reached only with an injected exec_fn
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+
+
+# ---------------------------------------------------------------------------
+# bring-up
+# ---------------------------------------------------------------------------
+
+
 def initialize_runtime(cfg, log=print, device="cuda") -> DistributedRuntime:
-    """Bring-up for ``dist_train`` / ``dist_predict``: join the default
-    process group (``parallel.multihost.maybe_initialize_distributed``:
-    an initialized group as it is, the ``[Distributed]`` keys, a
-    launcher's environment) and return the run's ``DistributedRuntime``
-    (inert single-process).  A pod supervisor's child and ``[Distributed]
-    host_stall_timeout_s`` > 0 are refused: pod supervision is a later
-    slice."""
-    if os.environ.get(ENV_GENERATION) is not None:
-        raise ValueError(f"this process was launched by a pod supervisor: {POD_SUPERVISION}")
-    if float(cfg.host_stall_timeout_s) > 0:
-        raise ValueError(
-            f"[Distributed] host_stall_timeout_s = {cfg.host_stall_timeout_s} arms the "
-            f"peer-heartbeat monitor: {POD_SUPERVISION}"
-        )
+    """Bring-up for ``dist_train`` / ``dist_predict``; returns the run's
+    ``DistributedRuntime`` (inert single-process).  Two ways in:
+
+      * **a supervised pod** (``FM_DIST_GENERATION`` set by
+        ``resilience.Supervisor``): park until the generation file names
+        this process's generation (the restore barrier of a relaunched or
+        re-exec'd host), start the ``GenerationWatcher`` BEFORE the
+        blocking group init, join the default group at the generation's
+        ``coordinator`` (rank 0's TCP store) with world
+        ``num_processes`` and rank ``FM_DIST_PROCESS_ID``, then start this
+        host's ``HeartbeatWriter``;
+      * **classic** (``parallel.multihost.maybe_initialize_distributed``:
+        an initialized group as it is, the ``[Distributed]`` keys, a
+        launcher's environment), with a heartbeat when more than one
+        process runs and a ``runtime_dir`` is set."""
     from fast_tffm_tpu_torch.parallel.multihost import maybe_initialize_distributed
 
-    maybe_initialize_distributed(cfg.coordinator_address, cfg.num_processes, cfg.process_id,
-                                 device=device, timeout_s=cfg.barrier_timeout_s)
     runtime_dir = os.environ.get(ENV_RUNTIME_DIR, "") or cfg.runtime_dir
+    gen_env = os.environ.get(ENV_GENERATION)
+    watcher = heartbeat = None
+    if gen_env is not None and runtime_dir:
+        pid = int(os.environ.get(ENV_PROCESS_ID, "0"))
+        info = wait_for_generation(runtime_dir, int(gen_env),
+                                   timeout_s=float(cfg.barrier_timeout_s))
+        my_gen = int(info["generation"])
+        os.environ[ENV_GENERATION] = str(my_gen)
+        # Up before the blocking init: a peer that dies during bring-up
+        # itself must still be recoverable.
+        watcher = GenerationWatcher(runtime_dir, my_gen, log=log)
+        nproc = int(info["num_processes"])
+        log(f"distributed: joining pod generation {my_gen} as process "
+            f"{pid}/{nproc} (coordinator {info['coordinator']})")
+        maybe_initialize_distributed(info["coordinator"], nproc, pid, device=device,
+                                     timeout_s=cfg.barrier_timeout_s)
+        heartbeat = HeartbeatWriter(runtime_dir, pid, interval_s=cfg.heartbeat_s)
+    else:
+        maybe_initialize_distributed(cfg.coordinator_address, cfg.num_processes,
+                                     cfg.process_id, device=device,
+                                     timeout_s=cfg.barrier_timeout_s)
+        p, n = process_identity()
+        if n > 1 and runtime_dir:
+            heartbeat = HeartbeatWriter(runtime_dir, p, interval_s=cfg.heartbeat_s)
     runtime = DistributedRuntime.create(barrier_timeout_s=cfg.barrier_timeout_s,
                                         runtime_dir=runtime_dir or None, log=log)
     runtime.runtime_dir = runtime_dir or None
+    runtime.heartbeat = heartbeat
+    runtime.watcher = watcher
     if runtime.process_count > 1:
         log_quietly(log, f"distributed: rank {runtime.process_index} of "
                          f"{runtime.process_count}")

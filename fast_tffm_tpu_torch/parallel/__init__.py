@@ -13,6 +13,7 @@ from fast_tffm_tpu_torch.parallel.mesh import (  # noqa: F401
 )
 from fast_tffm_tpu_torch.parallel.train_step import (  # noqa: F401
     gather_logical_state,
+    gather_touched_rows,
     init_sharded_state,
     make_sharded_predict_step,
     make_sharded_train_step,

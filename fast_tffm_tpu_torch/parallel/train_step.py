@@ -77,6 +77,7 @@ from fast_tffm_tpu_torch.parallel.mesh import (
 from fast_tffm_tpu_torch.trainer import (
     TrainState,
     init_state,
+    k_step_loop,
     make_decayed_body,
     make_packed_predict_step,
     make_predict_step,
@@ -84,6 +85,7 @@ from fast_tffm_tpu_torch.trainer import (
     make_train_step,
     packed_train_step_body,
 )
+from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
 
 __all__ = [
     "packed_shard_meta",
@@ -92,6 +94,7 @@ __all__ = [
     "init_sharded_state",
     "unpack_shard",
     "gather_logical_state",
+    "gather_touched_rows",
     "make_sharded_train_step",
     "make_sharded_predict_step",
 ]
@@ -195,6 +198,45 @@ def gather_logical_state(state: TrainState, model, mesh: Mesh) -> TrainState | N
     if mesh.rank != 0:
         return None
     return dataclasses.replace(state, table=table, table_accum=accum, layout="rows")
+
+
+def gather_touched_rows(state: TrainState, bitmap: torch.Tensor, model, mesh: Mesh):
+    """A delta checkpoint's rows across the mesh: ``(idx, table rows,
+    accum rows)``, ``idx`` the sorted logical ids that any rank's
+    ``bitmap`` marks (the bitmaps OR-ed over the world), the rows their
+    logical table and accumulator rows on rank 0 (None elsewhere).  Each
+    rank of data coordinate 0 gathers the ids its row shard owns from its
+    own layout; the row group's parts, padded to the largest, meet on rank
+    0 by one all-gather.  Every rank calls this at the same boundary."""
+    from fast_tffm_tpu_torch.checkpoint_async import gather_rows
+
+    touched = bitmap
+    if not mesh.single:
+        import torch.distributed as dist
+
+        touched = bitmap.to(torch.uint8)
+        dist.all_reduce(touched, op=dist.ReduceOp.MAX)
+    idx = torch.nonzero(touched).reshape(-1)
+    if mesh.data_index != 0:
+        return idx, None, None
+    _, shard_rows = shard_meta(model, mesh, state.layout)
+    owner = torch.div(idx, shard_rows, rounding_mode="floor")
+    mine = idx[owner == mesh.row_index] - mesh.row_index * shard_rows
+    trows, arows = gather_rows(state, mine, model.row_dim)
+    counts = torch.bincount(owner, minlength=mesh.row).tolist()
+    cap = max(counts)
+    if not mesh.one(ROW_AXIS) and cap:
+        pad = cap - trows.shape[0]
+        trows = all_gather_cat(torch.nn.functional.pad(trows, (0, 0, 0, pad)), mesh.row_group,
+                               mesh.row)
+        arows = all_gather_cat(torch.nn.functional.pad(arows, (0, 0, 0, pad)), mesh.row_group,
+                               mesh.row)
+        keep = torch.cat([torch.arange(r * cap, r * cap + c, device=trows.device)
+                          for r, c in enumerate(counts)])
+        trows, arows = trows[keep], arows[keep]
+    if mesh.rank != 0:
+        return idx, None, None
+    return idx, trows, arows
 
 
 def _sharded_grads(model, rows, state: TrainState, batch: Batch, mesh: Mesh):
@@ -315,7 +357,7 @@ def make_sharded_train_step(
     model, learning_rate: float, mesh: Mesh, *, lookup: str = "allgather",
     capacity_factor: float = 2.0, overflow_mode: str = "abort", table_layout: str = "rows",
     packed_update: str = "auto", accumulator: str = "element", compact_cap: int = 0,
-    steps_per_call: int = 1, adagrad_decay: float = 1.0,
+    steps_per_call: int = 1, adagrad_decay: float = 1.0, source=None,
 ):
     """Returns ``step(state, batch) -> (state, loss)``, ``loss`` the global
     mean data loss (all-reduced: the same on every rank); with
@@ -325,7 +367,12 @@ def make_sharded_train_step(
     ``abort`` NaN-poisons an overflowing step's loss, ``fallback`` runs it
     through the all-gather body; ``step.overflow_steps`` counts the steps
     that fell back (the JAX step returns the flag instead).  The state's
-    tensors update in place."""
+    tensors update in place.
+
+    ``source(i) -> Batch`` (the resident epoch's gather,
+    ``data/device_cache.py``) makes the step take a 0-d device batch index
+    ``i`` instead of a batch, and at K > 1 a [K] index vector, the gathers
+    then inside the K-step graph."""
     layout = _layout(table_layout, accumulator)
     if accumulator == "fused" and table_layout != "packed":
         raise ValueError("accumulator='fused' requires table_layout='packed'")
@@ -341,8 +388,11 @@ def make_sharded_train_step(
     k = int(steps_per_call)
     if mesh.single:
         body = _single_body(table_layout, compact_cap, decay)
-        step = (make_scanned_train_step if k > 1 else make_train_step)(model, learning_rate,
-                                                                       body=body)
+        if source is not None:
+            step = _indexed_step(model, learning_rate, body, source, k)
+        else:
+            step = (make_scanned_train_step if k > 1 else make_train_step)(
+                model, learning_rate, body=body)
         step.overflow_steps = 0
         return step
     geo = _Geometry(model, mesh, layout, capacity_factor, packed_update, compact_cap, decay)
@@ -353,35 +403,48 @@ def make_sharded_train_step(
         main_body = _routed_body(model, learning_rate, geo, abort=overflow_mode == "abort")
     fallback = lookup == "alltoall" and overflow_mode == "fallback"
     if k > 1:
-        scanned = make_scanned_train_step(model, learning_rate, body=main_body)
+        if source is not None:
+            scanned = _indexed_step(model, learning_rate, main_body, source, k)
+            batch_at = lambda inputs, i: source(inputs[0][i])  # noqa: E731
+        else:
+            scanned = make_scanned_train_step(model, learning_rate, body=main_body)
+            batch_at = lambda inputs, i: Batch(*(f[i] for f in inputs))  # noqa: E731
         last = {}
 
-        def step(state: TrainState, superbatch: Batch):
+        def step(state: TrainState, superbatch):
             last.clear()
-            if fallback and geo.can_overflow(superbatch.ids.shape):
-                dev = state.table.device
-                flags = overflow_flags(superbatch.ids.to(dev), geo.shard_rows,
-                                       geo.capacity(superbatch.ids.shape), mesh)
+            if fallback:
+                if source is not None:
+                    inputs = (superbatch,)
+                    ids = torch.stack([source(i).ids for i in superbatch])
+                else:
+                    dev = state.table.device
+                    inputs = [getattr(superbatch, f.name).to(dev)
+                              for f in dataclasses.fields(Batch)]
+                    ids = inputs[1]
+                flags = (overflow_flags(ids, geo.shard_rows, geo.capacity(ids.shape), mesh)
+                         if geo.can_overflow(ids.shape) else [])
                 if any(flags):
                     # A graph cannot branch on data: this group runs eagerly.
                     step.overflow_steps += sum(flags)
-                    fields = [getattr(superbatch, f.name).to(dev)
-                              for f in dataclasses.fields(Batch)]
-                    last["batch"] = Batch(*fields)
+                    if source is None:
+                        last["batch"] = Batch(*inputs)
                     losses = []
                     for i, flag in enumerate(flags):
-                        b = Batch(*(f[i] for f in fields))
                         state, loss = (gather_body if flag else main_body)(
-                            model, learning_rate, state, b)
+                            model, learning_rate, state, batch_at(inputs, i))
                         losses.append(loss)
                     return state, torch.stack(losses)
             return scanned(state, superbatch)
 
         step.graphs = scanned.graphs
-        step.last_batch = lambda: last.get("batch") or scanned.last_batch()
+        if source is None:
+            step.last_batch = lambda: last.get("batch") or scanned.last_batch()
     else:
 
-        def step(state: TrainState, batch: Batch):
+        def step(state: TrainState, batch):
+            if source is not None:
+                batch = source(batch)
             if fallback and geo.can_overflow(batch.ids.shape) and routing_overflow(
                     batch.ids, geo.shard_rows, geo.capacity(batch.ids.shape), mesh):
                 step.overflow_steps += 1
@@ -389,6 +452,22 @@ def make_sharded_train_step(
             return main_body(model, learning_rate, state, batch)
 
     step.overflow_steps = 0
+    return step
+
+
+def _indexed_step(model, learning_rate: float, body, source, k: int):
+    """``body`` on ``source(i)``: ``step(state, i)`` at K = 1, and at K > 1
+    ``step(state, idxs [K])`` as one ``StepGraphs`` (the gathers inside the
+    graph), exposed as ``step.graphs``."""
+    if k <= 1:
+        return lambda state, i: body(model, learning_rate, state, source(i))
+    graphs = StepGraphs(k_step_loop(model, learning_rate, body,
+                                    batch_at=lambda j, idxs: source(idxs[j])))
+
+    def step(state: TrainState, idxs):
+        return graphs(state, idxs)
+
+    step.graphs = graphs
     return step
 
 

@@ -8,9 +8,10 @@ process.
     (``repair_delta_chain``).  Every crash emits a ``kind=fault`` record and
     every relaunch a ``kind=restart`` record with the measured MTTR (crash
     → the child's first new progress line).  The CLI front end is ``train
-    --supervised`` (``cli.py``).  The JAX module's pod mode (one supervisor
-    over the processes of a multi-process run) belongs to multi-process
-    training, item 10 of ROADMAP.md §A, and is not here.
+    --supervised`` (``cli.py``).  Pod mode (``processes`` > 1, ``dist_train
+    --supervised``) supervises every host of one multi-process run: one
+    child per host, the generation file, and the relaunch of only the dead
+    host while the survivors re-exec in place (``distributed.py``).
   * **FaultPlan / FaultInjector** — a seeded, reproducible fault schedule
     (``kill@N``, ``io_error@N``, ``nan@A[:B]``, ``torn_delta@K``,
     ``kill_publish@K``, …, or ``random:kill=2,...`` drawn from a seed),
@@ -562,6 +563,7 @@ class RestartPolicy:
 # (crash → first new progress) stops at the first match after a relaunch.
 # "resumed from" is not one: a finished restore is not yet a new step.
 _STEP_RE = re.compile(r"^step (\d+) ")
+_POD_HOST = "127.0.0.1"  # the pod's children run on the supervisor's host
 _PROGRESS_MARKERS = ("checkpoint ->", "training done:", "stopped on signal")
 
 
@@ -578,8 +580,23 @@ class Supervisor:
     one ``kind=fault`` (event crash) per child death, one ``kind=restart``
     per relaunch with the backoff and the measured MTTR, and a closing
     summary with the restart count and the MTTR median.  Returns the
-    child's last exit code (0 on eventual success).  ``processes`` > 1
-    (the JAX package's pod mode) is refused."""
+    child's last exit code (0 on eventual success).
+
+    **Pod mode** (``processes`` N > 1): the supervisor runs all N hosts of
+    one multi-process ``dist_train``.  ``build_cmd(attempt, resume,
+    process_index)`` takes the child's process index, the children get the
+    ``FM_DIST_*`` environment contract (``distributed.py``), and the
+    supervisor owns the pod's generation file under ``runtime_dir``: when
+    one child dies only that child is relaunched, the generation is bumped
+    with a fresh coordinator port (``127.0.0.1:<free port>``: the pod runs
+    on this host), the survivors' watchers re-exec them in place, and the
+    whole pod meets again, restores the shared chain head and resumes at the cursor vector.
+    ``kind=fault`` and ``kind=restart`` records carry the child's
+    ``process``; restarts and backoff count per incident.  A crash after
+    part of the pod finished cannot re-form the pod and gives up.
+    ``straggler_timeout_s`` > 0 also SIGKILLs a child whose heartbeat,
+    written since its launch, goes stale (a wedged host), which then takes
+    the relaunch path."""
 
     def __init__(
         self,
@@ -597,13 +614,9 @@ class Supervisor:
         repair: bool = True,
         env: dict | None = None,
         processes: int = 1,
+        runtime_dir: str | None = None,
+        straggler_timeout_s: float = 0.0,
     ):
-        if int(processes) > 1:
-            raise ValueError(
-                "Supervisor: pod mode (processes > 1) is the pod supervision of "
-                "multi-process training, item 10 of ROADMAP.md §A, which "
-                "fast_tffm_tpu_torch has not ported yet; use fast_tffm_tpu"
-            )
         self._build_cmd = build_cmd
         self._model_file = model_file
         self._policy = RestartPolicy(max_restarts, backoff_s, backoff_max_s)
@@ -614,6 +627,11 @@ class Supervisor:
         self._sleep = sleep
         self._repair = repair
         self._env = env
+        self._processes = max(1, int(processes))
+        self._runtime_dir = runtime_dir
+        self._straggler_timeout_s = float(straggler_timeout_s)
+        if self._processes > 1 and not runtime_dir:
+            raise ValueError("pod mode (processes > 1) requires runtime_dir")
         self.restarts = 0
         self.mttr_s: list[float] = []
         self.last_rc: int | None = None
@@ -643,6 +661,8 @@ class Supervisor:
             pass  # a pipe closed by the kill
 
     def run(self, resume: bool = False) -> int:
+        if self._processes > 1:
+            return self._run_pod(resume=resume)
         from fast_tffm_tpu_torch.telemetry import RunMonitor
 
         monitor = RunMonitor(
@@ -748,6 +768,223 @@ class Supervisor:
                 attempt += 1
                 self.restarts = attempt
         finally:
+            summary: dict = {"supervisor_restarts": self.restarts}
+            if self.mttr_s:
+                summary["mttr_s_median"] = round(statistics.median(self.mttr_s), 3)
+                summary["mttr_s_max"] = round(max(self.mttr_s), 3)
+            monitor.close(**summary)
+
+    # -- pod mode ----------------------------------------------------------
+
+    def _clear_heartbeats(self) -> None:
+        """Remove the hb-* files, so only this run's heartbeats are judged."""
+        for p in range(self._processes):
+            try:
+                os.remove(os.path.join(self._runtime_dir, f"hb-{p}.json"))
+            except OSError:
+                pass
+
+    def _pod_launch(self, p: int, attempt: int, resume: bool, generation: int, monitor) -> dict:
+        """Start child ``p`` into pod ``generation``; returns its record."""
+        from fast_tffm_tpu_torch.distributed import (
+            ENV_GENERATION,
+            ENV_PROCESS_ID,
+            ENV_PROCESSES,
+            ENV_RUNTIME_DIR,
+        )
+
+        cmd = self._build_cmd(attempt, resume, p)
+        env = dict(self._env if self._env is not None else os.environ)
+        env[ENV_RUNTIME_DIR] = self._runtime_dir
+        env[ENV_PROCESS_ID] = str(p)
+        env[ENV_PROCESSES] = str(self._processes)
+        env[ENV_GENERATION] = str(generation)
+        self._log(
+            f"supervisor: launch host {p} attempt {attempt} gen {generation}"
+            f"{' (resume)' if resume else ''}: {' '.join(cmd)}"
+        )
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, env=env)
+        rec = {
+            "process": p,
+            "proc": proc,
+            "attempt": attempt,
+            "launched_wall": time.time(),  # the straggler check's grace anchor
+            "first_progress_t": [None],
+            "last_step": [0],
+            "restart_emitted": [False],
+            "crash_t": None,  # set by the incident that relaunched it
+            "prev_rc": None,
+            "backoff": 0.0,
+        }
+
+        def emit_restart():
+            if rec["attempt"] == 0 or rec["restart_emitted"][0]:
+                return
+            rec["restart_emitted"][0] = True
+            mttr = None
+            if rec["first_progress_t"][0] is not None and rec["crash_t"] is not None:
+                mttr = round(rec["first_progress_t"][0] - rec["crash_t"], 3)
+                self.mttr_s.append(mttr)
+            monitor.emit(
+                "restart",
+                step=rec["last_step"][0],
+                attempt=rec["attempt"],
+                exit_code=rec["prev_rc"],
+                backoff_s=round(rec["backoff"], 3),
+                mttr_s=mttr,
+                process=p,
+            )
+
+        rec["emit_restart"] = emit_restart
+        tail = threading.Thread(
+            target=self._tail,
+            args=(proc, rec["first_progress_t"], rec["last_step"],
+                  emit_restart if attempt > 0 else None),
+            name=f"supervisor-tail-{p}",
+            daemon=True,
+        )
+        tail.start()
+        rec["tail"] = tail
+        return rec
+
+    def _run_pod(self, resume: bool = False) -> int:
+        """Supervise N pod hosts: on a crash, bump the generation (a fresh
+        coordinator port: the survivors re-exec in place), repair the chain
+        and relaunch only the dead host(s), at most ``max_restarts``
+        incidents with exponential backoff.  Returns 0 when every host
+        finishes cleanly."""
+        from fast_tffm_tpu_torch.distributed import (
+            PEER_LOST_EXIT,
+            free_port,
+            read_heartbeat,
+            write_generation,
+        )
+        from fast_tffm_tpu_torch.telemetry import RunMonitor
+
+        monitor = RunMonitor(
+            self._metrics_path, run_id=self._run_id, source="supervisor", log=self._log,
+        )
+        generation = 0
+        attempt = 0  # the incident ordinal (bounded by max_restarts)
+        n = self._processes
+        # A previous run's stale files must not read as stragglers before
+        # the children even start.
+        self._clear_heartbeats()
+        write_generation(self._runtime_dir, {
+            "generation": generation,
+            "coordinator": f"{_POD_HOST}:{free_port()}",
+            "num_processes": n,
+            "cause": "start",
+        })
+        children = {p: self._pod_launch(p, 0, resume, generation, monitor) for p in range(n)}
+        relaunched: list[dict] = []  # every attempt > 0 record, for post mortems
+        finished: dict[int, int] = {}
+        final_rc = 0
+        try:
+            while children:
+                time.sleep(0.2)
+                dead = {p: rec for p, rec in children.items() if rec["proc"].poll() is not None}
+                for rec in dead.values():
+                    rec["tail"].join(timeout=5.0)
+                crashed = {}
+                for p, rec in dead.items():
+                    rc = rec["proc"].returncode
+                    self.last_rc = rc
+                    del children[p]
+                    if rc == 0:
+                        finished[p] = 0
+                        self._log(f"supervisor: host {p} completed cleanly")
+                    else:
+                        crashed[p] = (rec, rc)
+                if crashed:
+                    crash_t = time.monotonic()
+                    for p, (rec, rc) in crashed.items():
+                        sig = -rc if rc < 0 else None
+                        monitor.emit("fault", step=rec["last_step"][0], event="crash",
+                                     exit_code=rc, signal=sig, attempt=attempt, process=p)
+                        self._log(
+                            f"supervisor: host {p} died (rc={rc}"
+                            + (f", signal {sig}" if sig else "")
+                            + (" — peer-lost exit" if rc == PEER_LOST_EXIT else "")
+                            + f") around step {rec['last_step'][0]}"
+                        )
+                    if finished:
+                        # Part of the pod already finished the run: a relaunch
+                        # could never re-form an N-process rendezvous.
+                        final_rc = next(rc for _, rc in crashed.values())
+                        self._log("supervisor: crash after other hosts finished — "
+                                  "cannot re-form the pod; giving up")
+                        break
+                    backoff = self._policy.backoff(attempt + 1)
+                    if backoff is None:
+                        final_rc = next(rc for _, rc in crashed.values())
+                        self._log(
+                            f"supervisor: giving up after {attempt} restart incident(s) "
+                            f"(restart_max = {self._policy.max_restarts})"
+                        )
+                        break
+                    attempt += 1
+                    self.restarts = attempt
+                    if self._repair:
+                        try:
+                            repair_delta_chain(self._model_file, log=self._log)
+                        except Exception as e:
+                            self._log(f"supervisor: chain repair failed: {e!r}")
+                    generation += 1
+                    write_generation(self._runtime_dir, {
+                        "generation": generation,
+                        "coordinator": f"{_POD_HOST}:{free_port()}",
+                        "num_processes": n,
+                        "cause": f"host {sorted(crashed)} crashed",
+                    })
+                    if backoff > 0:
+                        self._log(f"supervisor: backing off {backoff:.1f}s before "
+                                  f"relaunching host(s) {sorted(crashed)}")
+                        self._sleep(backoff)
+                    do_resume = os.path.exists(self._model_file)
+                    for p, (rec, rc) in crashed.items():
+                        new = self._pod_launch(p, attempt, do_resume, generation, monitor)
+                        new.update(crash_t=crash_t, prev_rc=rc, backoff=backoff)
+                        children[p] = new
+                        relaunched.append(new)
+                    continue
+                if self._straggler_timeout_s > 0:
+                    for p, rec in list(children.items()):
+                        _, age = read_heartbeat(self._runtime_dir, p)
+                        # Only a heartbeat this incarnation wrote (its mtime
+                        # after the launch) can go stale: bring-up writes
+                        # nothing and must never read as a straggler, nor may
+                        # a previous run's old file.
+                        if (age is not None and age > self._straggler_timeout_s
+                                and time.time() - age > rec["launched_wall"]):
+                            monitor.emit("fault", step=rec["last_step"][0],
+                                         event="straggler_kill", process=p, age_s=round(age, 3))
+                            self._log(
+                                f"supervisor: host {p} heartbeat stale {age:.1f}s > "
+                                f"{self._straggler_timeout_s:.1f}s — SIGKILLing the straggler"
+                            )
+                            try:
+                                rec["proc"].kill()
+                            except OSError:
+                                pass
+            else:
+                self._log(f"supervisor: pod completed cleanly after {attempt} "
+                          "restart incident(s)")
+                return 0
+            # Out of the loop by a break: tear the remaining children down.
+            for rec in children.values():
+                if rec["proc"].poll() is None:
+                    rec["proc"].kill()
+            for rec in children.values():
+                rec["proc"].wait()
+                rec["tail"].join(timeout=5.0)
+            return final_rc or 1
+        finally:
+            # Restart records not sent at first progress (a child that ended
+            # at once, or died again first): emit_restart is idempotent.
+            for rec in relaunched:
+                rec["emit_restart"]()
             summary: dict = {"supervisor_restarts": self.restarts}
             if self.mttr_s:
                 summary["mttr_s_median"] = round(statistics.median(self.mttr_s), 3)

@@ -914,7 +914,8 @@ def train(cfg: Config, *, resume: bool = False, log=print, device=None, step_hoo
 def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, ids_of,
                   predict_step, max_nnz: int, log, step_hook, accum_restart, stream_stop,
                   start_cursor=None, rollback=None, paramstore=None, evaluate=None,
-                  saveable=None, runtime=None, chips: int = 1, extra_metrics=None):
+                  saveable=None, runtime=None, chips: int = 1, extra_metrics=None,
+                  touched_rows=None):
     """The step loop of one run over ``state`` (the JAX ``_run_training``):
     entered once, and again after each rollback with the restored state,
     ``start_cursor`` the detection point's (``_exact``) and ``rollback``
@@ -928,8 +929,12 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
     ``saveable`` (the logical state gathered onto rank 0), its ``runtime``
     (the checkpoints' single-writer protocol, one run id, the per-rank
     metrics path and cursor entry), its ``chips`` (the world size, for the
-    per-chip rate) and ``extra_metrics()`` (the alltoall overflow count,
-    drained into every kind=train record and the summary)."""
+    per-chip rate), ``extra_metrics()`` (the alltoall overflow count,
+    drained into every kind=train record and the summary), and for delta
+    saves its ``touched_rows`` (the mesh's gather of a delta's rows).  The
+    runtime's heartbeat carries the step, and
+    with more than one process, a ``runtime_dir`` and ``host_stall_timeout_s``
+    > 0 a ``HostMonitor`` turns a stale peer into a kind=stall record."""
     k = cfg.steps_per_call
     rank, world = (runtime.process_index, runtime.process_count) if runtime else (0, 1)
     is_lead = rank == 0
@@ -994,7 +999,7 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
         # A tiered run's touched-row bitmap is over the compact table's slots.
         vocab=paramstore.capacity if paramstore is not None else cfg.vocabulary_size,
         row_dim=model.row_dim, start_step=state.step, cursor_fn=input_cursor,
-        paramstore=paramstore, runtime=runtime,
+        paramstore=paramstore, runtime=runtime, touched_rows=touched_rows,
     )
     if evaluate is None:
         def evaluate(st):
@@ -1016,6 +1021,22 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
             int(rollback.get("step", 0)), rollback.get("loss"), event="rollback",
             **{key: v for key, v in rollback.items() if key not in ("step", "loss")},
         )
+    # Pod liveness: the heartbeat armed at bring-up carries the step, and a
+    # peer's stale heartbeat is a host-level kind=stall record.
+    heartbeat = getattr(runtime, "heartbeat", None)
+    host_monitor = None
+    if (runtime is not None and world > 1 and runtime.runtime_dir
+            and cfg.host_stall_timeout_s > 0):
+        from fast_tffm_tpu_torch.distributed import HostMonitor
+
+        def on_host_stall(peer, classification, detail):
+            monitor.emit("stall", step=state.step, deadline_s=cfg.host_stall_timeout_s,
+                         since_last_step_s=detail.get("age_s"), classification=classification,
+                         prefetch_queue_depth=None, stacks={}, peer=peer,
+                         peer_last_step=detail.get("last_step"))
+
+        host_monitor = HostMonitor(runtime.runtime_dir, rank, world, cfg.host_stall_timeout_s,
+                                   on_host_stall, poll_s=min(1.0, cfg.host_stall_timeout_s / 4.0))
     faults = active_faults()  # None unless a fault plan is armed
     start_step = state.step
     # The accumulator restarts sit on absolute multiples of N, so a resumed
@@ -1067,6 +1088,8 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
                 # runs (a K-step run's short epoch tail captures there) is
                 # warm-up, any build or capture later is steady-state.
                 monitor.on_dispatch(state.step, warmup=(epoch == start_epoch))
+                if heartbeat is not None:
+                    heartbeat.set_step(state.step)
                 profiler.on_step(state.step)
                 if ledger is not None:
                     now = graphs.captures if graphs is not None else 0
@@ -1185,6 +1208,8 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
             summary.update(paramstore.summary())
         profiler.close(state.step)
         tracer.close()
+        if host_monitor is not None:
+            host_monitor.close()
         monitor.close(**summary)
     # The last save is synchronous whatever async_save says: when this
     # returns, the state on disk is the state returned.
@@ -1203,13 +1228,9 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
 # dist_train: the mesh of ranks
 # ---------------------------------------------------------------------------
 
-_ITEM_10 = "item 10 of ROADMAP.md §A, which fast_tffm_tpu_torch has not ported yet"
-
-
-def _dist_refusals(cfg: Config, world: int) -> None:
+def _dist_refusals(cfg: Config) -> None:
     """What ``dist_train`` does not run: the JAX package's refusals in its
-    words, then the parts of multi-process training this port leaves to a
-    later slice."""
+    words."""
     if cfg.paramstore:
         raise ValueError(
             "[ParamStore] is local-train only; dist_train shards the "
@@ -1236,18 +1257,6 @@ def _dist_refusals(cfg: Config, world: int) -> None:
             "device_cache with shuffle is local-train only; dist_train "
             "slices the resident epoch sequentially (drop shuffle, or "
             "pre-shuffle at convert time)"
-        )
-    if cfg.device_cache:
-        raise ValueError(
-            "device_cache = true under dist_train (the mesh-sharded resident epoch, "
-            f"its cached step, touched-row marker and ids slicer) is {_ITEM_10}; "
-            "run `train` for the resident epoch, or drop device_cache"
-        )
-    if world > 1 and (cfg.async_save or cfg.delta_every_steps > 0):
-        raise ValueError(
-            "async_save and delta_every_steps across processes (the single writer's "
-            f"async and delta boundaries) are {_ITEM_10}; multi-process saves are "
-            "synchronous full saves"
         )
 
 
@@ -1283,6 +1292,7 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
     from fast_tffm_tpu_torch.parallel import (
         check_batch_divides,
         gather_logical_state,
+        gather_touched_rows,
         init_sharded_state,
         make_mesh,
         make_sharded_predict_step,
@@ -1310,7 +1320,7 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
     runtime = initialize_runtime(cfg, log=log, device=device)
     device = local_device(device)
     world, rank = runtime.process_count, runtime.process_index
-    _dist_refusals(cfg, world)
+    _dist_refusals(cfg)
     model = build_model(cfg)
     max_nnz = scan_max_nnz(cfg)
     cfg.check_width(max_nnz)
@@ -1373,12 +1383,12 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
             "cursor": [(start_cursor or {}).get("epoch"),
                        (start_cursor or {}).get("batch_in_epoch")],
         })
-    step_fn = make_sharded_train_step(
-        model, cfg.learning_rate, mesh, lookup=cfg.lookup,
-        capacity_factor=cfg.lookup_capacity_factor, overflow_mode=cfg.lookup_overflow,
-        table_layout=cfg.table_layout, packed_update=cfg.packed_update,
-        accumulator=cfg.adagrad_accumulator, compact_cap=cfg.packed_compact_cap,
-        steps_per_call=cfg.steps_per_call, adagrad_decay=cfg.online_adagrad_decay,
+    step_kw = dict(
+        lookup=cfg.lookup, capacity_factor=cfg.lookup_capacity_factor,
+        overflow_mode=cfg.lookup_overflow, table_layout=cfg.table_layout,
+        packed_update=cfg.packed_update, accumulator=cfg.adagrad_accumulator,
+        compact_cap=cfg.packed_compact_cap, steps_per_call=cfg.steps_per_call,
+        adagrad_decay=cfg.online_adagrad_decay,
     )
     predict_step = make_sharded_predict_step(
         model, mesh, lookup=cfg.lookup, capacity_factor=cfg.lookup_capacity_factor,
@@ -1394,38 +1404,86 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
     local_bs = cfg.batch_size // world
     shard = pad = None
     wait = cfg.binary_cache_wait if rank != 0 and cfg.input_assignment != "files" else 0.0
-    if world > 1 and cfg.input_assignment == "files":
-        # Shard-disjoint files: rank p streams files [p::P] whole; the
-        # per-rank row counts meet through the runtime.
-        if len(files) < world:
-            raise ValueError(
-                f"input_assignment = files needs at least one train "
-                f"file per process ({len(files)} files, {world} "
-                "processes) — split the dataset or use "
-                "input_assignment = rows"
+    if cfg.device_cache:
+        # The resident epoch, each rank holding its rows of every batch on
+        # its own device; the step gathers batch i there (no per-step H2D).
+        from fast_tffm_tpu_torch.data.device_cache import (
+            call_ids,
+            epoch_index_chunks,
+            load_sharded_device_dataset,
+            make_cached_sharded_train_step,
+        )
+
+        if cfg.binary_cache:
+            files = ensure_fmb_cache(
+                files, vocabulary_size=cfg.vocabulary_size, hash_feature_id=cfg.hash_feature_id,
+                max_nnz=max_nnz, parser=best_parser(cfg.thread_num), log=log,
+                wait_for_peer=wait,
             )
-        files = files[rank::world]
-        weights = tuple(cfg.weight_files)[rank::world] if cfg.weight_files else None
-        per_rank = [int(r) for r in runtime.allgather("files-rows", count_lines(files))]
-        pad = max(-(-r // local_bs) for r in per_rank)
-        log(f"input sharding: shard-disjoint files — host {rank} owns {len(files)} file(s) / "
-            f"{per_rank[rank]} rows, {pad} steps/epoch, {local_bs} rows/process/step")
-    elif world > 1:
-        total = count_lines(cfg.train_files)
-        pad = -(-total // cfg.batch_size)
-        shard = dict(shard_index=rank, shard_count=world, shard_block=local_bs)
-        log(f"input sharding: {total} rows over {world} processes, {pad} steps/epoch, "
-            f"{local_bs} rows/process/step")
+        if not binary_input(files):
+            raise ValueError(
+                "device_cache = true needs FMB-backed input: list .fmb "
+                "files in train_files, or set binary_cache = true"
+            )
+        data = load_sharded_device_dataset(
+            files, mesh=mesh, batch_size=cfg.batch_size, vocabulary_size=cfg.vocabulary_size,
+            hash_feature_id=cfg.hash_feature_id, max_nnz=max_nnz, weights=weights,
+            with_fields=model.uses_fields, device=device,
+        )
+        log(f"device cache: {data.n_rows} rows resident, sharded over {mesh.size} devices "
+            f"({data.nbytes * mesh.size / 2**20:.1f} MiB total, {data.batches} batches/epoch)")
+        step_fn = make_cached_sharded_train_step(model, cfg.learning_rate, mesh, data, **step_kw)
 
-    def train_stream(epoch, skip_batches=0):
-        src = _stream(cfg, files, max_nnz, weights, shuffle_epoch=epoch, steps_per_call=k,
-                      log=log, skip_batches=skip_batches,
-                      convert=_wire_converter(cfg, model, max_nnz, device, weights),
-                      batch_size=local_bs, shard=shard, pad_to_batches=pad, wait_for_peer=wait)
-        return _scaled(_to_batches(src, model, device), world)
+        def ids_of(i):
+            return call_ids(data, i, False)
 
-    def ids_of(batch):
-        return step_fn.last_batch().ids if k > 1 else batch.ids
+        items = (epoch_index_chunks(data.batches, k, device) if k > 1 else
+                 [torch.tensor(i, dtype=torch.int64, device=device)
+                  for i in range(data.batches)])
+
+        def train_stream(epoch, skip_batches=0):
+            use = items
+            if skip_batches:
+                use = (epoch_index_chunks(data.batches, k, device, start=skip_batches) if k > 1
+                       else items[skip_batches:])
+            # Each call trains i.numel() GLOBAL batches.
+            return ((i, cfg.batch_size * i.numel()) for i in use)
+    else:
+        step_fn = make_sharded_train_step(model, cfg.learning_rate, mesh, **step_kw)
+        if world > 1 and cfg.input_assignment == "files":
+            # Shard-disjoint files: rank p streams files [p::P] whole; the
+            # per-rank row counts meet through the runtime.
+            if len(files) < world:
+                raise ValueError(
+                    f"input_assignment = files needs at least one train "
+                    f"file per process ({len(files)} files, {world} "
+                    "processes) — split the dataset or use "
+                    "input_assignment = rows"
+                )
+            files = files[rank::world]
+            weights = tuple(cfg.weight_files)[rank::world] if cfg.weight_files else None
+            per_rank = [int(r) for r in runtime.allgather("files-rows", count_lines(files))]
+            pad = max(-(-r // local_bs) for r in per_rank)
+            log(f"input sharding: shard-disjoint files — host {rank} owns {len(files)} "
+                f"file(s) / {per_rank[rank]} rows, {pad} steps/epoch, {local_bs} "
+                "rows/process/step")
+        elif world > 1:
+            total = count_lines(cfg.train_files)
+            pad = -(-total // cfg.batch_size)
+            shard = dict(shard_index=rank, shard_count=world, shard_block=local_bs)
+            log(f"input sharding: {total} rows over {world} processes, {pad} steps/epoch, "
+                f"{local_bs} rows/process/step")
+
+        def train_stream(epoch, skip_batches=0):
+            src = _stream(cfg, files, max_nnz, weights, shuffle_epoch=epoch, steps_per_call=k,
+                          log=log, skip_batches=skip_batches,
+                          convert=_wire_converter(cfg, model, max_nnz, device, weights),
+                          batch_size=local_bs, shard=shard, pad_to_batches=pad,
+                          wait_for_peer=wait)
+            return _scaled(_to_batches(src, model, device), world)
+
+        def ids_of(batch):
+            return step_fn.last_batch().ids if k > 1 else batch.ids
 
     evaluate = None
     if world > 1:
@@ -1456,11 +1514,16 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
             n, drained[0] = step_fn.overflow_steps - drained[0], step_fn.overflow_steps
             return {"lookup_overflow_steps": n}
 
+    touched_rows = None
+    if world > 1:
+        def touched_rows(st, bitmap):
+            return gather_touched_rows(st, bitmap, model, mesh)
+
     run = dict(model=model, device=device, step_fn=step_fn, train_stream=train_stream,
                ids_of=ids_of, predict_step=predict_step, max_nnz=max_nnz, log=log,
                step_hook=step_hook, accum_restart=None, stream_stop=None, evaluate=evaluate,
                saveable=lambda st: gather_logical_state(st, model, mesh), runtime=runtime,
-               chips=mesh.size, extra_metrics=extra_metrics)
+               chips=mesh.size, extra_metrics=extra_metrics, touched_rows=touched_rows)
     # on_nan = rollback: the loss every rank checks is all-reduced (the
     # same), so every rank raises at the same step with the same cursor; a
     # barrier and an agreement on the restored head come before training
@@ -1469,8 +1532,8 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
     rollback_note = None
     while True:
         try:
-            return _run_training(cfg, state, start_cursor=start_cursor, rollback=rollback_note,
-                                 **run)
+            state = _run_training(cfg, state, start_cursor=start_cursor, rollback=rollback_note,
+                                  **run)
         except NonFiniteLossError as e:
             if (
                 cfg.on_nan != "rollback"
@@ -1505,3 +1568,7 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
                 f"batch {rollback_note['skip_to_batch']} "
                 f"(rollback {rollbacks}/{cfg.max_rollbacks})"
             )
+        else:
+            if runtime.heartbeat is not None:
+                runtime.heartbeat.close()  # its last write: the run's last step
+            return state

@@ -24,7 +24,9 @@ a queue of twelve never refills one under its copy, and packed training is
 bitwise arrays at K = 1 and 8.  The sharded update's shard apply at base > 0
 (R = 2 and 4) is bitwise its twin and the whole-table update, and
 ``dist_train`` at world size 1 is bitwise ``train`` on each layout, K = 8
-and alltoall.
+and alltoall; the resident epoch's sharded step at world size 1 (K = 1,
+and K = 8 in one graph) is bitwise the cached train step, and cached
+``dist_train`` with deltas bitwise cached ``train``.
 """
 
 import os
@@ -1388,3 +1390,61 @@ def test_world_size_one_dist_train_is_train_on_the_card(cuda, tmp_path, over):
     for key in ("table", "table_accum"):
         a, b = files["train"][key], files["dist"][key]
         assert np.array_equal(a, b[: a.shape[0]]), key
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_cached_sharded_step_at_world_size_one_is_the_cached_train_step(cuda, tmp_path, k):
+    """The resident epoch under ``dist_train`` at world size 1 on the card:
+    ``make_cached_sharded_train_step`` over ``load_sharded_device_dataset``
+    (K = 8: one CUDA graph with the gathers inside) against the single-device
+    cached step over ``load_device_dataset``, from one state: every loss and
+    the table and accumulator bit for bit; ``dist_train`` with
+    ``device_cache`` and a delta every 4 steps against ``train`` likewise."""
+    import shutil
+
+    from fast_tffm_tpu_torch.config import build_model
+    from fast_tffm_tpu_torch.data.binary import ensure_fmb_cache
+    from fast_tffm_tpu_torch.parallel import make_mesh
+    from fast_tffm_tpu_torch.training import dist_train, train
+
+    for f in ("train.libsvm", "test.libsvm"):
+        shutil.copy(os.path.join(REPO, "data", f), tmp_path)
+    cfg = _resume_cfg(tmp_path, "x.ckpt", device_cache=True, binary_cache=True,
+                      steps_per_call=k, delta_every_steps=4)
+    model = build_model(cfg)
+    files = ensure_fmb_cache(cfg.train_files, vocabulary_size=256, max_nnz=8, log=lambda *a: None)
+    one = device_cache.load_device_dataset(files, batch_size=20, vocabulary_size=256, max_nnz=8,
+                                           device="cuda")
+    mesh = make_mesh()
+    sharded = device_cache.load_sharded_device_dataset(files, mesh=mesh, batch_size=20,
+                                                       vocabulary_size=256, max_nnz=8,
+                                                       device="cuda")
+    for a, b in zip(one.arrays, sharded.arrays):
+        assert torch.equal(a, b)
+    make = device_cache.make_cached_scan_train_step if k > 1 else \
+        device_cache.make_cached_train_step
+    plain, _ = make(model, cfg.learning_rate, one, train_step_body)
+    cached = device_cache.make_cached_sharded_train_step(model, cfg.learning_rate, mesh, sharded,
+                                                         steps_per_call=k)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    states = [init_state(model, gen, 0.1, "element") for _ in range(2)]
+    states[1].table.copy_(states[0].table)
+    items = (device_cache.epoch_index_chunks(one.batches, k, "cuda") if k > 1 else
+             [torch.tensor(i, device="cuda") for i in range(one.batches)])
+    for i in items:
+        states[0], la = plain(states[0], i)
+        states[1], lb = cached(states[1], i)
+        assert torch.equal(la, lb)
+    assert states[0].step == states[1].step
+    assert torch.equal(states[0].table, states[1].table)
+    assert torch.equal(states[0].table_accum, states[1].table_accum)
+    logs, saved = {}, {}
+    for name, run in (("train", train), ("dist", dist_train)):
+        c = _resume_cfg(tmp_path, f"{name}.ckpt", device_cache=True, binary_cache=True,
+                        steps_per_call=k, delta_every_steps=4)
+        logs[name] = []
+        run(c, log=logs[name].append, device="cuda")
+        saved[name] = np.load(c.model_file)
+    assert _logged_losses(logs["train"]) == _logged_losses(logs["dist"])
+    for key in ("table", "table_accum"):
+        assert np.array_equal(saved["train"][key], saved["dist"][key]), key

@@ -12,9 +12,11 @@ this slice ports.
 * The ``[Distributed]`` keys: validated with the JAX words, read from every
   repo config as the JAX ``Config`` reads them.
 * A two-rank ``dist_train`` with ``input_assignment = files``.
-* The refusals: the JAX package's, in its words; and what this slice leaves
-  to a later one (``device_cache`` under ``dist_train``, pod supervision,
-  ``--fault-process``, orbax, async and delta saves across processes).
+* The refusals: the JAX package's, in its words, and orbax (a later slice).
+  What an earlier slice refused and now runs is held running: the
+  resident epoch under ``dist_train``, async and delta saves across
+  processes, ``host_stall_timeout_s``, a pod supervisor's child, the pod
+  CLI and ``--fault-process``.
 """
 
 import json
@@ -369,31 +371,65 @@ def test_dist_train_refuses_what_jax_refuses_in_its_words(tmp_path, kw):
 def test_dist_train_refuses_follow_in_the_jax_words(tmp_path):
     cfg = Config(**_cfg(tmp_path, online_follow=True)).validate()
     with pytest.raises(ValueError, match="follow = true is single-process"):
-        _dist_refusals(cfg, 1)
+        _dist_refusals(cfg)
 
 
 @pytest.mark.parametrize("kw,world,needle", [
-    (dict(device_cache=True), 1, "device_cache = true under dist_train"),
-    (dict(async_save=True), 2, "async_save and delta_every_steps across processes"),
-    (dict(delta_every_steps=4), 2, "async_save and delta_every_steps across processes"),
+    (dict(device_cache=True, binary_cache=True), 1, "rows resident, sharded over 1 devices"),
+    (dict(async_save=True), 2, "async"),
+    (dict(delta_every_steps=4), 2, "delta"),
 ])
 def test_what_this_slice_leaves_out_is_refused_naming_the_roadmap(tmp_path, kw, world, needle):
-    cfg = Config(**_cfg(tmp_path, **kw)).validate()
-    with pytest.raises(ValueError, match=needle) as e:
-        _dist_refusals(cfg, world)
-    assert "item 10 of ROADMAP.md" in str(e.value)
-    _dist_refusals(Config(**_cfg(tmp_path, **{k: v for k, v in kw.items()
-                                              if k != "device_cache"})).validate(), 1)
+    """What the previous slice refused and this one ports: no refusal is
+    left, the resident epoch trains under dist_train, and a two-process
+    checkpointer keeps its async and delta boundaries."""
+    import shutil
+
+    from fast_tffm_tpu_torch.checkpoint_async import AsyncCheckpointer
+
+    shutil.copy(TRAIN, tmp_path / "t.libsvm")  # its FMB cache is made beside it
+    cfg = Config(**_cfg(tmp_path, train_files=(str(tmp_path / "t.libsvm"),), **kw)).validate()
+    _dist_refusals(cfg)
+    if world == 1:
+        logs = []
+        dist_train(cfg, log=logs.append, device="cpu")
+        assert any(needle in line for line in logs)
+        return
+    rt = DistributedRuntime(1, 2, FileKV(str(tmp_path / "kv")), instance=1)
+    ckpt = AsyncCheckpointer(cfg.model_file, device="cpu", async_save=cfg.async_save,
+                             delta_every_steps=cfg.delta_every_steps, vocab=256, row_dim=5,
+                             runtime=rt)
+    assert ckpt._rt is rt and (ckpt._async if needle == "async" else ckpt.delta_enabled)
 
 
 def test_pod_supervision_is_refused(tmp_path, monkeypatch):
+    """Pod supervision runs: host_stall_timeout_s > 0 brings a process up,
+    and a pod supervisor's child joins its generation (one process: no
+    group), with its watcher and its heartbeat."""
     cfg = Config(**_cfg(tmp_path, host_stall_timeout_s=5.0)).validate()
-    with pytest.raises(ValueError, match="pod supervision") as e:
-        initialize_runtime(cfg, log=quiet, device="cpu")
-    assert "item 10" in str(e.value)
+    rt = initialize_runtime(cfg, log=quiet, device="cpu")
+    assert not rt.active and rt.heartbeat is None and rt.watcher is None
+    from fast_tffm_tpu_torch.distributed import read_heartbeat, write_generation
+
+    rdir = str(tmp_path / "rt")
+    write_generation(rdir, {"generation": 2, "coordinator": "127.0.0.1:1", "num_processes": 1,
+                            "cause": "start"})
     monkeypatch.setenv("FM_DIST_GENERATION", "1")
-    with pytest.raises(ValueError, match="launched by a pod supervisor"):
-        initialize_runtime(Config(**_cfg(tmp_path)).validate(), log=quiet, device="cpu")
+    monkeypatch.setenv("FM_DIST_RUNTIME_DIR", rdir)
+    monkeypatch.setenv("FM_DIST_PROCESS_ID", "0")
+    monkeypatch.setenv("FM_DIST_PROCESSES", "1")
+    logs = []
+    rt = initialize_runtime(Config(**_cfg(tmp_path, heartbeat_s=0.05)).validate(),
+                            log=logs.append, device="cpu")
+    try:
+        assert "joining pod generation 2 as process 0/1" in logs[0]
+        assert os.environ["FM_DIST_GENERATION"] == "2" and rt.runtime_dir == rdir
+        assert rt.watcher is not None and rt.heartbeat is not None
+        rt.heartbeat.set_step(7)
+    finally:
+        rt.watcher.close()
+        rt.heartbeat.close()
+    assert read_heartbeat(rdir, 0)[0]["step"] == 7
 
 
 def _cli(args):
@@ -403,14 +439,19 @@ def _cli(args):
 
 
 def test_cli_refuses_fault_process_and_pod_supervision(tmp_path):
+    """--fault-process and a two-process dist_train --supervised (a pod)
+    run; --resume still applies to the training verbs only."""
     ini = tmp_path / "c.cfg"
-    ini.write_text(f"[General]\nmodel = fm\nmodel_file = {tmp_path / 'm.ckpt'}\n"
-                   f"[Train]\ntrain_files = {TRAIN}\n[Distributed]\nnum_processes = 2\n")
-    r = _cli(["dist_train", str(ini), "--device", "cpu", "--fault-process", "1"])
-    assert r.returncode == 2 and "pod-supervised dist_train" in r.stderr
-    assert "item 10" in r.stderr
-    r = _cli(["dist_train", str(ini), "--device", "cpu", "--supervised"])
-    assert r.returncode == 2 and "pod supervision" in r.stderr
+    ini.write_text(f"[General]\nmodel = fm\nfactor_num = 4\nvocabulary_size = 256\n"
+                   f"model_file = {tmp_path / 'm.ckpt'}\n"
+                   f"[Train]\ntrain_files = {TRAIN}\nbatch_size = 100\nmax_nnz = 8\n"
+                   "[Distributed]\nnum_processes = 2\n")
+    r = _cli(["dist_train", str(ini), "--device", "cpu", "--supervised", "--fault-process", "1"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "supervisor: pod completed cleanly after 0 restart incident(s)" in r.stderr
+    assert r.stdout.count("training done:") == 2
+    with np.load(tmp_path / "m.ckpt") as z:
+        assert json.loads(bytes(z["input_cursor"]).decode())["process_count"] == 2
     r = _cli(["dist_predict", str(ini), "--device", "cpu", "--resume"])
     assert r.returncode == 2 and "--resume applies to the train and dist_train verbs" in r.stderr
 

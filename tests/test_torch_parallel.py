@@ -34,6 +34,7 @@ test.
   JAX package's.
 """
 
+import glob
 import json
 import multiprocessing as mp
 import os
@@ -136,11 +137,17 @@ def _spawn(tmp_path, world, job, *args):
     return results
 
 
+class _Abort(Exception):
+    """Ends a run from its step hook, before its final save."""
+
+
 def _train_job(rank, runs):
-    """Each run: ``(kwargs, resume, stop_at)``; returns per run its log (rank
-    0), or the non-finite step it stopped at."""
+    """Each run: ``(kwargs, resume, stop_at[, abort_at])``; returns per run
+    its log (rank 0), the non-finite step it stopped at, or the step an
+    ``abort_at`` hook ended it at (every rank: the writer's in-flight
+    publish joined, no final save)."""
     out = []
-    for kw, resume, stop_at in runs:
+    for kw, resume, stop_at, *abort_at in runs:
         logs = []
         hook = None
         if stop_at:
@@ -148,12 +155,18 @@ def _train_job(rank, runs):
                 if step >= at and not fired:
                     fired.append(step)
                     os.kill(os.getpid(), signal.SIGTERM)
+        elif abort_at:
+            def hook(step, at=abort_at[0]):
+                if step >= at:
+                    raise _Abort(step)
         try:
             dist_train(Config(**kw).validate(), resume=resume, device="cpu", log=logs.append,
                        step_hook=hook)
             out.append({"log": logs if rank == 0 else None})
         except NonFiniteLossError as e:
             out.append({"nonfinite": e.step})
+        except _Abort as e:
+            out.append({"aborted": e.args[0]})
     return out
 
 
@@ -457,3 +470,167 @@ def test_sharded_streams_are_jax(tmp_path, route):
             assert np.array_equal(gw, ww)
             for f in ("labels", "ids", "vals", "nnz"):
                 assert np.array_equal(getattr(gp, f), getattr(wp, f)), f
+
+
+# -- device_cache under dist_train ---------------------------------------------
+
+CACHED = {
+    "rows": {},
+    "k4": dict(steps_per_call=4, log_every=4),
+    "packed": dict(table_layout="packed"),
+    "fused": dict(table_layout="packed", adagrad_accumulator="fused"),
+    "alltoall": dict(lookup="alltoall"),
+}
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2)], ids=["2x1", "1x2", "2x2"])
+def test_device_cache_under_dist_train_matches_jax(tmp_path, data, mesh):
+    """The sharded resident epoch: each rank holds its rows of every batch;
+    K = 1, K = 4 (a graph of 4 steps on the card), packed, fused and
+    alltoall against the JAX package's cached dist_train on a mesh of the
+    same shape; the rows case is bitwise the port's streamed dist_train on
+    the same mesh (the same batches, another input path)."""
+    cases = CACHED if mesh == (2, 2) else {n: CACHED[n] for n in ("rows", "k4")}
+    cache = dict(device_cache=True, binary_cache=True)
+    pairs = {name: _pair(tmp_path, data, f"c{name}", mesh, **cache, **kw)
+             for name, kw in cases.items()}
+    streamed = _kw(tmp_path, data, "streamed", data_parallel=mesh[0], row_parallel=mesh[1])
+    shutil.copy(pairs["rows"][1]["model_file"], streamed["model_file"])
+    jlogs = {name: _jax_run(jk, mesh) for name, (jk, _) in pairs.items()}
+    runs = [(pk, True, None) for _, pk in pairs.values()] + [(streamed, True, None)]
+    out = _spawn(tmp_path, mesh[0] * mesh[1], _train_job, runs)[0]
+    for (name, (jk, pk)), res in zip(pairs.items(), out):
+        assert any(f"rows resident, sharded over {mesh[0] * mesh[1]} devices" in line
+                   for line in res["log"]), name
+        _check_pair(jk, pk, jlogs[name], res["log"])
+    a, b = _saved(pairs["rows"][1]["model_file"]), _saved(streamed["model_file"])
+    for key in ("table", "table_accum", "step"):
+        assert np.array_equal(a[key], b[key]), key
+    assert _losses(pairs["rows"][1]["metrics_path"]) == _losses(streamed["metrics_path"])
+
+
+@pytest.mark.parametrize("over", [{}, CACHED["k4"], CACHED["fused"]], ids=["k1", "k4", "fused"])
+def test_world_size_one_cached_is_cached_train_bitwise(tmp_path, data, over):
+    cache = dict(device_cache=True, binary_cache=True, delta_every_steps=3, **over)
+    a = _kw(tmp_path, data, "t", **cache)
+    b = _kw(tmp_path, data, "d", **cache)
+    _init_npz(a["model_file"], a)
+    shutil.copy(a["model_file"], b["model_file"])
+    train(Config(**a).validate(), resume=True, device="cpu", log=quiet)
+    dist_train(Config(**b).validate(), resume=True, device="cpu", log=quiet)
+    assert _losses(a["metrics_path"]) == _losses(b["metrics_path"])
+    x, y = _saved(a["model_file"]), _saved(b["model_file"])
+    assert int(x["step"]) == int(y["step"]) == 20
+    for key in ("table", "table_accum"):
+        assert np.array_equal(x[key], y[key][: x[key].shape[0]]), key
+
+
+# -- async and delta saves across two ranks -----------------------------------
+
+
+def _restore_both(path, acc):
+    """The logical arrays of ``path`` (its chain replayed) as the JAX package
+    and the port restore them (``acc`` the run's accumulator)."""
+    from fast_tffm_tpu.checkpoint import restore_checkpoint as jax_restore
+    from fast_tffm_tpu.models import FMModel
+    from fast_tffm_tpu.trainer import init_state as jax_init
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+
+    with np.load(path) as z:  # the saved vocabulary: a packed mesh pads it
+        model = FMModel(vocabulary_size=z["table"].shape[0], factor_num=K)
+    acc = "row" if acc == "fused" else acc
+    j = jax_restore(path, jax_init(model, jax.random.key(0), 0.1, acc))
+    p = restore_checkpoint(path, torch.device("cpu"),
+                           accum_width=model.row_dim if acc == "element" else 1)
+    return j, p
+
+
+_CACHE = dict(device_cache=True, binary_cache=True)
+# (mesh, config): the writer's gather of a delta's rows from one row shard
+# (1 x 2 on two ranks), from ranks that hold no row shard of their own
+# data group (2 x 1: the early return on data index 1), and the padded
+# gather over a row group at 2 x 2 on the rows, packed and fused layouts.
+ASYNC_CASES = {
+    "streamed": ((1, 2), {}),
+    "cached": ((1, 2), _CACHE),
+    "2x1": ((2, 1), {}),
+    "2x2": ((2, 2), {}),
+    "2x2-packed": ((2, 2), CACHED["packed"]),
+    "2x2-fused-cached": ((2, 2), {**_CACHE, **CACHED["fused"]}),
+}
+
+
+@pytest.mark.parametrize("case", list(ASYNC_CASES))
+def test_async_and_delta_across_ranks(tmp_path, data, case):
+    """Two or four ranks: async full saves and a delta every 3 steps end
+    bitwise the same run with synchronous full saves; a run aborted at step
+    8 leaves base 3 + delta 6 with the cursor vector of every rank, which
+    the JAX package restores bitwise as the port does, and --resume from it
+    ends bitwise the uninterrupted run."""
+    mesh, over = ASYNC_CASES[case]
+    world = mesh[0] * mesh[1]
+    jk, plain = _pair(tmp_path, data, "plain", mesh, save_every_epochs=1, epoch_num=2, **over)
+    saves = dict(async_save=True, delta_every_steps=3)
+    chained = dict(plain, model_file=str(tmp_path / "chain.ckpt"),
+                   metrics_path=str(tmp_path / "chain.jsonl"), **saves)
+    cut = dict(chained, model_file=str(tmp_path / "cut.ckpt"), metrics_path="")
+    for kw in (chained, cut):
+        shutil.copy(plain["model_file"], kw["model_file"])
+    out = _spawn(tmp_path, world, _train_job,
+                 [(plain, True, None), (chained, True, None), (cut, True, None, 8)])
+    assert [r[2]["aborted"] for r in out] == [8] * world
+    a, b = _saved(plain["model_file"]), _saved(chained["model_file"])
+    for key in ("table", "table_accum", "step"):
+        assert np.array_equal(a[key], b[key]), key
+    assert _losses(plain["metrics_path"]) == _losses(chained["metrics_path"])
+    ckpts = [r for r in map(json.loads, open(chained["metrics_path"])) if r["kind"] == "ckpt"]
+    assert {r["mode"] for r in ckpts} >= {"full", "delta"}
+    # The aborted run's chain: the base at 3 and the delta at 6.
+    from fast_tffm_tpu_torch.checkpoint import read_delta_chain, read_input_cursor
+
+    _, chain = read_delta_chain(cut["model_file"])
+    assert [int(np.load(m["path"])["step"]) for m in chain] == [6]
+    cursor = read_input_cursor(cut["model_file"])
+    assert cursor["process_count"] == world
+    assert [(h["epoch"], h["batch_in_epoch"]) for h in cursor["hosts"]] == [(0, 6)] * world
+    j, p = _restore_both(cut["model_file"], plain.get("adagrad_accumulator", "element"))
+    assert int(j.step) == p.step == 6
+    assert np.array_equal(np.asarray(j.table), p.table.numpy())
+    assert np.array_equal(np.asarray(j.table_opt.accum), p.table_accum.numpy())
+    out = _spawn(tmp_path, world, _train_job, [(cut, True, None)])
+    assert any("resuming input at epoch 0, batch 6" in line for line in out[0][0]["log"])
+    c = _saved(cut["model_file"])
+    for key in ("table", "table_accum", "step"):
+        assert np.array_equal(a[key], c[key]), key
+
+
+def test_a_jax_written_chain_resumes_in_two_ranks(tmp_path, data):
+    """The JAX package's dist_train (mesh 1 x 2, delta every 3 steps) aborted
+    at step 8 leaves base 3 + delta 6; two port ranks resume from it and
+    end within the tolerances of the JAX package's uninterrupted run."""
+    mesh = (1, 2)
+    jk, pk = _pair(tmp_path, data, "jchain", mesh, delta_every_steps=3)
+    whole = dict(jk, model_file=str(tmp_path / "jwhole.ckpt"),
+                 metrics_path=str(tmp_path / "jwhole.jsonl"))
+    shutil.copy(jk["model_file"], whole["model_file"])
+    jlog = _jax_run(whole, mesh)
+
+    def abort(step):
+        if step >= 8:
+            raise _Abort(step)
+
+    with pytest.raises(_Abort):
+        _jax_run(jk, mesh, step_hook=abort)
+    shutil.copy(jk["model_file"], pk["model_file"])
+    for path in glob.glob(glob.escape(jk["model_file"]) + ".delta-*"):
+        shutil.copy(path, pk["model_file"] + path[len(jk["model_file"]):])
+    out = _spawn(tmp_path, 2, _train_job, [(pk, True, None)])
+    assert any("resuming input at epoch 0, batch 6" in line for line in out[0][0]["log"])
+    p, j = _saved(pk["model_file"]), _saved(whole["model_file"])
+    assert int(p["step"]) == int(j["step"]) == 20
+    for key in ("table", "table_accum"):
+        np.testing.assert_allclose(p[key][:V], j[key][:V], rtol=TABLE_RTOL, atol=TABLE_ATOL)
+    # The resumed losses are the uninterrupted run's from step 7 on.
+    np.testing.assert_allclose(_losses(pk["metrics_path"]), _losses(whole["metrics_path"])[6:],
+                               rtol=LOSS_RTOL)
+    assert _aucs(out[0][0]["log"]) and jlog

@@ -21,7 +21,8 @@
   good state.
 * ``Supervisor``: restarts a fake child until it succeeds, with crash and
   restart records (MTTR) and exponential backoff; gives up after
-  ``restart_max``; refuses pod mode.  A real ``cli train --supervised
+  ``restart_max``; pod mode needs a ``runtime_dir`` (its runs are in
+  tests/test_torch_pod.py).  A real ``cli train --supervised
   --device cpu`` under ``kill@N`` (alone, with ``torn_delta``, and
   ``kill_publish``) ends bitwise equal to the uninterrupted run.
 * ``resilience`` and the supervising CLI import no torch.
@@ -32,6 +33,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import textwrap
@@ -465,7 +467,8 @@ def test_supervisor_gives_up_after_restart_max(tmp_path):
                      metrics_path=metrics, log=quiet)
     assert sup.run() == 3 and sup.restarts == 1
     assert len(_records(metrics, "fault")) == 2 and len(_records(metrics, "restart")) == 1
-    with pytest.raises(ValueError, match="item 10"):
+    # Pod mode runs since the pod supervision was ported; it needs its runtime_dir.
+    with pytest.raises(ValueError, match="requires runtime_dir"):
         Supervisor(lambda a, r: [], model_file="m", processes=2)
 
 
@@ -525,9 +528,11 @@ def test_supervised_cli_survives_a_kill_and_ends_bitwise(tmp_path, plan, quarant
 
 
 def test_cli_refuses_fault_process_and_supervising_other_verbs(tmp_path):
+    """--fault-process places a plan on one host of a pod; outside a pod the
+    plan arms on this process, as the JAX CLI's does (kill@2: SIGKILL)."""
     ini = _ini(tmp_path)
-    r = _cli(["train", ini, "--device", "cpu", "--fault-process", "1"])
-    assert r.returncode == 2 and "item 10" in r.stderr
+    r = _cli(["train", ini, "--device", "cpu", "--fault-process", "1", "--fault-plan", "kill@2"])
+    assert r.returncode == -signal.SIGKILL and "fault plan armed" in r.stderr
     r = _cli(["predict", ini, "--device", "cpu", "--supervised"])
     assert r.returncode == 2 and "apply to the train verb" in r.stderr
 
