@@ -177,7 +177,11 @@ last line:
             three), each stage's landed-to-scored ms and the freshness
             records; then a flush loop racing reload_once's apply of delta
             1 (every flush bitwise one head or the other) and the apply's
-            and a full reload's stage times
+            and a full reload's stage times; then (``orbax``) an engine
+            started from an orbax directory holding the fused run's state,
+            and reloaded in full once the chain head's is saved over it:
+            each state's scores bitwise a fresh card engine's, the save's
+            and the reload's ms
   serve_socket python -m fast_tffm_tpu_torch.cli serve <cfg> --port 0 with
             [Serving] replicas = 2 on the card, serving the chain at delta 2:
             4096 lines over two affinity-pinned FrameConnections (64-row
@@ -266,16 +270,26 @@ last line:
             the reckoning; the filesystem's used bytes during the run beside
             them as a second witness), the rows the final save applied read
             back from the store, and a resume at that save
+  orbax_fixture  tests/data/jax_b5_rowmesh.orbax (the JAX package's save
+            on a 2-way row mesh, zstd-compressed; tools/make_orbax_fixture.py)
+            and its npz twin restored through the port onto the card:
+            bitwise equal, the same cursor; libzstd's path (its absence
+            fails the phase)
   dist_b2   configs/baseline2_fm_sharded.cfg at full width (order 2, k 16,
-            V 2^24, max_nnz 39, batch 16,384; checkpoint_format npz for its
-            orbax, log_every 4) on 24 x 16,384 rows of gen_synthetic (--seed
-            3; started in the background at the run's start) and 32,768
-            validation rows: cli dist_train and cli dist_predict at world
-            size 1, in this process, against cli train and cli predict from
-            the same fresh init: logged losses, the saved 2^24 x 17 table
-            and accumulator, and the score files bitwise; B4 once per step
-            and nothing else; step p50, ex/s, the card's idle share (the
-            dist run traced), peak device memory, the epoch save's stall
+            V 2^24, max_nnz 39, batch 16,384) with its own checkpoint_format
+            = orbax and log_every 4, on 24 x 16,384 rows of gen_synthetic
+            (--seed 3; started in the background at the run's start) and
+            32,768 validation rows, every run in this process from the same
+            fresh init: cli dist_train at world size 1 (traced) writes an
+            orbax directory, cli train with npz its twin; cli dist_train and
+            cli train with orbax stopped by SIGTERM at step 12 and resumed
+            with --resume; cli dist_predict and cli predict from the
+            directory against cli predict from the npz.  Logged losses, the
+            2^24 x 17 table and accumulator, the cursor and the score files
+            bitwise; B4 once per step and nothing else; each format's epoch
+            save (stall, bytes, MB/s) and full restore onto the card (ms,
+            in turns) side by side; step p50, ex/s, the card's idle share,
+            peak device memory
   dist_b5   baseline5 through training.dist_train at world size 1 against
             training.train from one seeded npz, 24 steps each: rows,
             packed, fused, steps_per_call = 8 (traced) and lookup =
@@ -323,7 +337,8 @@ last line:
             rollback, supervised reference, follow and accum_restart runs,
             and for B1 serve_reload's engine and each replica process's
             launches during serve_socket's traffic (serve_socket_r0, _r1); the
-            wire, tiered and tiered_big runs; dist_b2 and the dist_b5 runs;
+            wire, tiered and tiered_big runs; dist_b2's six runs and the
+            dist_b5 runs;
             the dist_cached runs (K = 8: the replays in their traces)
 
 Every traced training run also counts each kernel by name in its profiler
@@ -335,8 +350,10 @@ wrappers' counts and records trace_lost_events.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 ``--only dist`` runs the device, build and data phases and the four phases
-of dist_train alone, ``--only pod`` those and dist_cached and pod_card;
-neither prints the result line (development runs).
+of dist_train alone, ``--only pod`` those and dist_cached and pod_card,
+``--only orbax`` those and orbax_fixture, serve_reload's orbax case (on
+the fixture's states) and dist_b2; none prints the result line
+(development runs).
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -3400,6 +3417,49 @@ def _until_step(engine, step: int, probe, what: str, timeout: float = 30.0) -> f
     return time.perf_counter() - t0
 
 
+def _serve_reload_orbax(tmp: str, cfg, probe, states, ref_launches: list) -> dict:
+    """An engine started from an orbax directory (``states[0]`` saved there)
+    reloads it in full once ``states[1]`` is saved over it (the sidecar step
+    and the renamed directory move the signature); each served state's
+    scores are a fresh card engine's, bitwise."""
+    import dataclasses
+
+    import numpy as np
+
+    from fast_tffm_tpu_torch.checkpoint import checkpoint_signature, save_checkpoint
+    from fast_tffm_tpu_torch.serving import ServingEngine
+
+    odir = os.path.join(tmp, "serve_reload.orbax")
+    ocfg = dataclasses.replace(cfg, model_file=odir, serve_reload_interval_s=0.0,
+                               metrics_path="")
+    save_checkpoint(odir, states[0], "orbax")
+    with ServingEngine(ocfg, log=log_stderr, device="cuda") as eng:
+        got = _block_scores(eng, probe)
+        if eng.step != states[0].step or not np.array_equal(
+                got, _fresh_scores(ocfg, probe, ref_launches)):
+            fail(f"serve_reload orbax: the first state (step {eng.step}) is not a fresh "
+                 "engine's")
+        sig = checkpoint_signature(odir)
+        t0 = time.perf_counter()
+        save_checkpoint(odir, states[1], "orbax")
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        if checkpoint_signature(odir) == sig:
+            fail("serve_reload orbax: the second save left the signature unchanged")
+        t0 = time.perf_counter()
+        status = eng.reload_once()["status"]
+        reload_ms = 1e3 * (time.perf_counter() - t0)
+        if status != "staged":
+            fail(f"serve_reload orbax: reload_once gave {status}")
+        _until_step(eng, states[1].step, probe, "serve_reload orbax")
+        got = _block_scores(eng, probe)
+        snap = eng.metrics_snapshot()
+    if not np.array_equal(got, _fresh_scores(ocfg, probe, ref_launches)):
+        fail("serve_reload orbax: the reloaded scores are not a fresh engine's")
+    return {"steps": [states[0].step, states[1].step], "bitwise_fresh": True,
+            "reloads": snap["reloads"], "reload_failures": snap["reload_failures"],
+            "save_ms": save_ms, "reload_ms": reload_ms}
+
+
 def phase_serve_reload(rng, tmp: str, train_cfg, fused_cfg) -> dict:
     """Hot reload at full width on the card.  A card training run (native
     text, 2 epochs, delta_every_steps = 8, async_save) aborted after its
@@ -3561,6 +3621,13 @@ def phase_serve_reload(rng, tmp: str, train_cfg, fused_cfg) -> dict:
         full_ms = 1e3 * (time.perf_counter() - t0)
         if full_status != "staged":
             fail(f"serve_reload race: the full reload gave {full_status}")
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+    from fast_tffm_tpu_torch.config import build_model
+
+    cpu = torch.device("cpu")
+    orbax = _serve_reload_orbax(tmp, cfg, probe, [
+        restore_checkpoint(fused_cfg.model_file, cpu, accum_width=1),
+        restore_checkpoint(base, cpu, accum_width=build_model(cfg).row_dim)], [0])
     rec = {
         "phase": "serve_reload", "config": CONFIG, "reload_interval_s": 0.2,
         "reload_max_retries": 3, "chain": [os.path.basename(d) for d in deltas],
@@ -3573,6 +3640,7 @@ def phase_serve_reload(rng, tmp: str, train_cfg, fused_cfg) -> dict:
                  "delta_rows": _delta_rows(deltas[0]),
                  "full_stage_ms": full_ms},
         "writer_wall_ms": writer["wall_ms"],
+        "orbax": orbax,
     }
     emit(rec)
     return {"served_base": base, "deltas": deltas, "heads": heads, "probe": probe,
@@ -4932,10 +5000,10 @@ def _wait_b2_data(jobs) -> dict:
 
 
 @contextlib.contextmanager
-def _clocked(name: str):
+def _clocked(name: str, then=None):
     """``training.<name>`` wrapped for the time of the block so that its
-    callers (the CLI) run it with the loop's step clock as the step hook;
-    yields the clock's p50."""
+    callers (the CLI) run it with the loop's step clock as the step hook
+    (and ``then(step)`` after it); yields the clock's p50."""
     from fast_tffm_tpu_torch import training
 
     real = getattr(training, name)
@@ -4943,7 +5011,13 @@ def _clocked(name: str):
 
     def wrapped(*a, **kw):
         clock, box["p50"] = _step_clock()
-        return real(*a, **{**kw, "step_hook": clock})
+
+        def hook(step):
+            clock(step)
+            if then is not None:
+                then(step)
+
+        return real(*a, **{**kw, "step_hook": hook})
 
     setattr(training, name, wrapped)
     try:
@@ -4968,101 +5042,253 @@ def _cli_in_process(args: list, what: str) -> list:
     return lines
 
 
+B2_STOP = 12  # the stopped runs' SIGTERM step
+
+
+def _b2_run(tmp: str, name: str, verb: str, paths: dict, fmt: str, *, stop_at=None,
+            resume: bool = False, traced: bool = False, ini: str | None = None) -> dict:
+    """One ``cli train`` / ``cli dist_train`` of baseline2 in this process:
+    its own ``checkpoint_format`` (orbax) unless ``fmt`` is npz; SIGTERM
+    after the call that reaches ``stop_at``; ``resume`` adds --resume.
+    Returns its log, the wrappers' launches, step p50 and wall."""
+    import torch
+
+    if ini is None:
+        general = {"model_file": os.path.join(tmp, name + (".orbax" if fmt == "orbax"
+                                                           else ".ckpt"))}
+        if fmt == "npz":
+            general["checkpoint_format"] = "npz"
+        ini = _write_ini(os.path.join(tmp, name + ".cfg"), B2_CONFIG, General=general,
+                         Train={"train_files": paths["train"],
+                                "validation_files": paths["valid"], "log_every": 4,
+                                "metrics_path": os.path.join(tmp, name + ".jsonl")},
+                         Predict={"predict_files": paths["valid"],
+                                  "score_path": os.path.join(tmp, name + ".scores")})
+    run = {"ini": ini}
+    args = [verb, ini] + (["--resume"] if resume else [])
+    what = name + ("_resumed" if resume else "")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    with _clocked(verb, _stop_hook(stop_at, []) if stop_at else None) as p50:
+        if traced:
+            window = traced_window(lambda: run.update(log=_cli_in_process(args, what)))
+            for k in ("device_idle_share", "device_busy_ms", "wall_ms", "launches_traced"):
+                run[k] = window[k]
+        else:
+            t1 = time.perf_counter()
+            run["log"] = _cli_in_process(args, what)
+            torch.cuda.synchronize()
+            run["wall_ms"] = 1e3 * (time.perf_counter() - t1)
+        run["step_ms_p50"] = p50()
+    run["launches"] = _wrapper_counts()
+    run["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    steps = (B2_STOP if stop_at else B2_TRAIN_BATCHES) - (B2_STOP if resume else 0)
+    want = {"anova_fwd": 0, "anova_bwd": 0, "rows_tail_adagrad": steps, "fused_tail_adagrad": 0}
+    if run["launches"] != want:
+        fail(f"{what}: kernel launches {run['launches']}, expected {want}")
+    run["losses"] = {int(m.group(1)): float(m.group(2)) for m in
+                     (re.match(r"step (\d+) epoch \d+ loss ([0-9.]+)", line) for line in run["log"])
+                     if m}
+    run["examples_per_s_logged"] = _logged(run["log"], "examples/sec")
+    run["examples_per_s_run"] = (steps * BATCH) / (run["wall_ms"] / 1e3)
+    return run
+
+
+def _b2_predict(verb: str, ini: str, what: str) -> dict:
+    _zero_counters()
+    t1 = time.perf_counter()
+    _cli_in_process([verb, ini], what)
+    return {"ms": 1e3 * (time.perf_counter() - t1), "launches": _wrapper_counts()}
+
+
+def _b2_restores(npz: str, orbax: str) -> dict:
+    """Each format's full restore onto the card, timed in turns (npz, orbax,
+    orbax, npz; the files warm in the page cache from their writes), and
+    the two states held bitwise equal on the card."""
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+
+    times = {"npz": [], "orbax": []}
+    states = {}
+    for fmt in ("npz", "orbax", "orbax", "npz"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = restore_checkpoint(npz if fmt == "npz" else orbax, torch.device("cuda"),
+                                accum_width=17)
+        torch.cuda.synchronize()
+        times[fmt].append(1e3 * (time.perf_counter() - t0))
+        if fmt not in states:
+            states[fmt] = st
+        del st
+    a, b = states["npz"], states["orbax"]
+    if not (a.step == b.step and torch.equal(a.table, b.table)
+            and torch.equal(a.table_accum, b.table_accum)):
+        fail("dist_b2: the orbax directory read back is not bitwise its npz twin")
+    del states, a, b
+    torch.cuda.empty_cache()
+    return {f"{k}_ms": v for k, v in times.items()}
+
+
+def _save_rates(ckpt: list) -> list:
+    return [dict(r, mb_per_s=r["bytes"] / 1e6 / (r["train_stall_ms"] / 1e3))
+            for r in _stall(ckpt)]
+
+
 def phase_dist_b2(tmp: str, jobs) -> dict:
     """configs/baseline2_fm_sharded.cfg at full width (order 2, k 16, V 2^24,
-    max_nnz 39, batch 16,384), its checkpoint_format = orbax replaced by npz
-    (the port reads no orbax directory yet) and log_every 4 (six logged
-    losses to compare), through ``cli dist_train`` at world size 1 (no process group) and
-    ``cli dist_predict``, against ``cli train`` and ``cli predict`` of the
-    same config, every run in this process from the same fresh init: the
-    logged losses, the saved table and accumulator and the score files
-    bitwise; B4 once per step and no other kernel; step p50, ex/s, the
-    card's idle share (the dist run traced), peak device memory, the epoch
-    save's stall."""
+    max_nnz 39, batch 16,384) with its own checkpoint_format = orbax and
+    log_every 4 (six logged losses to compare), every run in this process
+    from the same fresh init: ``cli dist_train`` at world size 1 (no process
+    group; traced) writes an orbax directory, ``cli train`` with npz its
+    twin; ``cli dist_train`` and ``cli train`` with orbax stopped by SIGTERM
+    at step 12 and resumed with --resume; ``cli dist_predict`` and ``cli
+    predict`` from the directory against ``cli predict`` from the npz.  The
+    logged losses, the saved 2^24 x 17 table and accumulator, the cursor
+    and the score files bitwise; B4 once per step and no other kernel; each
+    format's epoch save (stall, bytes, MB/s) and full restore (ms) side by
+    side; step p50, ex/s, the card's idle share, peak device memory."""
     import numpy as np
-    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor, restore_checkpoint
+    from fast_tffm_tpu_torch.config import load_config
 
     t0 = time.perf_counter()
     paths = _wait_b2_data(jobs)
     data_s = time.perf_counter() - t0
-    rec = {"phase": "dist_b2",
-           "config": B2_CONFIG + " + checkpoint_format = npz, log_every = 4",
+    rec = {"phase": "dist_b2", "config": B2_CONFIG + " + log_every = 4",
            "data_wait_s": data_s}
-    runs = {}
-    for verb in ("train", "dist_train"):
-        name = f"b2_{verb}"
-        ini = _write_ini(os.path.join(tmp, name + ".cfg"), B2_CONFIG,
-                              General={"model_file": os.path.join(tmp, name + ".ckpt"),
-                                       "checkpoint_format": "npz"},
-                              Train={"train_files": paths["train"],
-                                     "validation_files": paths["valid"], "log_every": 4,
-                                     "metrics_path": os.path.join(tmp, name + ".jsonl")},
-                              Predict={"predict_files": paths["valid"],
-                                       "score_path": os.path.join(tmp, name + ".scores")})
-        run = {"ini": ini}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counters()
-        with _clocked(verb) as p50:
-            if verb == "dist_train":
-                window = traced_window(
-                    lambda: run.update(log=_cli_in_process([verb, ini], name)))
-                run["device_idle_share"] = window["device_idle_share"]
-                run["device_busy_ms"] = window["device_busy_ms"]
-                run["wall_ms"] = window["wall_ms"]
-                run["launches_traced"] = window["launches_traced"]
-            else:
-                t1 = time.perf_counter()
-                run["log"] = _cli_in_process([verb, ini], name)
-                torch.cuda.synchronize()
-                run["wall_ms"] = 1e3 * (time.perf_counter() - t1)
-            run["step_ms_p50"] = p50()
-        run["launches"] = _wrapper_counts()
-        run["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-        want = {"anova_fwd": 0, "anova_bwd": 0, "rows_tail_adagrad": B2_TRAIN_BATCHES,
-                "fused_tail_adagrad": 0}
-        if run["launches"] != want:
-            fail(f"{name}: kernel launches {run['launches']}, expected {want}")
-        run["losses"] = _logged(run["log"], "loss")
-        run["examples_per_s_logged"] = _logged(run["log"], "examples/sec")
-        ckpts = _ckpt_records(name, os.path.join(tmp, name + ".jsonl"), "sync")
-        run["epoch_save"] = _stall(ckpts)
-        pred = "predict" if verb == "train" else "dist_predict"
-        _zero_counters()
-        t1 = time.perf_counter()
-        _cli_in_process([pred, ini], f"b2_{pred}")
-        run["predict_ms"] = 1e3 * (time.perf_counter() - t1)
-        run["predict_launches"] = _wrapper_counts()
-        runs[verb] = run
-    a, b = runs["train"], runs["dist_train"]
-    if not a["losses"] or a["losses"] != b["losses"]:
-        fail(f"dist_b2: logged losses {b['losses']} against train's {a['losses']}")
-    with np.load(os.path.join(tmp, "b2_train.ckpt")) as za, \
-            np.load(os.path.join(tmp, "b2_dist_train.ckpt")) as zb:
-        for key in ("table", "table_accum", "step"):
-            if not np.array_equal(za[key], zb[key]):
-                fail(f"dist_b2: the saved {key} is not bitwise train's")
-        shape = list(za["table"].shape)
-    with open(os.path.join(tmp, "b2_train.scores")) as fa, \
-            open(os.path.join(tmp, "b2_dist_train.scores")) as fb:
-        sa, sb = fa.read(), fb.read()
-    if sa != sb or len(sa.splitlines()) != B2_VALID_ROWS:
-        fail("dist_b2: dist_predict's scores are not predict's")
-    scores = np.loadtxt(io.StringIO(sb))
+    runs = {
+        "train_npz": _b2_run(tmp, "b2_train_npz", "train", paths, "npz"),
+        "dist_train": _b2_run(tmp, "b2_dist", "dist_train", paths, "orbax", traced=True),
+    }
+    for verb in ("dist_train", "train"):
+        name = f"b2_{verb}_cut"
+        runs[f"{verb}_stopped"] = _b2_run(tmp, name, verb, paths, "orbax", stop_at=B2_STOP)
+        runs[f"{verb}_resumed"] = _b2_run(tmp, name, verb, paths, "orbax", resume=True,
+                                          ini=runs[f"{verb}_stopped"]["ini"])
+    cfgs = {k: load_config(r["ini"]) for k, r in runs.items()}
+    # Each run's epoch save (before the predictions append to the metrics).
+    saves = {"npz": _save_rates(_ckpt_records("b2_train_npz", cfgs["train_npz"].metrics_path,
+                                              "sync")),
+             "orbax": _save_rates(_ckpt_records("b2_dist", cfgs["dist_train"].metrics_path,
+                                                "sync"))}
+    whole = runs["dist_train"]
+    if not os.path.isdir(cfgs["dist_train"].model_file) or cfgs["dist_train"].checkpoint_format != "orbax":
+        fail("dist_b2: baseline2's run did not write an orbax directory")
+    if len(whole["losses"]) != B2_TRAIN_BATCHES // 4 or whole["losses"] != runs["train_npz"]["losses"]:
+        fail(f"dist_b2: logged losses {whole['losses']} against the npz twin's "
+             f"{runs['train_npz']['losses']}")
+    for verb in ("dist_train", "train"):
+        stopped, resumed = runs[f"{verb}_stopped"], runs[f"{verb}_resumed"]
+        if not any(f"stopped on signal at step {B2_STOP}" in ln for ln in stopped["log"]):
+            fail(f"dist_b2 {verb}: no stop at step {B2_STOP}: {stopped['log'][-3:]}")
+        if not any(f"at step {B2_STOP}" in ln and "resumed from" in ln for ln in resumed["log"]):
+            fail(f"dist_b2 {verb}: the resumed run did not restore step {B2_STOP}")
+        got = {**stopped["losses"], **resumed["losses"]}
+        if set(whole["losses"]) - set(got) - {B2_STOP} or any(
+                whole["losses"][s] != v for s, v in got.items()):
+            fail(f"dist_b2 {verb}: stopped + resumed losses {got} against {whole['losses']}")
+        cut_file = cfgs[f"{verb}_stopped"].model_file
+        if read_input_cursor(cut_file) != read_input_cursor(cfgs["dist_train"].model_file):
+            fail(f"dist_b2 {verb}: the resumed run's cursor is not the uninterrupted run's")
+    import torch
+
+    cpu = torch.device("cpu")
+    ref = restore_checkpoint(cfgs["dist_train"].model_file, cpu, accum_width=17)
+    for key in ("train_npz", "dist_train_stopped", "train_stopped"):
+        got = restore_checkpoint(cfgs[key].model_file, cpu, accum_width=17)
+        if not _logical_equal(got, ref):
+            fail(f"dist_b2: {key}'s final state is not bitwise the orbax run's")
+        del got
+    shape = list(ref.table.shape)
+    del ref
+    # Scores: predict from the npz twin; dist_predict and predict from the
+    # orbax directory (one process: the engine's full restore).
+    preds = {"predict_npz": _b2_predict("predict", runs["train_npz"]["ini"], "b2_predict_npz"),
+             "dist_predict_orbax": _b2_predict("dist_predict", whole["ini"],
+                                               "b2_dist_predict_orbax")}
+    with open(cfgs["train_npz"].score_path) as f:
+        want = f.read()
+    with open(cfgs["dist_train"].score_path) as f:
+        if f.read() != want or len(want.splitlines()) != B2_VALID_ROWS:
+            fail("dist_b2: dist_predict's scores from the orbax directory are not the npz's")
+    preds["predict_orbax"] = _b2_predict("predict", whole["ini"], "b2_predict_orbax")
+    with open(cfgs["dist_train"].score_path) as f:
+        if f.read() != want:
+            fail("dist_b2: predict's scores from the orbax directory are not the npz's")
+    scores = np.loadtxt(io.StringIO(want))
     if not np.isfinite(scores).all():
         fail("dist_b2: non-finite scores")
-    for verb, run in runs.items():
-        rec[verb] = {k: run[k] for k in ("launches", "losses", "step_ms_p50", "wall_ms",
-                                         "examples_per_s_logged", "peak_device_bytes",
-                                         "epoch_save", "predict_ms", "predict_launches")}
-        rec[verb]["examples_per_s_run"] = (B2_TRAIN_BATCHES * BATCH) / (run["wall_ms"] / 1e3)
+    restores = _b2_restores(cfgs["train_npz"].model_file, cfgs["dist_train"].model_file)
+    keep = ("launches", "losses", "step_ms_p50", "wall_ms", "examples_per_s_logged",
+            "examples_per_s_run", "peak_device_bytes")
+    for k, run in runs.items():
+        rec[k] = {key: run[key] for key in keep}
     for k in ("device_idle_share", "device_busy_ms", "launches_traced"):
-        rec["dist_train"][k] = b[k]
-    rec.update(table_shape=shape, bitwise_losses=True, bitwise_table=True,
-               bitwise_scores=True, scores=int(scores.size),
-               seconds=time.perf_counter() - t0)
+        rec["dist_train"][k] = whole[k]
+    dir_bytes = sum(os.path.getsize(os.path.join(r, f))
+                    for r, _, fs in os.walk(cfgs["dist_train"].model_file) for f in fs)
+    rec.update(table_shape=shape, orbax_dir_bytes=dir_bytes, saves=saves, restores=restores,
+               predict=preds, bitwise_losses=True, bitwise_table=True, bitwise_npz_twin=True,
+               bitwise_resumed={"dist_train": True, "train": True}, bitwise_cursor=True,
+               bitwise_scores=True, scores=int(scores.size), seconds=time.perf_counter() - t0)
     emit(rec)
-    return {"dist_b2": b["launches"]}
+    return {f"dist_b2_{k}" if k != "dist_train" else "dist_b2": r["launches"]
+            for k, r in runs.items()}
+
+
+def phase_orbax_fixture() -> dict:
+    """The JAX-written fixture (tests/data/jax_b5_rowmesh: tools/
+    make_orbax_fixture.py, the JAX package on a 2-way row mesh, zstd
+    nodes and chunks) restored through the port onto the card from the
+    orbax directory and from its npz twin: bitwise equal.  Needs libzstd."""
+    import ctypes.util
+
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import read_input_cursor, restore_checkpoint
+    from fast_tffm_tpu_torch.ocdbt import OcdbtStore
+
+    lib = ctypes.util.find_library("zstd")
+    if lib is None:
+        fail("orbax_fixture: libzstd is absent on this host; a JAX-written (zstd-compressed) "
+             "orbax directory cannot be read")
+    base = os.path.join(HERE, "tests", "data", "jax_b5_rowmesh")
+    t0 = time.perf_counter()
+    a = restore_checkpoint(base + ".orbax", torch.device("cuda"), accum_width=9)
+    torch.cuda.synchronize()
+    orbax_ms = 1e3 * (time.perf_counter() - t0)
+    b = restore_checkpoint(base + ".npz", torch.device("cuda"), accum_width=9)
+    if not (a.step == b.step and torch.equal(a.table, b.table)
+            and torch.equal(a.table_accum, b.table_accum)
+            and read_input_cursor(base + ".orbax") == read_input_cursor(base + ".npz")):
+        fail("orbax_fixture: the JAX-written orbax directory is not bitwise its npz twin")
+    chunks = [k for k in OcdbtStore(base + ".orbax").keys()
+              if k.startswith("table/") and not k.endswith(".zarray")]
+    emit({"phase": "orbax_fixture", "libzstd": lib, "table_shape": list(a.table.shape),
+          "step": a.step, "table_chunks": chunks, "bitwise_npz_twin": True,
+          "restore_ms": orbax_ms})
+    return {"table_chunks": len(chunks)}
+
+
+def _only_serve_reload_orbax(tmp: str) -> None:
+    """serve_reload's orbax case on the fixture's states (``--only orbax``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+
+    first = restore_checkpoint(os.path.join(HERE, "tests", "data", "jax_b5_rowmesh.orbax"),
+                               torch.device("cpu"), accum_width=9)
+    second = dataclasses.replace(first, table=first.table * 0.5, step=first.step + 1)
+    cfg = _b5(vocabulary_size=first.table.shape[0], model_file=os.path.join(tmp, "o.orbax"))
+    probe = _probe_block(np.random.default_rng(SEED + 9), cfg.vocabulary_size)
+    emit({"phase": "serve_reload_orbax",
+          **_serve_reload_orbax(tmp, cfg, probe, [first, second], [0])})
 
 
 def phase_dist_b5(rng, tmp: str, train_path: str, valid_path: str) -> dict:
@@ -5695,6 +5921,13 @@ def main() -> int:
             phase_pod_card(tmp, pod_ref, dev["nvidia_smi"])
             return 0
         b2_jobs = _start_b2_data(tmp)
+        if only == "orbax":
+            # This slice's checks alone (no result line): the fixture, the
+            # serving reload of an orbax directory, baseline2 with orbax.
+            phase_orbax_fixture()
+            _only_serve_reload_orbax(tmp)
+            phase_dist_b2(tmp, b2_jobs)
+            return 0
         if only == "dist":
             # A short run of this slice's phases alone (no result line).
             phase_dist_b2(tmp, b2_jobs)
@@ -5766,6 +5999,7 @@ def main() -> int:
         observed.update(phase_tiered_big(tmp))
         # This slice's phases: dist_train / dist_predict at full width, the
         # shard apply at R = 2 and 4, NCCL at world size 1.
+        phase_orbax_fixture()
         observed.update(phase_dist_b2(tmp, b2_jobs))
         observed.update(phase_dist_b5(np.random.default_rng(SEED + 15), tmp, train_path,
                                       valid_path))

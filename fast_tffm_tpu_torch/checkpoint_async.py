@@ -32,8 +32,14 @@
     publishes them through ``save_delta``, then applies.  Publish before
     apply is crash-consistency invariant 7.
 
-  * **Multi-process runs** (``runtime``, an active
-    ``distributed.DistributedRuntime``): the single-writer npz protocol.
+  * **orbax** (``fmt``): every save is synchronous and collective — each
+    rank writes its own rows (``saveable`` gives its ``checkpoint.
+    RowShard``) and rank 0 publishes the directory
+    (``checkpoint._save_orbax``); no async or delta saves, as in the JAX
+    package.
+
+  * **Multi-process npz runs** (``runtime``, an active
+    ``distributed.DistributedRuntime``): the single-writer protocol.
     At every boundary every rank posts its input cursor and joins the
     collectives (``saveable``, the gather of the logical state onto rank
     0; a delta's ``touched_rows``, the ranks' bitmaps OR-ed and the
@@ -67,6 +73,7 @@ import torch
 
 from fast_tffm_tpu_torch.checkpoint import (
     DEFAULT_CHUNK_BYTES,
+    RowShard,
     latest_step,
     read_delta_chain,
     save_checkpoint,
@@ -132,6 +139,8 @@ class AsyncCheckpointer:
         path: str,
         *,
         device,
+        fmt: str = "npz",
+        dense_names=(),
         monitor=None,
         log=print,
         chunk_bytes: int = DEFAULT_CHUNK_BYTES,
@@ -157,11 +166,14 @@ class AsyncCheckpointer:
         # the npz publish (config.validate refuses async_save with it).
         self._ps = paramstore
         self._rt = runtime if (runtime is not None and runtime.active) else None
-        self._is_writer = self._rt is None or self._rt.is_lead
+        # npz: one writer (rank 0); orbax: every rank writes its own rows.
+        self._fmt = fmt
+        self._dense_names = tuple(dense_names)
+        self._is_writer = self._rt is None or self._rt.is_lead or fmt == "orbax"
         self._seq = 0  # save boundaries so far: the same on every rank
         self._pending_await: int | None = None  # a non-writer's unawaited publish
-        self._async = bool(async_save) and paramstore is None
-        self._delta_every = int(delta_every_steps)
+        self._async = bool(async_save) and paramstore is None and fmt == "npz"
+        self._delta_every = int(delta_every_steps) if fmt == "npz" else 0
         self._chain_max = max(1, int(delta_chain_max))
         self._full_every_s = float(full_every_s) if self._rt is None else 0.0
         self._chain_bytes_max = int(chain_max_bytes) if self._rt is None else 0
@@ -275,8 +287,9 @@ class AsyncCheckpointer:
 
     def _publish_outcome(self, seq: int, sid: str | None, meta: str) -> None:
         """The lead: post boundary ``seq``'s outcome (``sid`` durable, or
-        ``failed``), from whichever thread published."""
-        if self._rt is None or not self._is_writer:
+        ``failed``), from whichever thread published.  An orbax save is
+        collective: every rank already knows its outcome."""
+        if self._rt is None or not self._rt.is_lead or self._fmt != "npz":
             return
         try:
             self._rt.publish_signature(seq, sid, meta)
@@ -344,9 +357,10 @@ class AsyncCheckpointer:
             t1 = time.perf_counter()
             timings: dict = {}
             try:
-                nbytes = save_checkpoint(self._path, logical, chunk_bytes=self._chunk,
-                                         save_id=sid, cursor=cursor, timings=timings,
-                                         staging=self._staging)
+                nbytes = save_checkpoint(self._path, logical, self._fmt,
+                                         chunk_bytes=self._chunk, save_id=sid, cursor=cursor,
+                                         timings=timings, staging=self._staging,
+                                         dense_names=self._dense_names, runtime=self._rt)
             except Exception:
                 with self._lock:
                     self.write_failures += 1
@@ -356,7 +370,8 @@ class AsyncCheckpointer:
             self._publish_outcome(seq, sid, "full")
             self.sync_saves += 1
             if emit:
-                self._emit("sync", step, timings, nbytes=nbytes, rows=logical.table.shape[0],
+                part = logical.state if isinstance(logical, RowShard) else logical
+                self._emit("sync", step, timings, nbytes=nbytes, rows=part.table.shape[0],
                            snapshot_ms=0.0, convert_ms=(t1 - t0) * 1e3,
                            train_stall_ms=(time.perf_counter() - t0) * 1e3)
             return
@@ -553,9 +568,9 @@ class AsyncCheckpointer:
                 self._sync_writer_stream()
                 convert_ms = (time.perf_counter() - t0) * 1e3
                 timings: dict = {}
-                nbytes = save_checkpoint(self._path, logical, chunk_bytes=self._chunk,
-                                         save_id=sid, cursor=cursor, timings=timings,
-                                         staging=self._staging)
+                nbytes = save_checkpoint(self._path, logical, self._fmt,
+                                         chunk_bytes=self._chunk, save_id=sid, cursor=cursor,
+                                         timings=timings, staging=self._staging)
             self._on_full_published(sid)
             self._publish_outcome(seq, sid, "full")
             with self._lock:

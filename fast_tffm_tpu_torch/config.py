@@ -3,9 +3,8 @@
 A copy of ``fast_tffm_tpu/config.py``: it parses the same files
 (``sample.cfg``, ``configs/*.cfg``) with the same sections, keys, defaults
 and checks, ``[Distributed]`` included, and reads every key the JAX
-package reads.  Configurations this port cannot run yet (orbax
-checkpoints) are refused by ``Config.validate`` with a ``ValueError`` that
-names the later slice, never run differently.
+package reads.  ``Config.validate`` refuses what the JAX package refuses,
+in its words.
 """
 
 from __future__ import annotations
@@ -41,7 +40,7 @@ class Config:
     table_layout: str = "rows"  # rows ([V, D]) | packed (lane-packed tile
     #   rows, ops/packed_table.py; with any adagrad_accumulator)
     model_file: str = "model.ckpt"
-    checkpoint_format: str = "npz"  # npz (orbax is a later slice)
+    checkpoint_format: str = "npz"  # npz | orbax (orbax = sharded, per-process writes)
     # [Checkpoint] (checkpoint_async.AsyncCheckpointer)
     async_save: bool = False  # full saves off the train loop: a device
     #   snapshot at the boundary, a writer thread does the D2H and the
@@ -243,12 +242,6 @@ class Config:
             raise ValueError(f"unknown table_layout {self.table_layout!r} (rows | packed)")
         if self.checkpoint_format not in ("npz", "orbax"):
             raise ValueError(f"unknown checkpoint_format {self.checkpoint_format!r}")
-        if self.checkpoint_format == "orbax":
-            raise ValueError(
-                "checkpoint_format = orbax is not ported yet (reading and writing "
-                "the JAX package's orbax directories is a later slice of "
-                "fast_tffm_tpu_torch, ROADMAP.md §A); use npz"
-            )
         if self.max_nnz < 0:
             raise ValueError(f"max_nnz must be >= 0, got {self.max_nnz}")
         if self.wire_format not in ("packed", "arrays"):
@@ -505,6 +498,11 @@ class Config:
         if self.delta_every_steps < 0:
             raise ValueError(
                 f"delta_every_steps must be >= 0 (0 = off), got {self.delta_every_steps}"
+            )
+        if self.delta_every_steps > 0 and self.checkpoint_format == "orbax":
+            raise ValueError(
+                "delta_every_steps > 0 requires checkpoint_format = npz "
+                "(the delta chain is an npz sidecar format)"
             )
         if self.delta_chain_max < 1:
             raise ValueError(

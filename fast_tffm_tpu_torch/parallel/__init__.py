@@ -15,9 +15,11 @@ from fast_tffm_tpu_torch.parallel.train_step import (  # noqa: F401
     gather_logical_state,
     gather_touched_rows,
     init_sharded_state,
+    local_row_shard,
     make_sharded_predict_step,
     make_sharded_train_step,
     packed_shard_meta,
+    restore_orbax_shard,
     shard_meta,
     shard_state,
 )

@@ -93,6 +93,8 @@ __all__ = [
     "shard_state",
     "init_sharded_state",
     "unpack_shard",
+    "restore_orbax_shard",
+    "local_row_shard",
     "gather_logical_state",
     "gather_touched_rows",
     "make_sharded_train_step",
@@ -147,7 +149,13 @@ def shard_state(logical: TrainState, model, mesh: Mesh, init_accumulator_value: 
             x = x[lo : lo + shard_rows].clone()
         out.append(x)
     table, accum = out
-    state = dataclasses.replace(logical, table=table, table_accum=accum, layout="rows")
+    return _to_layout(dataclasses.replace(logical, table=table, table_accum=accum,
+                                          layout="rows"), layout, init_accumulator_value)
+
+
+def _to_layout(state: TrainState, layout: str, init_accumulator_value: float) -> TrainState:
+    """A rows-layout shard in ``layout`` (packed or fused pack it)."""
+    table, accum = state.table, state.table_accum
     if layout == "fused":
         return dataclasses.replace(state, table=pack_fused(table, accum, init_accumulator_value),
                                    table_accum=None, layout="fused")
@@ -169,6 +177,49 @@ def init_sharded_state(model, mesh: Mesh, generator: torch.Generator,
     logical = init_state(model, generator, init_accumulator_value,
                          "row" if layout == "fused" else accumulator)
     return shard_state(logical, model, mesh, init_accumulator_value, layout)
+
+
+def restore_orbax_shard(path: str, model, mesh: Mesh, layout: str, device,
+                        init_accumulator_value: float, *, accum_width: int | None, log=print):
+    """This rank's shard of the orbax checkpoint ``path`` in ``layout``,
+    reading only the chunks that overlap its rows (no host copy of the
+    table).  The saved padded vocabulary must be the mesh's: a re-pad would
+    need the whole table on one process (the JAX package's multi-host
+    refusal)."""
+    from fast_tffm_tpu_torch.checkpoint import orbax_table_shape, restore_rows
+
+    _, shard_rows = shard_meta(model, mesh, layout)
+    v_pad = shard_rows * mesh.row
+    saved = tuple(orbax_table_shape(path))
+    if saved != (v_pad, model.row_dim):
+        raise RuntimeError(
+            f"checkpoint {path!r} has table shape {saved} "
+            f"but this mesh expects {(v_pad, model.row_dim)} — multi-host "
+            "restore needs a matching padded vocab (same row-shard count), "
+            "or a single-host re-pad pass first"
+        )
+    lo = mesh.row_index * shard_rows
+    stats: dict = {}
+    part = restore_rows(path, device, lo, lo + shard_rows, n_dense=len(model.dense_names),
+                        accum_width=accum_width, stats=stats)
+    table_chunks = [k for k in stats["chunks_read"] if k.startswith("table/")]
+    log(f"restored rows [{lo}, {lo + shard_rows}) of {path}: table chunks "
+        f"{table_chunks} from {len(stats['data_files'])} data file(s)")
+    return _to_layout(part, layout, init_accumulator_value)
+
+
+def local_row_shard(state: TrainState, model, mesh: Mesh):
+    """This rank's share of a multi-process orbax save (``checkpoint.
+    RowShard``): its logical rows, unpacked from its own layout on its own
+    device, at their place in the ``[V_pad, D]`` table.  Of the replicas of
+    a row shard, the data coordinate 0 writes it; no rank gathers."""
+    from fast_tffm_tpu_torch.checkpoint import RowShard
+
+    _, shard_rows = shard_meta(model, mesh, state.layout)
+    table, accum = unpack_shard(state, model.row_dim, shard_rows)
+    return RowShard(dataclasses.replace(state, table=table, table_accum=accum, layout="rows"),
+                    offset=mesh.row_index * shard_rows, total=shard_rows * mesh.row,
+                    writes_rows=mesh.data_index == 0)
 
 
 def unpack_shard(state: TrainState, d: int, shard_rows: int):

@@ -12,6 +12,7 @@ kind=anomaly before a non-finite abort, kind=predict and the summary.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -200,6 +201,7 @@ def dist_predict(cfg: Config, log=print, device=None, mesh=None) -> str:
         check_batch_divides,
         make_mesh,
         make_sharded_predict_step,
+        restore_orbax_shard,
         shard_state,
     )
     from fast_tffm_tpu_torch.parallel.multihost import local_device
@@ -216,18 +218,23 @@ def dist_predict(cfg: Config, log=print, device=None, mesh=None) -> str:
     if mesh is None:
         mesh = make_mesh(cfg.data_parallel or None, cfg.row_parallel or cfg.vocabulary_block_num)
     check_batch_divides(cfg.batch_size, mesh)
-    packed = cfg.table_layout == "packed"
-    logical = restore_checkpoint(cfg.model_file, device if world == 1 else torch.device("cpu"),
-                                 n_dense=len(model.dense_names))
-    if logical.table.shape[1] != model.row_dim:
-        raise ValueError(
-            f"checkpoint {cfg.model_file!r} holds a {tuple(logical.table.shape)} table; "
-            f"this config scores rows of width {model.row_dim}"
-        )
-    state = shard_state(logical, model, mesh, cfg.init_accumulator_value,
-                        "packed" if packed else "rows")
-    state.table = state.table.to(device)
-    state.dense = [p.to(device) for p in state.dense]
+    layout = "packed" if cfg.table_layout == "packed" else "rows"
+    if world > 1 and os.path.isdir(cfg.model_file):
+        # An orbax directory: each rank reads the chunks of its own rows.
+        state = restore_orbax_shard(cfg.model_file, model, mesh, layout, device,
+                                    cfg.init_accumulator_value, accum_width=None, log=log)
+    else:
+        logical = restore_checkpoint(cfg.model_file,
+                                     device if world == 1 else torch.device("cpu"),
+                                     n_dense=len(model.dense_names))
+        if logical.table.shape[1] != model.row_dim:
+            raise ValueError(
+                f"checkpoint {cfg.model_file!r} holds a {tuple(logical.table.shape)} table; "
+                f"this config scores rows of width {model.row_dim}"
+            )
+        state = shard_state(logical, model, mesh, cfg.init_accumulator_value, layout)
+        state.table = state.table.to(device)
+        state.dense = [p.to(device) for p in state.dense]
     log(f"restored {cfg.model_file} at step {state.step} on {device} (mesh {mesh.shape})")
     step = make_sharded_predict_step(
         model, mesh, lookup=cfg.lookup, capacity_factor=cfg.lookup_capacity_factor,

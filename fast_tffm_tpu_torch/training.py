@@ -542,6 +542,14 @@ def _mean(losses) -> float:
     return float(torch.cat([l.reshape(-1) for l in losses]).mean())
 
 
+def checkpoint_format(cfg: Config) -> str:
+    """The format this run saves in: ``checkpoint_format``, or orbax when
+    ``model_file`` already holds an orbax directory."""
+    if cfg.checkpoint_format == "npz" and os.path.isdir(cfg.model_file):
+        return "orbax"
+    return cfg.checkpoint_format
+
+
 def _tiered_train(cfg: Config, *, resume: bool, log, device, step_hook):
     """``[ParamStore]``: local training over the two-tier parameter store
     (the JAX ``_tiered_train``).  The step is the UNCHANGED train step over
@@ -991,8 +999,24 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
     captures = graphs.captures if graphs is not None else 0
     if saveable is None:
         saveable = lambda st: unpack_state(st, model)  # noqa: E731
+    ckpt_format = checkpoint_format(cfg)
+    if ckpt_format != cfg.checkpoint_format:
+        # model_file already holds an orbax directory (an earlier orbax
+        # run): an npz os.replace onto it would fail at save time, after
+        # training.  Stay in the format the path already has.
+        log(f"note: {cfg.model_file} is an orbax checkpoint dir — keeping orbax format")
+    if cfg.delta_every_steps > 0 and ckpt_format != "npz":
+        raise ValueError(
+            "delta_every_steps > 0 requires npz checkpoints — this run "
+            "resolved checkpoint_format to orbax (model_file already "
+            "holds an orbax dir); disable delta saves or point "
+            "model_file at a fresh npz path"
+        )
+    if cfg.async_save and ckpt_format != "npz":
+        log("note: async_save applies to npz checkpoints — orbax saves stay synchronous")
     ckpt = AsyncCheckpointer(
-        cfg.model_file, device=device, monitor=monitor, log=log,
+        cfg.model_file, fmt=ckpt_format, dense_names=model.dense_names,
+        device=device, monitor=monitor, log=log,
         chunk_bytes=cfg.checkpoint_chunk_mb << 20, async_save=cfg.async_save,
         delta_every_steps=cfg.delta_every_steps, delta_chain_max=cfg.delta_chain_max,
         full_every_s=cfg.delta_full_every_s, chain_max_bytes=cfg.delta_chain_max_bytes,
@@ -1277,9 +1301,11 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
     parses only its ``B / P`` rows of every global batch (block-cyclic line
     sharding, or ``input_assignment = files``), and the global line count,
     taken up front, fixes the steps of an epoch on every rank (a short
-    shard pads with weight-0 batches).  Saves gather the logical state
-    onto rank 0, which alone writes; ``resume`` gives every rank its rows
-    of ``model_file`` and its entry of the saved cursor vector;
+    shard pads with weight-0 batches).  npz saves gather the logical state
+    onto rank 0, which alone writes; orbax saves are written by every rank,
+    each its own rows (``parallel.local_row_shard``); ``resume`` gives
+    every rank its rows of ``model_file`` (from an orbax directory, only
+    the chunks that hold them) and its entry of the saved cursor vector;
     ``on_nan = rollback`` restores after a barrier.  At world size 1 this is
     ``train`` step for step (the same stream, step and saves).
 
@@ -1294,9 +1320,11 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
         gather_logical_state,
         gather_touched_rows,
         init_sharded_state,
+        local_row_shard,
         make_mesh,
         make_sharded_predict_step,
         make_sharded_train_step,
+        restore_orbax_shard,
         shard_state,
     )
     from fast_tffm_tpu_torch.parallel.mesh import all_gather_cat
@@ -1332,11 +1360,18 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
     accum_width = model.row_dim if cfg.adagrad_accumulator == "element" else 1
     cpu = torch.device("cpu")
 
+    orbax = checkpoint_format(cfg) == "orbax"
+
     def restore_state():
         """``model_file`` as this rank's shard in the run's layout: the
         logical arrays (delta chain replayed), re-padded to the mesh's
-        vocabulary, cut to the shard, packed.  Shared by ``resume`` and the
-        rollback."""
+        vocabulary, cut to the shard, packed; from an orbax directory at
+        world size > 1, only the chunks of the rank's rows.  Shared by
+        ``resume`` and the rollback."""
+        if world > 1 and os.path.isdir(cfg.model_file):
+            return restore_orbax_shard(cfg.model_file, model, mesh, layout, device,
+                                       cfg.init_accumulator_value, accum_width=accum_width,
+                                       log=log)
         logical = restore_checkpoint(cfg.model_file, device if world == 1 else cpu,
                                      n_dense=len(model.dense_names), accum_width=accum_width)
         if logical.table.shape[1] != model.row_dim:
@@ -1359,7 +1394,7 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
         except (ValueError, OSError):
             return None
 
-    if resume and not os.path.isfile(cfg.model_file):
+    if resume and not os.path.exists(cfg.model_file):
         log(f"warning: --resume but no checkpoint at {cfg.model_file} — "
             "starting fresh (crash before the first publish?)")
         resume = False
@@ -1395,7 +1430,7 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
         overflow_mode=cfg.lookup_overflow, table_layout=cfg.table_layout,
         accumulator=cfg.adagrad_accumulator,
     )
-    if world > 1:
+    if world > 1 and not orbax:
         log("note: multi-process npz checkpoints — process 0 is the sole "
             "writer; peers barrier on each publish's content signature")
     k = cfg.steps_per_call
@@ -1522,7 +1557,8 @@ def dist_train(cfg: Config, *, resume: bool = False, log=print, device=None, mes
     run = dict(model=model, device=device, step_fn=step_fn, train_stream=train_stream,
                ids_of=ids_of, predict_step=predict_step, max_nnz=max_nnz, log=log,
                step_hook=step_hook, accum_restart=None, stream_stop=None, evaluate=evaluate,
-               saveable=lambda st: gather_logical_state(st, model, mesh), runtime=runtime,
+               saveable=(lambda st: local_row_shard(st, model, mesh)) if orbax and world > 1
+               else (lambda st: gather_logical_state(st, model, mesh)), runtime=runtime,
                chips=mesh.size, extra_metrics=extra_metrics, touched_rows=touched_rows)
     # on_nan = rollback: the loss every rank checks is all-reduced (the
     # same), so every rank raises at the same step with the same cursor; a

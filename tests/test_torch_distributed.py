@@ -12,7 +12,7 @@ this slice ports.
 * The ``[Distributed]`` keys: validated with the JAX words, read from every
   repo config as the JAX ``Config`` reads them.
 * A two-rank ``dist_train`` with ``input_assignment = files``.
-* The refusals: the JAX package's, in its words, and orbax (a later slice).
+* The refusals: the JAX package's, in its words (orbax with delta saves).
   What an earlier slice refused and now runs is held running: the
   resident epoch under ``dist_train``, async and delta saves across
   processes, ``host_stall_timeout_s``, a pod supervisor's child, the pod
@@ -457,9 +457,17 @@ def test_cli_refuses_fault_process_and_pod_supervision(tmp_path):
 
 
 def test_orbax_is_refused_naming_the_later_slice():
-    with pytest.raises(ValueError, match="later slice") as e:
-        Config(model="fm", checkpoint_format="orbax").validate()
-    assert "ROADMAP.md" in str(e.value)
+    """Once refused as a later slice, orbax now validates as the JAX
+    package's config does, and dist_train refuses only what the JAX
+    package refuses with it (delta saves), in its words."""
+    Config(model="fm", checkpoint_format="orbax").validate()
+    JaxConfig(model="fm", checkpoint_format="orbax").validate()
+    errors = []
+    for cls in (Config, JaxConfig):
+        with pytest.raises(ValueError, match="requires checkpoint_format = npz") as e:
+            cls(model="fm", checkpoint_format="orbax", delta_every_steps=2).validate()
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 def test_dist_verbs_need_a_card_unless_told_cpu(tmp_path, monkeypatch):

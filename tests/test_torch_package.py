@@ -3,8 +3,7 @@
 * Importing fast_tffm_tpu_torch loads neither jax nor fast_tffm_tpu.
 * Entry points default to cuda and raise without a CUDA device; a CUDA
   tensor goes to the kernel or raises, never to the plain version.
-* Configs: the port reads every config of the repo as the JAX package does,
-  or refuses it naming the later slice.
+* Configs: the port reads every config of the repo as the JAX package does.
 * ``python -m fast_tffm_tpu_torch.cli serve|train|predict`` and
   chip_smoke.py's refusals.
 """
@@ -200,12 +199,9 @@ def test_every_kernel_source_exists():
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_reads_every_repo_config_like_jax_or_refuses_it(path):
+    """Every repo config, baseline2's orbax one included, reads as the JAX
+    package reads it: the port refuses none of them any more."""
     want = jax_load_config(path)
-    servable = want.checkpoint_format == "npz"
-    if not servable:
-        with pytest.raises(ValueError, match="later slice"):
-            load_config(path)
-        return
     got = load_config(path)
     for f in Config.__dataclass_fields__:
         assert getattr(got, f) == getattr(want, f), f
@@ -219,7 +215,7 @@ def test_reads_every_repo_config_like_jax_or_refuses_it(path):
         (dict(model="xyz"), "unknown model"),
         (dict(table_layout="packed", adagrad_accumulator="fused", online_adagrad_decay=0.9),
          "requires table_layout = rows"),
-        (dict(checkpoint_format="orbax"), "later slice"),
+        (dict(checkpoint_format="orbax", delta_every_steps=4), "requires checkpoint_format = npz"),
         (dict(order=1), "order"),
         (dict(serve_buckets=()), "serve_buckets"),
         (dict(serve_max_batch=600), "largest bucket"),

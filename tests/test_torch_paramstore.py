@@ -416,6 +416,5 @@ def test_paramstore_refusals_are_jaxs(kw, needle):
         with pytest.raises(ValueError, match=needle) as e:
             cls(**kw).validate()
         errors.append(str(e.value))
-    if kw.get("checkpoint_format") != "orbax":  # the port refuses orbax itself first
-        assert errors[0] == errors[1]
+    assert errors[0] == errors[1]
     Config(paramstore=True, train_files=("x.libsvm",)).validate()  # the plain enablement

@@ -33,6 +33,7 @@ from fast_tffm_tpu.serving import ServingEngine as JaxServingEngine
 from fast_tffm_tpu.serving import serve_lines as jax_serve_lines
 from fast_tffm_tpu.trainer import init_state as jax_init_state
 from fast_tffm_tpu_torch.checkpoint import checkpoint_signature, restore_checkpoint
+from fast_tffm_tpu_torch.checkpoint import save_checkpoint as port_save_checkpoint
 from fast_tffm_tpu_torch.config import Config
 from fast_tffm_tpu_torch.data.libsvm import parse_lines
 from fast_tffm_tpu_torch.prediction import load_scoring_state, make_score_fn
@@ -148,9 +149,16 @@ def test_refuses_tiered_delta_and_orbax_checkpoints(tmp_path):
     open(base + ".delta-0001.npz", "wb").close()
     with pytest.raises(ValueError, match="delta"):
         restore_checkpoint(base, CPU)
+    # An orbax directory restores; one with no tree yet (a save caught
+    # mid-write, an empty directory) is refused, naming what is missing.
     os.makedirs(tmp_path / "o.orbax")
-    with pytest.raises(ValueError, match="orbax"):
+    with pytest.raises(ValueError, match="not an orbax checkpoint directory"):
         restore_checkpoint(str(tmp_path / "o.orbax"), CPU)
+    _npz(str(tmp_path / "e.ckpt"))
+    state = restore_checkpoint(str(tmp_path / "e.ckpt"), CPU, accum_width=1)
+    port_save_checkpoint(str(tmp_path / "o.orbax"), state)
+    back = restore_checkpoint(str(tmp_path / "o.orbax"), CPU)
+    assert torch.equal(back.table, state.table) and back.step == state.step == 3
 
 
 def test_refuses_torn_checkpoint(tmp_path):
