@@ -326,6 +326,28 @@ last line:
             the join; its first new step the next) and ends bitwise
             dist_cached's rows_k1
             run, its heartbeat at the last step; the bump-to-step wall
+  bench     bench_torch.py from the checkout, as a user runs it (its full
+            output under chiprun_out/drivers/): exit 0, no *_error key, a
+            number for value, scale_value, packed_value, packed_b65536_value,
+            zipf_interleaved_value, device_cached_value and
+            toy_vocab1m_value, every scale_fallbacks entry an out-of-memory
+            error, scale_implied_over_nominal <= 1.05
+  zipf_tail B4 at the packed address (element accumulator, 2^24 x 9) and B3
+            on the fused array of the rung bench ran, at B 65,536 x 39
+            Zipf(1.1) ids, each bitwise its plain twin (B3's on a compacted
+            copy of the touched tile rows, the rest of the array
+            unchanged); times and bounds
+  bench_all bench_all_torch.py (the default sweep): exit 0, no FAILED row
+            and no *_error key (a knee run), the fit line's train AUC >= 0.99
+  loadgen   tools/torch_loadgen.py on baseline5 at full width: closed loop
+            in process, open loops at 25/50/75% of its rate; a 2-replica
+            tier's closed loop, JSONL open loop and --stats over --connect;
+            a --spawn open loop over binary frames at half the tier's closed
+            rate; --probe-freshness 3: no
+            request unanswered (every one sent scored or shed, in process
+            too), no error below saturation, no steady-state
+            recompile (every run's object in
+            chiprun_out/drivers/BENCH_SERVE_TORCH.json)
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
             launches_by_run adds the graphed train_cached runs' replays, and
@@ -339,7 +361,11 @@ last line:
             launches during serve_socket's traffic (serve_socket_r0, _r1); the
             wire, tiered and tiered_big runs; dist_b2's six runs and the
             dist_b5 runs;
-            the dist_cached runs (K = 8: the replays in their traces)
+            the dist_cached runs (K = 8: the replays in their traces); the
+            drivers' runs (bench_torch, bench_all_torch: each process's
+            wrapper counts; loadgen_*: each in-process engine's and each
+            replica's B1 launches); B4's and B3's `shapes` add the Zipf
+            shapes (zipf_packed_b65536, zipf_fused_b65536)
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -352,8 +378,9 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 ``--only dist`` runs the device, build and data phases and the four phases
 of dist_train alone, ``--only pod`` those and dist_cached and pod_card,
 ``--only orbax`` those and orbax_fixture, serve_reload's orbax case (on
-the fixture's states) and dist_b2; none prints the result line
-(development runs).
+the fixture's states) and dist_b2, ``--only drivers`` those and the
+bench, zipf_tail, bench_all and loadgen phases; none prints the result
+line (development runs).
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -445,8 +472,13 @@ MLP_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 2.0**-8}
 MLP_DRIFT_RTOL = 0.25
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    if isinstance(obj, dict) and "phase" in obj:  # the script's clock at each phase's record
+        log_stderr(f"chip_smoke: {time.perf_counter() - T0:.1f} s: {obj['phase']}")
 
 
 def fail(msg: str, code: int = 1):
@@ -531,8 +563,12 @@ def traced_window(fn) -> dict:
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + dur / 1e3
     busy_ms = sum(dur for _, _, dur in events) / 1e3 if events else None
     kernels = [name for cat, name, _ in events if cat == "kernel"]
+    order = [k for _, k in _LAST_TRACE]
     return {
-        "first_traced": _LAST_TRACE[0][1] if _LAST_TRACE else None,
+        "first_traced": order[0] if order else None,
+        # backward launches with no forward just before them (of KERNELS)
+        "bwd_without_fwd": sum(k == "anova_bwd" and (i == 0 or order[i - 1] != "anova_fwd")
+                               for i, k in enumerate(order)),
         "launches_traced": {
             k: sum(any(sym in name for sym in syms) for name in kernels)
             for k, syms in KERNEL_SYMBOLS.items()
@@ -1241,10 +1277,14 @@ def _step_launches(window: dict, wrappers: dict, graphed: bool, what: str) -> di
     run, the same one in every attempt: the run's first forward launch
     (its trace opens with the first step's backward; in a graphed run the
     capture warm-up's), which the wrapper counted and the run's results
-    (bitwise resumes, card against CPU) show ran.  That one pattern, and
-    no other, passes after ``_counted_run``'s three attempts: exactly one
-    anova_fwd event short, every other kernel's count as it must be, and
-    the trace's first kernel of KERNELS not a forward.  The run keeps the
+    (bitwise resumes, card against CPU) show ran.  A run that opens with
+    eager validation forwards (a resumed run's end-of-epoch validation)
+    has lost one of them the same way: the trace opens with a forward, and
+    every backward in it still has its forward just before it.  Those
+    patterns, and no other, pass after ``_counted_run``'s three attempts:
+    exactly one anova_fwd event short, every other kernel's count as it
+    must be, and either the trace's first kernel of KERNELS not a forward
+    or no backward without its forward.  The run keeps the
     wrappers' counts (graphed: its replays' forwards are its backwards'
     count) and its window records ``trace_lost_events``.  Any other
     difference fails."""
@@ -1252,12 +1292,13 @@ def _step_launches(window: dict, wrappers: dict, graphed: bool, what: str) -> di
     if _trace_agrees(traced, wrappers, graphed):
         return ({k: traced[k] - wrappers[k] for k in KERNELS} if graphed else dict(wrappers))
     short = dict(traced, anova_fwd=traced["anova_fwd"] + 1)
-    if (window["trace_attempts"] < 3 or window["first_traced"] == "anova_fwd"
+    lost_eager = window["first_traced"] != "anova_fwd" or window["bwd_without_fwd"] == 0
+    if (window["trace_attempts"] < 3 or not lost_eager
             or not _trace_agrees(short, wrappers, graphed)):
         fail(f"{what}: the trace counts {traced} kernel launches, the wrappers {wrappers} "
              f"(graphed: {graphed}; first traced: {window['first_traced']})")
     window["trace_lost_events"] = {"anova_fwd": 1}
-    log_stderr(f"{what}: the trace lost the first forward launch in every attempt; "
+    log_stderr(f"{what}: the trace lost one eager forward launch in every attempt; "
                "keeping the wrappers' counts")
     return {k: short[k] - wrappers[k] for k in KERNELS} if graphed else dict(wrappers)
 
@@ -5728,8 +5769,9 @@ def phase_pod_card(tmp: str, ref: dict, smi: str) -> dict:
     num_processes 1) and the FM_DIST_* environment, then ``python -m
     fast_tffm_tpu_torch.cli dist_train`` on cuda (baseline5, device_cache,
     delta_every_steps 4, log_every 1, host_stall_timeout_s 5, runtime_dir
-    set; a fresh seeded init).  After the child logs step 8 the file goes to
-    generation 1: the child must re-exec in place (the same PID, its
+    set; a fresh seeded init).  After the child logs step 8 and its step-8
+    delta is the chain head, the file goes to generation 1: the child must
+    re-exec in place (the same PID, its
     environment the new generation's, ``--resume`` on its command line),
     join generation 1, restore the chain head on the card (a "resumed
     from" line after the join, at a delta boundary at or past step 8, and
@@ -5771,17 +5813,30 @@ def phase_pod_card(tmp: str, ref: dict, smi: str) -> dict:
                             stderr=subprocess.STDOUT, text=True)
     lines, marks = [], {}
 
+    def bump():
+        # The bump waits until the step-8 delta is the chain head: the child's
+        # watcher re-execs at once, and a bump that beat the delta's publish
+        # would send the child back to step 4 (the check below wants >= 8).
+        from fast_tffm_tpu_torch.checkpoint import latest_step
+
+        deadline = time.monotonic() + 120
+        while (latest_step(model_file) or 0) < 8 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        write_generation(rdir, {"generation": 1, "coordinator": f"127.0.0.1:{free_port()}",
+                                "num_processes": 1, "cause": "chip_smoke bump"})
+        marks["bump"] = time.perf_counter()
+
+    bumper = threading.Thread(target=bump, daemon=True)
+
     def read():
         for line in proc.stdout:
             line = line.rstrip("\n")
             lines.append(line)
             log_stderr(f"[pod_card] {line}")
             now = time.perf_counter()
-            if line.startswith("step 8 ") and "bump" not in marks:
-                write_generation(rdir, {"generation": 1,
-                                        "coordinator": f"127.0.0.1:{free_port()}",
-                                        "num_processes": 1, "cause": "chip_smoke bump"})
-                marks["bump"] = now
+            if line.startswith("step 8 ") and "step_8" not in marks:
+                marks["step_8"] = now
+                bumper.start()
             elif "re-exec'ing into the new pod generation" in line:
                 marks.setdefault("reexec_logged", now)
             elif "joining pod generation 1" in line:
@@ -5802,6 +5857,8 @@ def phase_pod_card(tmp: str, ref: dict, smi: str) -> dict:
         fail("pod_card: the child did not finish in 600 s")
     finally:
         reader.join(timeout=30)
+        if bumper.ident is not None:
+            bumper.join(timeout=130)
     if rc != 0:
         fail(f"pod_card: the child exited {rc}")
     for key in ("bump", "reexec_logged", "joined", "first_new_step"):
@@ -5867,6 +5924,423 @@ def _proc_cmdline(pid: int) -> list:
         return []
 
 
+# --- the measuring drivers: bench_torch.py, bench_all_torch.py, tools/torch_loadgen.py
+#
+# Each runs as a subprocess of its own from the checkout, as a user runs it;
+# its full output goes to chiprun_out/drivers/ and its result is held here.
+
+DRIVERS_OUT = os.path.join(HERE, "chiprun_out", "drivers")
+# bench_torch's keys that must carry a number.
+BENCH_NONNULL = ("value", "scale_value", "packed_value", "packed_b65536_value",
+                 "zipf_interleaved_value", "device_cached_value", "toy_vocab1m_value")
+# The fit line's train AUC (5k rows overfitted for 40 epochs): the CPU tests
+# reach 0.998 at 1k rows and 10 epochs; a kernel, gradient or optimizer
+# fault caps it far lower.
+FIT_AUC_MIN = 0.99
+LOADGEN_S = 5.0  # seconds of traffic per loadgen run
+# Closed-loop workers: enough to fill the engine's flushes (at 8, the
+# default, each 5 ms flush deadline waits on 8 requests and the rate is
+# the workers', not the engine's); each socket worker holds a connection.
+CLOSED_INPROCESS, CLOSED_SOCKET = 256, 64
+JSONL_QPS = 200.0  # under the 287–615 lines/s the socket tier's JSONL path ran at
+ZIPF_BATCH, ZIPF_NNZ, ZIPF_PACKED_VOCAB = 65536, 39, 1 << 24
+
+
+def _start_driver(args: list, env=None):
+    """``python <args>`` from the checkout, started in a session of its own."""
+    os.makedirs(DRIVERS_OUT, exist_ok=True)
+    return subprocess.Popen([sys.executable, *args], cwd=HERE, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True), time.perf_counter()
+
+
+def _driver(what: str, args: list, timeout: float, env=None, started=None):
+    """``python <args>`` (or the ``started`` one) to its end, killed whole at
+    ``timeout`` (a spawned tier goes with it); its stdout and stderr kept
+    under DRIVERS_OUT.  Returns (returncode, stdout, seconds)."""
+    proc, t0 = started or _start_driver(args, env)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{what}: no result within {timeout:.0f} s")
+    seconds = time.perf_counter() - t0
+    for ext, text in (("out", out), ("err", err)):
+        with open(os.path.join(DRIVERS_OUT, f"{what}.{ext}"), "w") as f:
+            f.write(text)
+    if proc.returncode != 0:
+        log_stderr(err[-3000:])
+    return proc.returncode, out, seconds
+
+
+def _last_json(text: str, what: str) -> dict:
+    for line in reversed(text.strip().splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    fail(f"{what}: printed no JSON line")
+
+
+def phase_bench() -> dict:
+    """bench_torch.py from the checkout (the full ladder, largest-first from
+    1.5·2^30 rows: ~40 s of command): exit 0, no ``*_error``, every
+    BENCH_NONNULL key a number, every ``scale_fallbacks`` entry an
+    out-of-memory error, ``scale_implied_over_nominal`` <= 1.05."""
+    from bench_torch import section_errors
+
+    rc, out, seconds = _driver("bench_torch", ["bench_torch.py"], 900)
+    r = _last_json(out, "bench_torch.py")
+    errors = section_errors(r)
+    if rc != 0 or errors:
+        fail(f"bench_torch.py exited {rc}, failed sections {errors}")
+    nulls = [k for k in BENCH_NONNULL if r.get(k) is None]
+    if nulls:
+        fail(f"bench_torch.py: no number for {nulls}")
+    odd = [f for f in r.get("scale_fallbacks", []) if "out of memory" not in f]
+    if odd:
+        fail(f"bench_torch.py: a rung failed for another reason than memory: {odd}")
+    over = r.get("scale_implied_over_nominal")
+    if over is None or over > 1.05:
+        fail(f"bench_torch.py: scale_implied_over_nominal {over} (the card's nominal "
+             "bandwidth cannot carry the measured rate; or no nominal for this card)")
+    keys = ("value", "metric", "scale_value", "scale_b16384_value", "scale_vocab_rows",
+            "scale_max_rows", "scale_table_gib", "scale_state_gib", "scale_peak_device_gib",
+            "scale_fallbacks", "scale_step_time_us", "scale_implied_hbm_gbps_floor",
+            "scale_implied_over_nominal", "zipf_interleaved_value", "uniform_ids_value",
+            "uniform_over_zipf", "fmb_streamed_value", "wire_format_ab_allones", "sharded_value",
+            "device_cached_value", "steps_per_call_values", "steps_per_call_k8_over_k1",
+            "packed_value", "packed_b65536_value", "packed_implied_hbm_gbps_floor",
+            "ckpt_stall_ms_per_save", "toy_vocab1m_value", "card", "kernel_launches")
+    emit({"phase": "bench", "seconds": seconds, **{k: r.get(k) for k in keys}})
+    return r
+
+
+def _zipf_timings(kern: str, kernel, update, plain) -> dict:
+    return {
+        "ms": time_ms(kernel, 30),
+        "device_ms": device_ms(kernel, 10, kern),
+        "device_ms_flushed": device_ms(flushed(kernel), 10, kern),
+        "update_ms": time_ms(update, 30),
+        "plain_ms": time_ms(plain, 10),
+    }
+
+
+def _bits_sum(t, chunk: int = 1 << 20) -> int:
+    """The sum of a float32 tensor's bit patterns as int64, chunk by chunk
+    of rows (exact across chunks): the digest that shows a write anywhere."""
+    import torch
+
+    return sum(int(t[i:i + chunk].view(torch.int32).sum(dtype=torch.int64))
+               for i in range(0, t.shape[0], chunk))
+
+
+def phase_zipf_tails(rung: int) -> dict:
+    """B4 and B3 against their plain twins at the drivers' Zipf shapes, B
+    65,536 x 39 Zipf(1.1) ids (bench_torch.zipf_ids; id 0 ~9.5% of them):
+    B4 at the packed address with an element accumulator on a 2^24 x 9
+    table (the headline's), bitwise its twin; B3 on the fused array of
+    ``rung`` rows (bench_torch.fused_scale_state, the scale rung's), the
+    twin on a compacted copy of the touched tile rows with the ids remapped
+    in order (the same sums in the same order), bitwise, and the rest of the
+    array unchanged (its bit patterns' sum before and after).  Times: the kernel
+    on the sort's output (events; device time L2-warm and flushed), the
+    update (sort + kernel), the twin; the bytes and sector bounds."""
+    import numpy as np
+    import torch
+
+    from bench_torch import fused_scale_state, zipf_ids
+    from fast_tffm_tpu_torch.ops.packed_table import (
+        LANES,
+        fused_rows_per_tile,
+        pack_accum_any,
+        pack_table,
+    )
+    from fast_tffm_tpu_torch.ops.tail import (
+        fused_tail_adagrad_update,
+        fused_tail_sorted,
+        fused_tail_sorted_plain,
+        rows_tail_adagrad_update,
+        rows_tail_sorted,
+        rows_tail_sorted_plain,
+    )
+
+    d, lr = 9, 0.01
+    rng = np.random.default_rng(SEED + 19)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    out = {}
+
+    def batch(vocab):
+        ids = torch.from_numpy(zipf_ids(rng, (ZIPF_BATCH, ZIPF_NNZ), vocab)).cuda()
+        grads = torch.randn((ZIPF_BATCH * ZIPF_NNZ, d), generator=gen, device="cuda") * 1e-3
+        sid, order = torch.sort(ids.reshape(-1), stable=True)
+        return ids, grads, sid, order
+
+    # B4, packed address, element accumulator, 2^24 rows.
+    v = ZIPF_PACKED_VOCAB
+    ids, grads, sid, order = batch(v)
+    logical = torch.empty((v, d), device="cuda").uniform_(-0.01, 0.01, generator=gen)
+    accum = torch.empty((v, d), device="cuda").uniform_(0.1, 0.5, generator=gen)
+    t_p, a_p = pack_table(logical), pack_accum_any(accum, d, 0.1)
+    del logical, accum
+    t_k, a_k = t_p.clone(), a_p.clone()
+    rows_tail_sorted(t_k, a_k, sid, order, grads, lr, packed=True)
+    rows_tail_sorted_plain(t_p, a_p, sid, order, grads, lr, packed=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(t_k, t_p) and torch.equal(a_k, a_p)):
+        fail("zipf_tail: B4 at the packed address is not bitwise its plain version at "
+             f"B {ZIPF_BATCH} x {ZIPF_NNZ} Zipf ids on {v} rows")
+    m, k = int(sid.numel()), int(torch.unique(sid).numel())
+    rec = {"phase": "zipf_tail", "kernel": "rows_tail_adagrad", "layout": "packed",
+           "accumulator": "element", "V": v, "D": d, "N": ZIPF_NNZ, "M": m, "K": k,
+           "hot_id_occurrences": int((sid == 0).sum()), "bitwise": True, "max_abs_err": 0.0}
+    rec.update(_zipf_timings(
+        "rows_element_kernel",
+        kernel=lambda: rows_tail_sorted(t_k, a_k, sid, order, grads, lr, packed=True),
+        update=lambda: rows_tail_adagrad_update(t_k, a_k, ids, grads, lr, packed=True),
+        plain=lambda: rows_tail_sorted_plain(t_p, a_p, sid, order, grads, lr, packed=True)))
+    rec["bound_ms"], rec["bound_by"] = tail_bound(m, k, d, d)
+    rec["sector_bound_ms"] = tail_sector_bound(m, k, d, d, fused=False)
+    emit(rec)
+    out["rows_tail_adagrad"] = rec
+    del t_k, a_k, t_p, a_p, ids, grads, sid, order
+    torch.cuda.empty_cache()
+
+    # B3 on the scale rung's fused array: the largest that fits, from ``rung`` down.
+    from bench_torch import SCALE_VOCABS
+
+    fallbacks = []
+    for cand in [rung] + [x for x in SCALE_VOCABS if x < rung]:
+        try:
+            fused = fused_scale_state(cand, d - 1, torch.device("cuda")).table
+            ids, grads, sid, order = batch(cand)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            fallbacks.append(f"vocab={cand}: out of memory: {str(e).splitlines()[0][:80]}")
+        fused = ids = grads = sid = order = None
+        torch.cuda.empty_cache()
+    else:
+        fail("zipf_tail: no fused rung fits the card")
+    p = fused_rows_per_tile(d)
+    phys = sid.long() // p
+    uphys, inv = torch.unique_consecutive(phys, return_inverse=True)
+    compact = fused[uphys].clone()  # the touched tile rows, in order
+    cid = (inv * p + sid.long() % p).to(torch.int32)  # the ids there, still sorted
+    untouched = _bits_sum(fused) - _bits_sum(compact)  # the rest of the array, before
+    fused_tail_sorted(fused, sid, order, grads, lr)
+    fused_tail_sorted_plain(compact, cid, order, grads, lr)
+    torch.cuda.synchronize()
+    if not torch.equal(fused[uphys], compact):
+        fail(f"zipf_tail: B3 is not bitwise its plain version at B {ZIPF_BATCH} x {ZIPF_NNZ} "
+             f"Zipf ids on the {cand}-row fused array")
+    if _bits_sum(fused) - _bits_sum(fused[uphys]) != untouched:
+        fail(f"zipf_tail: B3 wrote outside the touched tile rows of the {cand}-row fused array")
+    m, k = int(sid.numel()), int(torch.unique(sid).numel())
+    rec = {"phase": "zipf_tail", "kernel": "fused_tail_adagrad", "layout": "fused",
+           "V": cand, "fused_rows": int(fused.shape[0]), "lanes": LANES,
+           "fused_gib": fused.numel() * 4 / 2**30, "rung_fallbacks": fallbacks,
+           "D": d, "N": ZIPF_NNZ, "M": m, "K": k, "touched_tile_rows": int(uphys.numel()),
+           "hot_id_occurrences": int((sid == 0).sum()), "bitwise": True, "max_abs_err": 0.0,
+           "untouched_rows_unchanged": True}
+    rec.update(_zipf_timings(
+        "fused_slot_kernel",
+        kernel=lambda: fused_tail_sorted(fused, sid, order, grads, lr),
+        update=lambda: fused_tail_adagrad_update(fused, ids, grads, lr),
+        plain=lambda: fused_tail_sorted_plain(compact, cid, order, grads, lr)))
+    rec["bound_ms"], rec["bound_by"] = tail_bound(m, k, d, 1)
+    rec["sector_bound_ms"] = tail_sector_bound(m, k, d, 1, fused=True)
+    emit(rec)
+    out["fused_tail_adagrad"] = rec
+    del fused, compact, ids, grads, sid, order
+    torch.cuda.empty_cache()
+    return out
+
+
+BENCH_ALL_ARGS = ["bench_all_torch.py", "--out", os.path.join(DRIVERS_OUT, "bench_all_torch.json")]
+
+
+def phase_bench_all(started=None) -> dict:
+    """bench_all_torch.py from the checkout (default: the 600k-row held-out
+    slice; ``started``: already running): exit 0, no FAILED row and no
+    ``*_error`` key, the fit line's AUC >= FIT_AUC_MIN."""
+    path = BENCH_ALL_ARGS[-1]
+    rc, _, seconds = _driver("bench_all_torch", BENCH_ALL_ARGS, 900, started=started)
+    with open(path) as f:
+        art = json.load(f)
+    # A FAILED row, or a row with any ``*_error`` key (a knee run at B 32,768
+    # or 65,536 that raised keeps its row's default-batch value).
+    failed = [r["metric"] for r in art["results"]
+              if r["value"] is None or any(k.endswith("_error") for k in r)]
+    if rc != 0 or failed:
+        fail(f"bench_all_torch.py exited {rc}, failed rows {failed}")
+    fit = [r for r in art["results"] if r["metric"].startswith("convergence fit")]
+    if not fit or fit[0]["value"] < FIT_AUC_MIN:
+        fail(f"bench_all_torch.py: the fit line's AUC {fit and fit[0]['value']} < {FIT_AUC_MIN}")
+    emit({"phase": "bench_all", "seconds": seconds, "card": art.get("card"),
+          "beside_loadgen": started is not None,
+          "rows": {r["metric"].split(":")[0] + (" @" + str(r["knee_batch"]) if "knee_batch" in r
+                                                 else ""): [r["value"], r.get("knee_value")]
+                   for r in art["results"]},
+          "fit_auc": fit[0]["value"], "fit_auc_min": FIT_AUC_MIN,
+          "kernel_launches": art["kernel_launches"]})
+    return art
+
+
+def _serve_summary(r: dict) -> dict:
+    ms = r.get("client_ms", {})
+    return {k: r.get(k) for k in ("mode", "transport", "wire", "qps_target", "qps_achieved",
+                                  "requests_sent", "requests_scored", "unanswered",
+                                  "shed_codes", "steady_state_recompiles")} | {
+        "p50_ms": ms.get("p50"), "p99_ms": ms.get("p99")}
+
+
+def phase_loadgen(tmp: str, beside_bench_all: bool = False) -> dict:
+    """tools/torch_loadgen.py on baseline5 at full width (order 3, 2^20 x 9,
+    max_nnz 11; a fresh seeded checkpoint, --init-missing-checkpoint):
+    closed loop in process (the saturation rate), open loop in process at
+    25%, 50% and 75% of it; a tier of 2 replicas spawned once and driven
+    through --connect: its closed loop, a JSONL open loop at JSONL_QPS (or
+    half its closed rate), --stats; a --spawn run over binary frames at half
+    the tier's closed rate; --probe-freshness 3.  Fails on an unanswered request, on any error
+    below saturation (the open loops) and on a steady-state recompile.
+    Writes every run's BENCH_SERVE object to DRIVERS_OUT/BENCH_SERVE_TORCH.json."""
+    from fast_tffm_tpu_torch.serving.client import spawn_serve
+    from fast_tffm_tpu_torch.telemetry import device_stamp
+
+    ckpt = os.path.join(tmp, "loadgen.ckpt")
+    # No predict_files: loadgen synthesizes mixed-width request lines.
+    cfg_path = _write_ini(os.path.join(tmp, "loadgen.cfg"), General={"model_file": ckpt},
+                          Predict={"predict_files": ""},
+                          Serving={"replicas": 2, "reload_interval_s": 0.2})
+    base = ["tools/torch_loadgen.py", cfg_path, "--device", "cuda"]
+    runs: dict = {}
+
+    def run(name: str, extra: list, *, open_loop: bool, socket: bool) -> dict:
+        path = os.path.join(DRIVERS_OUT, f"loadgen_{name}.json")
+        rc, _, seconds = _driver(f"loadgen_{name}", base + extra + ["--out", path], 300)
+        if rc != 0:
+            fail(f"loadgen {name}: exited {rc}")
+        with open(path) as f:
+            r = json.load(f)
+        r["command_s"] = seconds
+        if r.get("steady_state_recompiles") != 0:
+            fail(f"loadgen {name}: steady_state_recompiles {r.get('steady_state_recompiles')}")
+        if socket and r.get("unanswered", 0 if r["mode"] == "closed" else None) != 0:
+            fail(f"loadgen {name}: {r.get('unanswered')} requests unanswered")
+        # Every request sent was scored or shed with a code: in process (no
+        # ``unanswered`` key) a future still open after the drain is lost here.
+        lost = r["requests_sent"] - r["requests_scored"] - sum(r["shed_codes"].values())
+        if lost:
+            fail(f"loadgen {name}: {lost} of {r['requests_sent']} requests neither scored "
+                 "nor shed")
+        if open_loop and r.get("shed_codes"):
+            fail(f"loadgen {name}: errors below saturation {r['shed_codes']}")
+        runs[name] = r
+        return r
+
+    traffic = ["--duration", str(LOADGEN_S)]
+    sat = run("inprocess_closed", ["--mode", "closed", "--concurrency", str(CLOSED_INPROCESS),
+                                   *traffic,
+                                   "--init-missing-checkpoint"],
+              open_loop=False, socket=False)["qps_achieved"]
+    for pct in (25, 50, 75):
+        run(f"inprocess_open_{pct}", ["--mode", "open", "--qps", f"{sat * pct / 100:.1f}",
+                                      *traffic], open_loop=True, socket=False)
+    proc, port = spawn_serve(cfg_path, device="cuda", timeout_s=240, log=log_stderr)
+    try:
+        at = ["--connect", f"127.0.0.1:{port}"]
+        ssat = run("socket_closed", [*at, "--mode", "closed", "--concurrency",
+                                     str(CLOSED_SOCKET), *traffic],
+                   open_loop=False, socket=True)["qps_achieved"]
+        run("socket_jsonl_open", [*at, "--wire", "jsonl", "--connections", "2",
+                                  "--qps", f"{min(JSONL_QPS, ssat / 2):.1f}", *traffic],
+            open_loop=True, socket=True)
+        rc, out, _ = _driver("loadgen_stats", base + [*at, "--stats"], 120)
+        if rc != 0:
+            fail(f"loadgen --stats exited {rc}")
+        stats = _last_json(out, "loadgen --stats")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+    run("socket_binary_open", ["--spawn", "--wire", "binary", "--connections", "2",
+                               "--frame-rows", "32", "--qps", f"{ssat / 2:.1f}", *traffic],
+        open_loop=True, socket=True)
+    fresh = os.path.join(DRIVERS_OUT, "loadgen_freshness.json")
+    rc, _, seconds = _driver("loadgen_freshness", base + ["--spawn", "--probe-freshness", "3",
+                                                          "--out", fresh], 300)
+    with open(fresh) as f:
+        probe = json.load(f)
+    if rc != 0 or probe.get("unanswered") != 0 or probe.get("steady_state_recompiles") != 0:
+        fail(f"loadgen --probe-freshness: exited {rc}, unanswered {probe.get('unanswered')}, "
+             f"steady_state_recompiles {probe.get('steady_state_recompiles')}")
+    replica_launches = {r: (e.get("launches") or {}).get("anova_fwd")
+                        for r, e in sorted(stats.get("engines", {}).items())}
+    from fast_tffm_tpu_torch.config import load_config
+
+    cfg = load_config(cfg_path)
+    sweep = {
+        "bench": "BENCH_SERVE_SWEEP",
+        "generated_by": "chip_smoke.py phase loadgen (tools/torch_loadgen.py runs)",
+        **device_stamp("cuda"),
+        "config": f"{CONFIG} (order {cfg.order}, {cfg.vocabulary_size} x {1 + cfg.factor_num}, "
+                  f"max_nnz {cfg.max_nnz}; replicas 2, reload_interval_s 0.2)",
+        "seconds_per_run": LOADGEN_S,
+        "beside_bench_all": beside_bench_all,
+        "saturation_qps_inprocess": sat,
+        "saturation_qps_socket_closed": ssat,
+        "runs": runs,
+        "stats": stats,
+        "freshness": probe,
+    }
+    with open(os.path.join(DRIVERS_OUT, "BENCH_SERVE_TORCH.json"), "w") as f:
+        json.dump(sweep, f, indent=1)
+    emit({"phase": "loadgen", "beside_bench_all": beside_bench_all,
+          "saturation_qps_inprocess": sat,
+          "saturation_qps_socket_closed": ssat,
+          "runs": {n: _serve_summary(r) | {"command_s": r["command_s"]} for n, r in runs.items()},
+          "freshness_ms": probe.get("publish_to_first_scored_ms"),
+          "freshness_seconds": seconds, "stats_replicas": len(stats.get("replicas", [])),
+          "replica_anova_launches": replica_launches})
+    launches = {f"loadgen_{n}": r["kernel_launches"]["anova_fwd"]
+                for n, r in runs.items() if r.get("kernel_launches")}
+    for n, r in runs.items():
+        for rep, e in (r.get("engines") or {}).items():
+            launches[f"loadgen_{n}_r{rep}"] = (e.get("launches") or {}).get("anova_fwd")
+    launches.update({f"loadgen_tier_r{r}": n for r, n in replica_launches.items()})
+    return launches
+
+
+def phase_drivers(tmp: str, overlap: bool) -> dict:
+    """The three drivers and the Zipf-shape holds; returns each kernel's
+    launches by driver run.  ``overlap`` (the whole script, whose 1200 s
+    bound they would otherwise crowd) runs bench_all_torch.py beside the
+    loadgen phase: neither gates on a time, and their numbers are then
+    not the record (``--only drivers`` runs them one after the other and
+    makes the committed artifacts)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    bench = phase_bench()
+    zipf = phase_zipf_tails(bench["scale_vocab_rows"])
+    if overlap:
+        started = _start_driver(BENCH_ALL_ARGS)
+        serve = phase_loadgen(tmp, beside_bench_all=True)
+        bench_all = phase_bench_all(started)
+    else:
+        bench_all = phase_bench_all()
+        serve = phase_loadgen(tmp)
+    by_kernel = {k: {} for k in KERNELS}
+    for run, counts in (("bench_torch", bench["kernel_launches"]),
+                        ("bench_all_torch", bench_all["kernel_launches"])):
+        for k in KERNELS:
+            if counts.get(k):
+                by_kernel[k][run] = counts[k]
+    by_kernel["anova_fwd"].update({r: n for r, n in serve.items() if n})
+    return {"launches": by_kernel, "zipf": zipf}
+
+
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
                    shapes=None, packed=None) -> dict:
     rec = {
@@ -5914,6 +6388,10 @@ def main() -> int:
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train_path, valid_path, big_path = phase_data(tmp)
+        if only == "drivers":
+            # This slice's phases alone (no kernels line, no result line).
+            phase_drivers(tmp, overlap=False)
+            return 0
         if only == "pod":
             # A short run of this slice's phases alone (no result line).
             _, pod_ref = phase_dist_cached(np.random.default_rng(SEED + 18), tmp, train_path,
@@ -6013,6 +6491,9 @@ def main() -> int:
         phase_pod_card(tmp, pod_ref, dev["nvidia_smi"])
         phase_throughput(tmp, big_path)
         phase_telemetry_cost(tmp, big_path)
+        # This slice's phases: the measuring drivers as a user runs them, and
+        # B4 and B3 held against their twins at the drivers' Zipf shapes.
+        drivers = phase_drivers(tmp, overlap=True)
     src = "fast_tffm_tpu_torch/csrc/"
     # Launches: the wrappers' counts over the main path, the eager train run
     # (train_fused for B3; 24 steps: B1 once per step and per validation
@@ -6050,6 +6531,13 @@ def main() -> int:
     # (wrappers zeroed before it), and each replica process's during the
     # socket traffic (its stats after less before).
     fwd_runs.update(served)
+    # The drivers' runs: each subprocess's wrapper counts (bench_torch,
+    # bench_all_torch, the in-process loadgen engines) and the socket tier's
+    # replicas' (their stats).
+    for runs, kernel in ((fwd_runs, "anova_fwd"), (bwd_runs, "anova_bwd"),
+                         (b4_runs, "rows_tail_adagrad"), (b3_runs, "fused_tail_adagrad")):
+        runs.update(drivers["launches"][kernel])
+    tail_shapes["zipf_packed_b65536"] = drivers["zipf"]["rows_tail_adagrad"]
     emit({"kernels": [
         _kernel_record("anova_fwd", src + "anova_fwd.cu",
                        "fast_tffm_tpu/ops/pallas_anova.py:66", launches["anova_fwd"], *fwd,
@@ -6062,7 +6550,8 @@ def main() -> int:
                        *tail, b4_runs, shapes=tail_shapes, packed=packed_tail),
         _kernel_record("fused_tail_adagrad", src + "fused_tail_adagrad.cu",
                        "fast_tffm_tpu/ops/pallas_tail.py:119",
-                       fused_launches["fused_tail_adagrad"], *fused_tail, b3_runs),
+                       fused_launches["fused_tail_adagrad"], *fused_tail, b3_runs,
+                       shapes={"zipf_fused_b65536": drivers["zipf"]["fused_tail_adagrad"]}),
     ]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"], "count": dev["count"]}})

@@ -156,6 +156,33 @@ def artifact_stamp(run_id: str = "") -> dict:
     return {"run_id": run_id or new_run_id(), "schema_version": SCHEMA_VERSION}
 
 
+def device_stamp(device) -> dict:
+    """What a measuring driver's artifact names its numbers by: the device
+    it ran on, the card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them (None on the CPU),
+    and the torch and CUDA versions."""
+    import subprocess
+
+    import torch
+
+    dev = torch.device(device)
+    card = None
+    if dev.type == "cuda":
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+             f"--id={index}"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip()
+    return {
+        "device": dev.type,
+        "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "card": card,
+        "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+    }
+
+
 def write_json_artifact(path, obj, *, indent: int = 1, sort_keys: bool = True) -> None:
     """Publish a JSON artifact atomically: a sibling tmp file, then
     ``os.replace``, so a reader never sees a torn file."""
