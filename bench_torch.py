@@ -29,8 +29,10 @@ prints ONE JSON line with ``bench.py``'s keys for what it measures:
   sharded_value       parallel/train_step.py's step at world size 1
   device_cached_*, steps_per_call_*
                       the resident epoch (data/device_cache.py), K = 1 and
-                      K-step CUDA-graph replays (BENCH_STEPS_PER_CALL; on
-                      at most SPC_MAX_VOCAB rows, steps_per_call_vocab_rows)
+                      K-step CUDA-graph replays (BENCH_STEPS_PER_CALL) on
+                      the rung's rows (steps_per_call_vocab_rows), the
+                      state's GiB and, on the card, the capture and replays'
+                      peak allocation above it
   packed_*            the headline's layout at batch 16,384 and 65,536
   ckpt_*              AsyncCheckpointer's sync, async and delta boundaries
   toy_vocab1m_value   the 1M-row uniform-id microbench
@@ -49,7 +51,8 @@ the round's delta report against the newest committed
 
 ``--dist N`` runs N ranks of ``training.dist_train`` (gloo on the CPU,
 NCCL on the card, at most one rank per card) over shard-disjoint FMB files
-and prints the pod's rate; ``--tier`` is not ported (ROADMAP §A item 11).
+and prints the pod's rate; ``--tier [args]`` runs ``tools/torch_probe_tier.py
+[args]`` (the beyond-HBM tiered rung) in a subprocess and returns its exit code.
 """
 
 from __future__ import annotations
@@ -95,9 +98,6 @@ CKPT_VOCAB = 1 << 20
 TOY_VOCAB = 1 << 20
 FMB_ROWS = 1 << 19  # ensure_scale_fmb's default rows
 STATE_CHUNK_ROWS = 1 << 22  # rows of a state built per generator call
-# The largest rows state a K-step CUDA graph is captured on (its warm-up runs
-# on a scratch copy of the whole state: twice the state must fit the card).
-SPC_MAX_VOCAB = 1 << 28
 
 NOMINAL_HBM_GBPS = {
     # Nominal HBM bandwidth by torch.cuda.get_device_name(), GB/s (NVIDIA's
@@ -649,31 +649,25 @@ def bench_main(device) -> tuple[dict, int]:
                               os.environ.get("BENCH_STEPS_PER_CALL", "8").split(",")
                               if x.strip()) if k > 1]
             spc = {"1": round(dc_rate, 1)}
-            spc_model = model
-            if vocab > SPC_MAX_VOCAB:
-                # A K-step graph's capture warms up on a scratch copy of the
-                # state, which a state over ~40% of the card cannot have: the
-                # K = 1 and K-step rates are taken on SPC_MAX_VOCAB rows,
-                # the same Zipf draws folded onto them (SPC_MAX_VOCAB
-                # divides every larger rung, so the ids are ensure_scale_fmb's
-                # at that vocabulary).
-                dc_state = None
-                _free(device)
-                data.ids.remainder_(SPC_MAX_VOCAB)
-                spc_model = FMModel(vocabulary_size=SPC_MAX_VOCAB, factor_num=SCALE_K, order=2)
-                spc_step, _ = make_cached_train_step(spc_model, 0.01, data)
-                dc_state = scale_state(SPC_MAX_VOCAB, SCALE_K, device)
-                dc_state, k1_rate = measure(spc_step, dc_state, idx, iters=20)
-                spc = {"1": round(k1_rate, 1)}
-                spc_step = None
-            results["steps_per_call_vocab_rows"] = spc_model.vocabulary_size
-            stepk, _ = make_cached_scan_train_step(spc_model, 0.01, data)
+            results["steps_per_call_vocab_rows"] = vocab
+            # The capture's memory: its warm-up restores the rows it touches
+            # instead of cloning the state, so the peak stays near the state.
+            state_bytes = sum(t.numel() * t.element_size()
+                              for t in (dc_state.table, dc_state.table_accum))
+            results["steps_per_call_state_gib"] = round(state_bytes / 2**30, 3)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+            stepk, _ = make_cached_scan_train_step(model, 0.01, data)
             for kk in ks:
                 chunks = [c for c in epoch_index_chunks(data.batches, kk, device=device)
                           if len(c) == kk]
                 dc_state, k_rate = measure(stepk, dc_state, chunks, iters=max(4, 24 // kk),
                                            batch_size=BATCH * kk)
                 spc[str(kk)] = round(k_rate, 1)
+            if device.type == "cuda":
+                results["steps_per_call_peak_over_state_gib"] = round(
+                    (torch.cuda.max_memory_allocated(device) - base) / 2**30, 3)
             results["steps_per_call_values"] = spc
             if "8" in spc:
                 results["steps_per_call_k8_over_k1"] = round(spc["8"] / spc["1"], 3)
@@ -1009,10 +1003,13 @@ def _device_arg(argv: list) -> tuple[torch.device, list]:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["--tier"]:
-        raise SystemExit(
-            "bench_torch.py --tier: the beyond-HBM rung runs tools/probe_tier.py, a tool of the "
-            "JAX package only; its port is the chaos/soak slice (ROADMAP §A item 11)"
-        )
+        # The beyond-HBM tiered rung: tools/torch_probe_tier.py in a
+        # subprocess, the one source of its workload and artifact.
+        import subprocess
+
+        probe = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                             "torch_probe_tier.py")
+        return subprocess.call([sys.executable, probe, *argv[1:]])
     device, args = _device_arg(argv)
     if args[:1] == ["--dist"]:
         n = int(args[1]) if len(args) > 1 else int(os.environ.get("BENCH_PROCESSES", "2"))

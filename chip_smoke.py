@@ -331,7 +331,14 @@ last line:
             number for value, scale_value, packed_value, packed_b65536_value,
             zipf_interleaved_value, device_cached_value and
             toy_vocab1m_value, every scale_fallbacks entry an out-of-memory
-            error, scale_implied_over_nominal <= 1.05
+            error, scale_implied_over_nominal <= 1.05; the K-step leg on the
+            rung's own table (a K = 8 graph captured on a state over half
+            the card) with its peak allocation above the live state under
+            a quarter of the state
+  kstep_big a K = 8 CUDA graph captured on a rows state over half the
+            card's free memory: the peak above the live state under 2 GiB,
+            the rows outside the batches' ids unchanged, the graphed steps
+            bitwise the plain loop from the same state
   zipf_tail B4 at the packed address (element accumulator, 2^24 x 9) and B3
             on the fused array of the rung bench ran, at B 65,536 x 39
             Zipf(1.1) ids, each bitwise its plain twin (B3's on a compacted
@@ -348,6 +355,24 @@ last line:
             too), no error below saturation, no steady-state
             recompile (every run's object in
             chiprun_out/drivers/BENCH_SERVE_TORCH.json)
+  tools     the chaos, soak and beyond-HBM tools as a user runs them (their
+            output under chiprun_out/tools/; in the whole script beside
+            the bench, kstep_big and zipf_tail phases), the four at once:
+            tools/torch_chaos.py --trials 1 --sharded (train and dist_train
+            under `--supervised` with a seeded kill: every step's loss
+            bitwise the uninterrupted run's, one crash, one restart with
+            an MTTR); tools/torch_probe_tier.py --vocab 2147483647
+            --steps 8 (the tiered store past the card: hit_rate_gap <=
+            0.02, no steady recompile, B4 launched);
+            tools/torch_chaos.py --serve (no request unanswered, every
+            delivered score bitwise the fault-free run's, a replica
+            restart, a torn reload attempted and survived);
+            tools/torch_soak.py --smoke --minutes 0.3 (gate OK, every
+            request answered, the trainer killed and back, a stream stall,
+            two ticks or more); meanwhile chaos's train
+            config in process on the card (bitwise the CLI child's final
+            checkpoint; B4 once per step) and on the CPU from the card
+            run's initial state (within TABLE_ATOL)
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
             launches_by_run adds the graphed train_cached runs' replays, and
@@ -365,7 +390,8 @@ last line:
             drivers' runs (bench_torch, bench_all_torch: each process's
             wrapper counts; loadgen_*: each in-process engine's and each
             replica's B1 launches); B4's and B3's `shapes` add the Zipf
-            shapes (zipf_packed_b65536, zipf_fused_b65536)
+            shapes (zipf_packed_b65536, zipf_fused_b65536); B4's adds the
+            tools' runs (chaos_reference, probe_tier)
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -379,8 +405,9 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 of dist_train alone, ``--only pod`` those and dist_cached and pod_card,
 ``--only orbax`` those and orbax_fixture, serve_reload's orbax case (on
 the fixture's states) and dist_b2, ``--only drivers`` those and the
-bench, zipf_tail, bench_all and loadgen phases; none prints the result
-line (development runs).
+bench, zipf_tail, bench_all and loadgen phases, ``--only tools`` the
+device, build and data phases and the tools phase; none prints the
+result line (development runs).
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -5930,6 +5957,8 @@ def _proc_cmdline(pid: int) -> list:
 # its full output goes to chiprun_out/drivers/ and its result is held here.
 
 DRIVERS_OUT = os.path.join(HERE, "chiprun_out", "drivers")
+TOOLS_OUT = os.path.join(HERE, "chiprun_out", "tools")
+TOOLS_PROBE_VOCAB, TOOLS_PROBE_STEPS = 2**31 - 1, 8  # past the card: 85.9 GB resident
 # bench_torch's keys that must carry a number.
 BENCH_NONNULL = ("value", "scale_value", "packed_value", "packed_b65536_value",
                  "zipf_interleaved_value", "device_cached_value", "toy_vocab1m_value")
@@ -5949,15 +5978,16 @@ ZIPF_BATCH, ZIPF_NNZ, ZIPF_PACKED_VOCAB = 65536, 39, 1 << 24
 def _start_driver(args: list, env=None):
     """``python <args>`` from the checkout, started in a session of its own."""
     os.makedirs(DRIVERS_OUT, exist_ok=True)
+    os.makedirs(TOOLS_OUT, exist_ok=True)
     return subprocess.Popen([sys.executable, *args], cwd=HERE, env=env, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             start_new_session=True), time.perf_counter()
 
 
-def _driver(what: str, args: list, timeout: float, env=None, started=None):
+def _driver(what: str, args: list, timeout: float, env=None, started=None, out_dir=None):
     """``python <args>`` (or the ``started`` one) to its end, killed whole at
     ``timeout`` (a spawned tier goes with it); its stdout and stderr kept
-    under DRIVERS_OUT.  Returns (returncode, stdout, seconds)."""
+    under ``out_dir`` (DRIVERS_OUT).  Returns (returncode, stdout, seconds)."""
     proc, t0 = started or _start_driver(args, env)
     try:
         out, err = proc.communicate(timeout=timeout)
@@ -5967,7 +5997,7 @@ def _driver(what: str, args: list, timeout: float, env=None, started=None):
         fail(f"{what}: no result within {timeout:.0f} s")
     seconds = time.perf_counter() - t0
     for ext, text in (("out", out), ("err", err)):
-        with open(os.path.join(DRIVERS_OUT, f"{what}.{ext}"), "w") as f:
+        with open(os.path.join(out_dir or DRIVERS_OUT, f"{what}.{ext}"), "w") as f:
             f.write(text)
     if proc.returncode != 0:
         log_stderr(err[-3000:])
@@ -5999,6 +6029,15 @@ def phase_bench() -> dict:
     odd = [f for f in r.get("scale_fallbacks", []) if "out of memory" not in f]
     if odd:
         fail(f"bench_torch.py: a rung failed for another reason than memory: {odd}")
+    if r.get("steps_per_call_vocab_rows") != r.get("scale_vocab_rows") or "8" not in (
+            r.get("steps_per_call_values") or {}):
+        fail(f"bench_torch.py: the K-step leg ran on {r.get('steps_per_call_vocab_rows')} rows "
+             f"(the rung: {r.get('scale_vocab_rows')}), K values "
+             f"{sorted(r.get('steps_per_call_values') or {})}")
+    extra, state = r.get("steps_per_call_peak_over_state_gib"), r.get("steps_per_call_state_gib")
+    if extra is None or extra >= 0.25 * state:
+        fail(f"bench_torch.py: the K-step capture's peak is {extra} GiB above the live "
+             f"{state} GiB state (a second copy of the state?)")
     over = r.get("scale_implied_over_nominal")
     if over is None or over > 1.05:
         fail(f"bench_torch.py: scale_implied_over_nominal {over} (the card's nominal "
@@ -6009,6 +6048,8 @@ def phase_bench() -> dict:
             "scale_implied_over_nominal", "zipf_interleaved_value", "uniform_ids_value",
             "uniform_over_zipf", "fmb_streamed_value", "wire_format_ab_allones", "sharded_value",
             "device_cached_value", "steps_per_call_values", "steps_per_call_k8_over_k1",
+            "steps_per_call_vocab_rows", "steps_per_call_state_gib",
+            "steps_per_call_peak_over_state_gib",
             "packed_value", "packed_b65536_value", "packed_implied_hbm_gbps_floor",
             "ckpt_stall_ms_per_save", "toy_vocab1m_value", "card", "kernel_launches")
     emit({"phase": "bench", "seconds": seconds, **{k: r.get(k) for k in keys}})
@@ -6032,6 +6073,81 @@ def _bits_sum(t, chunk: int = 1 << 20) -> int:
 
     return sum(int(t[i:i + chunk].view(torch.int32).sum(dtype=torch.int64))
                for i in range(0, t.shape[0], chunk))
+
+
+def phase_kstep_big() -> None:
+    """A K = 8 CUDA graph captured on a rows state larger than half the
+    card's free memory (FM order 2, k 8, a row accumulator; 8 batches of
+    4,096 x 39 ids, half of each row's ids in a hot 2^16-id head): the
+    capture's and replay's peak allocation above the live state under the
+    step's temporaries (bounded by 2 GiB, against the state's tens of GiB a
+    scratch copy would take); the rows outside the batches' ids unchanged
+    (their bit sums); the graphed K steps bitwise the plain loop run from
+    the same state (the touched rows put back first)."""
+    import torch
+
+    from fast_tffm_tpu_torch.models import Batch, FMModel
+    from fast_tffm_tpu_torch.trainer import (
+        TrainState,
+        k_step_loop,
+        make_scanned_train_step,
+        train_step_body,
+    )
+
+    t0 = time.perf_counter()
+    k, b, n, d = 8, 4096, 39, 9
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    vocab = int(0.55 * free) // ((d + 1) * 4)
+    model = FMModel(vocabulary_size=vocab, factor_num=d - 1, order=2)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.empty((vocab, d), device=dev)
+    for lo in range(0, vocab, 1 << 24):
+        table[lo:lo + (1 << 24)].uniform_(-0.01, 0.01, generator=g)
+    state = TrainState(table=table, dense=[], step=0,
+                       table_accum=torch.full((vocab, 1), 0.1, device=dev))
+    state_bytes = vocab * (d + 1) * 4
+    ids = torch.randint(0, vocab, (k, b, n), generator=g, device=dev, dtype=torch.int64)
+    ids[..., : n // 2] %= 1 << 16
+    fields = (
+        (torch.rand((k, b), generator=g, device=dev) < 0.3).float(), ids.to(torch.int32),
+        torch.rand((k, b, n), generator=g, device=dev) + 0.1,
+        torch.zeros((k, b, 0), dtype=torch.int32, device=dev), torch.ones((k, b), device=dev),
+    )
+    touched = torch.unique(ids)
+    del ids
+    before = (state.table[touched].clone(), state.table_accum[touched].clone())
+    rest = (_bits_sum(state.table) - _bits_sum(before[0]),
+            _bits_sum(state.table_accum) - _bits_sum(before[1]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    step = make_scanned_train_step(model, 0.05, body=train_step_body)
+    state, graphed = step(state, Batch(*fields))
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    after = (state.table[touched].clone(), state.table_accum[touched].clone())
+    untouched = (_bits_sum(state.table) - _bits_sum(after[0]),
+                 _bits_sum(state.table_accum) - _bits_sum(after[1])) == rest
+    state.table[touched], state.table_accum[touched] = before
+    plain = k_step_loop(model, 0.05, train_step_body, lambda i, *f: Batch(*(x[i] for x in f)))
+    _, plain_losses = plain(TrainState(table=state.table, dense=[], step=0,
+                                       table_accum=state.table_accum), *fields)
+    torch.cuda.synchronize()
+    bitwise = (torch.equal(graphed, plain_losses) and torch.equal(state.table[touched], after[0])
+               and torch.equal(state.table_accum[touched], after[1]))
+    rec = {"phase": "kstep_big", "vocab_rows": vocab, "state_gib": state_bytes / 2**30,
+           "free_gib_before": free / 2**30, "peak_over_state_gib": extra / 2**30,
+           "touched_rows": int(touched.numel()), "captures": step.graphs.captures,
+           "replays": step.graphs.replays, "untouched_rows_unchanged": untouched,
+           "bitwise_plain_loop": bitwise, "seconds": time.perf_counter() - t0}
+    del state, table, before, after, fields, step, plain
+    torch.cuda.empty_cache()
+    if not (untouched and bitwise and rec["captures"] == 1 and state_bytes > free / 2
+            and extra < min(2 << 30, state_bytes // 4)):
+        fail(f"kstep_big: {rec}")
+    emit(rec)
 
 
 def phase_zipf_tails(rung: int) -> dict:
@@ -6312,18 +6428,26 @@ def phase_loadgen(tmp: str, beside_bench_all: bool = False) -> dict:
     return launches
 
 
-def phase_drivers(tmp: str, overlap: bool) -> dict:
-    """The three drivers and the Zipf-shape holds; returns each kernel's
-    launches by driver run.  ``overlap`` (the whole script, whose 1200 s
-    bound they would otherwise crowd) runs bench_all_torch.py beside the
-    loadgen phase: neither gates on a time, and their numbers are then
-    not the record (``--only drivers`` runs them one after the other and
-    makes the committed artifacts)."""
+def phase_bench_legs() -> tuple[dict, dict]:
+    """bench, kstep_big and zipf_tail, in that order: (bench's line, the
+    Zipf holds)."""
     import torch
 
     torch.cuda.empty_cache()
     bench = phase_bench()
-    zipf = phase_zipf_tails(bench["scale_vocab_rows"])
+    phase_kstep_big()
+    return bench, phase_zipf_tails(bench["scale_vocab_rows"])
+
+
+def phase_drivers(tmp: str, overlap: bool, bench_legs=None) -> dict:
+    """The three drivers and the Zipf-shape holds; returns each kernel's
+    launches by driver run.  ``overlap`` (the whole script, whose 1200 s
+    bound they would otherwise crowd) runs bench_all_torch.py beside the
+    loadgen phase: neither gates on a time, and their numbers are then not
+    the record (``--only drivers`` runs them one after the other and makes
+    the committed artifacts).  ``bench_legs``: phase_bench_legs()'s result
+    when it already ran (beside the tools phase)."""
+    bench, zipf = bench_legs or phase_bench_legs()
     if overlap:
         started = _start_driver(BENCH_ALL_ARGS)
         serve = phase_loadgen(tmp, beside_bench_all=True)
@@ -6339,6 +6463,156 @@ def phase_drivers(tmp: str, overlap: bool) -> dict:
                 by_kernel[k][run] = counts[k]
     by_kernel["anova_fwd"].update({r: n for r, n in serve.items() if n})
     return {"launches": by_kernel, "zipf": zipf}
+
+
+def _tool_artifact(what: str, started, out: str, timeout: float) -> tuple[int, dict, float]:
+    """A started tool to its end (its output under TOOLS_OUT); (returncode,
+    its JSON artifact, seconds)."""
+    rc, _, seconds = _driver(what, [], timeout, started=started, out_dir=TOOLS_OUT)
+    if not os.path.exists(out):
+        fail(f"{what}: exited {rc} and wrote no artifact (chiprun_out/tools/{what}.err)")
+    with open(out) as f:
+        return rc, json.load(f), seconds
+
+
+def _chaos_reference(tmp: str) -> dict:
+    """Chaos's train config (tools/torch_chaos.py's dataset and config) as
+    its baseline child runs it, `cli train --device cuda`, then in process
+    on the card (bitwise the child's final checkpoint; the wrappers count B4
+    once per step and nothing else) and on the CPU from the card run's
+    initial state (within TABLE_ATOL of the card's)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from fast_tffm_tpu_torch.config import build_model, load_config
+    from fast_tffm_tpu_torch.trainer import init_state
+    from tools import torch_chaos
+
+    cfgs = {}
+    for name in ("child", "card", "cpu"):
+        d = os.path.join(tmp, f"chaos_{name}")
+        os.makedirs(d, exist_ok=True)
+        torch_chaos._write_dataset(os.path.join(d, "t.libsvm"))
+        cfgs[name] = torch_chaos._write_cfg(d)
+    r = _cli(["train", cfgs["child"], "--device", "cuda"])
+    if r.returncode != 0:
+        fail(f"tools: chaos's baseline child exited {r.returncode}: {r.stderr[-2000:]}")
+    card_cfg = load_config(cfgs["card"])
+    _zero_counters()
+    _train_once(card_cfg, "cuda", [], resume=False)
+    launches = _wrapper_counts()
+    want = {"anova_fwd": 0, "anova_bwd": 0, "rows_tail_adagrad": torch_chaos.STEPS,
+            "fused_tail_adagrad": 0}
+    if launches != want:
+        fail(f"tools: chaos reference launches {launches}, want {want}")
+    width = card_cfg.factor_num + 1
+    final = {n: restore_checkpoint(load_config(c).model_file, torch.device("cpu"),
+                                   accum_width=width) for n, c in cfgs.items() if n != "cpu"}
+    bitwise = all(torch.equal(getattr(final["child"], k), getattr(final["card"], k))
+                  for k in ("table", "table_accum")) and final["child"].step == final["card"].step
+    if not bitwise:
+        fail("tools: chaos's train config in process is not bitwise its CLI child")
+    # The CPU from the card's initial state (training's own init: the card's
+    # generator, seed 0), saved as its starting checkpoint.
+    cpu_cfg = load_config(cfgs["cpu"])
+    init = init_state(build_model(cpu_cfg), torch.Generator(device="cuda").manual_seed(0),
+                      cpu_cfg.init_accumulator_value, cpu_cfg.adagrad_accumulator)
+    save_checkpoint(cpu_cfg.model_file, dataclasses.replace(
+        init, table=init.table.cpu(), table_accum=init.table_accum.cpu()))
+    cpu, _ = _train_once(cpu_cfg, "cpu", [], resume=True)
+    diffs = {k: float(np.abs(getattr(final["card"], k).numpy() - getattr(cpu, k).numpy()).max())
+             for k in ("table", "table_accum")}
+    if cpu.step != final["card"].step or max(diffs.values()) > TABLE_ATOL:
+        fail(f"tools: chaos's train config on the card against the CPU: step "
+             f"{final['card'].step} / {cpu.step}, max abs diffs {diffs} > {TABLE_ATOL}")
+    return {"bitwise_cli_child": bitwise, "launches": launches,
+            "max_abs_table_diff": diffs["table"], "max_abs_accum_diff": diffs["table_accum"]}
+
+
+def phase_tools(tmp: str, beside=None) -> dict:
+    """The chaos, soak and beyond-HBM tools on the card as a user runs them,
+    all four at once, and chaos's train config in process meanwhile, then
+    ``beside()`` while they run (the whole script: phase_bench_legs; see
+    the module docstring).  Returns B4's launches by run (chaos_reference,
+    probe_tier) under ``launches`` and ``beside()``'s result under
+    ``beside``."""
+    t0 = time.perf_counter()
+    out = {k: os.path.join(TOOLS_OUT, f"{k}.json")
+           for k in ("PROBE_MTTR_TORCH", "PROBE_TIER_TORCH", "PROBE_SERVE_CHAOS_TORCH",
+                     "PROBE_SOAK_TORCH_smoke")}
+    for path in out.values():
+        if os.path.exists(path):
+            os.remove(path)  # an artifact read below is this run's
+    chaos = _start_driver(["tools/torch_chaos.py", "--trials", "1", "--sharded", "--device",
+                           "cuda", "--out", out["PROBE_MTTR_TORCH"]])
+    probe = _start_driver(["tools/torch_probe_tier.py", "--vocab", str(TOOLS_PROBE_VOCAB),
+                           "--steps", str(TOOLS_PROBE_STEPS), "--device", "cuda",
+                           "--out", out["PROBE_TIER_TORCH"]])
+    serve = _start_driver(["tools/torch_chaos.py", "--serve", "--device", "cuda",
+                           "--out", out["PROBE_SERVE_CHAOS_TORCH"]])
+    soak = _start_driver(["tools/torch_soak.py", "--smoke", "--minutes", "0.3",
+                          "--device", "cuda", "--out", out["PROBE_SOAK_TORCH_smoke"]])
+    reference = _chaos_reference(tmp)
+    beside_result = beside() if beside is not None else None
+    rc, mttr, chaos_s = _tool_artifact("torch_chaos", chaos, out["PROBE_MTTR_TORCH"], 600)
+    trials = {m: p["trials"] for m, p in mttr["paths"].items()}
+    if rc != 0 or set(trials) != {"train", "dist_train"} or not all(
+            p["all_losses_bit_identical"] for p in mttr["paths"].values()) or not all(
+            t["crashes"] == 1 and t["restarts"] == 1 and t["mttr_s"] and t["mttr_s"][0] is not None
+            for ts in trials.values() for t in ts):
+        fail(f"tools: torch_chaos.py exited {rc}: {json.dumps(mttr['paths'])[:2000]}")
+    rc, tier, probe_s = _tool_artifact("torch_probe_tier", probe, out["PROBE_TIER_TORCH"], 600)
+    b4 = tier.get("kernel_launches", {}).get("rows_tail_adagrad", 0)
+    if (rc != 0 or tier["hit_rate_gap"] > 0.02 or tier["steady_state_recompiles"] != 0
+            or not b4 or tier["resident_state_bytes_this_vocab"] <= tier["device_memory_bytes"]):
+        fail(f"tools: torch_probe_tier.py exited {rc}: hit_rate_gap {tier['hit_rate_gap']}, "
+             f"steady recompiles {tier['steady_state_recompiles']}, B4 launches {b4}, resident "
+             f"{tier['resident_state_bytes_this_vocab']} against the card's "
+             f"{tier['device_memory_bytes']}")
+    rc, sc, serve_s = _tool_artifact("torch_chaos_serve", serve, out["PROBE_SERVE_CHAOS_TORCH"],
+                                     600)
+    if rc != 0 or not sc.get("ok") or sc["unanswered"] != 0 or sc["scores_mismatched"] != 0 or (
+            sc["replica_restarts"] < 1) or not any(
+            (v or 0) >= 1 for v in sc["reload_failures_by_replica"].values()):
+        fail(f"tools: torch_chaos.py --serve exited {rc}: "
+             f"{json.dumps({k: v for k, v in sc.items() if k != 'plan'})[:2000]}")
+    rc, sk, soak_s = _tool_artifact("torch_soak", soak, out["PROBE_SOAK_TORCH_smoke"], 600)
+    # The gate, and tests/test_soak.py's checks of it: traffic answered in
+    # full, the trainer killed and back, the writer stalled, the ticks ran.
+    if rc != 0 or sk.get("gate") != "OK" or not (
+            0 < sk["requests_sent"] == sk["requests_answered"] and sk["unanswered"] == 0
+            and sk["trainer_restarts"] >= 1 and sk["stream_stalls_executed"] >= 1
+            and sk["trainer_rc"] == 0 and sk["trainer_steady_compiles"] == 0
+            and sk["sentinel_ticks"] >= 2 and sk["sentinel_failures"] == 0
+            and 0 <= sk["max_chain_len"] <= 16):
+        fail(f"tools: torch_soak.py --smoke exited {rc}: "
+             f"{json.dumps({k: v for k, v in sk.items() if k != 'ticks'})[:2000]}")
+    emit({"phase": "tools", "seconds": time.perf_counter() - t0, "card": mttr.get("card"),
+          "chaos": {"seconds": chaos_s, "paths": {
+              m: {k: p[k] for k in ("baseline_wall_s", "mttr_s_median", "mttr_s_max",
+                                     "all_losses_bit_identical")} | {
+                  "kill_at_step": [t["kill_at_step"] for t in p["trials"]]}
+              for m, p in mttr["paths"].items()}},
+          "chaos_reference": reference,
+          "probe_tier": {"seconds": probe_s, **{k: tier[k] for k in (
+              "hit_rate_measured", "hit_rate_predicted_exact", "hit_rate_gap",
+              "coverage_curve_exact", "dedup_ratio_mean", "miss_bytes_per_step",
+              "wire_bytes_per_step", "resident_state_bytes_this_vocab", "device_memory_bytes",
+              "steady_state_recompiles", "kernel_launches", "workload")}},
+          "serve_chaos": {"seconds": serve_s, **{k: sc.get(k) for k in (
+              "unanswered", "scores_mismatched", "scored", "replica_restarts", "mttr_s",
+              "client_failovers", "reload_failures_by_replica", "steady_compiles_by_replica",
+              "all_healthy_after")}},
+          "soak_smoke": {"seconds": soak_s, **{k: sk.get(k) for k in (
+              "gate", "duration_s", "requests_sent", "unanswered", "trainer_restarts",
+              "stream_stalls_executed", "max_chain_len", "client_latency_ms",
+              "freshness_final", "sentinel_ticks")}}})
+    return {"launches": {"chaos_reference": reference["launches"]["rows_tail_adagrad"],
+                         "probe_tier": b4},
+            "beside": beside_result}
 
 
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
@@ -6391,6 +6665,10 @@ def main() -> int:
         if only == "drivers":
             # This slice's phases alone (no kernels line, no result line).
             phase_drivers(tmp, overlap=False)
+            return 0
+        if only == "tools":
+            # The chaos, soak and tiered-probe tools alone (no result line).
+            phase_tools(tmp)
             return 0
         if only == "pod":
             # A short run of this slice's phases alone (no result line).
@@ -6493,7 +6771,10 @@ def main() -> int:
         phase_telemetry_cost(tmp, big_path)
         # This slice's phases: the measuring drivers as a user runs them, and
         # B4 and B3 held against their twins at the drivers' Zipf shapes.
-        drivers = phase_drivers(tmp, overlap=True)
+        # The chaos, soak and beyond-HBM tools (slice 16), run beside the
+        # bench, kstep_big and zipf_tail phases; then the other drivers.
+        tools = phase_tools(tmp, beside=phase_bench_legs)
+        drivers = phase_drivers(tmp, overlap=True, bench_legs=tools["beside"])
     src = "fast_tffm_tpu_torch/csrc/"
     # Launches: the wrappers' counts over the main path, the eager train run
     # (train_fused for B3; 24 steps: B1 once per step and per validation
@@ -6537,6 +6818,7 @@ def main() -> int:
     for runs, kernel in ((fwd_runs, "anova_fwd"), (bwd_runs, "anova_bwd"),
                          (b4_runs, "rows_tail_adagrad"), (b3_runs, "fused_tail_adagrad")):
         runs.update(drivers["launches"][kernel])
+    b4_runs.update(tools["launches"])
     tail_shapes["zipf_packed_b65536"] = drivers["zipf"]["rows_tail_adagrad"]
     emit({"kernels": [
         _kernel_record("anova_fwd", src + "anova_fwd.cu",

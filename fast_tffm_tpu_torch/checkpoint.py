@@ -83,14 +83,20 @@ __all__ = [
     "latest_step",
     "delta_paths",
     "DEFAULT_CHUNK_BYTES",
+    "TornCheckpointError",
 ]
 
 DEFAULT_CHUNK_BYTES = 64 << 20  # host staging bound per array slice
 _DELTA_RE = re.compile(r"\.delta-(\d{4})\.npz$")
 
 
+class TornCheckpointError(ValueError):
+    """A checkpoint file that does not read whole: a torn or truncated write
+    (a complete save, tmp + os.replace, never looks like this)."""
+
+
 def _torn_error(path: str, what: str, exc: Exception) -> ValueError:
-    return ValueError(
+    return TornCheckpointError(
         f"checkpoint file {path!r} is unreadable ({what}: {exc}) — "
         "truncated or torn write?  Saves are atomic (tmp + os.replace), so "
         "a complete save never looks like this; delete or replace the file"
@@ -650,9 +656,18 @@ def _load_npz(path: str, n_dense: int, with_accum: bool) -> dict:
                 "dense_leaves": [z[f"dense_{i}"] for i in range(n_dense)],
                 "step": z["step"],
             }
+            accum_names = ["table_accum", *(f"dense_accum_{i}" for i in range(n_dense))]
             if with_accum:
                 out["table_accum"] = z["table_accum"]
                 out["dense_accum"] = [z[f"dense_accum_{i}"] for i in range(n_dense)]
+            else:
+                # A scoring restore still reads the accumulators through
+                # their CRC, as the JAX restore (which loads them) does: a
+                # file torn only there is a torn publish, refused whole.
+                for name in (n for n in accum_names if n in z.files):
+                    with z.zip.open(f"{name}.npy") as member:
+                        while member.read(DEFAULT_CHUNK_BYTES):
+                            pass
             return out
         except (KeyError, zipfile.BadZipFile, ValueError, EOFError) as e:
             raise _torn_error(path, "missing or unreadable member", e) from e

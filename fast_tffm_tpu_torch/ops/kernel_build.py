@@ -10,8 +10,10 @@ plain C interface and is compiled on its own into
 
 A source may include the shared headers ``csrc/*.cuh``.  A library is
 built at its first use in a process, or again when its source or a header
-is newer.  Without ``nvcc``, or when a build fails, this raises; it never
-hands back a plain version in place of a kernel.  ``build`` starts one
+is newer.  Without ``nvcc``, or when a build fails or outlasts
+``NVCC_TIMEOUT_S`` (the compiler's process group is then killed), this
+raises naming the kernel; it never hands back a plain version in place of
+a kernel, and it leaves no half-written output behind.  ``build`` starts one
 ``nvcc`` per source, all at once, for callers that want every kernel ready
 before traffic (chip_smoke.py).  Each build counts as one compile for the
 telemetry's compile sentinel (``telemetry.note_compile``); a library
@@ -32,6 +34,7 @@ import ctypes
 import glob
 import os
 import shutil
+import signal
 import subprocess
 import threading
 import time
@@ -39,8 +42,8 @@ import time
 from fast_tffm_tpu_torch.telemetry import note_cache_hit, note_compile
 
 __all__ = [
-    "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS", "nvcc_path", "build", "load",
-    "load_host",
+    "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS", "NVCC_TIMEOUT_S", "nvcc_path", "build",
+    "load", "load_host",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,9 +54,20 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread", "-shared")
+# Seconds one ``build`` call waits for its compilers (they run at once); one
+# source takes seconds to a minute on the card host.
+NVCC_TIMEOUT_S = 600.0
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks only, never a build
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def _name_lock(key: str) -> threading.Lock:
+    """The lock one library's build and load hold: a loader of another
+    library never waits on this one's compiler."""
+    with _lock:
+        return _name_locks.setdefault(key, threading.Lock())
 
 
 def nvcc_path() -> str:
@@ -78,30 +92,57 @@ def _paths(name: str) -> tuple[str, str]:
 def build(names) -> dict[str, dict]:
     """Compile every named source in parallel; returns per kernel the build
     seconds and the compiler's output (``-Xptxas=-v`` register/spill lines).
-    Raises RuntimeError naming every kernel that failed."""
+    Raises RuntimeError naming every kernel that failed or was still
+    compiling ``NVCC_TIMEOUT_S`` after the start (its compiler killed)."""
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     started = {}
-    for name in names:
-        src, lib = _paths(name)
-        if not os.path.isfile(src):
-            raise RuntimeError(f"no CUDA source for kernel {name!r} at {src}")
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, lib, time.perf_counter())
     report, failures = {}, []
-    for name, (proc, tmp, lib, t0) in started.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
-            continue
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-        note_compile()
-        report[name] = {"seconds": time.perf_counter() - t0, "log": out}
+    try:
+        for name in names:
+            src, lib = _paths(name)
+            if not os.path.isfile(src):
+                raise RuntimeError(f"no CUDA source for kernel {name!r} at {src}")
+            tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+            # A session of its own: a timeout kills nvcc's whole process group
+            # (cicc, ptxas), so no grandchild keeps the output pipe open.
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, start_new_session=True)
+            started[name] = (proc, tmp, lib, time.perf_counter())
+        deadline = time.monotonic() + NVCC_TIMEOUT_S
+        for name, (proc, tmp, lib, t0) in started.items():
+            try:
+                out, _ = proc.communicate(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                _kill_group(proc)
+                failures.append(f"{name} (nvcc still running after {NVCC_TIMEOUT_S:g} s: "
+                                "killed)")
+                continue
+            if proc.returncode != 0:
+                failures.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+                continue
+            os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+            note_compile()
+            report[name] = {"seconds": time.perf_counter() - t0, "log": out}
+    finally:
+        for proc, tmp, _, _ in started.values():
+            if proc.poll() is None:
+                _kill_group(proc)
+            if os.path.exists(tmp):
+                os.remove(tmp)
     if failures:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failures))
     return report
+
+
+def _kill_group(proc: subprocess.Popen) -> None:
+    """SIGKILL a compiler started in its own session, and reap it."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.communicate()
 
 
 def _stale(path: str, inputs) -> bool:
@@ -112,7 +153,7 @@ def _stale(path: str, inputs) -> bool:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first when missing or stale."""
-    with _lock:
+    with _name_lock(name):
         lib = _libs.get(name)
         if lib is None:
             src, path = _paths(name)
@@ -152,8 +193,8 @@ def load_host(name: str) -> ctypes.CDLL:
     """The loaded library of host source ``csrc/<name>.cpp``, built with
     ``g++`` first when missing or older than its source.  Raises when the
     build fails."""
-    with _lock:
-        key = f"host:{name}"
+    key = f"host:{name}"
+    with _name_lock(key):
         lib = _libs.get(key)
         if lib is None:
             src = os.path.join(CSRC_DIR, f"{name}.cpp")

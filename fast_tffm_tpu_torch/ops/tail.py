@@ -41,6 +41,11 @@ and called through ctypes on PyTorch's current stream.
       plain update (``optim.adagrad_rows_plain``, its packed-layout form,
       ``fused_adagrad_plain``)
 
+``rows_restored()`` is a block inside which every row these entries are
+about to write (in this thread) is saved first and put back at its end:
+the K-step graph's warm-up runs on the live state at the cost of the rows
+its batches touch (``utils/step_graph.py``).
+
 ``packed=True`` takes the packed layout's ``[VP, 128]`` table and its
 ``[VP, 128]`` or ``[VP, P]`` accumulator; D is ``row_grads``' width.
 
@@ -54,7 +59,9 @@ B4's count, ``rows_tail_adagrad_update.launches``, holds both layouts'.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -84,9 +91,46 @@ __all__ = [
     "fused_tail_sorted",
     "fused_tail_sorted_plain",
     "fused_adagrad_plain",
+    "rows_restored",
 ]
 
 _INT32_MAX = 2**31 - 1
+_journal = threading.local()
+
+
+@contextlib.contextmanager
+def rows_restored():
+    """Inside the block, each tail entry of this thread saves the rows
+    (tile rows, on a packed or fused array) of its table and accumulator
+    that it is about to write, once per row; at the end of the block,
+    raised or not, the saved rows are written back on the current stream.
+    The tensors come out of the block bitwise as they went in, at the cost
+    of a copy of the touched rows."""
+    if getattr(_journal, "entries", None) is not None:
+        raise RuntimeError("rows_restored() blocks do not nest")
+    _journal.entries = entries = []
+    try:
+        yield
+    finally:
+        _journal.entries = None
+        for t, rows, saved in reversed(entries):
+            t.index_copy_(0, rows, saved)
+
+
+def _save_rows(tensors, ids: torch.Tensor, p: int) -> None:
+    """Under ``rows_restored``: save the rows of ``tensors`` (dim 0) that the
+    logical ``ids`` address at ``p`` logical rows per physical row, skipping
+    rows out of range (the kernels skip them) and rows already saved."""
+    entries = getattr(_journal, "entries", None)
+    if entries is None:
+        return
+    rows = torch.unique(ids.reshape(-1).long() // p)
+    for t in tensors:
+        mine = rows[(rows >= 0) & (rows < t.shape[0])]
+        earlier = [r for tt, r, _ in entries if tt is t]
+        if earlier:
+            mine = mine[~torch.isin(mine, torch.cat(earlier))]
+        entries.append((t, mine, t.index_select(0, mine)))
 
 
 def _kernel():
@@ -227,6 +271,7 @@ def rows_tail_sorted(table, accum, sid, order, row_grads, lr: float, *, decay: f
     int32, its permutation ``order`` int64) and ``row_grads`` [M, D] in
     occurrence order, in place, on the rows or (``packed``) the packed
     layout; on a CPU tensor its twin ``rows_tail_sorted_plain``."""
+    _save_rows((table, accum), sid, rows_per_tile(row_grads.shape[-1]) if packed else 1)
     if table.device.type == "cpu":
         return rows_tail_sorted_plain(table, accum, sid, order, row_grads, lr, decay, packed)
     return _rows_launch(table, accum, sid, order, row_grads, lr, decay, packed)
@@ -246,6 +291,7 @@ def rows_tail_apply(
     ``uids`` must be unique (``optim.dedup_rows`` output); ids outside
     [0, V) are skipped.  On the card: kernel B4 with ``order = arange(K)``,
     each row its own segment."""
+    _save_rows((table, accum), uids, 1)
     if table.device.type == "cpu":
         return adagrad_rows_plain(table, accum, uids, gsum, lr, decay)
     return _rows_launch(table, accum, uids, None, gsum, lr, decay)
@@ -384,6 +430,7 @@ def fused_tail_sorted(fused, sid, order, row_grads, lr: float, *, decay: float =
     """Kernel B3 on its own input, the stable sort of the flat ids and the
     gradients in occurrence order, in place; on a CPU tensor its twin
     ``fused_tail_sorted_plain``."""
+    _save_rows((fused,), sid, fused_rows_per_tile(row_grads.shape[-1]))
     if fused.device.type == "cpu":
         return fused_tail_sorted_plain(fused, sid, order, row_grads, lr, decay)
     return _fused_launch(fused, sid, order, row_grads, lr, decay)
@@ -397,6 +444,7 @@ def fused_tail_apply(
     [VPf, 128].  ``uids`` must be unique (``optim.dedup_rows`` output); ids
     outside [0, VPf·P) are skipped.  On the card: kernel B3 with
     ``order = arange(K)``."""
+    _save_rows((fused,), uids, fused_rows_per_tile(gsum.shape[-1]))
     if fused.device.type == "cpu":
         return fused_adagrad_plain(fused, uids, gsum, lr, decay)
     return _fused_launch(fused, uids, None, gsum, lr, decay)

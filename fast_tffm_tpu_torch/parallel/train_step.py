@@ -84,6 +84,7 @@ from fast_tffm_tpu_torch.trainer import (
     make_scanned_train_step,
     make_train_step,
     packed_train_step_body,
+    rowwise_sigmoid,
 )
 from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
 
@@ -546,7 +547,7 @@ def make_sharded_predict_step(
             routed = not routing_overflow(batch.ids, geo.shard_rows,
                                           geo.capacity(batch.ids.shape), mesh)
         rows = (geo.routed_gather if routed else geo.gather)(state.table, batch.ids)
-        scores = torch.sigmoid(model.score(rows, state.dense, batch))
+        scores = rowwise_sigmoid(model.score(rows, state.dense, batch))
         return all_gather_cat(scores, None, mesh.size)
 
     return predict

@@ -57,6 +57,7 @@ from fast_tffm_tpu_torch.data.wire import (
 )
 from fast_tffm_tpu_torch.paramstore.residency import ResidencyMap
 from fast_tffm_tpu_torch.paramstore.store import ColdStore
+from fast_tffm_tpu_torch.trainer import rowwise_sigmoid
 
 __all__ = ["TieredParamServer", "TieredBatch", "TieredConverter"]
 
@@ -367,7 +368,7 @@ class TieredParamServer:
         hot_g = state.table[torch.clamp(ids, max=max(0, h - 1))]
         miss_g = mt[torch.clamp(ids - h, 0, m - 1)]
         rows = torch.where((ids < h)[..., None], hot_g, miss_g)
-        return torch.sigmoid(self.model.score(rows, state.dense, b))
+        return rowwise_sigmoid(self.model.score(rows, state.dense, b))
 
     # -- checkpoint integration (checkpoint_async.AsyncCheckpointer) --------
 

@@ -195,15 +195,17 @@ def _hello(host: str, port: int, timeout: float) -> dict:
 
 class _Frame:
     """One in-flight REQUEST frame: the packed bytes (kept so failover
-    can resend it verbatim), its row ids, and the retry latch."""
+    can resend it verbatim), its row ids, the retry latch, and the
+    generation of the connection it was written to."""
 
-    __slots__ = ("data", "req_ids", "unanswered", "retried")
+    __slots__ = ("data", "req_ids", "unanswered", "retried", "gen")
 
-    def __init__(self, data: bytes, req_ids):
+    def __init__(self, data: bytes, req_ids, gen: int):
         self.data = data
         self.req_ids = [int(r) for r in req_ids]
         self.unanswered = set(self.req_ids)
         self.retried = False
+        self.gen = gen
 
 
 class FrameConnection:
@@ -250,6 +252,7 @@ class FrameConnection:
         self._dead = False
         self.last_error: str | None = None
         self.failovers = 0
+        self._gen = 0  # bumped by each _attach: the connection a frame went to
         ack = _hello(host, port, timeout)
         if not ack.get("ok") or ack.get("wire") != "binary" or "port" not in ack:
             raise WireRefused(ack)
@@ -282,6 +285,7 @@ class FrameConnection:
             self.uses_fields = bool(ack.get("fields", False))
             self.sock = sock
             self._rf = rf
+            self._gen += 1
 
     def send_packed(self, data: bytes, req_ids) -> None:
         """Send one pre-packed REQUEST frame (a load driver packs outside the
@@ -291,7 +295,7 @@ class FrameConnection:
                 raise OSError("connection closed")
             self._seq += 1
             seq = self._seq
-            fr = _Frame(data, req_ids)
+            fr = _Frame(data, req_ids, self._gen)
             self._frames[seq] = fr
             for r in fr.req_ids:
                 self._req2seq[r] = seq
@@ -390,17 +394,17 @@ class FrameConnection:
             with self.lock:
                 if self._closing:
                     return
-                pending = list(self._frames.values())
-                retry = [f for f in pending if not f.retried]
-                spent = [f for f in pending if f.retried]
                 # Second death for these frames: unavailable, locally.
-                self._resolve_unavailable_locked(spent)
-            if not self._failover(retry):
+                self._resolve_unavailable_locked(
+                    [f for f in self._frames.values() if f.retried])
+            if not self._failover():
                 return
 
-    def _failover(self, retry) -> bool:
-        """Re-hello the front end, pin a peer, resend ``retry`` frames
-        once.  False = no peer (or handshake died): resolve + stop."""
+    def _failover(self) -> bool:
+        """Re-hello the front end, pin a peer, resend once every pending
+        frame written to an earlier connection — those the dead replica
+        held, and those a sender wrote to the dead socket while this
+        failover ran.  False = no peer (or handshake died): resolve + stop."""
         try:
             ack = _hello(self.host, self.frontend_port, self.timeout)
             if not ack.get("ok") or ack.get("wire") != "binary" or "port" not in ack:
@@ -414,6 +418,7 @@ class FrameConnection:
             return False
         self.failovers += 1
         with self.lock:
+            retry = [f for f in self._frames.values() if not f.retried and f.gen < self._gen]
             for fr in retry:
                 fr.retried = True
             sock = self.sock

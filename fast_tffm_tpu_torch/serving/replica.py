@@ -40,10 +40,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
 import socket
 import sys
 import threading
+import time
 
 import numpy as np
 
@@ -258,6 +260,31 @@ class _Conn:
             fut.add_done_callback(done)
 
 
+# How long a starting replica retries a torn checkpoint (a publish caught
+# mid-write, or a torn file a trainer's next save replaces) before it exits;
+# the router's readiness wait (180 s) bounds it from the outside.
+TORN_START_RETRY_S = 60.0
+
+
+def _start_engine(engine_cls, cfg, log, device, replica):
+    """The replica's engine, its restore retried every 0.25 s while the
+    checkpoint reads torn, for up to ``TORN_START_RETRY_S``: a replica the
+    router restarts while a torn publish is on disk comes up when the file
+    is whole again, as a running replica's reload retries it."""
+    from fast_tffm_tpu_torch.checkpoint import TornCheckpointError
+
+    deadline = time.monotonic() + TORN_START_RETRY_S
+    for attempt in itertools.count():
+        try:
+            return engine_cls(cfg, log=log, device=device, replica=replica)
+        except TornCheckpointError as e:
+            if time.monotonic() >= deadline:
+                raise
+            if attempt == 0:
+                log(f"restore failed ({e}); retrying until the checkpoint reads whole")
+            time.sleep(0.25)
+
+
 def run_replica(
     cfg,
     *,
@@ -286,7 +313,7 @@ def run_replica(
     cfg = dataclasses.replace(cfg, **overrides)
     srv = socket.create_server((host, port))
     try:
-        engine = ServingEngine(cfg, log=log, device=device, replica=replica)
+        engine = _start_engine(ServingEngine, cfg, log, device, replica)
     except BaseException:
         srv.close()
         raise

@@ -360,6 +360,12 @@ class Router:
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         ctrl = socket.create_connection(("127.0.0.1", handle.port), timeout=30.0)
         ctrl.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        # The 30 s bounds the connect only: a DATA link idle for 30 s (its
+        # clients pinned to the replica over frames) is healthy, and the
+        # health loop's pings judge liveness.  Left on, the reader's timeout
+        # would declare a live replica lost and launch a second one.
+        sock.settimeout(None)
+        ctrl.settimeout(None)
         with slot.lock:
             # Ghost entries registered into the slot between _on_down's
             # drain and this relaunch (lost races) must not carry over:
@@ -699,6 +705,11 @@ class Router:
             ctrl, slot.ctrl = slot.ctrl, None
             orphans = list(slot.pending.values())
             slot.pending.clear()
+        if slot.handle is not None and slot.handle.alive():
+            # A replica the router has stopped talking to is killed before
+            # its slot restarts: never two processes for one index, and
+            # none outliving the front end.
+            slot.handle.kill()
         for s in (sock, ctrl):
             if s is not None:
                 try:

@@ -258,11 +258,24 @@ def make_predict_step(model):
     return _predict_step(model, lambda table, ids: table[ids])  # plain indexing, as in XLA
 
 
+def rowwise_sigmoid(raw: torch.Tensor) -> torch.Tensor:
+    """``torch.sigmoid`` of [B] raw scores, each row's value independent of
+    the rows scored beside it.  On the CPU, ATen's vectorized loop and its
+    scalar tail round differently, so a row's score would depend on its
+    position in the batch (a serving flush, a replica's failover resend);
+    the scores go through the vector path whole, padded to a multiple of
+    64.  On the card every element runs the same code."""
+    if raw.device.type != "cpu":
+        return torch.sigmoid(raw)
+    n = raw.shape[0]
+    return torch.sigmoid(torch.nn.functional.pad(raw, (0, -n % 64)))[:n]
+
+
 def _predict_step(model, gather):
     @torch.inference_mode()
     def predict(state: TrainState, batch: Batch) -> torch.Tensor:
         rows = gather(state.table, batch.ids)
-        return torch.sigmoid(model.score(rows, state.dense, batch))
+        return rowwise_sigmoid(model.score(rows, state.dense, batch))
 
     return predict
 

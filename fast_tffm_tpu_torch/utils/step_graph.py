@@ -7,9 +7,12 @@ plain loop over K step bodies.  Its first call for a (layout, state
 tensors, input shapes) key:
 
 1. copies the inputs into static device buffers;
-2. warms ``fn`` up once on a side stream against a scratch copy of the
-   state, so lazy set-up (kernel loads, autograd, the sort's scratch)
-   happens outside the capture and the real state is untouched;
+2. warms ``fn`` up once on a side stream, so lazy set-up (kernel loads,
+   autograd, the sort's scratch) happens outside the capture: on the live
+   table and accumulator inside ``ops.tail.rows_restored`` (each row a tail
+   is about to write is saved first and written back after, so the warm-up
+   costs a copy of the rows the K batches touch, never a second state) and
+   on clones of the dense leaves;
 3. captures ``fn`` on the real state and the static buffers into a
    ``torch.cuda.CUDAGraph`` (a capture records and runs nothing), ending
    the captured region by ``copy_``-ing any state tensor ``fn`` replaced
@@ -40,6 +43,7 @@ import dataclasses
 
 import torch
 
+from fast_tffm_tpu_torch.ops.tail import rows_restored
 from fast_tffm_tpu_torch.telemetry import note_compile
 
 __all__ = ["StepGraphs"]
@@ -57,11 +61,11 @@ def _set_tensors(state, tensors) -> None:
     state.dense_accum = list(tensors[2 + nd :])
 
 
-def _scratch_copy(state):
+def _warmup_view(state):
+    """The live table and accumulator (the tails' rows are restored around
+    the warm-up) with clones of the dense leaves (updated whole)."""
     return dataclasses.replace(
         state,
-        table=state.table.clone(),
-        table_accum=None if state.table_accum is None else state.table_accum.clone(),
         dense=[p.clone() for p in state.dense],
         dense_accum=[a.clone() for a in state.dense_accum],
     )
@@ -112,8 +116,8 @@ class StepGraphs:
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.fn(_scratch_copy(state), *static)
+        with torch.cuda.stream(side), rows_restored():
+            self.fn(_warmup_view(state), *static)
         current.wait_stream(side)
         persistent, step = _tensors(state), state.step
         graph = torch.cuda.CUDAGraph()

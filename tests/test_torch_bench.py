@@ -16,8 +16,10 @@
   (BENCH_r18.json, bench.py's last committed line), ``tail_ab``'s too;
   tools/report.py reads and renders it and writes the delta report.
 * Failures: a failed section gives ``*_error`` on the printed line and
-  exit 1; ``BENCH_TAIL_MODES=xla`` raises; ``--tier`` raises naming the
-  ROADMAP item; without a card and without ``--device cpu`` it raises.
+  exit 1 (its legs' timing helpers cut to one step each);
+  ``BENCH_TAIL_MODES=xla`` raises; ``--tier [args]`` runs
+  tools/torch_probe_tier.py [args] and returns its exit code; without a
+  card and without ``--device cpu`` it raises.
 * ``--dist 2 --device cpu``: two gloo ranks of the port's dist_train over
   shard-disjoint FMB files, the pod's rate and per-host records.
 * The three drivers import neither jax nor the JAX package.
@@ -217,8 +219,26 @@ def test_line_keys_contain_the_jax_lines(tmp_path, monkeypatch, capsys):
     assert rp.endswith("REPORT_r100.md") and "scale_value" in open(rp).read()
 
 
+def _one_step_measures(monkeypatch):
+    """Every leg's timing helper runs its step once: a test of the line's
+    control flow, not of its rates, pays for no timing windows."""
+
+    def measure(step, state, batches, iters, windows=3, batch_size=None):
+        state, _ = step(state, batches[0])
+        return state, 1.0
+
+    def interleaved_measure(step, state, batches_a, batches_b, iters, rounds=4, batch=None):
+        state, _ = step(state, batches_a[0])
+        state, _ = step(state, batches_b[0])
+        return (1.0, 1.0), state
+
+    monkeypatch.setattr(bt, "measure", measure)
+    monkeypatch.setattr(bt, "interleaved_measure", interleaved_measure)
+
+
 def test_failed_section_exits_nonzero(tmp_path, monkeypatch, capsys):
     _small(monkeypatch, tmp_path)
+    _one_step_measures(monkeypatch)
 
     def broken(device, rng):
         raise OSError("disk full")
@@ -237,8 +257,11 @@ def test_refusals(tmp_path, monkeypatch):
     monkeypatch.setenv("BENCH_TAIL_MODES", "xla,pallas")
     with pytest.raises(ValueError, match="one sparse tail"):
         bt.bench_main(CPU)
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        bt.main(["--tier"])
+    calls = []
+    monkeypatch.setattr("subprocess.call", lambda cmd: calls.append(cmd) or 7)
+    assert bt.main(["--tier", "--vocab", "64"]) == 7  # the probe's exit code
+    assert calls == [[sys.executable, os.path.join(REPO, "tools", "torch_probe_tier.py"),
+                      "--vocab", "64"]]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bt.main([])

@@ -1448,3 +1448,72 @@ def test_cached_sharded_step_at_world_size_one_is_the_cached_train_step(cuda, tm
     assert _logged_losses(logs["train"]) == _logged_losses(logs["dist"])
     for key in ("table", "table_accum"):
         assert np.array_equal(saved["train"][key], saved["dist"][key]), key
+
+
+def _bits_sum(t: torch.Tensor, chunk_rows: int = 1 << 22) -> int:
+    """The int64 sum of a float32 tensor's bit patterns, row chunk by chunk."""
+    return sum(int(t[lo : lo + chunk_rows].view(torch.int32).to(torch.int64).sum())
+               for lo in range(0, t.shape[0], chunk_rows))
+
+
+def test_k_step_capture_over_half_the_card_needs_no_second_state(cuda):
+    """A K = 8 graph captured on a rows state larger than half the card's free
+    memory: the capture's warm-up restores the rows it touches instead of
+    cloning the state, so the peak allocation above the live state stays
+    under the step's temporaries (bounded here by 2 GiB, far below the
+    state); the rows outside the batches' ids are untouched, and the graphed
+    K steps are bitwise the plain loop from the same state."""
+    from fast_tffm_tpu_torch.trainer import (
+        TrainState,
+        k_step_loop,
+        make_scanned_train_step,
+        train_step_body,
+    )
+
+    k, b, n, d = 8, 4096, 39, 9
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(cuda)[0]
+    vocab = int(0.55 * free) // ((d + 1) * 4)
+    model = FMModel(vocabulary_size=vocab, factor_num=d - 1, order=2)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.empty((vocab, d), device=cuda)
+    for lo in range(0, vocab, 1 << 24):
+        table[lo : lo + (1 << 24)].uniform_(-0.01, 0.01, generator=g)
+    state = TrainState(table=table, dense=[], step=0,
+                       table_accum=torch.full((vocab, 1), 0.1, device=cuda))
+    state_bytes = vocab * (d + 1) * 4
+    assert state_bytes > free / 2
+    ids = torch.randint(0, vocab, (k, b, n), generator=g, device=cuda, dtype=torch.int64)
+    ids[..., : n // 2] %= 1 << 16  # a hot head, as CTR ids have
+    batch = Batch(labels=(torch.rand((k, b), generator=g, device=cuda) < 0.3).float(),
+                  ids=ids.to(torch.int32),
+                  vals=torch.rand((k, b, n), generator=g, device=cuda) + 0.1,
+                  fields=torch.zeros((k, b, 0), dtype=torch.int32, device=cuda),
+                  weights=torch.ones((k, b), device=cuda))
+    touched = torch.unique(ids)
+    before = (state.table[touched].clone(), state.table_accum[touched].clone())
+    rest = (_bits_sum(state.table) - _bits_sum(before[0]),
+            _bits_sum(state.table_accum) - _bits_sum(before[1]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    step = make_scanned_train_step(model, 0.05, body=train_step_body)
+    state, graphed_losses = step(state, batch)
+    torch.cuda.synchronize()
+    peak_extra = torch.cuda.max_memory_allocated(cuda) - base
+    assert step.graphs.captures == 1 and step.graphs.replays == 1
+    assert peak_extra < min(2 << 30, state_bytes // 4), (peak_extra, state_bytes)
+    after = (state.table[touched].clone(), state.table_accum[touched].clone())
+    assert (_bits_sum(state.table) - _bits_sum(after[0]),
+            _bits_sum(state.table_accum) - _bits_sum(after[1])) == rest
+    # The plain loop from the same state: the touched rows put back.
+    state.table[touched], state.table_accum[touched] = before
+    plain = k_step_loop(model, 0.05, train_step_body,
+                        lambda i, *f: Batch(*(x[i] for x in f)))
+    view = TrainState(table=state.table, dense=[], step=0, table_accum=state.table_accum)
+    _, plain_losses = plain(view, *(getattr(batch, f) for f in
+                                    ("labels", "ids", "vals", "fields", "weights")))
+    torch.cuda.synchronize()
+    assert torch.equal(graphed_losses, plain_losses)
+    assert torch.equal(state.table[touched], after[0])
+    assert torch.equal(state.table_accum[touched], after[1])

@@ -12,6 +12,7 @@ import glob
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 from types import SimpleNamespace
@@ -55,8 +56,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'paramstore.residency', 'paramstore.tiered', 'paramstore.ckpt'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
+        "import threading\n"
+        "for m in ('tools.torch_chaos', 'tools.torch_soak', 'tools.torch_probe_tier'):\n"
+        "    importlib.import_module(m)\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
-        " or m == 'fast_tffm_tpu' or m.startswith('fast_tffm_tpu.'))\n"
+        " or m == 'fast_tffm_tpu' or m.startswith('fast_tffm_tpu.')"
+        " or m in ('bench', 'bench_all', 'tools.chaos', 'tools.soak', 'tools.probe_tier'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -189,6 +195,67 @@ def test_kernel_build_reports_a_failed_compile(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no sm_90a here"):
         kernel_build.build(["anova_fwd"])
     assert not os.listdir(tmp_path / "_build")  # nothing half-built is left to load
+
+
+def test_a_hung_nvcc_times_out_naming_the_kernel(monkeypatch, tmp_path):
+    """A compiler that never finishes is killed at ``NVCC_TIMEOUT_S``: ``load``
+    raises naming the kernel, no ``.tmp`` is left, and a loader of another
+    kernel on another thread is not held behind it."""
+    import threading
+    import time
+
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text(f"#!/bin/sh\n{shutil.which('sleep')} 60\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(fake.parent))
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(kernel_build, "NVCC_TIMEOUT_S", 1.0)
+    monkeypatch.setattr(kernel_build, "_libs", {})
+    monkeypatch.setattr(kernel_build, "_name_locks", {})
+    errors = {}
+
+    def load(name):
+        try:
+            kernel_build.load(name)
+        except RuntimeError as e:
+            errors[name] = str(e)
+
+    t0 = time.monotonic()
+    first = threading.Thread(target=load, args=("anova_fwd",))
+    first.start()
+    time.sleep(0.2)  # the first loader is inside its build
+    second = threading.Thread(target=load, args=("anova_bwd",))
+    second.start()
+    second.join(timeout=10)
+    first.join(timeout=10)
+    assert not first.is_alive() and not second.is_alive()
+    assert time.monotonic() - t0 < 8
+    for name in ("anova_fwd", "anova_bwd"):
+        assert name in errors[name] and "still running after 1 s" in errors[name], errors
+    assert not os.listdir(tmp_path / "_build")
+
+
+def test_package_data_ships_every_source_the_builds_load():
+    """The port's wheel carries what ``kernel_build`` compiles at first use:
+    the four kernels, their shared header and the host parser's source."""
+    import fnmatch
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"]["fast_tffm_tpu_torch"]
+    pkg = os.path.dirname(kernel_build.CSRC_DIR)
+    needed = sorted(
+        os.path.relpath(p, pkg)
+        for ext in ("*.cu", "*.cuh", "*.cpp")
+        for p in glob.glob(os.path.join(kernel_build.CSRC_DIR, ext))
+    )
+    assert needed == [
+        "csrc/anova_bwd.cu", "csrc/anova_fwd.cu", "csrc/fused_tail_adagrad.cu",
+        "csrc/libsvm_parser.cpp", "csrc/rows_tail_adagrad.cu", "csrc/tail_segment.cuh",
+    ]
+    missing = [n for n in needed if not any(fnmatch.fnmatch(n, p) for p in patterns)]
+    assert not missing, f"package data {patterns} leaves out {missing}"
 
 
 def test_every_kernel_source_exists():

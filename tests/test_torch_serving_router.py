@@ -241,6 +241,26 @@ def test_router_failover_rescored_identically(tmp_path):
         router.close()
 
 
+def test_router_links_have_no_read_timeout_and_a_lost_link_kills_its_replica(tmp_path):
+    """A replica's DATA link may idle longer than the 30 s connect bound (its
+    clients pinned to it over frames): the links carry no read timeout, so
+    an idle link is never read as a lost one.  A link that is lost while
+    its replica still runs kills that replica before the slot restarts:
+    never two processes for one index."""
+    cfg = _cfg(tmp_path, serve_replicas=1, restart_backoff_s=0.01)
+    fakes = []
+    router = _fake_router(cfg, fakes, {0: [dict(), dict()]})
+    try:
+        slot = router.slots[0]
+        assert slot.sock.gettimeout() is None and slot.ctrl.gettimeout() is None
+        first = fakes[0]
+        router._on_down(slot, "connection lost")
+        assert first.dead
+        assert _until(lambda: router.slots[0].state == "healthy" and len(fakes) == 2)
+    finally:
+        router.close()
+
+
 def test_router_retry_is_once_then_typed_unavailable(tmp_path):
     cfg = _cfg(tmp_path, serve_replicas=2, restart_max=0)
     fakes = []

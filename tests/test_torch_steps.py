@@ -4,6 +4,9 @@ on its input paths, on the CPU.
 * ``make_scanned_train_step``: K steps per call, bitwise (``torch.equal``)
   K single steps, with the short tail group, on the rows and fused
   layouts;
+* ``ops.tail.rows_restored``, the K-step graph's warm-up guard: K steps
+  run inside it on every table layout leave the table and accumulator
+  bitwise as they were (the same steps outside it move them);
 * ``make_cached_train_step`` / ``make_cached_scan_train_step``: the
   resident-epoch steps bitwise the streamed steps on the same batches,
   shuffled and unshuffled, on both layouts;
@@ -114,6 +117,37 @@ def test_scanned_step_is_bitwise_k_single_steps(layout, k):
     assert torch.equal(torch.stack(got), torch.stack(want))
     _same(state, seq)
     assert state.step == 11 and scanned.graphs.replays == 0  # no graph on the CPU
+
+
+@pytest.mark.parametrize("layout", ["rows", "rows_row", "packed", "packed_row", "fused"])
+def test_k_steps_inside_rows_restored_leave_the_state_as_it_was(layout):
+    """The warm-up that ``StepGraphs`` runs before a capture: K steps on the
+    live table and accumulator inside ``rows_restored`` put back every row
+    the tails wrote, on the rows, packed (element and row accumulator) and
+    fused layouts, while the same K steps outside it train the state."""
+    from fast_tffm_tpu_torch.ops.tail import rows_restored
+    from fast_tffm_tpu_torch.trainer import k_step_loop
+
+    model, state = _state("fused" if layout == "fused" else "rows")
+    if layout.endswith("_row"):
+        state.table_accum = state.table_accum[:, :1].contiguous()
+    if layout.startswith("packed"):
+        state = pack_state(state, 0.1)
+    body = train_step_body if layout.startswith("rows") else packed_train_step_body
+    run = k_step_loop(model, 0.05, body, lambda i, *f: Batch(*(x[i] for x in f)))
+    group = _pairs(3)
+    fields = [getattr(Batch.stack_parsed([p for p, _ in group], [w for _, w in group]), f.name)
+              for f in dataclasses.fields(Batch)]
+    before = _clone(state)
+    with rows_restored():
+        _, inside = run(dataclasses.replace(state), *fields)  # the live tensors
+    _same(state, before)
+    trained, outside = run(_clone(before), *fields)
+    assert torch.equal(inside, outside)
+    assert not torch.equal(trained.table, before.table)
+    with rows_restored(), pytest.raises(RuntimeError, match="do not nest"):
+        with rows_restored():
+            pass
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
