@@ -11,14 +11,17 @@ last line:
             (one nvcc per source, all started together); each kernel
             function's registers, spills and shared memory from -Xptxas=-v
   anova_fwd the ANOVA forward kernel against its plain PyTorch version on the
-            card (rtol 1e-5, atol 1e-6) at the serving and training shapes,
-            with each one's median time per call by CUDA events (ms), its
-            device time from a torch.profiler trace (device_ms) and the
-            least time the card could take (bound_ms)
+            card (rtol 1e-5, atol 1e-6) at the serving and training shapes
+            and the quality zoo's fm3 batch (B 8,192, N 12, k 4), with each
+            one's median time per call by CUDA events (ms), its device time
+            from a torch.profiler trace (device_ms) and the least time the
+            card could take (bound_ms)
   anova_bwd the ANOVA backward kernel against anova_inter_bwd_plain, the same
             way (rtol 1e-5, atol 1e-6), at B in {1, 512, 16384} x order in
-            {3, 4}, a ragged shape and the criteo width N = 39
-  data      tools/gen_synthetic.py writes 24 x 16384 baseline5-shaped train
+            {3, 4}, a ragged shape, the criteo width N = 39 and the quality
+            zoo's fm3 batch (B 8,192, N 12, k 4)
+  data      tools/torch_gen_synthetic.py (tools/gen_synthetic.py's bytes)
+            writes 24 x 16384 baseline5-shaped train
             rows (--seed 7), 2 x 16384 validation rows (--seed 8) and the
             config's 64 x 16384-row epoch (--seed 9), all three at once
   data_zoo  the same tool, the four files at once with the seeds of the
@@ -226,7 +229,8 @@ last line:
             bitwise the clean cli run of the same config (and that the
             in-process run, whose launches are counted); then
             kill_publish@2 (SIGKILL between delta 1's tmp file and its
-            rename): resumed at the chain head (step 4), bitwise
+            rename): resumed at the chain head (step 4), bitwise; the clean
+            run and the two plans' runs at once
   follow    [Online] follow over the 393,216 train rows as an FMS stream
             (max_batches 24, idle timeout 5 s) at K = 1 and K = 8: over the
             file written whole, and over a file a writer thread appends in
@@ -344,9 +348,14 @@ last line:
             Zipf(1.1) ids, each bitwise its plain twin (B3's on a compacted
             copy of the touched tile rows, the rest of the array
             unchanged); times and bounds
-  bench_all bench_all_torch.py (the default sweep): exit 0, no FAILED row
-            and no *_error key (a knee run), the fit line's train AUC >= 0.99
-  loadgen   tools/torch_loadgen.py on baseline5 at full width: closed loop
+  bench_all bench_all_torch.py (the default sweep; in the whole script
+            started beside the dist and quality phases and waited for before
+            the throughput phase, so no measured phase runs beside it):
+            exit 0, no FAILED row and no *_error key (a
+            knee run), the fit line's train AUC >= 0.99
+  loadgen   tools/torch_loadgen.py on baseline5 at full width (in the whole
+            script beside the telemetry_train .. tiered_big phases, whose
+            gates are bitwise or functional; alone under --only drivers): closed loop
             in process, open loops at 25/50/75% of its rate; a 2-replica
             tier's closed loop, JSONL open loop and --stats over --connect;
             a --spawn open loop over binary frames at half the tier's closed
@@ -373,6 +382,18 @@ last line:
             config in process on the card (bitwise the CLI child's final
             checkpoint; B4 once per step) and on the CPU from the card
             run's initial state (within TABLE_ATOL)
+  quality   the quality tools as a user runs them (their output under
+            chiprun_out/tools/; in the whole script beside dist_b2), the
+            three at once: tools/torch_quality_zoo.py --quick (ffm, fm3,
+            deepfm and its FM baseline), tools/torch_backtest.py --quick
+            (gate OK) and tools/torch_scaling_study.py at one 200,000-row
+            point and one epoch (its oracle 0.91053): exit 0, every
+            held-out AUC above 0.5 and at most its oracle + 0.01, B4 in
+            every artifact's kernel_launches, B1 and B2 in the zoo's;
+            meanwhile the zoo's fm3 config (order 3, its --quick data) in
+            process on the card and on the CPU from one seeded npz:
+            validation AUCs within 0.002, tables within TABLE_ATOL, B1, B2
+            and B4 in every step
   kernels   one record per kernel: route, source, launches (the wrappers'
             counts over the eager train run; B3's over train_fused;
             launches_by_run adds the graphed train_cached runs' replays, and
@@ -391,7 +412,9 @@ last line:
             wrapper counts; loadgen_*: each in-process engine's and each
             replica's B1 launches); B4's and B3's `shapes` add the Zipf
             shapes (zipf_packed_b65536, zipf_fused_b65536); B4's adds the
-            tools' runs (chaos_reference, probe_tier)
+            tools' runs (chaos_reference, probe_tier); B1's, B2's and B4's
+            the quality runs (quality_fm3, quality_zoo, quality_backtest,
+            quality_study)
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -406,7 +429,8 @@ of dist_train alone, ``--only pod`` those and dist_cached and pod_card,
 ``--only orbax`` those and orbax_fixture, serve_reload's orbax case (on
 the fixture's states) and dist_b2, ``--only drivers`` those and the
 bench, zipf_tail, bench_all and loadgen phases, ``--only tools`` the
-device, build and data phases and the tools phase; none prints the
+device, build and data phases and the tools phase, ``--only quality``
+those and the quality phase; none prints the
 result line (development runs).
 Imports nothing of JAX or of the JAX package.
 """
@@ -422,6 +446,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -447,6 +472,11 @@ ANOVA_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 8, 64, 512, 
 ANOVA_SHAPES.append((130, 7, 5, 3))  # ragged: B off the block edge, k not dividing 32
 BWD_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 512, 16384)]
 BWD_SHAPES += [(130, 7, 5, 3), (2048, 39, 8, 3)]  # ragged; criteo's 39 features
+# The quality zoo's fm3 batch (tools/torch_quality_zoo.py: B 8,192, 12 fields,
+# k 4), drawn from its own seed so that every later phase keeps its data.
+QUALITY_FM3_SHAPE, QUALITY_FM3_SEED = (8192, 12, 4, 3), SEED + 20
+ANOVA_SHAPES.append(QUALITY_FM3_SHAPE)
+BWD_SHAPES.append(QUALITY_FM3_SHAPE)
 TRAIN_SHAPE = (16384, NNZ, 8, 3)  # baseline5's training batch
 BATCH = 16384  # baseline5's batch_size
 TRAIN_BATCHES, VALID_BATCHES = 24, 2
@@ -500,12 +530,103 @@ MLP_DRIFT_RTOL = 0.25
 
 
 T0 = time.perf_counter()
+_EMIT_LOCK = threading.Lock()  # a phase beside the main thread emits too
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    with _EMIT_LOCK:
+        sys.stdout.write(json.dumps(obj) + "\n")
+        sys.stdout.flush()
     if isinstance(obj, dict) and "phase" in obj:  # the script's clock at each phase's record
         log_stderr(f"chip_smoke: {time.perf_counter() - T0:.1f} s: {obj['phase']}")
+
+
+class _Beside(threading.Thread):
+    """``fn(*args)`` on a thread of its own, started at once, beside the
+    main thread's phases; ``result()`` waits for it and returns its value,
+    or raises what it raised (a ``fail`` there ends the script here).  Only
+    a phase whose kernels run in its own subprocesses goes beside: the
+    wrappers' counts are the main thread's."""
+
+    def __init__(self, fn, *args):
+        super().__init__(name=fn.__name__, daemon=True)
+        self._call, self._value, self._raised = (fn, args), None, None
+        self.start()
+
+    def run(self):
+        fn, args = self._call
+        try:
+            self._value = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - handed to the main thread
+            self._raised = e
+
+    def result(self):
+        self.join()
+        if self._raised is not None:
+            raise self._raised
+        return self._value
+
+
+def _children() -> list[int]:
+    """The live and unreaped processes whose parent is this one."""
+    me, out = str(os.getpid()), []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = f.read().rsplit(")", 1)[1].split()[1]
+        except (OSError, IndexError):
+            continue
+        if ppid == me:
+            out.append(int(pid))
+    return out
+
+
+def _stop_children() -> None:
+    """SIGKILL every process this script started that is still there, its
+    subprocesses too: main() makes this process their subreaper, so a
+    process whose parent went is this one's child and the next round
+    finds it.  Each one stopped is named on stderr."""
+    for _ in range(20):
+        pids = _children()
+        if not pids:
+            return
+        for pid in pids:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+                if cmd:  # a zombie has none: it has ended and is only reaped
+                    log_stderr(f"chip_smoke: stopping process {pid} left running: {cmd[:300]}")
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        for pid in pids:
+            try:
+                os.waitpid(pid, 0)
+            except ChildProcessError:
+                pass
+
+
+@contextlib.contextmanager
+def _reaping():
+    """Makes this process the subreaper of every process it starts (Linux
+    prctl PR_SET_CHILD_SUBREAPER, this process alone), turns SIGTERM into an
+    exit, and on the way out stops whatever is still running
+    (``_stop_children``), before the temporary directory goes."""
+    import ctypes
+
+    def on_term(signum, _):
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)  # a second one (a process group's) waits
+        sys.exit(128 + signum)
+
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)  # PR_SET_CHILD_SUBREAPER
+    signal.signal(signal.SIGTERM, on_term)
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        _stop_children()
 
 
 def fail(msg: str, code: int = 1):
@@ -805,6 +926,14 @@ def _z(rng, b: int, n: int, k: int):
     return torch.from_numpy((v * x).astype(np.float32)).cuda()
 
 
+def _shape_rng(rng, shape):
+    """The generator an ANOVA hold draws ``shape``'s inputs from: ``rng``,
+    or the quality zoo's batch's own."""
+    import numpy as np
+
+    return np.random.default_rng(QUALITY_FM3_SEED) if shape == QUALITY_FM3_SHAPE else rng
+
+
 def phase_anova(rng):
     import torch
 
@@ -812,7 +941,8 @@ def phase_anova(rng):
 
     worst, main = 0.0, None
     for b, n, k, order in ANOVA_SHAPES:
-        z = _z(rng, b, n, k)
+        r = _shape_rng(rng, (b, n, k, order))
+        z = _z(r, b, n, k)
         got = anova_inter(z, order)
         want = anova_inter_plain(z, order)
         torch.cuda.synchronize()
@@ -844,8 +974,9 @@ def phase_anova_bwd(rng):
 
     worst, main = 0.0, None
     for b, n, k, order in BWD_SHAPES:
-        z = _z(rng, b, n, k)
-        g = torch.from_numpy(rng.uniform(-1.0, 1.0, size=b).astype(np.float32)).cuda()
+        r = _shape_rng(rng, (b, n, k, order))
+        z = _z(r, b, n, k)
+        g = torch.from_numpy(r.uniform(-1.0, 1.0, size=b).astype(np.float32)).cuda()
         got = anova_inter_bwd(z, g, order)
         want = anova_inter_bwd_plain(z, g, order)
         torch.cuda.synchronize()
@@ -869,10 +1000,14 @@ def phase_anova_bwd(rng):
     return worst, main
 
 
+# tools/gen_synthetic.py's files, byte for byte, a block of rows at a time.
+GEN_SYNTHETIC = os.path.join(HERE, "tools", "torch_gen_synthetic.py")
+
+
 def _generate(jobs) -> None:
-    """tools/gen_synthetic.py (numpy only) once per (path, rows, arguments)
-    job, every job started at once."""
-    gen = os.path.join(HERE, "tools", "gen_synthetic.py")
+    """tools/torch_gen_synthetic.py (gen_synthetic.py's command line and
+    bytes) once per (path, rows, arguments) job, every job started at once."""
+    gen = GEN_SYNTHETIC
     procs = []
     for path, rows, args in jobs:
         cmd = [sys.executable, gen, "--rows", str(rows), "--vocab", str(1 << 20),
@@ -2372,6 +2507,27 @@ def _cli(args: list, timeout: int = 300) -> subprocess.CompletedProcess:
     """``python -m fast_tffm_tpu_torch.cli`` from the checkout."""
     return subprocess.run([sys.executable, "-m", "fast_tffm_tpu_torch.cli", *args], cwd=HERE,
                           capture_output=True, text=True, timeout=timeout)
+
+
+def _cli_start(args: list) -> tuple[subprocess.Popen, float]:
+    """``_cli(args)`` started, with its start time; ``_cli_end`` waits."""
+    return subprocess.Popen([sys.executable, "-m", "fast_tffm_tpu_torch.cli", *args], cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), time.perf_counter()
+
+
+def _cli_end(started, timeout: int = 300) -> tuple[subprocess.CompletedProcess, float]:
+    """A ``_cli_start`` run to its end (killed at ``timeout``, which raises
+    as ``_cli`` does): its CompletedProcess and wall seconds."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    return (subprocess.CompletedProcess(proc.args, proc.returncode, out, err),
+            time.perf_counter() - t0)
 
 
 def _cli_stop_and_resume(base, tmp: str, init: str, train_path: str, valid_path: str,
@@ -4259,20 +4415,22 @@ def phase_supervised(rng, tmp: str, train_path: str, valid_path: str) -> dict:
     ref_cfg = load_config(ini("reference"))
     ref = _run(f"{name} reference", ref_cfg)
     _expect_steps(f"{name} reference", ref["launches"], TRAIN_BATCHES)
+    # The clean run and each plan's run at once: each has its own files, and
+    # the faults are set by step, read and publish, not by time.
     clean_path = ini("clean")
-    r = _cli(["train", clean_path, "--resume"])
+    clean = _cli_start(["train", clean_path, "--resume"])
+    cfg_paths = [ini(f"plan{n}") for n in range(len(SUPERVISED_PLANS))]
+    runs = [_cli_start(["train", cfg_path, "--resume", "--supervised", "--fault-plan", plan])
+            for cfg_path, plan in zip(cfg_paths, SUPERVISED_PLANS)]
+    r, _ = _cli_end(clean)
     if r.returncode != 0:
         fail(f"{name}: the clean cli train exited {r.returncode}: {r.stderr[-2000:]}")
     clean_file = load_config(clean_path).model_file
     _same_files(f"{name} clean cli run", clean_file, ref_cfg.model_file, model.row_dim)
     out = {}
-    for n, plan in enumerate(SUPERVISED_PLANS):
-        cfg_path = ini(f"plan{n}")
+    for n, (plan, cfg_path, started) in enumerate(zip(SUPERVISED_PLANS, cfg_paths, runs)):
         cfg = load_config(cfg_path)
-        t0 = time.perf_counter()
-        r = _cli(["train", cfg_path, "--resume", "--supervised", "--fault-plan", plan],
-                 timeout=600)
-        wall_s = time.perf_counter() - t0
+        r, wall_s = _cli_end(started, timeout=600)
         if r.returncode != 0:
             fail(f"{name} {plan}: cli train --supervised exited {r.returncode}: "
                  f"{r.stderr[-2000:]} {r.stdout[-2000:]}")
@@ -5039,7 +5197,7 @@ def _start_b2_data(tmp: str):
     """baseline2's data, started in the background at the run's start (it
     is read only by dist_b2): 24 x 16,384 rows of gen_synthetic --fields 39
     --vocab 16777216 --seed 3, and 32,768 validation rows (--seed 4)."""
-    gen = os.path.join(HERE, "tools", "gen_synthetic.py")
+    gen = GEN_SYNTHETIC
     out = {}
     for part, rows, seed in (("train", B2_TRAIN_BATCHES * BATCH, 3),
                              ("valid", B2_VALID_ROWS, 4)):
@@ -6276,8 +6434,9 @@ BENCH_ALL_ARGS = ["bench_all_torch.py", "--out", os.path.join(DRIVERS_OUT, "benc
 
 def phase_bench_all(started=None) -> dict:
     """bench_all_torch.py from the checkout (default: the 600k-row held-out
-    slice; ``started``: already running): exit 0, no FAILED row and no
-    ``*_error`` key, the fit line's AUC >= FIT_AUC_MIN."""
+    slice; ``started``: already running, in the whole script beside the
+    dist and quality phases): exit 0, no FAILED row and no ``*_error`` key,
+    the fit line's AUC >= FIT_AUC_MIN."""
     path = BENCH_ALL_ARGS[-1]
     rc, _, seconds = _driver("bench_all_torch", BENCH_ALL_ARGS, 900, started=started)
     with open(path) as f:
@@ -6292,7 +6451,7 @@ def phase_bench_all(started=None) -> dict:
     if not fit or fit[0]["value"] < FIT_AUC_MIN:
         fail(f"bench_all_torch.py: the fit line's AUC {fit and fit[0]['value']} < {FIT_AUC_MIN}")
     emit({"phase": "bench_all", "seconds": seconds, "card": art.get("card"),
-          "beside_loadgen": started is not None,
+          "beside_dist_phases": started is not None,
           "rows": {r["metric"].split(":")[0] + (" @" + str(r["knee_batch"]) if "knee_batch" in r
                                                  else ""): [r["value"], r.get("knee_value")]
                    for r in art["results"]},
@@ -6309,7 +6468,7 @@ def _serve_summary(r: dict) -> dict:
         "p50_ms": ms.get("p50"), "p99_ms": ms.get("p99")}
 
 
-def phase_loadgen(tmp: str, beside_bench_all: bool = False) -> dict:
+def phase_loadgen(tmp: str, beside: str | None = None) -> dict:
     """tools/torch_loadgen.py on baseline5 at full width (order 3, 2^20 x 9,
     max_nnz 11; a fresh seeded checkpoint, --init-missing-checkpoint):
     closed loop in process (the saturation rate), open loop in process at
@@ -6318,9 +6477,11 @@ def phase_loadgen(tmp: str, beside_bench_all: bool = False) -> dict:
     half its closed rate), --stats; a --spawn run over binary frames at half
     the tier's closed rate; --probe-freshness 3.  Fails on an unanswered request, on any error
     below saturation (the open loops) and on a steady-state recompile.
-    Writes every run's BENCH_SERVE object to DRIVERS_OUT/BENCH_SERVE_TORCH.json."""
+    Writes every run's BENCH_SERVE object to DRIVERS_OUT/BENCH_SERVE_TORCH.json.
+    ``beside``: the main thread's phases it ran beside, if any (recorded;
+    its rates are then not the record)."""
     from fast_tffm_tpu_torch.serving.client import spawn_serve
-    from fast_tffm_tpu_torch.telemetry import device_stamp
+    from fast_tffm_tpu_torch.telemetry import device_stamp, write_json_artifact
 
     ckpt = os.path.join(tmp, "loadgen.ckpt")
     # No predict_files: loadgen synthesizes mixed-width request lines.
@@ -6403,16 +6564,15 @@ def phase_loadgen(tmp: str, beside_bench_all: bool = False) -> dict:
         "config": f"{CONFIG} (order {cfg.order}, {cfg.vocabulary_size} x {1 + cfg.factor_num}, "
                   f"max_nnz {cfg.max_nnz}; replicas 2, reload_interval_s 0.2)",
         "seconds_per_run": LOADGEN_S,
-        "beside_bench_all": beside_bench_all,
         "saturation_qps_inprocess": sat,
         "saturation_qps_socket_closed": ssat,
         "runs": runs,
         "stats": stats,
         "freshness": probe,
     }
-    with open(os.path.join(DRIVERS_OUT, "BENCH_SERVE_TORCH.json"), "w") as f:
-        json.dump(sweep, f, indent=1)
-    emit({"phase": "loadgen", "beside_bench_all": beside_bench_all,
+    write_json_artifact(os.path.join(DRIVERS_OUT, "BENCH_SERVE_TORCH.json"), sweep,
+                        sort_keys=False)
+    emit({"phase": "loadgen", "beside": beside,
           "saturation_qps_inprocess": sat,
           "saturation_qps_socket_closed": ssat,
           "runs": {n: _serve_summary(r) | {"command_s": r["command_s"]} for n, r in runs.items()},
@@ -6439,21 +6599,20 @@ def phase_bench_legs() -> tuple[dict, dict]:
     return bench, phase_zipf_tails(bench["scale_vocab_rows"])
 
 
-def phase_drivers(tmp: str, overlap: bool, bench_legs=None) -> dict:
-    """The three drivers and the Zipf-shape holds; returns each kernel's
-    launches by driver run.  ``overlap`` (the whole script, whose 1200 s
-    bound they would otherwise crowd) runs bench_all_torch.py beside the
-    loadgen phase: neither gates on a time, and their numbers are then not
-    the record (``--only drivers`` runs them one after the other and makes
-    the committed artifacts).  ``bench_legs``: phase_bench_legs()'s result
-    when it already ran (beside the tools phase)."""
+def phase_drivers(tmp: str, bench_legs=None, bench_all=None, serve=None) -> dict:
+    """The three drivers and the Zipf-shape holds, then loadgen alone;
+    returns each kernel's launches by driver run.  ``bench_legs``,
+    ``bench_all`` and ``serve``: phase_bench_legs()'s, phase_bench_all()'s
+    and phase_loadgen()'s results when they already ran (the whole script,
+    whose 1200 s bound they would otherwise crowd, runs the bench legs
+    beside the tools phase, bench_all_torch.py beside the dist and quality
+    phases and loadgen beside the telemetry_train .. tiered_big phases: none
+    gates on a time, and their numbers are then not the record; ``--only
+    drivers`` runs each alone and makes the committed artifacts)."""
     bench, zipf = bench_legs or phase_bench_legs()
-    if overlap:
-        started = _start_driver(BENCH_ALL_ARGS)
-        serve = phase_loadgen(tmp, beside_bench_all=True)
-        bench_all = phase_bench_all(started)
-    else:
+    if bench_all is None:
         bench_all = phase_bench_all()
+    if serve is None:
         serve = phase_loadgen(tmp)
     by_kernel = {k: {} for k in KERNELS}
     for run, counts in (("bench_torch", bench["kernel_launches"]),
@@ -6615,6 +6774,130 @@ def phase_tools(tmp: str, beside=None) -> dict:
             "beside": beside_result}
 
 
+# The quality tools: the study's one point, and the in-process
+# hold's order-3 FM on the zoo's --quick data (fm3: 12 fields, seeds 20/21).
+QUALITY_STUDY_ROWS, QUALITY_STUDY_ORACLE = 200_000, 0.91053
+QUALITY_HOLD_ROWS, QUALITY_HOLD_TEST_ROWS, QUALITY_HOLD_EPOCHS = 60_000, 8_000, 2
+QUALITY_ORACLE_SLACK = 0.01  # a held-out AUC above its oracle by more is a fault
+
+
+def _quality_hold(tmp: str) -> dict:
+    """tools/torch_quality_zoo.py's fm3 config (order 3, its --quick data)
+    through training.train in process, on the card and then on the CPU from
+    one seeded npz: the validation AUCs of every epoch within AUC_TOL, the
+    trained tables within TABLE_ATOL, and B1, B2 and B4 launched in each
+    step of the card run."""
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+    from fast_tffm_tpu_torch.config import build_model
+    from tools import torch_quality_zoo as zoo
+
+    d = os.path.join(tmp, "quality_fm3")
+    os.makedirs(d, exist_ok=True)
+    tr, _, _ = zoo._gen_split(d, "fm3_tr", zoo.planted_fm3_score, 12, QUALITY_HOLD_ROWS, 20,
+                              "libsvm")
+    te, _, _ = zoo._gen_split(d, "fm3_te", zoo.planted_fm3_score, 12, QUALITY_HOLD_TEST_ROWS,
+                              21, "libsvm")
+    base = zoo.train_config(d, "fm3", tr, te, model="fm", fields=0, epochs=QUALITY_HOLD_EPOCHS,
+                            order=3, lr=0.25)
+    model = build_model(base)
+    table, _, init = _seeded_init(np.random.default_rng(SEED + 19), d, "quality_fm3", base,
+                                  model, False)
+    aucs, states, seconds = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        cfg = _phase_cfg(base, d, "quality_fm3", device, init,
+                         metrics_path=os.path.join(d, f"jl_fm3.{device}.jsonl"))
+        if device == "cuda":
+            _zero_counters()
+        _, seconds[device] = _train_once(cfg, device, [])
+        if device == "cuda":
+            launches = _wrapper_counts()
+        with open(cfg.metrics_path) as f:
+            aucs[device] = [r["validation_auc"] for r in map(json.loads, f)
+                            if "validation_auc" in r]
+        states[device] = restore_checkpoint(cfg.model_file, torch.device("cpu"),
+                                            accum_width=model.row_dim)
+    steps = states["cuda"].step
+    _expect_steps("quality: the zoo's fm3 config", launches, steps)
+    diff = max((abs(a - b) for a, b in zip(aucs["cuda"], aucs["cpu"])), default=float("inf"))
+    table_diff = float(np.abs(states["cuda"].table.numpy() - states["cpu"].table.numpy()).max())
+    if len(aucs["cuda"]) != QUALITY_HOLD_EPOCHS or len(aucs["cpu"]) != len(aucs["cuda"]) or (
+            diff > AUC_TOL) or states["cpu"].step != steps or not table_diff <= TABLE_ATOL:
+        fail(f"quality: the zoo's fm3 config, validation AUCs card {aucs['cuda']} against CPU "
+             f"{aucs['cpu']} (within {AUC_TOL}), steps {steps} / {states['cpu'].step}, "
+             f"max abs table diff {table_diff} (within {TABLE_ATOL})")
+    return {"steps": steps, "launches": launches, "validation_auc": aucs,
+            "max_abs_auc_diff": diff, "seconds": seconds, "max_abs_table_diff": table_diff,
+            "max_abs_table_update": float(np.abs(states["cuda"].table.numpy() - table).max())}
+
+
+def _held_out_ok(auc: float, oracle: float) -> bool:
+    return 0.5 < auc <= oracle + QUALITY_ORACLE_SLACK
+
+
+def phase_quality(tmp: str, beside=None) -> dict:
+    """The quality tools on the card as a user runs them, all three at once
+    (torch_quality_zoo.py --quick, torch_backtest.py --quick,
+    torch_scaling_study.py at one small point and one epoch), the zoo's fm3
+    config in process meanwhile (``_quality_hold``), then ``beside()`` while
+    they run (the whole script: phase_dist_b2).  Gates: every tool exits 0;
+    every held-out AUC above 0.5 and at most its oracle + 0.01; the study's
+    oracle the JAX artifact's; the backtest's gate OK; B4 in every
+    artifact's kernel_launches, B1 and B2 too in the zoo's.  Returns each
+    kernel's launches by run under ``launches`` and ``beside()``'s result
+    under ``beside``."""
+    t0 = time.perf_counter()
+    out = {k: os.path.join(TOOLS_OUT, f"{k}.json")
+           for k in ("QUALITY_ZOO_TORCH_quick", "BACKTEST_TORCH_quick", "SCALING_STUDY_TORCH_point")}
+    for path in out.values():
+        if os.path.exists(path):
+            os.remove(path)  # an artifact read below is this run's
+    zoo = _start_driver(["tools/torch_quality_zoo.py", "--quick", "--device", "cuda",
+                         "--out", out["QUALITY_ZOO_TORCH_quick"]])
+    backtest = _start_driver(["tools/torch_backtest.py", "--quick", "--device", "cuda",
+                              "--out", out["BACKTEST_TORCH_quick"]])
+    study = _start_driver(["tools/torch_scaling_study.py", "--rows", str(QUALITY_STUDY_ROWS),
+                           "--epochs", "1", "--device", "cuda",
+                           "--out", out["SCALING_STUDY_TORCH_point"]])
+    hold = _quality_hold(tmp)
+    hold_s = time.perf_counter() - t0
+    beside_result = beside() if beside is not None else None
+    rc, z, zoo_s = _tool_artifact("torch_quality_zoo", zoo, out["QUALITY_ZOO_TORCH_quick"], 600)
+    fams = z["families"]
+    aucs = {f"{k}{suffix}": (r[key], r["oracle_auc"]) for k, r in fams.items()
+            for key, suffix in (("heldout_auc", ""), ("fm_baseline_auc", "_fm_baseline"))
+            if key in r}
+    kl = z["kernel_launches"]
+    if rc != 0 or set(fams) != {"ffm", "fm3", "deepfm"} or not all(
+            _held_out_ok(*v) for v in aucs.values()) or not (
+            kl["rows_tail_adagrad"] and kl["anova_fwd"] and kl["anova_bwd"]):
+        fail(f"quality: torch_quality_zoo.py --quick exited {rc}: {json.dumps(z)[:2000]}")
+    rc, bt, bt_s = _tool_artifact("torch_backtest", backtest, out["BACKTEST_TORCH_quick"], 600)
+    if rc != 0 or bt["gate"] != "OK" or not bt["kernel_launches"]["rows_tail_adagrad"]:
+        fail(f"quality: torch_backtest.py --quick exited {rc}: {json.dumps(bt)[:2000]}")
+    rc, ss, ss_s = _tool_artifact("torch_scaling_study", study, out["SCALING_STUDY_TORCH_point"],
+                                  600)
+    (point,) = ss["points"]
+    if rc != 0 or point["oracle_auc"] != QUALITY_STUDY_ORACLE or not _held_out_ok(
+            point["heldout_auc"], point["oracle_auc"]) or not ss["kernel_launches"][
+            "rows_tail_adagrad"]:
+        fail(f"quality: torch_scaling_study.py exited {rc}: {json.dumps(ss)[:2000]}")
+    emit({"phase": "quality", "seconds": time.perf_counter() - t0, "hold_seconds": hold_s,
+          "card": z["card"], "fm3_hold": hold,
+          "zoo": {"seconds": zoo_s, "families": fams, "kernel_launches": kl},
+          "backtest": {"seconds": bt_s, **{k: bt[k] for k in (
+              "gate", "auc_by_hour", "auc_online_mean", "auc_batch_mean", "worst_hour_gap",
+              "kernel_launches")}},
+          "scaling_study": {"seconds": ss_s, "point": point,
+                            "kernel_launches": ss["kernel_launches"]}})
+    by_run = {"quality_fm3": hold["launches"], "quality_zoo": kl,
+              "quality_backtest": bt["kernel_launches"], "quality_study": ss["kernel_launches"]}
+    return {"launches": {k: {run: c[k] for run, c in by_run.items() if c[k]} for k in KERNELS},
+            "beside": beside_result}
+
+
 def _kernel_record(name, source, replaces, launches, worst, main, launches_by_run,
                    shapes=None, packed=None) -> dict:
     rec = {
@@ -6645,6 +6928,11 @@ def _kernel_record(name, source, replaces, launches, worst, main, launches_by_ru
 
 
 def main() -> int:
+    with _reaping():
+        return _smoke()
+
+
+def _smoke() -> int:
     if not os.path.isdir(os.path.join(HERE, "fast_tffm_tpu_torch")):
         fail("fast_tffm_tpu_torch/ not found beside chip_smoke.py: run it from a "
              "checkout of the repository", code=2)
@@ -6660,15 +6948,20 @@ def main() -> int:
     fwd = phase_anova(rng)
     bwd = phase_anova_bwd(rng)
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, contextlib.ExitStack() as ends:
+        ends.callback(_stop_children)  # before the directory goes
         train_path, valid_path, big_path = phase_data(tmp)
         if only == "drivers":
             # This slice's phases alone (no kernels line, no result line).
-            phase_drivers(tmp, overlap=False)
+            phase_drivers(tmp)
             return 0
         if only == "tools":
             # The chaos, soak and tiered-probe tools alone (no result line).
             phase_tools(tmp)
+            return 0
+        if only == "quality":
+            # The quality tools and the fm3 hold alone (no result line).
+            phase_quality(tmp)
             return 0
         if only == "pod":
             # A short run of this slice's phases alone (no result line).
@@ -6728,6 +7021,11 @@ def main() -> int:
         packed = {acc: phase_train_packed(rng, tmp, train_path, valid_path, acc)
                   for acc in ("element", "row")}
         dedup = phase_train_dedup(tmp, streamed)
+        # loadgen (its kernels run in its subprocesses) beside the phases
+        # from telemetry_train to tiered_big, whose gates are bitwise or
+        # functional: the script's 1200 s bound, on a slow host, does not
+        # hold it at the end (its rates here are not the record).
+        loadgen = _Beside(phase_loadgen, tmp, "telemetry_train..tiered_big")
         # This slice's phases (their own seed: the phases above keep their data).
         observed = {"telemetry_train": phase_telemetry_train(tmp, cuda_cfg),
                     "telemetry_cached_replays": phase_telemetry_cached(tmp, cuda_cfg)}
@@ -6753,10 +7051,18 @@ def main() -> int:
         observed.update(phase_wire(np.random.default_rng(SEED + 14), tmp, train_path))
         observed.update(phase_tiered(tmp, train_path, valid_path))
         observed.update(phase_tiered_big(tmp))
+        served_by_loadgen = loadgen.result()
         # This slice's phases: dist_train / dist_predict at full width, the
         # shard apply at R = 2 and 4, NCCL at world size 1.
         phase_orbax_fixture()
-        observed.update(phase_dist_b2(tmp, b2_jobs))
+        # bench_all_torch.py (a measuring driver) from here to the end of
+        # pod_card, beside the dist and quality phases (whose gates are
+        # bitwise or functional) and waited for before the measured phases;
+        # the quality tools beside dist_b2: their runs' launches join the
+        # kernels line below.
+        bench_all_started = _start_driver(BENCH_ALL_ARGS)
+        quality = phase_quality(tmp, beside=lambda: phase_dist_b2(tmp, b2_jobs))
+        observed.update(quality["beside"])
         observed.update(phase_dist_b5(np.random.default_rng(SEED + 15), tmp, train_path,
                                       valid_path))
         phase_shard_update(np.random.default_rng(SEED + 16), train_path)
@@ -6767,14 +7073,17 @@ def main() -> int:
                                             valid_path, big_path)
         observed.update(cached)
         phase_pod_card(tmp, pod_ref, dev["nvidia_smi"])
+        bench_all = phase_bench_all(bench_all_started)
         phase_throughput(tmp, big_path)
         phase_telemetry_cost(tmp, big_path)
-        # This slice's phases: the measuring drivers as a user runs them, and
-        # B4 and B3 held against their twins at the drivers' Zipf shapes.
-        # The chaos, soak and beyond-HBM tools (slice 16), run beside the
-        # bench, kstep_big and zipf_tail phases; then the other drivers.
+        # The measuring drivers as a user runs them, and B4 and B3 held
+        # against their twins at the drivers' Zipf shapes: bench_all_torch.py
+        # and loadgen (started above) ended before the measured phases; the
+        # chaos, soak and beyond-HBM tools run beside the bench, kstep_big
+        # and zipf_tail phases.
         tools = phase_tools(tmp, beside=phase_bench_legs)
-        drivers = phase_drivers(tmp, overlap=True, bench_legs=tools["beside"])
+        drivers = phase_drivers(tmp, bench_legs=tools["beside"], bench_all=bench_all,
+                                serve=served_by_loadgen)
     src = "fast_tffm_tpu_torch/csrc/"
     # Launches: the wrappers' counts over the main path, the eager train run
     # (train_fused for B3; 24 steps: B1 once per step and per validation
@@ -6819,6 +7128,9 @@ def main() -> int:
                          (b4_runs, "rows_tail_adagrad"), (b3_runs, "fused_tail_adagrad")):
         runs.update(drivers["launches"][kernel])
     b4_runs.update(tools["launches"])
+    for runs, kernel in ((fwd_runs, "anova_fwd"), (bwd_runs, "anova_bwd"),
+                         (b4_runs, "rows_tail_adagrad")):
+        runs.update(quality["launches"][kernel])
     tail_shapes["zipf_packed_b65536"] = drivers["zipf"]["rows_tail_adagrad"]
     emit({"kernels": [
         _kernel_record("anova_fwd", src + "anova_fwd.cu",

@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Batch", "masked_l2", "logistic_loss", "compute_round"]
+__all__ = ["Batch", "masked_l2", "logistic_per_example", "logistic_loss", "compute_round"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,9 +106,22 @@ def masked_l2(rows: torch.Tensor, vals: torch.Tensor, bias_lambda: float, factor
     return bias_lambda * bias_term + factor_lambda * factor_term
 
 
+def logistic_per_example(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-example sigmoid cross-entropy, log(1 + e^{-yx}) in the stable
+    log-sum-exp form, whose gradient is sigmoid(s) - y at every score.
+
+    The form's max(s, 0) and |s| have no derivative at s = 0, where autograd
+    takes 1 and 0 and the form's gradient would be 1 - y instead of 1/2 - y:
+    a score that is exactly 0 on one device and a few ulps off it on another
+    would then take gradients a factor of 2 apart.  The last term is 0 in
+    value, -1/2 in gradient at s = 0 exactly and an exact 0 elsewhere, so
+    every loss and every other gradient is the form's own, bit for bit."""
+    per = torch.clamp_min(scores, 0.0) - scores * labels + torch.log1p(torch.exp(-torch.abs(scores)))
+    return per - 0.5 * torch.where(scores == 0, scores, torch.zeros_like(scores))
+
+
 def logistic_loss(scores: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor):
     """Weighted mean sigmoid cross-entropy (the reference's training loss)."""
-    # log(1 + e^{-yx}) in the stable log-sum-exp form.
-    per = torch.clamp_min(scores, 0.0) - scores * labels + torch.log1p(torch.exp(-torch.abs(scores)))
+    per = logistic_per_example(scores, labels)
     denom = torch.clamp_min(torch.sum(weights), 1.0)
     return torch.sum(per * weights) / denom

@@ -39,7 +39,7 @@ import dataclasses
 
 import torch
 
-from fast_tffm_tpu_torch.models.base import Batch
+from fast_tffm_tpu_torch.models.base import Batch, logistic_per_example
 from fast_tffm_tpu_torch.ops.packed_table import (
     fused_rows_per_tile,
     pack_accum_any,
@@ -299,8 +299,7 @@ def _sharded_grads(model, rows, state: TrainState, batch: Batch, mesh: Mesh):
     rows = rows.detach().requires_grad_(True)
     dense = [p.detach().requires_grad_(True) for p in state.dense]
     scores = model.score(rows, dense, batch)
-    per = (torch.clamp_min(scores, 0.0) - scores * batch.labels
-           + torch.log1p(torch.exp(-torch.abs(scores))))
+    per = logistic_per_example(scores, batch.labels)
     data_loss = torch.sum(per * batch.weights) / denom
     total = data_loss + model.regularization(rows, dense, batch)
     g_rows, *g_dense = torch.autograd.grad(total, [rows, *dense])

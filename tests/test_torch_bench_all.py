@@ -4,9 +4,11 @@
   FFM fields).
 * The sweep on the CPU at small sizes set through the module's constants:
   every row of bench_all.py's order (cfg1-cfg5, predict, the input and
-  end-to-end rows, the convergence pair, the packed rows with their knee
-  batches), the artifact rewritten after each row with the card stamp and
-  the left-out sections; exit 0.  A section that raises costs one FAILED
+  end-to-end rows, the convergence pair, the quality rows folded from the
+  committed QUALITY_ZOO_TORCH_r17.json, the packed rows with their knee
+  batches; the held-out line's converged point from
+  SCALING_STUDY_TORCH_r17.json), the artifact rewritten after each row with
+  the card stamp; exit 0.  A section that raises costs one FAILED
   row and the exit code is 1.
 * Convergence, on one generated file each: the fit line's train AUC within
   0.02 of the JAX package's ``train`` under bench_all.py's fit config on
@@ -50,8 +52,18 @@ def _small(monkeypatch):
                         ("HELDOUT_TEST_ROWS", TEST_ROWS)):
         monkeypatch.setattr(ba, name, value)
 
+@pytest.fixture
+def one_torch_thread():
+    """A sweep on one intra-op thread: on a host whose cores are busy
+    with other work, a pool of one thread per core waits at every parallel
+    region on its slowest thread, and the run slows many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
-def test_sweep_rows_and_artifact(tmp_path, monkeypatch, capsys):
+
+def test_sweep_rows_and_artifact(tmp_path, monkeypatch, capsys, one_torch_thread):
     _small(monkeypatch)
     out = tmp_path / "bench_all.json"
     assert ba.main(["--device", "cpu", "--out", str(out)]) == 0
@@ -59,8 +71,8 @@ def test_sweep_rows_and_artifact(tmp_path, monkeypatch, capsys):
     names = [r["metric"].split(":")[0] for r in art["results"]]
     assert names == ["cfg1", "cfg2", "cfg3", "cfg4", "cfg5", "predict ex/s/chip (FM order2 k=8, "
                      "nnz=39, vocab=1M)", "input", "input", "end-to-end", "end-to-end",
-                     "convergence fit", "convergence heldout", "cfg1p", "cfg3p", "cfg3pb",
-                     "cfg4p", "cfg5p", "cfg2p"]
+                     "convergence fit", "convergence heldout", "cfg3 quality", "cfg5 quality",
+                     "cfg4 quality", "cfg1p", "cfg3p", "cfg3pb", "cfg4p", "cfg5p", "cfg2p"]
     assert all(r["value"] is not None and r["value"] > 0 for r in art["results"])
     for r in art["results"]:
         assert {"metric", "value", "unit", "vs_baseline"} <= set(r)
@@ -70,12 +82,20 @@ def test_sweep_rows_and_artifact(tmp_path, monkeypatch, capsys):
                      "cfg2p": 512}
     assert all("knee_value" in r for r in art["results"] if "knee_batch" in r)
     assert art["generated_by"] == "bench_all_torch.py" and art["device"] == "cpu"
-    assert art["card"] is None and "bench_quality_zoo" in art["left_out"]
+    assert art["card"] is None and "left_out" not in art
+    # The folded rows: the committed card artifacts, each beside its source.
+    rows = {r["metric"].split(":")[0]: r for r in art["results"]}
+    for name in ("cfg3 quality", "cfg5 quality", "cfg4 quality"):
+        assert rows[name]["source"].startswith("QUALITY_ZOO_TORCH_r17.json")
+        assert 0.5 < rows[name]["value"] <= rows[name]["oracle_auc"]
+    heldout = rows["convergence heldout"]
+    assert heldout["converged_source"].startswith("SCALING_STUDY_TORCH_r17.json")
+    assert heldout["measured_slice_this_run"]["rows"] == HELDOUT_ROWS
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert last["metrics"] == 18 and last["failed"] == []
+    assert last["metrics"] == 21 and last["failed"] == []
 
 
-def test_failed_section_exits_nonzero(tmp_path, monkeypatch):
+def test_failed_section_exits_nonzero(tmp_path, monkeypatch, one_torch_thread):
     _small(monkeypatch)
     for name in ("bench_input", "bench_end_to_end_ab", "bench_convergence"):
         monkeypatch.setattr(ba, name, lambda sw, *a, **kw: None)

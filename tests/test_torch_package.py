@@ -13,6 +13,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 from types import SimpleNamespace
@@ -57,12 +58,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "import threading\n"
-        "for m in ('tools.torch_chaos', 'tools.torch_soak', 'tools.torch_probe_tier'):\n"
+        "for m in ('tools.torch_chaos', 'tools.torch_soak', 'tools.torch_probe_tier',"
+        " 'tools.torch_quality_zoo', 'tools.torch_scaling_study', 'tools.torch_backtest',"
+        " 'tools.torch_gen_synthetic'):\n"
         "    importlib.import_module(m)\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'fast_tffm_tpu' or m.startswith('fast_tffm_tpu.')"
-        " or m in ('bench', 'bench_all', 'tools.chaos', 'tools.soak', 'tools.probe_tier'))\n"
+        " or m in ('bench', 'bench_all', 'tools.chaos', 'tools.soak', 'tools.probe_tier',"
+        " 'tools.quality_zoo', 'tools.scaling_study', 'tools.backtest'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -481,3 +485,55 @@ def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
     alone.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
     r = _run([str(alone)], cwd=tmp_path)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+# chip_smoke.py's process hygiene, in a child interpreter of its own (the
+# helpers make their process a subreaper and take over SIGTERM).
+_REAPING_CHILD = r"""
+import os, signal, subprocess, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+
+assert cs._Beside(lambda x: 2 * x, 21).result() == 42
+try:
+    cs._Beside(cs.fail, "from the thread").result()
+    raise AssertionError("the thread's fail did not reach the main thread")
+except SystemExit as e:
+    assert e.code == 1
+mode = sys.argv[2]
+with cs._reaping():
+    # A child that leaves a grandchild in a session of its own, and a child
+    # in a session of its own that waits on one.
+    subprocess.Popen([sys.executable, "-c", "import subprocess; "
+                      "print(subprocess.Popen(['sleep', '300'], start_new_session=True).pid)"],
+                     stdout=open(sys.argv[3], "w")).wait()
+    waiter = subprocess.Popen([sys.executable, "-c", "import subprocess, sys; "
+                               "print(subprocess.Popen(['sleep', '300'], start_new_session=True)"
+                               ".pid, flush=True); sys.stdin.read()"],
+                              stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+                              start_new_session=True)
+    with open(sys.argv[3], "a") as f:
+        f.write(f"{waiter.pid}\n{waiter.stdout.readline()}")
+    if mode == "term":
+        print("ready", flush=True)
+        cs._Beside(waiter.wait).result()
+print("ended", flush=True)
+"""
+
+
+@pytest.mark.parametrize("mode", ["return", "term"])
+def test_chip_smoke_stops_every_process_it_started(tmp_path, mode):
+    pids_file = tmp_path / "pids"
+    proc = subprocess.Popen([sys.executable, "-c", _REAPING_CHILD, REPO, mode, str(pids_file)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    if mode == "term":
+        assert proc.stdout.readline().strip() == "ready"
+        proc.send_signal(signal.SIGTERM)
+    out, err = proc.communicate(timeout=60)
+    assert proc.returncode == (0 if mode == "return" else 143), err
+    assert ("ended" in out) == (mode == "return")
+    pids = [int(p) for p in pids_file.read_text().split()]
+    assert len(pids) == 3
+    assert err.count("left running") == 3, err
+    for pid in pids:  # gone, not merely orphaned
+        assert not os.path.exists(f"/proc/{pid}"), pid
