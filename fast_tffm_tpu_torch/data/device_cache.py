@@ -41,6 +41,7 @@ import torch
 from fast_tffm_tpu_torch.models.base import Batch
 from fast_tffm_tpu_torch.trainer import k_step_loop, train_step_body
 from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
+from fast_tffm_tpu_torch.utils.tracing import span
 
 __all__ = [
     "DeviceDataset",
@@ -200,11 +201,13 @@ def set_permutation(data: DeviceDataset, perm: np.ndarray) -> None:
 
 
 def _batch(data: DeviceDataset, i: torch.Tensor, shuffled: bool) -> Batch:
-    """Batch ``i`` (a device index) gathered from the resident arrays."""
-    rows = i * data.batch_size + data.offsets
-    if shuffled:
-        rows = data.perm.index_select(0, rows)
-    return Batch(*(a.index_select(0, rows) for a in data.arrays))
+    """Batch ``i`` (a device index) gathered from the resident arrays (the
+    span ``batch``)."""
+    with span("batch"):
+        rows = i * data.batch_size + data.offsets
+        if shuffled:
+            rows = data.perm.index_select(0, rows)
+        return Batch(*(a.index_select(0, rows) for a in data.arrays))
 
 
 def call_ids(data: DeviceDataset, i: torch.Tensor, shuffled: bool) -> torch.Tensor:

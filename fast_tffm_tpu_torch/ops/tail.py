@@ -46,6 +46,11 @@ about to write (in this thread) is saved first and put back at its end:
 the K-step graph's warm-up runs on the live state at the cost of the rows
 its batches touch (``utils/step_graph.py``).
 
+Spans (``utils/tracing.py``): an ``*_update`` sorts inside the span
+``sort`` and launches its kernel inside ``tail``; while spans are on it
+counts the step's distinct ids on the sort's output on the device
+(``tail.unique_rows``), between the two spans.
+
 ``packed=True`` takes the packed layout's ``[VP, 128]`` table and its
 ``[VP, 128]`` or ``[VP, P]`` accumulator; D is ``row_grads``' width.
 
@@ -80,6 +85,7 @@ from fast_tffm_tpu_torch.optim import (
     sorted_segment_sum,
     sqrt_rn,
 )
+from fast_tffm_tpu_torch.utils import tracing
 
 __all__ = [
     "rows_tail_adagrad_update",
@@ -297,6 +303,17 @@ def rows_tail_apply(
     return _rows_launch(table, accum, uids, None, gsum, lr, decay)
 
 
+def _sorted(ids: torch.Tensor):
+    """The stable sort of the flat ids and its permutation (the span
+    ``sort``); while spans are on, counts the step's distinct ids
+    (``tail.unique_rows``) on the sort's output on the device."""
+    with tracing.span("sort"):
+        sid, order = torch.sort(ids.reshape(-1), stable=True)
+    if tracing.spans_enabled() and sid.numel():
+        tracing.count_on_device("tail.unique_rows", (sid[1:] != sid[:-1]).sum() + 1)
+    return sid, order
+
+
 def rows_tail_adagrad_update(
     table: torch.Tensor,
     accum: torch.Tensor,
@@ -316,11 +333,12 @@ def rows_tail_adagrad_update(
     arrays (the JAX package's packed tails hold the same sums in the same
     order)."""
     d = row_grads.shape[-1]
-    sid, order = torch.sort(ids.reshape(-1), stable=True)
-    return rows_tail_sorted(
-        table, accum, sid, order, row_grads.reshape(-1, d).contiguous(), lr, decay=decay,
-        packed=packed,
-    )
+    sid, order = _sorted(ids)
+    with tracing.span("tail"):
+        return rows_tail_sorted(
+            table, accum, sid, order, row_grads.reshape(-1, d).contiguous(), lr, decay=decay,
+            packed=packed,
+        )
 
 
 rows_tail_adagrad_update.launches = 0
@@ -474,10 +492,11 @@ def fused_tail_adagrad_update(
     if k_cap < 0:
         raise ValueError(f"k_cap must be >= 0, got {k_cap}")
     d = row_grads.shape[-1]
-    sid, order = torch.sort(ids.reshape(-1), stable=True)
-    return fused_tail_sorted(
-        fused, sid, order, row_grads.reshape(-1, d).contiguous(), lr, decay=decay
-    )
+    sid, order = _sorted(ids)
+    with tracing.span("tail"):
+        return fused_tail_sorted(
+            fused, sid, order, row_grads.reshape(-1, d).contiguous(), lr, decay=decay
+        )
 
 
 fused_tail_adagrad_update.launches = 0

@@ -31,6 +31,8 @@ import time
 
 import numpy as np
 
+from fast_tffm_tpu_torch.utils import tracing
+
 __all__ = [
     "parse_profile_steps",
     "StepProfiler",
@@ -61,10 +63,15 @@ def parse_profile_steps(spec: str) -> tuple[int, int] | None:
 class StepProfiler:
     """A bounded ``torch.profiler`` trace over a step window (see the module
     docstring).  ``on_step(step)`` runs once per completed call with the
-    step counter after it: two comparisons outside the window.  ``close()``
+    step counter after it: a few comparisons outside the window.  ``close()``
     stops a trace still open, so a window past the run's end still yields a
     trace.  ``cuda`` adds the card's activity.  A trace that cannot start
-    (another profiler is open: they do not nest) is logged and skipped."""
+    (another profiler is open: they do not nest) is logged and skipped.
+    Spans (``utils/tracing.spans_on``) are on from the call before the
+    window, when the previous call's length says the next one opens it
+    (so the instrumented graph is captured outside the trace), until the
+    trace stops; the ``trace_stop`` record carries the counters' change
+    over the window (``counters``)."""
 
     def __init__(self, spec: str, out_dir: str, *, monitor=None, log=None, cuda: bool = False):
         self._range = parse_profile_steps(spec)
@@ -75,6 +82,9 @@ class StepProfiler:
         self._prof = None
         self._done = self._range is None
         self._t0 = 0.0
+        self._last: int | None = None  # the step after the previous call
+        self._spans = False  # this profiler turned spans on
+        self._at_start: dict = {}
         self.path: str | None = None
 
     def _emit(self, step: int, event: str, **extra) -> None:
@@ -92,17 +102,22 @@ class StepProfiler:
         if self._done:
             return
         lo, hi = self._range
+        last, self._last = self._last, step
+        if self._prof is None and not self._spans and (
+                step >= lo or (last is not None and 2 * step - last >= lo)):
+            tracing.spans_on(True)
+            self._spans = True
         if self._prof is None and step >= lo:
             import torch
             import torch.profiler
 
-            from fast_tffm_tpu_torch.utils.tracing import _activities
-
-            prof = torch.profiler.profile(activities=_activities(self._cuda))
+            self._at_start = tracing.counters()
+            prof = torch.profiler.profile(activities=tracing._activities(self._cuda))
             try:
                 prof.start()
             except RuntimeError as e:  # another profiler is open
                 self._done = True
+                self._spans_off()
                 if self._log is not None:
                     self._log(f"profile trace failed to start: {e!r}")
                 return
@@ -123,8 +138,6 @@ class StepProfiler:
             self._stop(step)
 
     def _stop(self, step: int) -> None:
-        from fast_tffm_tpu_torch.utils.tracing import export_trace
-
         prof, self._prof = self._prof, None
         self._done = True
         if self._cuda:
@@ -132,17 +145,26 @@ class StepProfiler:
 
             torch.cuda.synchronize()  # the window's last launches finish inside the trace
         prof.stop()
+        counters = tracing.counter_delta(self._at_start)
+        self._spans_off()
         dt = time.perf_counter() - self._t0
         lo, hi = self._range
-        self.path = export_trace(prof, self._dir, f"profile_steps_{lo}_{hi}")
+        self.path = tracing.export_trace(prof, self._dir, f"profile_steps_{lo}_{hi}")
         if self._log is not None:
             self._log(f"profiling: trace stopped at step {step} ({dt:.2f}s captured) "
                       f"-> {self.path}")
-        self._emit(step, "trace_stop", trace_s=round(dt, 3), trace_path=self.path)
+        self._emit(step, "trace_stop", trace_s=round(dt, 3), trace_path=self.path,
+                   counters=counters)
+
+    def _spans_off(self) -> None:
+        if self._spans:
+            tracing.spans_on(False)
+            self._spans = False
 
     def close(self, step: int = 0) -> None:
         if self._prof is not None:
             self._stop(step)
+        self._spans_off()
 
 
 # -- the cost ledger -------------------------------------------------------

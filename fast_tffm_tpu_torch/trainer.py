@@ -37,6 +37,7 @@ from fast_tffm_tpu_torch.ops.tail import (
 )
 from fast_tffm_tpu_torch.optim import dense_adagrad_update, init_table_adagrad
 from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
+from fast_tffm_tpu_torch.utils.tracing import span
 
 __all__ = [
     "LAYOUTS",
@@ -124,18 +125,22 @@ def batch_loss(model, table_rows, dense, batch: Batch):
 
 def _grads(model, rows: torch.Tensor, state: TrainState, batch: Batch):
     """Loss and the gradients of the total loss with respect to the
-    gathered rows and the dense leaves.  The rows are a detached leaf so
-    the backward never reaches (or allocates a gradient for) the table."""
+    gathered rows and the dense leaves (the spans ``forward`` and
+    ``backward``).  The rows are a detached leaf so the backward never
+    reaches (or allocates a gradient for) the table."""
     rows = rows.detach().requires_grad_(True)  # [B, N, D]
     dense = [p.detach().requires_grad_(True) for p in state.dense]
-    total, data_loss = batch_loss(model, rows, dense, batch)
-    g_rows, *g_dense = torch.autograd.grad(total, [rows, *dense])
+    with span("forward"):
+        total, data_loss = batch_loss(model, rows, dense, batch)
+    with span("backward"):
+        g_rows, *g_dense = torch.autograd.grad(total, [rows, *dense])
     return data_loss.detach(), g_rows, g_dense
 
 
 def _finish(learning_rate: float, state: TrainState, g_dense, decay: float = 1.0):
     if state.dense:
-        dense_adagrad_update(state.dense, state.dense_accum, g_dense, learning_rate, decay)
+        with span("dense"):
+            dense_adagrad_update(state.dense, state.dense_accum, g_dense, learning_rate, decay)
     state.step += 1
     return state
 
@@ -149,7 +154,9 @@ def train_step_body(model, learning_rate: float, state: TrainState, batch: Batch
     if state.layout != "rows":
         raise ValueError(f"train_step_body takes a rows-layout state, got {state.layout} "
                          "(packed_train_step_body steps the fused layout)")
-    data_loss, g_rows, g_dense = _grads(model, state.table[batch.ids], state, batch)
+    with span("gather"):
+        rows = state.table[batch.ids]
+    data_loss, g_rows, g_dense = _grads(model, rows, state, batch)
     rows_tail_adagrad_update(
         state.table, state.table_accum, batch.ids, g_rows, learning_rate, decay=decay
     )
@@ -174,12 +181,14 @@ def make_train_step(model, learning_rate: float, decay: float = 1.0, body=None):
 def k_step_loop(model, learning_rate: float, body, batch_at):
     """``run(state, *inputs) -> (state, losses [K])``: ``body`` applied to
     ``batch_at(k, *inputs)`` for k = 0..K-1 in order, K the first input's
-    leading dim; the plain loop that a CUDA graph captures."""
+    leading dim; the plain loop that a CUDA graph captures, each step in
+    the span ``step``."""
 
     def run(state: TrainState, *inputs):
         losses = []
         for i in range(inputs[0].shape[0]):
-            state, loss = body(model, learning_rate, state, batch_at(i, *inputs))
+            with span("step"):
+                state, loss = body(model, learning_rate, state, batch_at(i, *inputs))
             losses.append(loss)
         return state, torch.stack(losses)
 
@@ -361,9 +370,11 @@ def packed_train_step_body(
     has one tail per layout."""
     d = model.row_dim
     if state.layout == "fused":
-        rows = fused_gather(state.table, batch.ids, d)
+        with span("gather"):
+            rows = fused_gather(state.table, batch.ids, d)
     elif state.layout == "packed" and state.table_accum is not None:
-        rows = packed_gather(state.table, batch.ids, d)
+        with span("gather"):
+            rows = packed_gather(state.table, batch.ids, d)
     else:
         raise ValueError(
             f"packed_train_step_body steps a fused or packed training state, got {state.layout}"

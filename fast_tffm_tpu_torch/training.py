@@ -177,6 +177,7 @@ from fast_tffm_tpu_torch.trainer import (
     packed_train_step_body,
     unpack_state,
 )
+from fast_tffm_tpu_torch.utils import tracing
 from fast_tffm_tpu_torch.utils.prefetch import InputStats, InputStream, grouped_pairs, prefetch
 from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
 from fast_tffm_tpu_torch.utils.tracing import WindowTracer, step_trace
@@ -982,7 +983,8 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
         device=device, log=log,
     )
     # Rank 0 owns the traces.
-    tracer = WindowTracer(cfg.trace_dir if is_lead else "", count=cfg.trace_steps, cuda=cuda)
+    tracer = WindowTracer(cfg.trace_dir if is_lead else "", count=cfg.trace_steps, cuda=cuda,
+                          monitor=monitor)
     profiler = StepProfiler(cfg.telemetry_profile_steps if is_lead else "",
                             cfg.trace_dir or (cfg.model_file + ".profile"),
                             monitor=monitor, log=log, cuda=cuda)
@@ -1073,6 +1075,7 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
     groups = _GroupCheck(device, anomaly, enabled=cfg.on_nan == "abort")
     pending = 0  # steps since the last log point
     counted = 0  # examples the meter holds
+    spans_were = tracing.spans_enabled()  # the switch at the previous call
 
     def emit_faults():
         for ev in drain_fault_events():
@@ -1093,9 +1096,14 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
             for batch, examples in epoch_stream:
                 first_call = state.step == start_step
                 tracer.on_step()
-                # Call 1 pays the kernel builds and the graph capture.
-                with monitor.warmup_window() if first_call else contextlib.nullcontext():
-                    with step_trace("train", state.step, cuda):
+                # Call 1 pays the kernel builds and the graph capture, the
+                # first call after spans turn on (the call before a trace
+                # window) the marker's build and the instrumented capture.
+                switched = spans_were != tracing.spans_enabled()
+                spans_were = tracing.spans_enabled()
+                with (monitor.warmup_window() if first_call or switched
+                      else contextlib.nullcontext()):
+                    with step_trace("train", state.step):
                         state, loss = step_fn(state, batch)
                 cur["batch"] += loss.numel()  # K batches consumed
                 groups.push(loss, state.step)
@@ -1121,7 +1129,7 @@ def _run_training(cfg: Config, state, *, model, device, step_fn, train_stream, i
                         ledger.stage("train_step", examples=examples,
                                      modeled_bytes=_modeled_bytes(ids_of(batch), model.row_dim,
                                                                   accum_cols))
-                    if now > captures:
+                    if now > captures and (first_call or not switched):
                         ledger.stage(f"train_graph_k{loss.numel()}", examples=examples,
                                      modeled_bytes=_modeled_bytes(ids_of(batch), model.row_dim,
                                                                   accum_cols))

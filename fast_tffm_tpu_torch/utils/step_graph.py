@@ -30,6 +30,13 @@ warm-up's are counted; the capture's are not (a capture records and
 launches nothing); the kernels a replay runs never pass through a wrapper.
 ``replays`` counts the graph launches, ``captures`` the recordings (each
 also counts as one compile for the telemetry's compile sentinel).
+Spans (``utils/tracing.py``): a capture is keyed on the spans switch too.
+A graph captured with spans off holds no marker and no counter operation;
+turning spans on makes the next call capture a second, instrumented graph
+(its markers and device counters replay with it), and turning them off
+drops it (and its memory pool) and replays the plain one again.
+``step_graph.call`` spans a call on the host, ``step_graph.capture`` a
+capture.
 ``last_inputs`` holds the buffers the last call's steps read (the graph's
 static buffers on the card, the inputs themselves on the CPU), for a
 caller that reads the batch after the call (the delta checkpoint's touched
@@ -45,6 +52,7 @@ import torch
 
 from fast_tffm_tpu_torch.ops.tail import rows_restored
 from fast_tffm_tpu_torch.telemetry import note_compile
+from fast_tffm_tpu_torch.utils import tracing
 
 __all__ = ["StepGraphs"]
 
@@ -86,22 +94,34 @@ class StepGraphs:
     def __init__(self, fn):
         self.fn = fn
         self._graphs: dict[tuple, _Captured] = {}
+        self._instrumented = False  # a graph captured with spans on is held
         self.captures = 0
         self.replays = 0
         self.last_inputs: tuple = ()
 
     def __call__(self, state, *inputs):
+        with tracing.span("step_graph.call"):
+            return self._call(state, inputs)
+
+    def _call(self, state, inputs):
         if state.table.device.type != "cuda":
             self.last_inputs = inputs
             return self.fn(state, *inputs)
+        spans = tracing.spans_enabled()
+        if self._instrumented and not spans:
+            self._graphs = {k: c for k, c in self._graphs.items() if not k[0]}
+            self._instrumented = False
         key = (
+            spans,
             state.layout,
             tuple(None if t is None else t.data_ptr() for t in _tensors(state)),
             tuple((tuple(t.shape), t.dtype) for t in inputs),
         )
         cap = self._graphs.get(key)
         if cap is None:
-            cap = self._graphs[key] = self._capture(state, inputs)
+            with tracing.span("step_graph.capture"):
+                cap = self._graphs[key] = self._capture(state, inputs)
+            self._instrumented |= spans
         for static, t in zip(cap.inputs, inputs):
             static.copy_(t, non_blocking=True)
         cap.graph.replay()

@@ -41,7 +41,8 @@ from fast_tffm_tpu_torch.serving import ServingEngine
 from fast_tffm_tpu_torch.telemetry import ENVELOPE_FIELDS, SCHEMAS, RunMonitor
 from fast_tffm_tpu_torch.training import train
 from fast_tffm_tpu_torch.utils.prefetch import InputStats, InputStream, prefetch
-from fast_tffm_tpu_torch.utils.tracing import MetricsLogger, WindowTracer, maybe_trace, step_trace
+from fast_tffm_tpu_torch.utils import tracing
+from fast_tffm_tpu_torch.utils.tracing import MetricsLogger, WindowTracer, step_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = os.path.join(REPO, "data", "train.libsvm")  # 400 rows: 20 batches of 20
@@ -364,16 +365,29 @@ def test_metrics_logger_noop_without_path(tmp_path):
 
 
 def test_step_trace_and_maybe_trace(tmp_path):
-    with maybe_trace(None):
+    """``step_trace`` is the span ``name#step``: nothing while spans are
+    off, a host range while they are on; the window tracer's trace holds
+    the ones inside its window."""
+    def annotations(prof):
+        return {e.name for e in prof.events() if e.name.startswith("train#")}
+
+    with torch.profiler.profile() as off:
         with step_trace("train", 3):
-            pass
-    with maybe_trace(str(tmp_path / "t")):
-        with step_trace("train", 4):
             torch.ones(3).sum()
-    (name,) = os.listdir(tmp_path / "t")
-    assert name.startswith("trace.") and name.endswith(".pt.trace.json")
+    tracing.spans_on(True)
+    try:
+        with torch.profiler.profile() as on:
+            with step_trace("train", 4):
+                torch.ones(3).sum()
+    finally:
+        tracing.spans_on(False)
+    assert annotations(off) == set() and annotations(on) == {"train#4"}
     tracer = WindowTracer(str(tmp_path / "w"), skip=1, count=2)
-    for _ in range(5):
+    for step in range(5):
         tracer.on_step()
+        with step_trace("train", step):
+            torch.ones(3).sum()
     tracer.close()
-    assert tracer.path and os.path.isfile(tracer.path)
+    assert tracer.path and os.path.isfile(tracer.path) and not tracing.spans_enabled()
+    names = {e.get("name", "") for e in json.load(open(tracer.path))["traceEvents"]}
+    assert {"train#1", "train#2"} <= names and "train#0" not in names

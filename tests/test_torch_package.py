@@ -242,7 +242,8 @@ def test_a_hung_nvcc_times_out_naming_the_kernel(monkeypatch, tmp_path):
 
 def test_package_data_ships_every_source_the_builds_load():
     """The port's wheel carries what ``kernel_build`` compiles at first use:
-    the four kernels, their shared header and the host parser's source."""
+    the four kernels, the span marker, their shared header and the host
+    parser's source."""
     import fnmatch
     import tomllib
 
@@ -256,7 +257,8 @@ def test_package_data_ships_every_source_the_builds_load():
     )
     assert needed == [
         "csrc/anova_bwd.cu", "csrc/anova_fwd.cu", "csrc/fused_tail_adagrad.cu",
-        "csrc/libsvm_parser.cpp", "csrc/rows_tail_adagrad.cu", "csrc/tail_segment.cuh",
+        "csrc/libsvm_parser.cpp", "csrc/rows_tail_adagrad.cu", "csrc/span_mark.cu",
+        "csrc/tail_segment.cuh",
     ]
     missing = [n for n in needed if not any(fnmatch.fnmatch(n, p) for p in patterns)]
     assert not missing, f"package data {patterns} leaves out {missing}"
