@@ -20,6 +20,13 @@ last line:
             way (rtol 1e-5, atol 1e-6), at B in {1, 512, 16384} x order in
             {3, 4}, a ragged shape, the criteo width N = 39 and the quality
             zoo's fm3 batch (B 8,192, N 12, k 4)
+  fm2_score the order-2 FM score and L2 kernel pair (csrc/fm2_score.cu)
+            against its plain twin (_FmScoreOrder2 + masked_l2 under
+            autograd) on the card at the benchmark cells' batches (B 16,384,
+            N 39, D 17; B 8,192, D 9) and a ragged one: scores and d_rows
+            within 1e-5 of their largest magnitude, the L2 term within rtol
+            1e-5; each kernel's events and device ms, its bound and the
+            twin's ms (no single PyTorch call computes it)
   data      tools/torch_gen_synthetic.py (tools/gen_synthetic.py's bytes)
             writes 24 x 16384 baseline5-shaped train
             rows (--seed 7), 2 x 16384 validation rows (--seed 8) and the
@@ -414,7 +421,10 @@ last line:
             shapes (zipf_packed_b65536, zipf_fused_b65536); B4's adds the
             tools' runs (chaos_reference, probe_tier); B1's, B2's and B4's
             the quality runs (quality_fm3, quality_zoo, quality_backtest,
-            quality_study)
+            quality_study); the order-2 pair's (fm2_fwd, fm2_bwd) launches
+            are the zoo's train_fm2 run's, and its launches_by_run
+            train_deepfm, the graphed DeepFM's replays and every other run
+            above that scored at order 2
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -424,6 +434,7 @@ wrappers' counts and records trace_lost_events.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
+``--only fm2`` runs the device, build, ANOVA and fm2_score phases alone;
 ``--only dist`` runs the device, build and data phases and the four phases
 of dist_train alone, ``--only pod`` those and dist_cached and pod_card,
 ``--only orbax`` those and orbax_fixture, serve_reload's orbax case (on
@@ -459,7 +470,11 @@ SEED = 20261016
 RTOL, ATOL = 1e-5, 1e-6
 SERVE_LINES = 4096
 NNZ = 11
-KERNELS = ["anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad"]
+KERNELS = ["anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad", "fm2_fwd",
+           "fm2_bwd"]
+# The CUDA sources (csrc/<name>.cu) those kernels are built from: the
+# order-2 pair shares one.
+SOURCES = ["anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad", "fm2_score"]
 # Each kernel's function names (csrc/*.cu), by which a profiler trace counts
 # what ran on the card.
 KERNEL_SYMBOLS = {
@@ -467,7 +482,18 @@ KERNEL_SYMBOLS = {
     "anova_bwd": ("anova_bwd_kernel",),
     "rows_tail_adagrad": ("rows_element_kernel", "rows_row_kernel"),
     "fused_tail_adagrad": ("fused_slot_kernel",),
+    "fm2_fwd": ("fm2_fwd_kernel",),
+    "fm2_bwd": ("fm2_bwd_kernel",),
 }
+# Each backward kernel's forward: a step launches the forward first.
+FORWARD_OF = {"anova_bwd": "anova_fwd", "fm2_bwd": "fm2_fwd"}
+# The order-2 pair at the benchmark cells' batches (fm2_criteo1tb: B 16,384,
+# N 39, D 17; deepfm_criteo1tb: B 8,192, D 9) and a ragged one; its λs
+# large enough that the L2 term's gradient shows beside the score's.
+FM2_SHAPES = [(16384, 39, 17), (8192, 39, 9), (130, 7, 5)]
+FM2_LAMBDAS = (0.3, 0.7)
+# The zoo's models that score through the order-2 pair.
+ORDER2_ZOO = ("fm2", "deepfm")
 ANOVA_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 8, 64, 512, 16384)]
 ANOVA_SHAPES.append((130, 7, 5, 3))  # ragged: B off the block edge, k not dividing 32
 BWD_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 512, 16384)]
@@ -715,7 +741,7 @@ def traced_window(fn) -> dict:
     return {
         "first_traced": order[0] if order else None,
         # backward launches with no forward just before them (of KERNELS)
-        "bwd_without_fwd": sum(k == "anova_bwd" and (i == 0 or order[i - 1] != "anova_fwd")
+        "bwd_without_fwd": sum(k in FORWARD_OF and (i == 0 or order[i - 1] != FORWARD_OF[k])
                                for i, k in enumerate(order)),
         "launches_traced": {
             k: sum(any(sym in name for sym in syms) for name in kernels)
@@ -886,7 +912,8 @@ def _ptxas_report(log: str) -> dict:
     function in nvcc's ``-Xptxas=-v`` output."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*?([a-z][a-z_]*_kernel)(?:IL[ib](\d+)E)?", line)
+        m = re.search(r"Function properties for \S*?(fm2_[a-z]+_kernel|[a-z][a-z_]*_kernel)"
+                      r"(?:IL[ib](\d+)E)?", line)
         if m:
             name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             out[name] = {}
@@ -904,7 +931,7 @@ def phase_build():
     from fast_tffm_tpu_torch.ops import kernel_build
 
     t0 = time.perf_counter()
-    report = kernel_build.build(KERNELS)
+    report = kernel_build.build(SOURCES)
     for name, r in report.items():
         log_stderr(f"--- nvcc {name} ---\n{r['log'].strip()}")
     emit({
@@ -996,6 +1023,99 @@ def phase_anova_bwd(rng):
         emit(rec)
         worst = max(worst, abs_err)
         if (b, n, k, order) == TRAIN_SHAPE:
+            main = rec
+    return worst, main
+
+
+def fm2_bounds(b: int, n: int, d: int) -> dict:
+    """The order-2 pair's least time (ms, and what bounds it): forward,
+    backward and the two.  Forward: rows and vals read once; scores, s1
+    and the L2 partials written once; per row element a multiply, an add,
+    two fmas (7 flops).  Backward: rows, vals, s1 and the score cotangents
+    read once, d_rows written once; ~6 flops a row element."""
+    rows, vals, s1 = b * n * d, b * n, b * (d - 1)
+    fwd = (4 * (rows + vals + s1 + 2 * b), 7 * rows)
+    bwd = (4 * (2 * rows + vals + s1 + b), 6 * rows)
+    out = {}
+    for name, (nbytes, flops) in (("fwd", fwd), ("bwd", bwd),
+                                  ("pair", (fwd[0] + bwd[0], fwd[1] + bwd[1]))):
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = _bound(nbytes, flops)
+    return out
+
+
+def phase_fm2(rng) -> dict:
+    """The order-2 FM score and L2 kernel pair (csrc/fm2_score.cu) against
+    its plain twin (``_FmScoreOrder2`` + ``masked_l2`` under autograd) on
+    the card at FM2_SHAPES: scores and d_rows within 1e-5 of their largest
+    magnitude, the L2 term within rtol 1e-5 (float32 sums in other
+    orders); each kernel's median time per call by CUDA events and its
+    device time in a trace, the pair's, its bound and the twin's forward
+    plus backward.  Returns (the worst d_rows error, the fm2 cell's
+    record)."""
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.ops.fm import (
+        _FmScoreOrder2,
+        fm2_score_bwd,
+        fm2_score_fwd,
+        fm2_score_l2,
+        masked_l2,
+    )
+
+    def twin(r, v, lam_b, lam_f):
+        return _FmScoreOrder2.apply(r, v), masked_l2(r, v, lam_b, lam_f)
+
+    def pair(fn, rows, vals, g, g_reg):
+        r = rows.detach().requires_grad_(True)
+        scores, reg = fn(r, vals, *FM2_LAMBDAS)
+        (d_rows,) = torch.autograd.grad((scores, reg), r, (g, g_reg))
+        return scores.detach(), reg.detach(), d_rows
+
+    worst, main = 0.0, None
+    for b, n, d in FM2_SHAPES:
+        rows = torch.from_numpy((rng.normal(size=(b, n, d)) * 0.3).astype(np.float32)).cuda()
+        x = rng.uniform(0.1, 1.0, size=(b, n)).astype(np.float32)
+        x[:, -1] = 0.0
+        vals = torch.from_numpy(x).cuda()
+        g = torch.from_numpy(rng.normal(size=b).astype(np.float32)).cuda()
+        g_reg = torch.tensor(1.7, device="cuda")
+        got, want = pair(fm2_score_l2, rows, vals, g, g_reg), pair(twin, rows, vals, g, g_reg)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, i in (("scores", 0), ("d_rows", 2)):
+            scale = float(want[i].abs().max())
+            errs[what] = _check_close(f"fm2 {what}", got[i], want[i], 0.0, 1e-5 * scale,
+                                      f"B={b} N={n} D={d}")[0]
+        errs["reg"] = _check_close("fm2 reg", got[1], want[1], 1e-5, 0.0, f"B={b} N={n} D={d}")[0]
+        s1 = torch.empty((b, d - 1), device="cuda")
+        lam = FM2_LAMBDAS
+
+        def fwd():
+            fm2_score_fwd(rows, vals, lam, True)
+
+        def bwd():
+            fm2_score_bwd(rows, vals, s1, g, g_reg, lam)
+
+        rec = {
+            "phase": "fm2_score", "B": b, "N": n, "D": d,
+            "max_abs_err": errs,
+            "fwd_ms": time_ms(fwd, 200), "bwd_ms": time_ms(bwd, 200),
+            "ms": time_ms(lambda: pair(fm2_score_l2, rows, vals, g, g_reg), 100),
+            "plain_ms": time_ms(lambda: pair(twin, rows, vals, g, g_reg), 50),
+            "fwd_device_ms": device_ms(fwd, 50, "fm2_fwd_kernel"),
+            "bwd_device_ms": device_ms(bwd, 50, "fm2_bwd_kernel"),
+            "plain_device_ms": device_ms(lambda: pair(twin, rows, vals, g, g_reg), 10, None),
+            **fm2_bounds(b, n, d),
+        }
+        if rec["fwd_device_ms"] is not None and rec["bwd_device_ms"] is not None:
+            rec["device_ms"] = rec["fwd_device_ms"] + rec["bwd_device_ms"]
+        else:
+            rec["device_ms"] = None
+        rec["bound_ms"], rec["bound_by"] = rec["pair_bound_ms"], rec["pair_bound_by"]
+        emit(rec)
+        worst = max(worst, errs["d_rows"])
+        if (b, n, d) == FM2_SHAPES[0]:
             main = rec
     return worst, main
 
@@ -1373,34 +1493,43 @@ def _phase_cfg(base, tmp: str, name: str, device: str, init: str, **kw):
 
 
 def _wrapper_counts() -> dict:
-    from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_bwd
-    from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
+    from fast_tffm_tpu_torch.serving.replica import launch_counts
 
-    return {"anova_fwd": anova_inter.launches, "anova_bwd": anova_inter_bwd.launches,
-            "rows_tail_adagrad": rows_tail_adagrad_update.launches,
-            "fused_tail_adagrad": fused_tail_adagrad_update.launches}
+    return launch_counts()
 
 
 def _zero_counters() -> None:
     from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_bwd
+    from fast_tffm_tpu_torch.ops.fm import fm2_score_bwd, fm2_score_fwd
     from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
 
     anova_inter.launches = anova_inter_bwd.launches = 0
     rows_tail_adagrad_update.launches = fused_tail_adagrad_update.launches = 0
+    fm2_score_fwd.launches = fm2_score_bwd.launches = 0
+
+
+def _launches_match(launches: dict, want: dict) -> bool:
+    """Whether a run launched each kernel as often as ``want`` says (0 where
+    it says nothing).  A forward that ``want`` names may have launched more:
+    validation and prediction score through the same forward kernel."""
+    return all(launches[k] >= want[k] if k in FORWARD_OF.values() and want.get(k)
+               else launches[k] == want.get(k, 0) for k in KERNELS)
 
 
 def _trace_agrees(traced, counts, graphed: bool) -> bool:
     """Whether a run's trace holds every launch: an eager run's (every
     launch passes a wrapper) equals the wrappers' counts; a graphed run's
     holds at least the wrappers' launches, and its replays (trace less
-    wrappers) one forward and one tail per backward, as every replayed
-    order-3 step makes (an order-2 step: a tail alone)."""
+    wrappers) one forward per backward of each pair and one pair per tail,
+    as every replayed step makes (order 3: the ANOVA pair; order 2 and
+    DeepFM: the fm2_score pair; FFM: a tail alone)."""
     if not graphed:
         return traced == counts
     replays = {k: traced[k] - counts[k] for k in KERNELS}
     tails = replays["rows_tail_adagrad"] + replays["fused_tail_adagrad"]
-    return (min(replays.values()) >= 0 and replays["anova_fwd"] == replays["anova_bwd"]
-            and replays["anova_bwd"] in (0, tails))
+    return (min(replays.values()) >= 0
+            and all(replays[fwd] == replays[bwd] for bwd, fwd in FORWARD_OF.items())
+            and sum(replays[bwd] for bwd in FORWARD_OF) in (0, tails))
 
 
 def _counted_run(run_once, what: str, graphed) -> tuple[dict, dict]:
@@ -1444,22 +1573,24 @@ def _step_launches(window: dict, wrappers: dict, graphed: bool, what: str) -> di
     has lost one of them the same way: the trace opens with a forward, and
     every backward in it still has its forward just before it.  Those
     patterns, and no other, pass after ``_counted_run``'s three attempts:
-    exactly one anova_fwd event short, every other kernel's count as it
-    must be, and either the trace's first kernel of KERNELS not a forward
-    or no backward without its forward.  The run keeps the
-    wrappers' counts (graphed: its replays' forwards are its backwards'
-    count) and its window records ``trace_lost_events``.  Any other
-    difference fails."""
+    exactly one forward event short (anova_fwd or fm2_fwd), every other
+    kernel's count as it must be, and either the trace's first kernel of
+    KERNELS not a forward or no backward without its forward.  The run
+    keeps the wrappers' counts (graphed: its replays' forwards are its
+    backwards' count) and its window records ``trace_lost_events``.  Any
+    other difference fails."""
     traced = window["launches_traced"]
     if _trace_agrees(traced, wrappers, graphed):
         return ({k: traced[k] - wrappers[k] for k in KERNELS} if graphed else dict(wrappers))
-    short = dict(traced, anova_fwd=traced["anova_fwd"] + 1)
-    lost_eager = window["first_traced"] != "anova_fwd" or window["bwd_without_fwd"] == 0
-    if (window["trace_attempts"] < 3 or not lost_eager
-            or not _trace_agrees(short, wrappers, graphed)):
+    lost_eager = (window["first_traced"] not in FORWARD_OF.values()
+                  or window["bwd_without_fwd"] == 0)
+    shorts = [(fwd, dict(traced, **{fwd: traced[fwd] + 1})) for fwd in FORWARD_OF.values()]
+    lost = [(fwd, short) for fwd, short in shorts if _trace_agrees(short, wrappers, graphed)]
+    if window["trace_attempts"] < 3 or not lost_eager or not lost:
         fail(f"{what}: the trace counts {traced} kernel launches, the wrappers {wrappers} "
              f"(graphed: {graphed}; first traced: {window['first_traced']})")
-    window["trace_lost_events"] = {"anova_fwd": 1}
+    fwd, short = lost[0]
+    window["trace_lost_events"] = {fwd: 1}
     log_stderr(f"{what}: the trace lost one eager forward launch in every attempt; "
                "keeping the wrappers' counts")
     return {k: short[k] - wrappers[k] for k in KERNELS} if graphed else dict(wrappers)
@@ -1521,9 +1652,10 @@ def _card_and_cpu(name: str, cfg_for, model, table, steps: int, fused: bool,
     """The main path: ``training.train`` on the card under the profiler,
     every kernel counter zeroed just before and read just after; then the
     same run on the CPU.  Fails unless the path launched each kernel
-    ``expect`` names that many times and no other (``expect`` None, the
-    FM of order 3: both ANOVA kernels and its tail once per step, the
-    other tail never), the losses are finite, the card's final table and
+    ``expect`` names that many times and no other (``_launches_match``: a
+    forward it names at least that many; ``expect`` None, the FM of order
+    3: both ANOVA kernels and its tail once per step, the other tail and
+    the order-2 pair never), the losses are finite, the card's final table and
     accumulators are within TABLE_ATOL of the CPU's, the updates agree
     (``_update_check``) and the validation AUCs within AUC_TOL.  A DeepFM
     (``dense``, its initial leaves) is held by its updates instead, the
@@ -1554,9 +1686,11 @@ def _card_and_cpu(name: str, cfg_for, model, table, steps: int, fused: bool,
         if launches[tail] != steps or run["launches_traced"][other]:
             fail(f"the {tail} kernel ran {launches[tail]} times for {steps} steps "
                  f"(the other tail {run['launches_traced'][other]} times)")
+        if stepped["fm2_fwd"] or stepped["fm2_bwd"]:
+            fail(f"the order-3 {name} path launched the order-2 pair: {stepped}")
     else:
         launches = dict(stepped)
-        if any(stepped[k] != expect.get(k, 0) for k in KERNELS):
+        if not _launches_match(stepped, expect):
             fail(f"the {name} path launched {stepped} for {steps} steps, expected {expect}")
     losses = _logged(cuda_log, "loss")
     if not losses or not all(np.isfinite(losses)):
@@ -2097,7 +2231,8 @@ def _mlp_route(model, state, batch) -> dict:
 def phase_train_zoo(rng, tmp: str, key: str, paths: dict) -> dict:
     """One zoo config at full width through training.train, on the card and
     then on the CPU from one seeded npz (``_card_and_cpu``: B4 once per
-    step and no other kernel; tables, accumulators, a DeepFM's MLP, AUC);
+    step, the order-2 FM and DeepFM the fm2_score pair once per step too
+    (validation adds forwards), and no other kernel; tables, accumulators, a DeepFM's MLP, AUC);
     then the step time with the input on the card, a traced step and, for
     DeepFM, its MLP route (``_mlp_route``)."""
     from fast_tffm_tpu_torch.data.pipeline import batch_stream
@@ -2114,8 +2249,10 @@ def phase_train_zoo(rng, tmp: str, key: str, paths: dict) -> dict:
         return _phase_cfg(base, tmp, name, device, init, train_files=(train_path,),
                           validation_files=(valid_path,), predict_files=(valid_path,), log_every=4)
 
-    out = _card_and_cpu(name, cfg_for, model, table, steps, False,
-                        expect={"rows_tail_adagrad": steps}, dense=dense)
+    expect = {"rows_tail_adagrad": steps}
+    if key in ORDER2_ZOO:
+        expect.update(fm2_fwd=steps, fm2_bwd=steps)
+    out = _card_and_cpu(name, cfg_for, model, table, steps, False, expect=expect, dense=dense)
     parsed, w = next(batch_stream([valid_path], batch_size=base.batch_size,
                                   vocabulary_size=base.vocabulary_size, max_nnz=base.max_nnz))
     batch = Batch.from_parsed(parsed, w, "cuda", with_fields=model.uses_fields)
@@ -2148,8 +2285,9 @@ def phase_serve_zoo(key: str, cuda_cfg, valid_path: str):
     """The trained card model serving the first ZOO_SERVE_LINES validation
     lines (libffm with their fields for FFM) through serve_lines on the
     card: every score finite and within the model's tolerance of the port's
-    own CPU path on the same checkpoint, printed and unrounded; no kernel
-    runs on this path."""
+    own CPU path on the same checkpoint, printed and unrounded; the order-2
+    FM's and DeepFM's forward kernel (fm2_fwd) is the only kernel on this
+    path, FFM's has none."""
     import itertools
 
     import numpy as np
@@ -2167,8 +2305,10 @@ def phase_serve_zoo(key: str, cuda_cfg, valid_path: str):
     t0 = time.perf_counter()
     snap = serve_lines(cuda_cfg, lines, out=out, log=log_stderr, device="cuda")
     serve_s = time.perf_counter() - t0
-    if any(_wrapper_counts().values()):
-        fail(f"serve_{key} launched {_wrapper_counts()}: its path has no kernel")
+    launched = _wrapper_counts()
+    if not _launches_match(launched, {"fm2_fwd": 1} if key in ORDER2_ZOO else {}):
+        fail(f"serve_{key} launched {launched}: its path has "
+             + ("the order-2 forward alone" if key in ORDER2_ZOO else "no kernel"))
     printed = np.array([float(v) for v in out.getvalue().split()], np.float64)
     if printed.shape != (ZOO_SERVE_LINES,) or not np.isfinite(printed).all():
         fail(f"serve_{key} returned {printed.shape[0]} scores, expected {ZOO_SERVE_LINES} finite")
@@ -2196,7 +2336,7 @@ def phase_train_cached_deepfm(tmp: str, paths: dict, eager: dict) -> dict:
     """baseline4 with device_cache and steps_per_call = 8 (every 8 steps one
     CUDA-graph replay, cuBLAS products and the dense update inside), from
     train_deepfm's npz: B4 once per step in the replays (counted in the
-    profiler trace), and the final state, dense leaves included, and the
+    profiler trace), the fm2_score pair likewise, and the final state, dense leaves included, and the
     validation AUC bitwise train_deepfm's eager card run; the graph's step
     time beside the eager cached step's."""
     import torch
@@ -2226,7 +2366,8 @@ def phase_train_cached_deepfm(tmp: str, paths: dict, eager: dict) -> dict:
 
     run, wrappers = _counted_run(run_once, name, lambda: True)
     stepped = _step_launches(run, wrappers, True, name)
-    if any(stepped[k] != (steps if k == "rows_tail_adagrad" else 0) for k in KERNELS):
+    if stepped != {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(
+            ("rows_tail_adagrad", "fm2_fwd", "fm2_bwd"), steps)}:
         fail(f"{name}: the replays launched {stepped} for {steps} steps")
     want = restore_checkpoint(eager["cuda_cfg"].model_file, torch.device("cpu"),
                               n_dense=len(model.dense_names), accum_width=model.row_dim)
@@ -3138,11 +3279,11 @@ def _window_launches(what: str, path: str, box: dict) -> dict:
     rec = {"launches_traced": traced, "launches_by_wrappers": want, "first_traced": first}
     if traced == want:
         return rec
-    if (dict(traced, anova_fwd=traced["anova_fwd"] + 1) == want and first != "anova_fwd"
-            and want["anova_fwd"] > 0):
-        rec["trace_lost_events"] = {"anova_fwd": 1}
-        log_stderr(f"{what}: the profile window's trace lost its first forward launch")
-        return rec
+    for fwd in FORWARD_OF.values():
+        if dict(traced, **{fwd: traced[fwd] + 1}) == want and first != fwd and want[fwd] > 0:
+            rec["trace_lost_events"] = {fwd: 1}
+            log_stderr(f"{what}: the profile window's trace lost its first forward launch")
+            return rec
     fail(f"{what}: the profile window's trace counts {traced} kernel launches, the "
          f"wrappers {want} (first traced: {first})")
 
@@ -5310,9 +5451,9 @@ def _b2_run(tmp: str, name: str, verb: str, paths: dict, fmt: str, *, stop_at=No
     run["launches"] = _wrapper_counts()
     run["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     steps = (B2_STOP if stop_at else B2_TRAIN_BATCHES) - (B2_STOP if resume else 0)
-    want = {"anova_fwd": 0, "anova_bwd": 0, "rows_tail_adagrad": steps, "fused_tail_adagrad": 0}
-    if run["launches"] != want:
-        fail(f"{what}: kernel launches {run['launches']}, expected {want}")
+    want = {"rows_tail_adagrad": steps, "fm2_fwd": steps, "fm2_bwd": steps}
+    if not _launches_match(run["launches"], want):
+        fail(f"{what}: kernel launches {run['launches']}, expected {want} (forwards at least)")
     run["losses"] = {int(m.group(1)): float(m.group(2)) for m in
                      (re.match(r"step (\d+) epoch \d+ loss ([0-9.]+)", line) for line in run["log"])
                      if m}
@@ -6638,7 +6779,8 @@ def _chaos_reference(tmp: str) -> dict:
     """Chaos's train config (tools/torch_chaos.py's dataset and config) as
     its baseline child runs it, `cli train --device cuda`, then in process
     on the card (bitwise the child's final checkpoint; the wrappers count B4
-    once per step and nothing else) and on the CPU from the card run's
+    and the order-2 pair once per step, validation's forwards besides, and
+    nothing else) and on the CPU from the card run's
     initial state (within TABLE_ATOL of the card's)."""
     import dataclasses
 
@@ -6663,10 +6805,9 @@ def _chaos_reference(tmp: str) -> dict:
     _zero_counters()
     _train_once(card_cfg, "cuda", [], resume=False)
     launches = _wrapper_counts()
-    want = {"anova_fwd": 0, "anova_bwd": 0, "rows_tail_adagrad": torch_chaos.STEPS,
-            "fused_tail_adagrad": 0}
-    if launches != want:
-        fail(f"tools: chaos reference launches {launches}, want {want}")
+    want = dict.fromkeys(("rows_tail_adagrad", "fm2_fwd", "fm2_bwd"), torch_chaos.STEPS)
+    if not _launches_match(launches, want):
+        fail(f"tools: chaos reference launches {launches}, want {want} (forwards at least)")
     width = card_cfg.factor_num + 1
     final = {n: restore_checkpoint(load_config(c).model_file, torch.device("cpu"),
                                    accum_width=width) for n, c in cfgs.items() if n != "cpu"}
@@ -6947,7 +7088,10 @@ def _smoke() -> int:
     rng = np.random.default_rng(SEED)
     fwd = phase_anova(rng)
     bwd = phase_anova_bwd(rng)
+    fm2 = phase_fm2(np.random.default_rng(SEED + 21))
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
+    if only == "fm2":
+        return 0  # the order-2 pair's hold and times alone (no result line)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, contextlib.ExitStack() as ends:
         ends.callback(_stop_children)  # before the directory goes
         train_path, valid_path, big_path = phase_data(tmp)
@@ -7114,8 +7258,16 @@ def _smoke() -> int:
     # under each kernel that ran in them.
     fwd_runs, bwd_runs = by_run("anova_fwd", launches, graphed), by_run("anova_bwd", launches,
                                                                           graphed)
-    for runs, kernel in ((fwd_runs, "anova_fwd"), (bwd_runs, "anova_bwd"),
-                         (b4_runs, "rows_tail_adagrad"), (b3_runs, "fused_tail_adagrad")):
+    # The order-2 pair: the zoo's order-2 FM and DeepFM eager runs (its main
+    # path: train_fm2) and the graphed DeepFM run's replays.
+    fm2_runs = {k: {f"train_{key}": zoo[key]["launches"][k] for key in ORDER2_ZOO}
+                for k in ("fm2_fwd", "fm2_bwd")}
+    for k, runs in fm2_runs.items():
+        runs["train_cached_deepfm_replays"] = cached_deepfm[k]
+    pairs = ((fwd_runs, "anova_fwd"), (bwd_runs, "anova_bwd"), (b4_runs, "rows_tail_adagrad"),
+             (b3_runs, "fused_tail_adagrad"), (fm2_runs["fm2_fwd"], "fm2_fwd"),
+             (fm2_runs["fm2_bwd"], "fm2_bwd"))
+    for runs, kernel in pairs:
         runs.update({run: counts[kernel] for run, counts in observed.items() if counts[kernel]})
     # The serving runs' forward launches: the in-process reload engine's
     # (wrappers zeroed before it), and each replica process's during the
@@ -7124,12 +7276,10 @@ def _smoke() -> int:
     # The drivers' runs: each subprocess's wrapper counts (bench_torch,
     # bench_all_torch, the in-process loadgen engines) and the socket tier's
     # replicas' (their stats).
-    for runs, kernel in ((fwd_runs, "anova_fwd"), (bwd_runs, "anova_bwd"),
-                         (b4_runs, "rows_tail_adagrad"), (b3_runs, "fused_tail_adagrad")):
+    for runs, kernel in pairs:
         runs.update(drivers["launches"][kernel])
     b4_runs.update(tools["launches"])
-    for runs, kernel in ((fwd_runs, "anova_fwd"), (bwd_runs, "anova_bwd"),
-                         (b4_runs, "rows_tail_adagrad")):
+    for runs, kernel in pairs:
         runs.update(quality["launches"][kernel])
     tail_shapes["zipf_packed_b65536"] = drivers["zipf"]["rows_tail_adagrad"]
     emit({"kernels": [
@@ -7146,6 +7296,12 @@ def _smoke() -> int:
                        "fast_tffm_tpu/ops/pallas_tail.py:119",
                        fused_launches["fused_tail_adagrad"], *fused_tail, b3_runs,
                        shapes={"zipf_fused_b65536": drivers["zipf"]["fused_tail_adagrad"]}),
+        *(_kernel_record(k, src + "fm2_score.cu", "none: the JAX package leaves order 2 to XLA",
+                         zoo["fm2"]["launches"][k], fm2[0],
+                         {"ms": fm2[1][f"{part}_ms"], "device_ms": fm2[1][f"{part}_device_ms"],
+                          "plain_ms": fm2[1]["plain_ms"], "bound_ms": fm2[1][f"{part}_bound_ms"],
+                          "bound_by": fm2[1][f"{part}_bound_by"]}, fm2_runs[k])
+          for k, part in (("fm2_fwd", "fwd"), ("fm2_bwd", "bwd"))),
     ]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"], "count": dev["count"]}})

@@ -2,8 +2,9 @@
 
 The counterpart of ``fast_tffm_tpu/models/base.py``: ``Batch`` is a padded
 ``[B, N]`` batch whose zero-valued slots are padding, ``masked_l2`` the
-reference-style L2 over the gathered rows and ``logistic_loss`` the
-weighted mean sigmoid cross-entropy.  The gather of the table rows stays
+reference-style L2 over the gathered rows (defined beside the order-2
+scorer in ``ops/fm.py``, whose kernel pair folds it in) and
+``logistic_loss`` the weighted mean sigmoid cross-entropy.  The gather of the table rows stays
 outside the model (trainer.py), as in the JAX package.
 """
 
@@ -13,6 +14,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from fast_tffm_tpu_torch.ops.fm import masked_l2
 
 __all__ = ["Batch", "masked_l2", "logistic_per_example", "logistic_loss", "compute_round"]
 
@@ -90,20 +93,6 @@ def compute_round(x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     if compute_dtype == "float32":
         return x
     return x.to(torch.bfloat16).to(torch.float32)
-
-
-def masked_l2(rows: torch.Tensor, vals: torch.Tensor, bias_lambda: float, factor_lambda: float):
-    """Reference-style L2 over the batch's gathered rows, col 0 = bias.
-
-    Padding slots (vals == 0) gather row 0 arbitrarily and must not be
-    penalized, hence the mask.  Duplicate occurrences are each penalized,
-    matching a per-batch ‖params‖² over the gathered (not deduped) rows.
-    """
-    mask = (vals != 0.0).to(rows.dtype)[..., None]
-    masked = rows * mask
-    bias_term = torch.sum(masked[..., 0] ** 2)
-    factor_term = torch.sum(masked[..., 1:] ** 2)
-    return bias_lambda * bias_term + factor_lambda * factor_term
 
 
 def logistic_per_example(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """DeepFM: a shared-embedding order-2 FM plus an MLP head (BASELINE config
 #4) — the counterpart of ``fast_tffm_tpu/models/deepfm.py``.
 
-The FM half is ``ops/fm.fm_score`` at order 2 over the table rows; the deep
+The FM half is ``ops/fm.fm_score`` at order 2 over the table rows (in
+training ``ops/fm.fm2_score_l2``, which gives the L2 term with it); the deep
 half is a ReLU MLP over the example's value-weighted embedding vectors,
 ``[B, N, k]`` reshaped to ``[B, N·k]``.  Both halves read the same rows, so
 one gather and one sparse Adagrad update (kernel B4 on the card) serve
@@ -32,7 +33,7 @@ import torch
 
 from fast_tffm_tpu_torch.config import check_deepfm_width
 from fast_tffm_tpu_torch.models.base import Batch, compute_round, masked_l2
-from fast_tffm_tpu_torch.ops.fm import fm_score
+from fast_tffm_tpu_torch.ops.fm import fm2_score_l2, fm_score
 
 __all__ = ["DeepFMModel"]
 
@@ -97,12 +98,22 @@ class DeepFMModel:
                 x = torch.relu(x)
         return x[..., 0]  # [B]
 
-    def score(self, rows: torch.Tensor, dense, batch: Batch) -> torch.Tensor:
+    def _deep(self, rows: torch.Tensor, dense, batch: Batch) -> torch.Tensor:
         b, n = batch.vals.shape
-        check_deepfm_width(self.num_fields, n)
-        fm_part = fm_score(rows, batch.vals, order=2)
         emb = rows[..., 1:] * batch.vals[..., None]  # [B, N, k] value-weighted
-        return fm_part + self._mlp(dense, emb.reshape(b, n * self.factor_num))
+        return self._mlp(dense, emb.reshape(b, n * self.factor_num))
+
+    def score(self, rows: torch.Tensor, dense, batch: Batch) -> torch.Tensor:
+        check_deepfm_width(self.num_fields, batch.vals.shape[1])
+        return fm_score(rows, batch.vals, order=2) + self._deep(rows, dense, batch)
+
+    def score_and_regularization(self, rows: torch.Tensor, dense, batch: Batch):
+        """(``score``, ``regularization``) in one call: the FM half and the
+        L2 term from one ``fm2_score_l2`` (the kernel pair on the card); the
+        MLP's gradient into the rows adds onto the pair's under autograd."""
+        check_deepfm_width(self.num_fields, batch.vals.shape[1])
+        fm_part, reg = fm2_score_l2(rows, batch.vals, self.bias_lambda, self.factor_lambda)
+        return fm_part + self._deep(rows, dense, batch), reg
 
     def regularization(self, rows: torch.Tensor, dense, batch: Batch) -> torch.Tensor:
         del dense  # the reference regularizes only the FM parameters

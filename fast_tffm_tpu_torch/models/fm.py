@@ -2,8 +2,10 @@
 ``fast_tffm_tpu/models/fm.py``.
 
 Row layout ``[1 + factor_num]``: column 0 is the bias wᵢ, columns 1: the
-factors vᵢ.  Scoring runs through ops/fm.py (order 2 in plain torch; order
-≥ 3 through the CUDA ANOVA kernel on the card).
+factors vᵢ.  Scoring runs through ops/fm.py (order 2 through the
+``fm2_score`` kernel pair on the card, which also gives the L2 term, and
+plain torch on the CPU; order ≥ 3 through the CUDA ANOVA kernels on the
+card).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import dataclasses
 import torch
 
 from fast_tffm_tpu_torch.models.base import Batch, masked_l2
-from fast_tffm_tpu_torch.ops.fm import fm_score
+from fast_tffm_tpu_torch.ops.fm import fm2_score_l2, fm_score
 
 __all__ = ["FMModel"]
 
@@ -61,3 +63,11 @@ class FMModel:
     def regularization(self, rows: torch.Tensor, dense, batch: Batch) -> torch.Tensor:
         del dense
         return masked_l2(rows, batch.vals, self.bias_lambda, self.factor_lambda)
+
+    def score_and_regularization(self, rows: torch.Tensor, dense, batch: Batch):
+        """(``score``, ``regularization``) in one call: at order 2 the
+        ``fm2_score_l2`` pair, which folds the L2 term into the scorer's
+        passes on the card; at order ≥ 3 the two methods."""
+        if self.order != 2:
+            return self.score(rows, dense, batch), self.regularization(rows, dense, batch)
+        return fm2_score_l2(rows, batch.vals, self.bias_lambda, self.factor_lambda)

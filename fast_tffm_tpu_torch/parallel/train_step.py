@@ -85,6 +85,7 @@ from fast_tffm_tpu_torch.trainer import (
     make_train_step,
     packed_train_step_body,
     rowwise_sigmoid,
+    scores_and_regularization,
 )
 from fast_tffm_tpu_torch.utils.step_graph import StepGraphs
 
@@ -298,10 +299,10 @@ def _sharded_grads(model, rows, state: TrainState, batch: Batch, mesh: Mesh):
     denom = torch.clamp_min(all_reduce_sum(torch.sum(batch.weights), mesh.size), 1.0)
     rows = rows.detach().requires_grad_(True)
     dense = [p.detach().requires_grad_(True) for p in state.dense]
-    scores = model.score(rows, dense, batch)
+    scores, reg = scores_and_regularization(model, rows, dense, batch)
     per = logistic_per_example(scores, batch.labels)
     data_loss = torch.sum(per * batch.weights) / denom
-    total = data_loss + model.regularization(rows, dense, batch)
+    total = data_loss + reg
     g_rows, *g_dense = torch.autograd.grad(total, [rows, *dense])
     return data_loss.detach(), g_rows, g_dense
 

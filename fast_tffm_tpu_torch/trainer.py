@@ -44,6 +44,7 @@ __all__ = [
     "TrainState",
     "init_state",
     "batch_loss",
+    "scores_and_regularization",
     "train_step_body",
     "make_train_step",
     "k_step_loop",
@@ -115,11 +116,21 @@ def init_state(
     )
 
 
+def scores_and_regularization(model, table_rows, dense, batch: Batch):
+    """The model's raw scores [B] and its L2 term, from one
+    ``score_and_regularization`` call where the model offers one (order-2
+    FM and DeepFM: one kernel pair on the card), else ``score`` and
+    ``regularization``."""
+    both = getattr(model, "score_and_regularization", None)
+    if both is not None:
+        return both(table_rows, dense, batch)
+    return model.score(table_rows, dense, batch), model.regularization(table_rows, dense, batch)
+
+
 def batch_loss(model, table_rows, dense, batch: Batch):
     """(total loss with L2, plain data loss)."""
-    scores = model.score(table_rows, dense, batch)
+    scores, reg = scores_and_regularization(model, table_rows, dense, batch)
     data_loss = logistic_loss(scores, batch.labels, batch.weights)
-    reg = model.regularization(table_rows, dense, batch)
     return data_loss + reg, data_loss
 
 

@@ -6,8 +6,12 @@ installed (the repository's conftest imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The K-step CUDA graphs (``steps_per_call``) are held bitwise against the
-eager steps they replay, and a failed build of the native parser raises.
+The order-2 FM score and L2 pair (``csrc/fm2_score.cu``) is held to its
+plain twin at the benchmark cells' widths and ragged shapes, bitwise across
+calls and for an example scored alone or in a batch, and refuses a
+gradient for the values.  The K-step CUDA graphs (``steps_per_call``) are
+held bitwise against the eager steps they replay (the order-2 FM and DeepFM
+among them), and a failed build of the native parser raises.
 The rows tail at the packed address is held bitwise to its twin and to the
 rows layout's update; a stopped and resumed card run (streamed, and cached
 at K = 8) bitwise to the uninterrupted one; the dedup body captures in a
@@ -46,7 +50,14 @@ from fast_tffm_tpu_torch.ops.anova import (
     anova_inter_plain,
 )
 from fast_tffm_tpu_torch.models import Batch, DeepFMModel, FFMModel, FMModel
-from fast_tffm_tpu_torch.ops.fm import fm_score
+from fast_tffm_tpu_torch.ops.fm import (
+    _FmScoreOrder2,
+    fm2_score_bwd,
+    fm2_score_fwd,
+    fm2_score_l2,
+    fm_score,
+    masked_l2,
+)
 from fast_tffm_tpu_torch.ops.packed_table import (
     fused_rows_per_tile,
     fused_slots,
@@ -154,6 +165,108 @@ def test_order3_gradient_on_the_card_matches_the_cpu(cuda):
         grads.append(g.cpu())
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-6)
     assert float(grads[1][..., 1:].abs().max()) > 1e-3
+
+
+FM2_LAMBDAS = (0.3, 0.7)  # large enough that the L2 term's gradient shows beside the score's
+
+
+def _fm2_case(rng, b, n, d, offset=0, cuda=None):
+    """Rows [B, N, D] ~ N(0, 0.3²) (``offset`` floats into their storage, so
+    not 16-byte aligned when it is not a multiple of 4), values in (0.1, 1]
+    with the last slot padding (N > 1), the first and last example all
+    padding."""
+    flat = rng.normal(size=offset + b * n * d).astype(np.float32) * 0.3
+    rows = torch.from_numpy(flat).to(cuda)[offset:].view(b, n, d)
+    vals = rng.uniform(0.1, 1.0, size=(b, n)).astype(np.float32)
+    if n > 1:
+        vals[:, -1] = 0.0
+    vals[0, :] = vals[-1, :] = 0.0
+    return rows, torch.from_numpy(vals).to(cuda)
+
+
+def _fm2_pair(rows, vals, g, g_reg, fn=fm2_score_l2):
+    """(scores, L2 term, d_rows) of ``fn`` under the cotangents g [B], g_reg."""
+    r = rows.detach().requires_grad_(True)
+    scores, reg = fn(r, vals, *FM2_LAMBDAS)
+    (d_rows,) = torch.autograd.grad((scores, reg), r, (g, g_reg))
+    return scores.detach(), reg.detach(), d_rows
+
+
+def _fm2_twin(rows, vals, lam_b, lam_f):
+    return _FmScoreOrder2.apply(rows, vals), masked_l2(rows, vals, lam_b, lam_f)
+
+
+@pytest.mark.parametrize(
+    "b,n,d,offset",
+    [
+        (16384, 39, 17, 0),  # fm2_criteo1tb's batch: D 17
+        (8192, 39, 9, 0),  # deepfm_criteo1tb's: D 9
+        (13, 11, 2, 0),  # B off the block edge (8 examples a block), k 1
+        (130, 7, 5, 0),  # ragged: N·D 35, every example at another 16-byte offset
+        (130, 7, 5, 1),  # rows not 16-byte aligned: the scalar copies
+        (4, 1, 17, 0),  # one feature
+        (40, 3, 65, 0),  # D above a warp: a lane owns 3 columns
+        (9, 100, 33, 0),  # N·D 3,300 past a warp's shared memory: read from device memory
+    ],
+)
+def test_fm2_kernel_pair_matches_the_plain_twin(cuda, b, n, d, offset):
+    """Scores, the L2 term and d_rows of the kernel pair against the plain
+    twin (``_FmScoreOrder2`` + ``masked_l2`` under autograd) on the card.
+    Both sum the same float32 terms in other orders (the kernel over the
+    features in order, then a butterfly over the lanes; the twin's ATen
+    reductions by trees), so scores and d_rows are held within 1e-5 of the
+    largest magnitude among them (~80 ulps of it: a sum of 39 terms may
+    differ by a few ulps of its partial sums, and s1² − s2 cancels), the
+    L2 term, a sum of B·N·D squares, within rtol 1e-5.  One forward and one
+    backward launch a call."""
+    rng = np.random.default_rng(b + n + d + offset)
+    rows, vals = _fm2_case(rng, b, n, d, offset, cuda)
+    g = torch.from_numpy(rng.normal(size=b).astype(np.float32)).to(cuda)
+    g_reg = torch.tensor(1.7, device=cuda)
+    before = (fm2_score_fwd.launches, fm2_score_bwd.launches)
+    got = _fm2_pair(rows, vals, g, g_reg)
+    torch.cuda.synchronize()
+    assert (fm2_score_fwd.launches - before[0], fm2_score_bwd.launches - before[1]) == (1, 1)
+    want = _fm2_pair(rows, vals, g, g_reg, _fm2_twin)
+    for got_t, want_t in ((got[0], want[0]), (got[2], want[2])):
+        torch.testing.assert_close(got_t, want_t, rtol=0,
+                                   atol=1e-5 * float(want_t.abs().max()))
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    assert float(got[0][0]) == float(got[0][-1]) == 0.0  # all-padding examples score 0
+    assert float(got[2][0].abs().max()) == 0.0  # ... and take no gradient
+
+
+def test_fm2_kernel_pair_is_bitwise_reproducible_and_row_independent(cuda):
+    """Two calls give the same bits; an example scored alone (a copy of its
+    rows, at another 16-byte offset) gives the bits it gets inside the
+    batch, its score and its d_rows.  No atomics, no sum across examples
+    but the L2 term's."""
+    rng = np.random.default_rng(41)
+    rows, vals = _fm2_case(rng, 1031, 39, 17, 0, cuda)
+    g = torch.from_numpy(rng.normal(size=1031).astype(np.float32)).to(cuda)
+    g_reg = torch.tensor(0.9, device=cuda)
+    one, two = _fm2_pair(rows, vals, g, g_reg), _fm2_pair(rows, vals, g, g_reg)
+    assert all(torch.equal(a, b) for a, b in zip(one, two, strict=True))
+    for j in (1, 2, 517, 1030):
+        alone = _fm2_pair(rows[j : j + 1].clone(), vals[j : j + 1].clone(), g[j : j + 1], g_reg)
+        assert torch.equal(alone[0], one[0][j : j + 1])
+        assert torch.equal(alone[2], one[2][j : j + 1])
+    with torch.inference_mode():  # predict and serving: the forward kernel alone
+        before = (fm2_score_fwd.launches, fm2_score_bwd.launches)
+        scores = fm_score(rows, vals, 2)
+    assert (fm2_score_fwd.launches - before[0], fm2_score_bwd.launches - before[1]) == (1, 0)
+    assert torch.equal(scores, one[0])
+
+
+def test_fm2_kernel_refuses_a_gradient_for_vals(cuda):
+    """The pair computes no d_vals: a CUDA ``vals`` that requires a
+    gradient raises, through the pair and through ``fm_score``."""
+    rows, vals = _fm2_case(np.random.default_rng(43), 16, 5, 9, 0, cuda)
+    vals.requires_grad_(True)
+    with pytest.raises(ValueError, match="no gradient for vals"):
+        fm2_score_l2(rows.requires_grad_(True), vals, *FM2_LAMBDAS)
+    with pytest.raises(ValueError, match="no gradient for vals"):
+        fm_score(rows, vals, 2)
 
 
 def _case_ids(rng, v, m, ids_from):
@@ -497,9 +610,12 @@ def test_cached_graph_replay_is_bitwise_the_cached_eager_steps(cuda, fused):
 
 
 ZOO = {
-    "fm2": lambda: FMModel(vocabulary_size=4099, factor_num=8, order=2),
+    # λ > 0 on the order-2 models: the fm2_score pair folds the L2 term in.
+    "fm2": lambda: FMModel(vocabulary_size=4099, factor_num=8, order=2, bias_lambda=1e-3,
+                           factor_lambda=1e-3),
     "ffm": lambda: FFMModel(vocabulary_size=4099, num_fields=22, factor_num=4),
-    "deepfm": lambda: DeepFMModel(vocabulary_size=4099, num_fields=11, factor_num=8),
+    "deepfm": lambda: DeepFMModel(vocabulary_size=4099, num_fields=11, factor_num=8,
+                                  bias_lambda=1e-3, factor_lambda=1e-3),
     "deepfm_bf16": lambda: DeepFMModel(vocabulary_size=4099, num_fields=11, factor_num=8,
                                        compute_dtype="bfloat16"),
 }
@@ -534,8 +650,9 @@ def _zoo_state(model, dev):
 
 @pytest.mark.parametrize("name", list(ZOO))
 def test_zoo_train_steps_on_the_card_match_the_cpu(cuda, name):
-    """Three steps of each zoo model: one B4 launch a step and no other
-    kernel; the card's table and accumulators within 1e-7 of the CPU's,
+    """Three steps of each zoo model: one B4 launch a step, and for the
+    order-2 FM and DeepFM one launch of each of the fm2_score pair, and no
+    other kernel; the card's table and accumulators within 1e-7 of the CPU's,
     and the MLP's leaves and accumulators (DeepFM) within 1e-6.  At
     bfloat16 a gradient element may round to its other bfloat16 neighbour
     on one device (the float32 sums before the cast run in another
@@ -546,14 +663,16 @@ def test_zoo_train_steps_on_the_card_match_the_cpu(cuda, name):
     states = {}
     for dev in ("cpu", cuda):
         st, step = _zoo_state(model, dev), make_train_step(model, 0.05)
-        counts = (anova_inter.launches, anova_inter_bwd.launches, rows_tail_adagrad_update.launches)
+        wrappers = (anova_inter, anova_inter_bwd, rows_tail_adagrad_update, fm2_score_fwd,
+                    fm2_score_bwd)
+        counts = [w.launches for w in wrappers]
         for b in batches:
             st, loss = step(st, b.to(dev))
         torch.cuda.synchronize()
         assert torch.isfinite(loss)
-        launched = (anova_inter.launches - counts[0], anova_inter_bwd.launches - counts[1],
-                    rows_tail_adagrad_update.launches - counts[2])
-        assert launched == ((0, 0, 3) if dev == cuda else (0, 0, 0))
+        launched = tuple(w.launches - c for w, c in zip(wrappers, counts, strict=True))
+        pair = 0 if name == "ffm" else 3
+        assert launched == ((0, 0, 3, pair, pair) if dev == cuda else (0,) * 5)
         states[str(dev)] = st
     cpu, card = states["cpu"], states[str(cuda)]
     init = _zoo_state(model, "cpu")
@@ -569,11 +688,12 @@ def test_zoo_train_steps_on_the_card_match_the_cpu(cuda, name):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol + share * step)
 
 
-@pytest.mark.parametrize("name", ["ffm", "deepfm_bf16"])
+@pytest.mark.parametrize("name", ["ffm", "deepfm_bf16", "fm2", "deepfm"])
 def test_zoo_graph_replay_is_bitwise_the_eager_steps(cuda, name):
     """K = 8 over 16 batches: two replays of one captured graph (cuBLAS
-    products, FFM's one-hot and einsums, DeepFM's dense update inside),
-    the losses and the whole state bitwise 16 eager steps."""
+    products, FFM's one-hot and einsums, the order-2 FM's and DeepFM's
+    fm2_score pair, DeepFM's dense update inside), the losses and the
+    whole state bitwise 16 eager steps."""
     model = ZOO[name]()
     batches = _zoo_batches(np.random.default_rng(29), model, 16)
     eager_step, eager, want = make_train_step(model, 0.05), _zoo_state(model, cuda), []

@@ -242,8 +242,8 @@ def test_a_hung_nvcc_times_out_naming_the_kernel(monkeypatch, tmp_path):
 
 def test_package_data_ships_every_source_the_builds_load():
     """The port's wheel carries what ``kernel_build`` compiles at first use:
-    the four kernels, the span marker, their shared header and the host
-    parser's source."""
+    the kernels' sources (the order-2 pair's included), the span marker,
+    their shared header and the host parser's source."""
     import fnmatch
     import tomllib
 
@@ -256,16 +256,17 @@ def test_package_data_ships_every_source_the_builds_load():
         for p in glob.glob(os.path.join(kernel_build.CSRC_DIR, ext))
     )
     assert needed == [
-        "csrc/anova_bwd.cu", "csrc/anova_fwd.cu", "csrc/fused_tail_adagrad.cu",
-        "csrc/libsvm_parser.cpp", "csrc/rows_tail_adagrad.cu", "csrc/span_mark.cu",
-        "csrc/tail_segment.cuh",
+        "csrc/anova_bwd.cu", "csrc/anova_fwd.cu", "csrc/fm2_score.cu",
+        "csrc/fused_tail_adagrad.cu", "csrc/libsvm_parser.cpp", "csrc/rows_tail_adagrad.cu",
+        "csrc/span_mark.cu", "csrc/tail_segment.cuh",
     ]
     missing = [n for n in needed if not any(fnmatch.fnmatch(n, p) for p in patterns)]
     assert not missing, f"package data {patterns} leaves out {missing}"
 
 
 def test_every_kernel_source_exists():
-    for name in ("anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad"):
+    for name in ("anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad",
+                 "fm2_score"):
         assert os.path.isfile(os.path.join(kernel_build.CSRC_DIR, f"{name}.cu")), name
     assert "arch=compute_90a,code=sm_90a" in kernel_build.NVCC_FLAGS
 

@@ -67,7 +67,7 @@ def test_measured_step_and_gates(probes):
     assert art["workload"] == {**jax_art["workload"], "wall_s": art["workload"]["wall_s"]}
     assert art["device"] == "cpu" and art["device_memory_bytes"] > 0
     assert set(art["kernel_launches"]) == {"anova_fwd", "anova_bwd", "rows_tail_adagrad",
-                                           "fused_tail_adagrad"}
+                                           "fused_tail_adagrad", "fm2_fwd", "fm2_bwd"}
     assert "torch has no compiler cost analysis" in art["note"]
 
 

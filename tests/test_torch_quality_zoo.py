@@ -175,7 +175,7 @@ def test_quick_run_artifact(tmp_path, capsys, one_torch_thread):
                 assert 0.5 < rec[key] <= rec["oracle_auc"] + 0.01, (fam, rec)
     assert art["device"] == "cpu" and art["card"] is None
     assert art["kernel_launches"] == {"anova_fwd": 0, "anova_bwd": 0, "rows_tail_adagrad": 0,
-                                      "fused_tail_adagrad": 0}
+                                      "fused_tail_adagrad": 0, "fm2_fwd": 0, "fm2_bwd": 0}
     assert art["reduced"] == {"rows": {"default": 2_400_000, "run": 60_000},
                               "test_rows": {"default": 50_000, "run": 8_000},
                               "epochs": {"default": 6, "run": 2}}

@@ -455,10 +455,14 @@ def test_card_instrumented_replays_account_for_the_call(kind, card, tmp_path):
     before = tracing.counters()
 
     def stretch():
-        # call 0 fills the queue, so the timed calls 1..calls run back to
-        # back (the card idles while the host launches the first replay)
+        # A spin on the card (~0.2 s at its ~2 GHz) holds the stream while
+        # the host queues every call: under the profiler a graph launch costs
+        # the host about as much as a replay costs the card, so without it
+        # the card would idle between replays outside any span.  Call 0
+        # then runs, and the timed calls 1..calls run back to back.
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(400_000_000)
         step(state, chunks[0])
         ev0.record()
         for i in range(1, calls + 1):
