@@ -27,6 +27,12 @@ last line:
             within 1e-5 of their largest magnitude, the L2 term within rtol
             1e-5; each kernel's events and device ms, its bound and the
             twin's ms (no single PyTorch call computes it)
+  dcn_cross the DCN-V2 cross combine pair (csrc/dcn_cross.cu) against its
+            plain twin on the card at the dcnv2 cell's layer (B 8,192,
+            d 4,992) and ragged shapes (d 5 and 4,991): y, d_h and d_x0
+            bitwise, the bias sum within 1e-5 of its largest magnitude;
+            each kernel's events and device ms (the backward writing and
+            adding into d_x0), its bound and the twin's ms
   data      tools/torch_gen_synthetic.py (tools/gen_synthetic.py's bytes)
             writes 24 x 16384 baseline5-shaped train
             rows (--seed 7), 2 x 16384 validation rows (--seed 8) and the
@@ -105,6 +111,17 @@ last line:
             against the CPU, and 4096 validation lines (libffm with fields
             for FFM) served on cuda against the port's CPU path, within atol
             1e-6 (bf16 DeepFM: 1e-4); no kernel on these paths
+  train_dcnv2, predict_dcnv2, serve_dcnv2  configs/torch/dcnv2_criteo1tb.cfg
+            (DCN-V2 at MLPerf's widths: k 128, 3 cross layers of rank 512,
+            MLP 1024-1024-512-256-1, bf16 operands, row accumulator) on the
+            zoo's criteo-shaped data, its vocabulary cut to the data's 2^20
+            rows: training.train on the card (32 steps), the cross pair
+            three times a step each way (validation adds forwards), B4 once
+            and no other kernel, finite losses and AUC; then, card against
+            CPU from the trained checkpoint at float32 operands
+            (DCNV2_CHECKED_DTYPE), one step's gradients on 1,024 validation
+            rows (DCNV2_GRAD_RTOL) and predict and serve as the zoo's (ATOL),
+            the pair's forward the only kernel serving
   train_cached_deepfm  baseline4 with device_cache and steps_per_call = 8:
             B4's 32 launches inside 4 CUDA-graph replays, the final state
             (MLP included) and AUC bitwise train_deepfm's eager card run;
@@ -424,7 +441,8 @@ last line:
             quality_study); the order-2 pair's (fm2_fwd, fm2_bwd) launches
             are the zoo's train_fm2 run's, and its launches_by_run
             train_deepfm, the graphed DeepFM's replays and every other run
-            above that scored at order 2
+            above that scored at order 2; the DCN-V2 pair's (dcn_cross_fwd,
+            dcn_cross_bwd) are train_dcnv2's
 
 Every traced training run also counts each kernel by name in its profiler
 trace (launches_traced); an eager run's count must equal its wrappers'.
@@ -434,7 +452,8 @@ wrappers' counts and records trace_lost_events.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
-``--only fm2`` runs the device, build, ANOVA and fm2_score phases alone;
+``--only fm2`` runs the device, build, ANOVA, fm2_score and dcn_cross phases
+alone; ``--only dcnv2`` those and the data, data_zoo and DCN-V2 phases;
 ``--only dist`` runs the device, build and data phases and the four phases
 of dist_train alone, ``--only pod`` those and dist_cached and pod_card,
 ``--only orbax`` those and orbax_fixture, serve_reload's orbax case (on
@@ -451,6 +470,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import signal
@@ -471,10 +491,11 @@ RTOL, ATOL = 1e-5, 1e-6
 SERVE_LINES = 4096
 NNZ = 11
 KERNELS = ["anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad", "fm2_fwd",
-           "fm2_bwd"]
+           "fm2_bwd", "dcn_cross_fwd", "dcn_cross_bwd"]
 # The CUDA sources (csrc/<name>.cu) those kernels are built from: the
-# order-2 pair shares one.
-SOURCES = ["anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad", "fm2_score"]
+# order-2 pair shares one, and so does the DCN-V2 pair.
+SOURCES = ["anova_fwd", "anova_bwd", "rows_tail_adagrad", "fused_tail_adagrad", "fm2_score",
+           "dcn_cross"]
 # Each kernel's function names (csrc/*.cu), by which a profiler trace counts
 # what ran on the card.
 KERNEL_SYMBOLS = {
@@ -484,9 +505,11 @@ KERNEL_SYMBOLS = {
     "fused_tail_adagrad": ("fused_slot_kernel",),
     "fm2_fwd": ("fm2_fwd_kernel",),
     "fm2_bwd": ("fm2_bwd_kernel",),
+    "dcn_cross_fwd": ("dcn_cross_fwd_kernel",),
+    "dcn_cross_bwd": ("dcn_cross_bwd_kernel",),
 }
 # Each backward kernel's forward: a step launches the forward first.
-FORWARD_OF = {"anova_bwd": "anova_fwd", "fm2_bwd": "fm2_fwd"}
+FORWARD_OF = {"anova_bwd": "anova_fwd", "fm2_bwd": "fm2_fwd", "dcn_cross_bwd": "dcn_cross_fwd"}
 # The order-2 pair at the benchmark cells' batches (fm2_criteo1tb: B 16,384,
 # N 39, D 17; deepfm_criteo1tb: B 8,192, D 9) and a ragged one; its λs
 # large enough that the L2 term's gradient shows beside the score's.
@@ -494,6 +517,33 @@ FM2_SHAPES = [(16384, 39, 17), (8192, 39, 9), (130, 7, 5)]
 FM2_LAMBDAS = (0.3, 0.7)
 # The zoo's models that score through the order-2 pair.
 ORDER2_ZOO = ("fm2", "deepfm")
+# The forward kernel serving runs for each model that has one.
+SERVE_FORWARD = {"fm2": "fm2_fwd", "deepfm": "fm2_fwd", "dcnv2": "dcn_cross_fwd"}
+# The DCN-V2 pair at the dcnv2 cell's cross layer (B 8,192, d 39·128) and
+# ragged shapes: d 5 (one column a thread), d 4,991 (not a multiple of 4).
+DCN_SHAPES = [(8192, 4992), (130, 5), (97, 4991)]
+# DCN-V2 at full width on the zoo's criteo data (its vocabulary cut to the
+# data's 2^20 rows), and the validation rows of its card-against-CPU
+# gradient check.
+DCNV2_CONFIG = os.path.join("configs", "torch", "dcnv2_criteo1tb.cfg")
+DCNV2_GRAD_ROWS = 1024
+# The operand precision at which DCN-V2's card is held to the CPU.  At the
+# cfg's bfloat16 operands another float32 summation order alone (the CPU's
+# float64 sums against its float32 ones, the cfg's widths, 1,024 rows) moves
+# the gradients by 1.0-1.1e-2 by relative norm and the scores by up to 2e-4:
+# the rounding of every operand and gradient to bf16 turns ulp differences
+# into whole bf16 steps through 3 cross layers and 5 MLP layers.  At float32
+# the same reading is under 7e-7 and 2e-7, so ATOL holds the scores; the
+# bf16 path is held to the plain reference by the benchmark cell's check.
+DCNV2_CHECKED_DTYPE = "float32"
+# The gradients' relative norm, card against CPU, at float32: a ReLU gate
+# whose pre-activation lies within float32 ordering noise of 0 switches
+# between the two, and one switched gate of a 1024-wide layer moves that
+# layer's input gradient and every gradient below it by ~1e-3 (the card read
+# 1.2-1.4e-3 on rows, the cross layers, w0, w1, b0 and b1, and under 7e-7 on
+# w2-w4 and b2-b4, above the first two layers).  A fault of the composition
+# (a layer's x0 part lost, a wrong sum across the layers) moves them by O(1).
+DCNV2_GRAD_RTOL = 1e-2
 ANOVA_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 8, 64, 512, 16384)]
 ANOVA_SHAPES.append((130, 7, 5, 3))  # ragged: B off the block edge, k not dividing 32
 BWD_SHAPES = [(b, NNZ, 8, order) for order in (3, 4) for b in (1, 512, 16384)]
@@ -1124,6 +1174,91 @@ def phase_fm2(rng) -> dict:
 GEN_SYNTHETIC = os.path.join(HERE, "tools", "torch_gen_synthetic.py")
 
 
+def dcn_bounds(b: int, d: int) -> dict:
+    """The DCN-V2 pair's least time (ms, and what bounds it) over [B, d]
+    rows: forward, x0, h and x_l read once and y written once (16 B and 3
+    flops an element); backward, g, x0 and h read once, d_h and x0's
+    gradient written once (20 B and 4 flops); and the two."""
+    n = b * d
+    out = {}
+    for name, (nbytes, flops) in (("fwd", (16 * n, 3 * n)), ("bwd", (20 * n, 4 * n)),
+                                  ("pair", (36 * n, 7 * n))):
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = _bound(nbytes, flops)
+    return out
+
+
+def phase_dcn_cross(rng) -> tuple:
+    """The DCN-V2 cross combine pair (csrc/dcn_cross.cu) against its plain
+    twin (``cross_fwd_plain`` under autograd) on the card at DCN_SHAPES:
+    y, d_h and d_x0 bitwise, d_c (the bias sum, per-chunk partials summed
+    in another order) within 1e-5 of its largest magnitude; each kernel's
+    median time per call by CUDA events and its device time in a trace
+    (the backward writing d_x0, and adding into it as every layer but the
+    last does), the pair's, its bound and the twin's forward plus
+    backward.  Returns (the worst d_c error, the cell's record)."""
+    import numpy as np
+    import torch
+
+    from fast_tffm_tpu_torch.ops.dcn import (
+        cross_combine,
+        cross_fwd_plain,
+        dcn_cross_bwd,
+        dcn_cross_fwd,
+    )
+
+    def pair(fn, args, g):
+        leaves = [a.detach().requires_grad_(True) for a in args]
+        y = fn(*leaves)
+        return (y.detach(), *torch.autograd.grad(y, leaves, g))
+
+    worst, main = 0.0, None
+    for b, d in DCN_SHAPES:
+        x0, h, xl, g = (torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).cuda()
+                        for _ in range(4))
+        c = torch.from_numpy(rng.normal(size=d).astype(np.float32)).cuda()
+        args = (x0, h, c, xl)
+        got, want = pair(cross_combine, args, g), pair(cross_fwd_plain, args, g)
+        torch.cuda.synchronize()
+        for what, i in (("y", 0), ("d_x0", 1), ("d_h", 2)):
+            if not torch.equal(got[i], want[i]):
+                fail(f"dcn_cross {what} is not bitwise its plain twin's at B={b} d={d}")
+        err = _check_close("dcn_cross d_c", got[3], want[3], 0.0,
+                           1e-5 * float(want[3].abs().max()), f"B={b} d={d}")[0]
+        acc = torch.zeros_like(x0)
+
+        def fwd():
+            dcn_cross_fwd(x0, h, c, xl)
+
+        def bwd():
+            dcn_cross_bwd(g, x0, h, c, None, 1)
+
+        def bwd_add():
+            dcn_cross_bwd(g, x0, h, c, acc, 2)
+
+        rec = {
+            "phase": "dcn_cross", "B": b, "d": d, "bitwise": True, "d_c_max_abs_err": err,
+            "fwd_ms": time_ms(fwd, 100), "bwd_ms": time_ms(bwd, 100),
+            "bwd_add_ms": time_ms(bwd_add, 100),
+            "ms": time_ms(lambda: pair(cross_combine, args, g), 50),
+            "plain_ms": time_ms(lambda: pair(cross_fwd_plain, args, g), 20),
+            "fwd_device_ms": device_ms(fwd, 30, "dcn_cross_fwd_kernel"),
+            "bwd_device_ms": device_ms(bwd, 30, "dcn_cross_bwd_kernel"),
+            "bwd_add_device_ms": device_ms(bwd_add, 30, "dcn_cross_bwd_kernel"),
+            "plain_device_ms": device_ms(lambda: pair(cross_fwd_plain, args, g), 10, None),
+            **dcn_bounds(b, d),
+        }
+        if rec["fwd_device_ms"] is not None and rec["bwd_device_ms"] is not None:
+            rec["device_ms"] = rec["fwd_device_ms"] + rec["bwd_device_ms"]
+        else:
+            rec["device_ms"] = None
+        rec["bound_ms"], rec["bound_by"] = rec["pair_bound_ms"], rec["pair_bound_by"]
+        emit(rec)
+        worst = max(worst, err)
+        if (b, d) == DCN_SHAPES[0]:
+            main = rec
+    return worst, main
+
+
 def _generate(jobs) -> None:
     """tools/torch_gen_synthetic.py (gen_synthetic.py's command line and
     bytes) once per (path, rows, arguments) job, every job started at once."""
@@ -1500,12 +1635,14 @@ def _wrapper_counts() -> dict:
 
 def _zero_counters() -> None:
     from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_bwd
+    from fast_tffm_tpu_torch.ops.dcn import dcn_cross_bwd, dcn_cross_fwd
     from fast_tffm_tpu_torch.ops.fm import fm2_score_bwd, fm2_score_fwd
     from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
 
     anova_inter.launches = anova_inter_bwd.launches = 0
     rows_tail_adagrad_update.launches = fused_tail_adagrad_update.launches = 0
     fm2_score_fwd.launches = fm2_score_bwd.launches = 0
+    dcn_cross_fwd.launches = dcn_cross_bwd.launches = 0
 
 
 def _launches_match(launches: dict, want: dict) -> bool:
@@ -1623,11 +1760,11 @@ def _dense_check(init, card, cpu, rtol: float) -> dict:
     return out
 
 
-def _mlp_gradient_check(model, state, batch) -> dict:
-    """One step's gradients of a DeepFM's training loss, with respect to the
-    gathered rows and to each dense leaf, on the card and on the CPU from
-    one state (the CPU run's final one): within MLP_GRAD_RTOL of the
-    compute dtype by relative norm."""
+def _mlp_gradient_check(model, state, batch, rtol: float | None = None) -> dict:
+    """One step's gradients of a DeepFM's (or DCN-V2's) training loss, with
+    respect to the gathered rows and to each dense leaf, on the card and on
+    the CPU from one state: within ``rtol`` (by default MLP_GRAD_RTOL of the
+    compute dtype) by relative norm."""
     import torch
 
     from fast_tffm_tpu_torch.trainer import batch_loss
@@ -1640,9 +1777,10 @@ def _mlp_gradient_check(model, state, batch) -> dict:
         g = torch.autograd.grad(batch_loss(model, rows, dense, b)[0], [rows, *dense])
         grads[dev] = [x.cpu().double() for x in g]
     rels = [float((a - b).norm() / b.norm()) for a, b in zip(grads["cuda"], grads["cpu"])]
-    rtol = MLP_GRAD_RTOL[model.compute_dtype]
+    rtol = MLP_GRAD_RTOL[model.compute_dtype] if rtol is None else rtol
     if not max(rels) <= rtol:
-        fail(f"the DeepFM gradients on the card differ from the CPU's by {rels} (rtol {rtol})")
+        fail(f"the {type(model).__name__} gradients on the card differ from the CPU's by {rels} "
+             f"(rtol {rtol})")
     return {"rel_norm_diff": {"rows": rels[0], **dict(zip(model.dense_names, rels[1:]))},
             "rtol": rtol}
 
@@ -2183,19 +2321,23 @@ def _mlp_route(model, state, batch) -> dict:
     autograd has a backward for it."""
     import torch
 
-    from fast_tffm_tpu_torch.models.base import compute_round
+    from fast_tffm_tpu_torch.models.base import compute_round, relu_mlp, value_weighted
 
     b = batch.vals.shape[0]
-    emb = (state.table[batch.ids.long()][..., 1:] * batch.vals[..., None]).reshape(b, -1)
+    emb = value_weighted(state.table[batch.ids.long()], batch.vals)
     x = emb.detach().requires_grad_(True)
     dense = [p.detach().requires_grad_(True) for p in state.dense]
 
+    def mlp():
+        return relu_mlp(dict(zip(model.dense_names, dense)), x, model.n_layers,
+                        model.compute_dtype)
+
     def fwd():
         with torch.no_grad():
-            model._mlp(dense, x)
+            mlp()
 
     def fwd_bwd():
-        torch.autograd.grad(model._mlp(dense, x).sum(), [x, *dense])
+        torch.autograd.grad(mlp().sum(), [x, *dense])
 
     dims = (x.shape[1], *model.hidden_dims, 1)
     flops = 3 * sum(2 * b * i * o for i, o in zip(dims[:-1], dims[1:]))
@@ -2286,8 +2428,8 @@ def phase_serve_zoo(key: str, cuda_cfg, valid_path: str):
     lines (libffm with their fields for FFM) through serve_lines on the
     card: every score finite and within the model's tolerance of the port's
     own CPU path on the same checkpoint, printed and unrounded; the order-2
-    FM's and DeepFM's forward kernel (fm2_fwd) is the only kernel on this
-    path, FFM's has none."""
+    FM's and DeepFM's forward kernel (fm2_fwd), and DCN-V2's (dcn_cross_fwd),
+    is the only kernel on this path (SERVE_FORWARD), FFM's has none."""
     import itertools
 
     import numpy as np
@@ -2306,9 +2448,10 @@ def phase_serve_zoo(key: str, cuda_cfg, valid_path: str):
     snap = serve_lines(cuda_cfg, lines, out=out, log=log_stderr, device="cuda")
     serve_s = time.perf_counter() - t0
     launched = _wrapper_counts()
-    if not _launches_match(launched, {"fm2_fwd": 1} if key in ORDER2_ZOO else {}):
+    fwd = SERVE_FORWARD.get(key)
+    if not _launches_match(launched, {fwd: 1} if fwd else {}):
         fail(f"serve_{key} launched {launched}: its path has "
-             + ("the order-2 forward alone" if key in ORDER2_ZOO else "no kernel"))
+             + (f"the {fwd} forward alone" if fwd else "no kernel"))
     printed = np.array([float(v) for v in out.getvalue().split()], np.float64)
     if printed.shape != (ZOO_SERVE_LINES,) or not np.isfinite(printed).all():
         fail(f"serve_{key} returned {printed.shape[0]} scores, expected {ZOO_SERVE_LINES} finite")
@@ -2325,11 +2468,77 @@ def phase_serve_zoo(key: str, cuda_cfg, valid_path: str):
         fail(f"serve_{key}: card scores differ from the CPU path by {raw_err} (printed "
              f"{printed_err}; atol {atol})")
     total = snap["total_ms"]
-    emit({"phase": f"serve_{key}", "config": ZOO[key][0], "lines": ZOO_SERVE_LINES,
+    emit({"phase": f"serve_{key}", "config": ZOO.get(key, (DCNV2_CONFIG,))[0],
+          "lines": ZOO_SERVE_LINES,
           "seconds": serve_s, "lines_per_s": ZOO_SERVE_LINES / serve_s,
           "p50_total_ms": total.get("p50"), "p99_total_ms": total.get("p99"),
           "compute_ms": snap["compute_ms"], "flushes": snap["flushes"],
           "max_abs_err_printed": printed_err, "max_abs_err_raw": raw_err, "atol": atol})
+
+
+def phase_dcnv2(tmp: str, paths: dict) -> dict:
+    """DCNV2_CONFIG at full width on the zoo's criteo-shaped data (its
+    vocabulary cut to the data's 2^20 rows): ``training.train`` on the
+    card, the cross pair ``cross_layers`` times a step each way (the
+    validation batches' forwards too), B4 once a step and no other kernel,
+    finite losses and a validation AUC.  Then, at DCNV2_CHECKED_DTYPE
+    operands on the trained weights: one step's gradients (rows and every
+    dense leaf) on the card against the CPU's on DCNV2_GRAD_ROWS validation
+    rows, within DCNV2_GRAD_RTOL by relative norm, predict (card against CPU)
+    and serve (``phase_serve_zoo``).  Returns the train run's launches."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from fast_tffm_tpu_torch.config import build_model, load_config
+    from fast_tffm_tpu_torch.data.libsvm import parse_lines
+    from fast_tffm_tpu_torch.models.base import Batch
+    from fast_tffm_tpu_torch.training import train
+
+    t0 = time.perf_counter()
+    train_path, valid_path = paths["criteo"]
+    cfg = dataclasses.replace(
+        load_config(os.path.join(HERE, DCNV2_CONFIG)), vocabulary_size=1 << 20,
+        train_files=(train_path,), validation_files=(valid_path,), predict_files=(valid_path,),
+        model_file=os.path.join(tmp, "train_dcnv2.ckpt"),
+        score_path=os.path.join(tmp, "train_dcnv2.scores"), log_every=4).validate()
+    steps = ZOO_DATA["criteo"]["train"] // cfg.batch_size
+    valid_batches = -(-ZOO_DATA["criteo"]["valid"] // cfg.batch_size)
+    log = []
+    _zero_counters()
+    t1 = time.perf_counter()
+    state = train(cfg, log=log.append, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    launched = _wrapper_counts()
+    layers = cfg.cross_layers
+    want = {"rows_tail_adagrad": steps, "dcn_cross_fwd": layers * (steps + valid_batches),
+            "dcn_cross_bwd": layers * steps}
+    if launched != {**dict.fromkeys(KERNELS, 0), **want}:
+        fail(f"train_dcnv2 launched {launched}, expected {want} and nothing else")
+    losses, aucs = _logged(log, "loss"), _logged(log, "auc")
+    if not losses or not all(map(math.isfinite, losses)) or len(aucs) != 1:
+        fail(f"train_dcnv2: losses {losses}, validation aucs {aucs}")
+    with open(valid_path) as f:
+        lines = list(itertools.islice(f, DCNV2_GRAD_ROWS))
+    parsed = parse_lines(lines, vocabulary_size=cfg.vocabulary_size, max_nnz=cfg.max_nnz)
+    state.table, state.dense = state.table.cpu(), [p.cpu() for p in state.dense]
+    checked = dataclasses.replace(cfg, compute_dtype=DCNV2_CHECKED_DTYPE)
+    gradient = _mlp_gradient_check(build_model(checked), state, Batch.from_parsed(parsed),
+                                   DCNV2_GRAD_RTOL)
+    emit({"phase": "train_dcnv2", "config": DCNV2_CONFIG, "model": cfg.model,
+          "factor_num": cfg.factor_num, "cross_layers": layers, "cross_rank": cfg.cross_rank,
+          "hidden_dims": list(cfg.hidden_dims), "compute_dtype": cfg.compute_dtype,
+          "vocabulary_size": cfg.vocabulary_size, "batch_size": cfg.batch_size, "steps": steps,
+          "launches": launched, "losses": losses, "validation_auc": aucs[0],
+          "train_s": train_s, "gradient": gradient, "checked_dtype": DCNV2_CHECKED_DTYPE})
+    del state
+    phase_predict(checked, "predict_dcnv2", rows=ZOO_DATA["criteo"]["valid"], anova=False,
+                  atol=_score_atol(checked))
+    phase_serve_zoo("dcnv2", checked, valid_path)
+    emit({"phase": "dcnv2", "seconds": time.perf_counter() - t0})
+    return launched
 
 
 def phase_train_cached_deepfm(tmp: str, paths: dict, eager: dict) -> dict:
@@ -7089,12 +7298,17 @@ def _smoke() -> int:
     fwd = phase_anova(rng)
     bwd = phase_anova_bwd(rng)
     fm2 = phase_fm2(np.random.default_rng(SEED + 21))
+    dcn = phase_dcn_cross(np.random.default_rng(SEED + 23))
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
     if only == "fm2":
-        return 0  # the order-2 pair's hold and times alone (no result line)
+        return 0  # the order-2 and DCN-V2 pairs' holds and times alone (no result line)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, contextlib.ExitStack() as ends:
         ends.callback(_stop_children)  # before the directory goes
         train_path, valid_path, big_path = phase_data(tmp)
+        if only == "dcnv2":
+            # DCN-V2 through train, predict and serve alone (no result line).
+            phase_dcnv2(tmp, phase_data_zoo(tmp))
+            return 0
         if only == "drivers":
             # This slice's phases alone (no kernels line, no result line).
             phase_drivers(tmp)
@@ -7148,6 +7362,7 @@ def _smoke() -> int:
             phase_predict(cfg, f"predict_{key}", rows=ZOO_DATA[data]["valid"], anova=False,
                           atol=_score_atol(cfg))
             phase_serve_zoo(key, cfg, zoo_paths[data][1])
+        dcnv2_launches = phase_dcnv2(tmp, zoo_paths)
         cached_deepfm = phase_train_cached_deepfm(tmp, zoo_paths, zoo["deepfm"])
         phase_train_fmb(rng, tmp, train_path, valid_path)
         graphed = phase_train_cached(rng, tmp, train_path, valid_path, fused=False)
@@ -7302,6 +7517,13 @@ def _smoke() -> int:
                           "plain_ms": fm2[1]["plain_ms"], "bound_ms": fm2[1][f"{part}_bound_ms"],
                           "bound_by": fm2[1][f"{part}_bound_by"]}, fm2_runs[k])
           for k, part in (("fm2_fwd", "fwd"), ("fm2_bwd", "bwd"))),
+        *(_kernel_record(k, src + "dcn_cross.cu", "none: DCN-V2 is the port's own model",
+                         dcnv2_launches[k], dcn[0],
+                         {"ms": dcn[1][f"{part}_ms"], "device_ms": dcn[1][f"{part}_device_ms"],
+                          "plain_ms": dcn[1]["plain_ms"], "bound_ms": dcn[1][f"{part}_bound_ms"],
+                          "bound_by": dcn[1][f"{part}_bound_by"]},
+                         {"train_dcnv2": dcnv2_launches[k]})
+          for k, part in (("dcn_cross_fwd", "fwd"), ("dcn_cross_bwd", "bwd"))),
     ]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"], "count": dev["count"]}})

@@ -4,7 +4,9 @@ A copy of ``fast_tffm_tpu/config.py``: it parses the same files
 (``sample.cfg``, ``configs/*.cfg``) with the same sections, keys, defaults
 and checks, ``[Distributed]`` included, and reads every key the JAX
 package reads.  ``Config.validate`` refuses what the JAX package refuses,
-in its words.
+in its words.  Beyond it, the port has one model of its own, ``dcnv2``
+(DCN-V2, ``models/dcnv2.py``), and its two keys (``PORT_ONLY_KEYS``),
+which the JAX package neither reads nor refuses.
 """
 
 from __future__ import annotations
@@ -20,20 +22,30 @@ __all__ = [
     "validate_classes",
     "build_model",
     "check_deepfm_width",
+    "MODELS",
+    "PORT_ONLY_KEYS",
+    "jax_fields",
 ]
+
+MODELS = ("fm", "ffm", "deepfm", "dcnv2")
+# The Config fields of the port alone (dcnv2's), at their defaults for every
+# other model; the JAX package's Config has none of them.
+PORT_ONLY_KEYS = ("cross_layers", "cross_rank")
 
 
 @dataclasses.dataclass
 class Config:
     # [General]
-    model: str = "fm"  # fm | ffm | deepfm
+    model: str = "fm"  # fm | ffm | deepfm | dcnv2 (the port's alone)
     factor_num: int = 8
     order: int = 2
-    num_fields: int = 0  # required for ffm/deepfm
-    hidden_dims: tuple[int, ...] = (400, 400, 400)  # deepfm MLP head
-    compute_dtype: str = "float32"  # deepfm MLP matmuls and ffm interaction
+    num_fields: int = 0  # required for ffm/deepfm/dcnv2
+    hidden_dims: tuple[int, ...] = (400, 400, 400)  # deepfm MLP head; dcnv2's top MLP
+    compute_dtype: str = "float32"  # deepfm and dcnv2 matmuls and ffm interaction
     #   einsums: float32 | bfloat16 (operands rounded to bfloat16, products
     #   accumulated in float32, float32 master weights)
+    cross_layers: int = 3  # dcnv2: low-rank cross layers
+    cross_rank: int = 512  # dcnv2: each cross layer's rank
     vocabulary_size: int = 1 << 20
     vocabulary_block_num: int = 1  # the reference's key; row_parallel's default
     hash_feature_id: bool = False
@@ -220,10 +232,13 @@ class Config:
     #   cursor-gather wait budget; a timeout means a peer is gone
 
     def validate(self) -> "Config":
-        if self.model not in ("fm", "ffm", "deepfm"):
+        if self.model not in MODELS:
             raise ValueError(f"unknown model {self.model!r}")
-        if self.model in ("ffm", "deepfm") and self.num_fields <= 0:
+        if self.model in ("ffm", "deepfm", "dcnv2") and self.num_fields <= 0:
             raise ValueError(f"{self.model} requires num_fields > 0")
+        if self.model == "dcnv2" and (self.cross_layers < 1 or self.cross_rank < 1):
+            raise ValueError(f"dcnv2 requires cross_layers >= 1 and cross_rank >= 1, got "
+                             f"{self.cross_layers} and {self.cross_rank}")
         if self.model == "fm" and self.order < 2:
             raise ValueError("order must be >= 2")
         if self.compute_dtype not in ("float32", "bfloat16"):
@@ -380,11 +395,11 @@ class Config:
             raise ValueError(f"barrier_timeout_s must be > 0, got {self.barrier_timeout_s}")
 
     def check_width(self, max_nnz: int) -> None:
-        """Refuse a slot width the model cannot take (DeepFM: max_nnz must
-        be num_fields).  The entry points call it again with the width they
-        infer when ``max_nnz`` is 0."""
-        if self.model == "deepfm":
-            check_deepfm_width(self.num_fields, max_nnz)
+        """Refuse a slot width the model cannot take (DeepFM and DCN-V2:
+        max_nnz must be num_fields).  The entry points call it again with the
+        width they infer when ``max_nnz`` is 0."""
+        if self.model in ("deepfm", "dcnv2"):
+            check_deepfm_width(self.num_fields, max_nnz, self.model)
 
     def _validate_train(self) -> None:
         """The JAX checks of the [Train]/[Online]/[ParamStore]/[Resilience]
@@ -593,14 +608,26 @@ class Config:
             )
 
 
-def check_deepfm_width(num_fields: int, max_nnz: int) -> None:
-    """DeepFM reshapes its [B, N, k] embeddings to [B, N·k] for an MLP
-    whose input is num_fields·k wide, so N must be num_fields.  ``max_nnz``
-    0 (inferred from the data) is checked once the entry point knows it
-    (``Config.check_width``)."""
+def jax_fields(cfg) -> dict:
+    """The fields of ``cfg`` (the port's Config or the JAX package's) as a
+    dict without ``PORT_ONLY_KEYS``: what the JAX package's Config takes.
+    A port-only key off its default has no JAX counterpart and raises."""
+    fields = dataclasses.asdict(cfg)
+    for key in PORT_ONLY_KEYS:
+        default = Config.__dataclass_fields__[key].default
+        if fields.pop(key, default) != default:
+            raise ValueError(f"{key} = {getattr(cfg, key)!r} has no JAX counterpart")
+    return fields
+
+
+def check_deepfm_width(num_fields: int, max_nnz: int, model: str = "deepfm") -> None:
+    """DeepFM (and DCN-V2) reshapes its [B, N, k] embeddings to [B, N·k]
+    for a dense network whose input is num_fields·k wide, so N must be
+    num_fields.  ``max_nnz`` 0 (inferred from the data) is checked once the
+    entry point knows it (``Config.check_width``)."""
     if max_nnz and max_nnz != num_fields:
         raise ValueError(
-            f"deepfm needs max_nnz = num_fields (one slot per field, the MLP "
+            f"{model} needs max_nnz = num_fields (one slot per field, the MLP "
             f"input is num_fields·factor_num wide); got max_nnz {max_nnz} and "
             f"num_fields {num_fields}"
         )
@@ -686,6 +713,8 @@ def load_config(path: str) -> Config:
         g, "hidden_dims", lambda s: tuple(int(x) for x in _split(s)), cfg.hidden_dims
     )
     cfg.compute_dtype = get(g, "compute_dtype", str, cfg.compute_dtype).lower()
+    cfg.cross_layers = get(g, "cross_layers", int, cfg.cross_layers)
+    cfg.cross_rank = get(g, "cross_rank", int, cfg.cross_rank)
     cfg.vocabulary_size = get(g, "vocabulary_size", int, cfg.vocabulary_size)
     cfg.vocabulary_block_num = get(g, "vocabulary_block_num", int, cfg.vocabulary_block_num)
     cfg.hash_feature_id = get(g, "hash_feature_id", boolean, cfg.hash_feature_id)
@@ -831,8 +860,9 @@ def load_config(path: str) -> Config:
 
 
 def build_model(cfg: Config):
-    """Instantiate the configured model (the JAX ``build_model``)."""
-    from fast_tffm_tpu_torch.models import DeepFMModel, FFMModel, FMModel
+    """Instantiate the configured model (the JAX ``build_model``, and the
+    port's own DCN-V2); an unknown name raises, validated or not."""
+    from fast_tffm_tpu_torch.models import DCNv2Model, DeepFMModel, FFMModel, FMModel
 
     if cfg.model == "fm":
         return FMModel(
@@ -853,6 +883,21 @@ def build_model(cfg: Config):
             bias_lambda=cfg.bias_lambda,
             compute_dtype=cfg.compute_dtype,
         )
+    if cfg.model == "dcnv2":
+        return DCNv2Model(
+            vocabulary_size=cfg.vocabulary_size,
+            num_fields=cfg.num_fields,
+            factor_num=cfg.factor_num,
+            cross_layers=cfg.cross_layers,
+            cross_rank=cfg.cross_rank,
+            hidden_dims=cfg.hidden_dims,
+            init_value_range=cfg.init_value_range,
+            factor_lambda=cfg.factor_lambda,
+            bias_lambda=cfg.bias_lambda,
+            compute_dtype=cfg.compute_dtype,
+        )
+    if cfg.model != "deepfm":  # an unvalidated Config must not train another model
+        raise ValueError(f"unknown model {cfg.model!r}")
     return DeepFMModel(
         vocabulary_size=cfg.vocabulary_size,
         num_fields=cfg.num_fields,

@@ -5,7 +5,9 @@ The counterpart of ``fast_tffm_tpu/models/base.py``: ``Batch`` is a padded
 reference-style L2 over the gathered rows (defined beside the order-2
 scorer in ``ops/fm.py``, whose kernel pair folds it in) and
 ``logistic_loss`` the weighted mean sigmoid cross-entropy.  The gather of the table rows stays
-outside the model (trainer.py), as in the JAX package.
+outside the model (trainer.py), as in the JAX package.  The deep models
+(DeepFM, DCN-V2) share ``value_weighted``, their dense input, and
+``relu_mlp``, their MLP over it.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 
 from fast_tffm_tpu_torch.ops.fm import masked_l2
 
-__all__ = ["Batch", "masked_l2", "logistic_per_example", "logistic_loss", "compute_round"]
+__all__ = ["Batch", "masked_l2", "logistic_per_example", "logistic_loss", "compute_round",
+           "value_weighted", "relu_mlp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +96,26 @@ def compute_round(x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     if compute_dtype == "float32":
         return x
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def value_weighted(rows: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """[B, N·k]: each slot's factors (``rows[..., 1:]``) times its value,
+    the slots end to end.  Slots are positional, so N is the model's
+    ``num_fields``."""
+    b, n = vals.shape
+    return (rows[..., 1:] * vals[..., None]).reshape(b, -1)
+
+
+def relu_mlp(leaf: dict, x: torch.Tensor, n_layers: int, compute_dtype: str) -> torch.Tensor:
+    """[B]: the ReLU stack ``x @ w{i} + b{i}`` over ``leaf``'s ``w{i}``
+    [d_in, d_out] and ``b{i}`` [d_out], i < ``n_layers``, no ReLU after the
+    last layer, whose one output is the result.  Each product takes its
+    operands through ``compute_round``."""
+    for li in range(n_layers):
+        x = compute_round(x, compute_dtype) @ compute_round(leaf[f"w{li}"], compute_dtype) + leaf[f"b{li}"]
+        if li < n_layers - 1:
+            x = torch.relu(x)
+    return x[..., 0]
 
 
 def logistic_per_example(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,9 @@ them to XLA.
 
 The dense leaves are a list in the order ``jax.tree.flatten`` gives the
 JAX model's dict: its keys sorted (``b0, b1, …, w0, w1, …``), which is the
-order of a checkpoint's ``dense_{i}`` members.  ``_mlp`` looks each leaf up
-by name (``dense_names``), never by layer position.
+order of a checkpoint's ``dense_{i}`` members.  The MLP
+(``models/base.relu_mlp``, shared with DCN-V2) looks each leaf up by name
+(``dense_names``), never by layer position.
 
 ``compute_dtype = bfloat16``: every matmul takes its operands rounded to
 bfloat16 and accumulates in float32 (JAX's ``preferred_element_type``), so
@@ -32,7 +33,7 @@ import math
 import torch
 
 from fast_tffm_tpu_torch.config import check_deepfm_width
-from fast_tffm_tpu_torch.models.base import Batch, compute_round, masked_l2
+from fast_tffm_tpu_torch.models.base import Batch, masked_l2, relu_mlp, value_weighted
 from fast_tffm_tpu_torch.ops.fm import fm2_score_l2, fm_score
 
 __all__ = ["DeepFMModel"]
@@ -89,19 +90,9 @@ class DeepFMModel:
             params[f"b{li}"] = torch.zeros((d_out,), device=generator.device)
         return [params[name] for name in self.dense_names]
 
-    def _mlp(self, dense, x: torch.Tensor) -> torch.Tensor:
-        leaf = dict(zip(self.dense_names, dense, strict=True))
-        for li in range(self.n_layers):
-            x = compute_round(x, self.compute_dtype) @ compute_round(
-                leaf[f"w{li}"], self.compute_dtype) + leaf[f"b{li}"]
-            if li < self.n_layers - 1:
-                x = torch.relu(x)
-        return x[..., 0]  # [B]
-
     def _deep(self, rows: torch.Tensor, dense, batch: Batch) -> torch.Tensor:
-        b, n = batch.vals.shape
-        emb = rows[..., 1:] * batch.vals[..., None]  # [B, N, k] value-weighted
-        return self._mlp(dense, emb.reshape(b, n * self.factor_num))
+        return relu_mlp(dict(zip(self.dense_names, dense, strict=True)),
+                        value_weighted(rows, batch.vals), self.n_layers, self.compute_dtype)
 
     def score(self, rows: torch.Tensor, dense, batch: Batch) -> torch.Tensor:
         check_deepfm_width(self.num_fields, batch.vals.shape[1])

@@ -70,6 +70,7 @@ __all__ = ["run_replica", "main", "launch_counts"]
 def launch_counts() -> dict:
     """The kernel wrappers' launch counts in this process, by kernel name."""
     from fast_tffm_tpu_torch.ops.anova import anova_inter, anova_inter_bwd
+    from fast_tffm_tpu_torch.ops.dcn import dcn_cross_bwd, dcn_cross_fwd
     from fast_tffm_tpu_torch.ops.fm import fm2_score_bwd, fm2_score_fwd
     from fast_tffm_tpu_torch.ops.tail import fused_tail_adagrad_update, rows_tail_adagrad_update
 
@@ -80,6 +81,8 @@ def launch_counts() -> dict:
         "fused_tail_adagrad": fused_tail_adagrad_update.launches,
         "fm2_fwd": fm2_score_fwd.launches,
         "fm2_bwd": fm2_score_bwd.launches,
+        "dcn_cross_fwd": dcn_cross_fwd.launches,
+        "dcn_cross_bwd": dcn_cross_bwd.launches,
     }
 
 

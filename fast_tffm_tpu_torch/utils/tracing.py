@@ -24,7 +24,8 @@ captured with spans off has no marker and no counter operation, and one
 captured with them on replays its markers and device counters.  The marker
 library is built or loaded at the first marker.  Spans on cost a host call
 per boundary in eager steps, and in a graph one marker node per boundary
-(at most 16 a step) plus the counters' few small kernels.
+(16 a step; DCN-V2's 20 + 2 a cross layer) plus the counters' few small
+kernels.
 
 ``torch`` is imported inside the profiler and span helpers only:
 ``MetricsLogger`` (and so ``telemetry``) imports without it.
@@ -151,9 +152,13 @@ class WindowTracer:
 # (the resident batch's ``index_select``s), ``gather`` (the table rows),
 # ``forward`` (scorer, L2, loss), ``backward`` (``torch.autograd.grad``),
 # ``sort`` (``torch.sort`` of the ids), ``tail`` (the Adagrad kernel) and
-# ``dense`` (the dense leaves' Adagrad, DeepFM).  Any other name is a host
-# span only (``step_graph.call``, ``step_graph.capture``).
-DEVICE_SPANS = ("step", "batch", "gather", "forward", "backward", "sort", "tail", "dense")
+# ``dense`` (the dense leaves' Adagrad, DeepFM and DCN-V2); DCN-V2 adds
+# ``cross`` (its cross network inside ``forward``, and ``ops/dcn.py``'s
+# backward kernel inside ``backward``) and ``mlp`` (its top MLP inside
+# ``forward``).  New names go at the end: a name's ID is its marker's.  Any
+# other name is a host span only (``step_graph.call``, ``step_graph.capture``).
+DEVICE_SPANS = ("step", "batch", "gather", "forward", "backward", "sort", "tail", "dense",
+                "cross", "mlp")
 _IDS = {name: i for i, name in enumerate(DEVICE_SPANS)}
 _MARK = re.compile(r"span_mark<(\d+), (\d+)>")  # as the profiler names it
 

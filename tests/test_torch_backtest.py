@@ -39,6 +39,7 @@ from fast_tffm_tpu.config import build_model as jax_build_model
 from fast_tffm_tpu.data.stream import StreamWriter as JaxStreamWriter
 from fast_tffm_tpu.trainer import init_state as jax_init_state
 from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+from fast_tffm_tpu_torch.config import jax_fields
 from fast_tffm_tpu_torch.data.stream import StreamWriter
 from fast_tffm_tpu_torch.training import train
 from tools import torch_backtest as bt
@@ -103,12 +104,12 @@ def test_configs_are_the_jax_tools(tmp_path, monkeypatch, jbt):
     run_id = jon.telemetry_run_id
     on = bt.online_config(str(tmp_path), os.path.join(str(tmp_path), "day.fms"), 4, ARGS, run_id)
     ba = bt.batch_config(str(tmp_path), hour0, ARGS, run_id)
-    assert dataclasses.asdict(on) == dataclasses.asdict(jon)
-    assert dataclasses.asdict(ba) == dataclasses.asdict(jba)
+    assert jax_fields(on) == dataclasses.asdict(jon)
+    assert jax_fields(ba) == dataclasses.asdict(jba)
 
 
 def _shared_npz(cfg, path, seed):
-    jcfg = JaxConfig(**dict(dataclasses.asdict(cfg), model_file=path)).validate()
+    jcfg = JaxConfig(**dict(jax_fields(cfg), model_file=path)).validate()
     jmodel = jax_build_model(jcfg)
     state = jax_init_state(jmodel, jax.random.key(0), jcfg.init_accumulator_value, "element")
     table = np.random.default_rng(seed).uniform(-0.01, 0.01, size=state.table.shape)
@@ -146,7 +147,7 @@ def test_hours_train_as_the_jax_package(tmp_path, jbt):
                                                        ARGS, "r") for h in range(2)}}
     nxt = str(tmp_path / "heldout_02.libsvm")
     bt.write_rows(nxt, *bt._gen_hour(2, 3, 1024, 11 + 1_000_003), "libsvm")
-    jcfg = {k: JaxConfig(**dataclasses.asdict(c)).validate() for k, c in cfgs["jax"].items()}
+    jcfg = {k: JaxConfig(**jax_fields(c)).validate() for k, c in cfgs["jax"].items()}
     for kind, seed in (("batch", 8), ("online0", 9)):
         jmodel = _shared_npz(jcfg[kind], jcfg[kind].model_file, seed)
         shutil.copy(jcfg[kind].model_file, cfgs["port"][kind].model_file)
@@ -168,7 +169,7 @@ def test_auc_on_one_checkpoint_is_the_jax_tools(tmp_path, jbt):
     _shared_npz(cfg, cfg.model_file, 10)
     heldout = str(tmp_path / "heldout.libsvm")
     bt.write_rows(heldout, *bt._gen_hour(4, 24, 2048, 11 + 1_000_003), "libsvm")
-    jcfg = JaxConfig(**dataclasses.asdict(cfg)).validate()
+    jcfg = JaxConfig(**jax_fields(cfg)).validate()
     got = bt._auc_on(cfg, heldout, bt.FIELDS, torch.device("cpu"))
     want = float(jbt._auc_on(jcfg, heldout, bt.FIELDS))
     assert abs(got - want) <= 1e-6

@@ -208,7 +208,8 @@ def test_line_keys_contain_the_jax_lines(tmp_path, monkeypatch, capsys):
     assert set(line["steps_per_call_values"]) == {"1", "8"}
     assert set(line["ckpt_stall_ms_per_save"]) == {"sync", "async", "delta"}
     assert set(line["kernel_launches"]) == {"anova_fwd", "anova_bwd", "rows_tail_adagrad",
-                                            "fused_tail_adagrad", "fm2_fwd", "fm2_bwd"}
+                                            "fused_tail_adagrad", "fm2_fwd", "fm2_bwd",
+                                            "dcn_cross_fwd", "dcn_cross_bwd"}
     # tools/report.py: the line as a bench artifact, its tail section, and
     # the delta report against the newest committed BENCH_TORCH_r*.json.
     art = tmp_path / "BENCH_TORCH_r99.json"

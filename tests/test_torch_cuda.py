@@ -49,7 +49,14 @@ from fast_tffm_tpu_torch.ops.anova import (
     anova_inter_bwd_plain,
     anova_inter_plain,
 )
-from fast_tffm_tpu_torch.models import Batch, DeepFMModel, FFMModel, FMModel
+from fast_tffm_tpu_torch.models import Batch, DCNv2Model, DeepFMModel, FFMModel, FMModel
+from fast_tffm_tpu_torch.ops.dcn import (
+    X0Grad,
+    cross_combine,
+    cross_fwd_plain,
+    dcn_cross_bwd,
+    dcn_cross_fwd,
+)
 from fast_tffm_tpu_torch.ops.fm import (
     _FmScoreOrder2,
     fm2_score_bwd,
@@ -1637,3 +1644,169 @@ def test_k_step_capture_over_half_the_card_needs_no_second_state(cuda):
     assert torch.equal(graphed_losses, plain_losses)
     assert torch.equal(state.table[touched], after[0])
     assert torch.equal(state.table_accum[touched], after[1])
+
+
+# --- DCN-V2: the cross combine pair (csrc/dcn_cross.cu) ---------------------
+
+
+def _dcn_case(rng, b, d, cuda, offset=0):
+    """x0, h, xl [B, d] and c [d] on the card (``offset`` floats into their
+    storage: not 16-byte aligned when it is not a multiple of 4)."""
+    def t(*shape):
+        flat = rng.normal(size=offset + int(np.prod(shape))).astype(np.float32)
+        return torch.from_numpy(flat).to(cuda)[offset:].view(*shape)
+
+    return t(b, d), t(b, d), t(d), t(b, d)
+
+
+def _dcn_plain_grads(x0, h, c, xl, g):
+    """y and (d_x0, d_h, d_c, d_xl) of the plain twin under autograd."""
+    leaves = [a.detach().clone().requires_grad_(True) for a in (x0, h, c, xl)]
+    y = cross_fwd_plain(*leaves)
+    return y.detach(), torch.autograd.grad(y, leaves, g)
+
+
+@pytest.mark.parametrize(
+    "b,d,offset",
+    [
+        (8192, 4992, 0),  # dcnv2_criteo1tb's cross layer: B 8,192, d 39·128
+        (130, 5, 0),  # d 5: one column a thread; B off a 32-row chunk
+        (97, 4991, 0),  # d 4,991: not a multiple of 4
+        (33, 64, 1),  # 16-byte misaligned pointers: the scalar path
+    ],
+)
+def test_dcn_cross_pair_matches_the_plain_twin(cuda, b, d, offset):
+    """y, ∂L/∂h and ∂L/∂x₀ bitwise the twin's on the card (each product and
+    sum rounded on its own, as ATen's separate kernels round them); ∂L/∂c,
+    a sum over B in another order (per-chunk partials, then one
+    ``torch.sum``), within 1e-5 of its largest magnitude; ∂L/∂x_l is g.
+    One forward and one backward launch."""
+    rng = np.random.default_rng(b + d + offset)
+    x0, h, c, xl = _dcn_case(rng, b, d, cuda, offset)
+    g = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(cuda)
+    before = (dcn_cross_fwd.launches, dcn_cross_bwd.launches)
+    leaves = [a.detach().clone().requires_grad_(True) for a in (x0, h, c, xl)]
+    y = cross_combine(*leaves)
+    got = torch.autograd.grad(y, leaves, g)
+    torch.cuda.synchronize()
+    assert (dcn_cross_fwd.launches - before[0], dcn_cross_bwd.launches - before[1]) == (1, 1)
+    want_y, want = _dcn_plain_grads(x0, h, c, xl, g)
+    assert torch.equal(y.detach(), want_y)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5 * float(want[2].abs().max()))
+    assert torch.equal(got[3], g)
+
+
+def test_dcn_cross_pair_is_bitwise_reproducible_and_sums_x0_in_place(cuda):
+    """Two calls give the same bits (the bias sum too: no atomics); three
+    layers sharing one ``X0Grad`` give x₀ the sum of their parts, added in
+    place in the order the backward runs (the last layer's part first),
+    and the same bits in a second run."""
+    rng = np.random.default_rng(47)
+    b, d, layers = 1031, 388, 3
+    x0, _, c, _ = _dcn_case(rng, b, d, cuda)
+    hs = [_dcn_case(rng, b, d, cuda)[1] for _ in range(layers)]
+    g = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(cuda)
+
+    def run():
+        leaves = [x0.clone().requires_grad_(True), c.clone().requires_grad_(True),
+                  *(h.clone().requires_grad_(True) for h in hs)]
+        acc, x = X0Grad(layers), leaves[0]
+        for h in leaves[2:]:
+            x = cross_combine(leaves[0], h, leaves[1], x, acc)
+        return torch.autograd.grad(x, leaves, g)
+
+    one, two = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two, strict=True))
+    # Each layer's output takes the cotangent g (the h here are leaves, so
+    # x_{l+1} reaches the loss through the residual path alone): its part of
+    # x₀'s gradient is g ⊙ (h_l + c), summed from the last layer back, and
+    # layer 0's x_l is x₀ itself, whose g autograd adds.
+    parts = [g * (h + c) for h in hs]
+    assert torch.equal(one[0], parts[2] + parts[1] + parts[0] + g)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dcnv2_graph_replay_is_bitwise_the_eager_steps(cuda, dtype):
+    """K = 8 over 16 batches of a small DCN-V2 (cuBLAS products, the cross
+    pair, the top MLP, the dense update inside one captured graph): the
+    losses and the whole state bitwise 16 eager steps; the eager steps
+    launch the pair three times a step each way."""
+    model = DCNv2Model(vocabulary_size=4099, num_fields=11, factor_num=8, cross_layers=3,
+                       cross_rank=16, hidden_dims=(32, 16), compute_dtype=dtype)
+    batches = _zoo_batches(np.random.default_rng(31), model, 16)
+    eager_step, eager, want = make_train_step(model, 0.05), _zoo_state(model, cuda), []
+    before = (dcn_cross_fwd.launches, dcn_cross_bwd.launches)
+    for b in batches:
+        eager, loss = eager_step(eager, b.to(cuda))
+        want.append(loss)
+    torch.cuda.synchronize()
+    assert (dcn_cross_fwd.launches - before[0], dcn_cross_bwd.launches - before[1]) == (48, 48)
+    step = make_scanned_train_step(model, 0.05)
+    st, got = _zoo_state(model, cuda), []
+    for lo in (0, 8):
+        group = batches[lo : lo + 8]
+        sb = Batch(*(torch.stack([getattr(b, f) for b in group])
+                     for f in ("labels", "ids", "vals", "fields", "weights")))
+        st, losses = step(st, sb)
+        got.append(losses)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(got), torch.stack(want))
+    assert (step.graphs.captures, step.graphs.replays) == (1, 2)
+    pairs = [(st.table, eager.table), (st.table_accum, eager.table_accum),
+             *zip(st.dense, eager.dense), *zip(st.dense_accum, eager.dense_accum)]
+    assert len(st.dense) == 3 * 3 + 2 * 3
+    assert all(torch.equal(a, b) for a, b in pairs)
+
+
+def test_dcnv2_spans_in_an_instrumented_replay_and_none_with_spans_off(cuda, tmp_path):
+    """With spans on, a K = 8 replay of DCN-V2 carries the ``cross`` span
+    (the cross network's forward, and each layer's backward kernel) and the
+    ``mlp`` span (the top MLP's forward), each nested as the step body opens
+    them; with spans off the replayed graph has no marker."""
+    import json
+
+    from fast_tffm_tpu_torch.utils import tracing
+
+    model = DCNv2Model(vocabulary_size=4099, num_fields=11, factor_num=8, cross_layers=3,
+                       cross_rank=16, hidden_dims=(32, 16), compute_dtype="bfloat16")
+    batches = _zoo_batches(np.random.default_rng(37), model, 8)
+    sb = Batch(*(torch.stack([getattr(b, f) for b in batches]).to(cuda)
+                 for f in ("labels", "ids", "vals", "fields", "weights")))
+    step, st = make_scanned_train_step(model, 0.05), _zoo_state(model, cuda)
+
+    def traced():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step(st, sb)
+            torch.cuda.synchronize()
+        path = str(tmp_path / "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        return [e["name"] for e in sorted(events, key=lambda e: float(e.get("ts", 0)))
+                if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+    try:
+        step(st, sb)  # the plain capture
+        off = traced()
+        tracing.spans_on(True)
+        step(st, sb)  # the instrumented capture
+        on = traced()
+    finally:
+        tracing.spans_on(False)
+    assert not [n for n in off if "span_mark" in n]
+    marks = [tracing._marker_of(n) for n in on if "span_mark" in n]
+    k, layers = 8, 3
+    # step, gather, forward, cross, mlp, backward, cross a layer, sort, tail, dense
+    assert len(marks) == k * 2 * (9 + layers)
+    assert marks.count(("cross", True)) == k * (1 + layers)
+    assert marks.count(("mlp", True)) == k
+    spans = tracing.read_spans([
+        {"ph": "X", "cat": "kernel", "name": n, "ts": float(i), "dur": 0.5, "tid": 1, "pid": 0}
+        for i, n in enumerate(on)])["spans"]
+    names = [n for n in on if "span_mark" not in n]
+    assert spans["cross"]["n"] == k * (1 + layers) and spans["mlp"]["n"] == k
+    # every launch of the pair ran inside a cross span
+    pair = sum(("dcn_cross_fwd_kernel" in n) + ("dcn_cross_bwd_kernel" in n) for n in names)
+    assert pair == 2 * layers * k

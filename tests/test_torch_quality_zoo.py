@@ -36,7 +36,7 @@ from fast_tffm_tpu.config import build_model as jax_build_model
 from fast_tffm_tpu.metrics import auc as jax_auc
 from fast_tffm_tpu.trainer import init_state as jax_init_state
 from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
-from fast_tffm_tpu_torch.config import build_model
+from fast_tffm_tpu_torch.config import build_model, jax_fields
 from fast_tffm_tpu_torch.metrics import auc
 from fast_tffm_tpu_torch.training import train
 from tools import quality_zoo as jzoo
@@ -99,7 +99,7 @@ def test_training_config_is_the_jax_tools(tmp_path, monkeypatch, name):
     with pytest.raises(_Captured):
         jzoo._train(str(tmp_path), name, "tr.txt", "te.txt", **kw)
     cfg = zoo.train_config(str(tmp_path), name, "tr.txt", "te.txt", **kw)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(seen[0])
+    assert jax_fields(cfg) == dataclasses.asdict(seen[0])
 
 
 @pytest.mark.parametrize("name", list(FAMILIES))
@@ -119,7 +119,7 @@ def test_family_trains_as_the_jax_package(tmp_path, name):
         shutil.copy(tr, d / "tr")
         shutil.copy(te, d / "te")
         runs[pkg] = zoo.train_config(str(d), name, str(d / "tr"), str(d / "te"), **kw)
-    jcfg = JaxConfig(**dataclasses.asdict(runs["jax"])).validate()
+    jcfg = JaxConfig(**jax_fields(runs["jax"])).validate()
     jmodel = jax_build_model(jcfg)
     state = jax_init_state(jmodel, jax.random.key(0), jcfg.init_accumulator_value, "element")
     table = np.random.default_rng(5).uniform(-0.05, 0.05, size=state.table.shape)
@@ -175,7 +175,8 @@ def test_quick_run_artifact(tmp_path, capsys, one_torch_thread):
                 assert 0.5 < rec[key] <= rec["oracle_auc"] + 0.01, (fam, rec)
     assert art["device"] == "cpu" and art["card"] is None
     assert art["kernel_launches"] == {"anova_fwd": 0, "anova_bwd": 0, "rows_tail_adagrad": 0,
-                                      "fused_tail_adagrad": 0, "fm2_fwd": 0, "fm2_bwd": 0}
+                                      "fused_tail_adagrad": 0, "fm2_fwd": 0, "fm2_bwd": 0,
+                                      "dcn_cross_fwd": 0, "dcn_cross_bwd": 0}
     assert art["reduced"] == {"rows": {"default": 2_400_000, "run": 60_000},
                               "test_rows": {"default": 50_000, "run": 8_000},
                               "epochs": {"default": 6, "run": 2}}

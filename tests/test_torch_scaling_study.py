@@ -37,6 +37,7 @@ from fast_tffm_tpu.config import Config as JaxConfig
 from fast_tffm_tpu.config import build_model as jax_build_model
 from fast_tffm_tpu.trainer import init_state as jax_init_state
 from fast_tffm_tpu_torch.checkpoint import restore_checkpoint
+from fast_tffm_tpu_torch.config import jax_fields
 from fast_tffm_tpu_torch.training import train
 from tools import gen_synthetic
 from tools import scaling_study as jstudy
@@ -82,7 +83,7 @@ def test_training_config_is_the_jax_tools(tmp_path, monkeypatch):
         jstudy.train_point(str(tmp_path), 500, "te.txt", 3, 0.5, 256)
     tr = os.path.join(str(tmp_path), "tr_500.libsvm")
     cfg = study.train_config(str(tmp_path), 500, tr, "te.txt", 3, 0.5, 256)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(seen[0])
+    assert jax_fields(cfg) == dataclasses.asdict(seen[0])
 
 
 def test_point_trains_as_the_jax_package(tmp_path):
@@ -99,7 +100,7 @@ def test_point_trains_as_the_jax_package(tmp_path):
         shutil.copy(data / "tr", d / "tr")
         shutil.copy(data / "te", d / "te")
         cfgs[pkg] = study.train_config(str(d), 3000, str(d / "tr"), str(d / "te"), 2, 0.5, 1024)
-    jcfg = JaxConfig(**dataclasses.asdict(cfgs["jax"])).validate()
+    jcfg = JaxConfig(**jax_fields(cfgs["jax"])).validate()
     jmodel = jax_build_model(jcfg)
     state = jax_init_state(jmodel, jax.random.key(0), jcfg.init_accumulator_value, "element")
     table = np.random.default_rng(6).uniform(-0.05, 0.05, size=state.table.shape)

@@ -162,9 +162,10 @@ def main(argv=None) -> int:
                    for i in chunks[j % len(chunks)].tolist()]
         u = [int(torch.unique(epoch.ids[i * b:(i + 1) * b]).numel()) for i in batches]
         sp = r["spans"]
-        # the steps the trace holds: it may lose its first events, markers
-        # and kernels alike (the counter saw all n * k)
-        steps = max(d["n"] for d in sp.values())
+        # the steps the trace holds, by the step span's openings: it may lose
+        # its first events, markers and kernels alike (the counter saw all
+        # n * k); DCN-V2's cross span opens once a layer besides
+        steps = sp["step"]["n"]
         tail_ms = sp["sort"]["device_ms"] + sp["tail"]["device_ms"]
         call = r["host"]["step_graph.call"]
         res["stretch"] = {
